@@ -7,27 +7,41 @@
     python3 chip_smoke.py --details PATH   # where the detail JSON goes
                                            # (default build/chip_smoke.json)
 
+Two served paths, each driven through ``serve.Server`` with the kernel
+launch counts zeroed just before its requests and read just after:
+
+  vision   LeNet (28x28x1) and VGG9-CA (32x32x3), full width, seeded random
+           weights from numpy, W4A4: 32 mixed requests of 1-8 frames;
+  imaging  the eight imaging pipelines at 256x256x3 (their fixed filter
+           weights), W4A4: 3 requests of 1, 3 and 8 frames each.
+
 Phases, each fatal on failure:
 
   1. device: the card's name and count, and ``nvidia-smi``'s name and
      power limit;
-  2. build: ``nvcc`` compiles every kernel of the port's path from
-     ``src/repro_torch/csrc`` (one process per source, all at once);
-  3. kernels: each kernel's wrapper runs on the card at the shapes the
-     serving path gives it (plus ragged and extra shapes) and is held
-     bitwise equal to its plain PyTorch version on the same inputs;
-  4. timing: each kernel at its serving-path shapes, beside its plain
-     version, one library call as a yardstick where PyTorch has one, and
-     the least time the card could take (bytes over 3.35 TB/s, operations
-     over the dense tensor-core peak for their type: int8 for the integer
-     MACs of photonic_mvm and conv_chain, TF32 for ca_pool's float MACs);
-  5. serve: ``serve.Server`` on the card hosts LeNet and VGG9-CA (full
-     width, seeded random weights from numpy, W4A4) and answers mixed
-     requests. The launch counts are zeroed just before the requests and
-     read just after; every kernel of the path must have launched. Every
-     answer must be finite, of the right shape, and bitwise equal to
-     batch-1 ``run_per_frame`` on the card, to the reference backend on
-     the card, and to the port's CPU run on the first frames.
+  2. build: ``nvcc`` compiles every kernel from ``src/repro_torch/csrc``
+     (one process per source, all at once);
+  3. kernels: each kernel's wrapper runs on the card at the shapes the two
+     paths give it at bucket 8, plus extra shapes (ragged GEMMs, random
+     chains, edge_detect's fused segment at 64x64, the 512x512 multi-strip
+     geometries, a stride-2 VALID and a grouped conv, a VGG16-like layer,
+     the conv_bank op in both strategies at k = 3, 5, 7), and is held
+     bitwise equal to its plain PyTorch version on the same inputs. The
+     conv_bank op, which no served path reaches, is driven once on its own
+     with the counts zeroed around it;
+  4. timing: each kernel at its path shapes (the conv_bank op at its own),
+     beside its plain version, one library call as a yardstick where
+     PyTorch has one (with TF32 off, and whether its answer was exact), the
+     profiler's device time, and the least time the card could take (bytes
+     over 3.35 TB/s, operations over the dense tensor-core peak for their
+     type: int8 for integer MACs, TF32 for ca_pool's float MACs); the
+     device times come from one profiler session, written as a Chrome
+     trace beside the details file;
+  5. serve: both paths, every answer finite, of the right shape and bitwise
+     equal to batch-1 ``run_per_frame`` on the card, to the reference
+     backend on the card and to the port's CPU run on the first frames;
+     every kernel of a path must have launched in it. The imaging answers'
+     PSNR against the float oracle ``apply_float`` is printed.
 
 The last three lines of standard output are the ``kernels`` JSON object,
 ``nvidia-smi``'s name and power limit, and the result object
@@ -41,6 +55,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -48,6 +63,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 BUCKET = 8
+IMAGING_HW = 256
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"int8": 1979e12,       # dense tensor-core int8
             "tf32": 495e12}        # dense tensor-core TF32
@@ -65,6 +81,42 @@ CHAINS = [
                  (6, 3, 1, "SAME", True, "relu", ("max", 2), True),
                  (10, 3, 1, "SAME", False, "sign", None, False)]),
 ]
+# the conv_bank op's own calls: x [B, H, W, Cin] -> Cout, k x k, W4A4 with
+# relu and bias, in both strategies
+CONV_BANK = [(BUCKET, 32, 32, 16, 32, k) for k in (3, 5, 7)]
+# extra strip convs through dispatch.conv_int: (name, x shape, w shape,
+# stride, padding, groups)
+STRIP_CONVS = [("stride2_valid", (2, 65, 63, 8), (3, 3, 8, 16), 2, "VALID", 1),
+               ("groups2", (2, 40, 40, 8), (3, 3, 4, 12), 1, "SAME", 2),
+               ("vgg16_like", (2, 56, 56, 64), (3, 3, 64, 128), 1, "SAME", 1)]
+SERVE_WINDOW = "chip_smoke.serve_window"
+DEVICE_RANGE = "chip_smoke.device_time."
+KERNELS = ("photonic_mvm", "conv_chain", "ca_pool", "conv_strip",
+           "conv_strip_depthwise", "conv_bank")
+# the kernels each served path must launch
+PATH_KERNELS = {"vision": ("photonic_mvm", "conv_chain", "ca_pool"),
+                "imaging": ("photonic_mvm", "ca_pool", "conv_strip",
+                            "conv_strip_depthwise")}
+SOURCES = {
+    "photonic_mvm": ("src/repro_torch/csrc/photonic_mvm.cu",
+                     "src/repro/kernels/photonic_mvm/kernel.py:81"),
+    "conv_chain": ("src/repro_torch/csrc/conv_chain.cu",
+                   "src/repro/kernels/conv_bank/fused_kernel.py:167"),
+    "ca_pool": ("src/repro_torch/csrc/ca_pool.cu",
+                "src/repro/kernels/ca_pool/kernel.py:52"),
+    "conv_strip": ("src/repro_torch/csrc/conv_strip.cu",
+                   "src/repro/kernels/conv_bank/strip_kernel.py:206"),
+    "conv_strip_depthwise": ("src/repro_torch/csrc/conv_strip.cu",
+                             "src/repro/kernels/conv_bank/strip_kernel.py:289"),
+    "conv_bank": ("src/repro_torch/csrc/conv_strip.cu",
+                  "src/repro/kernels/conv_bank/kernel.py:85")}
+# device-time symbols (space-free regexes over the profiler's kernel names)
+KERNEL_SYMBOLS = {"photonic_mvm": r"mvm_int_kernel",
+                  "conv_chain": r"conv_chain_kernel",
+                  "ca_pool": r"ca_gray_kernel|ca_mean_kernel",
+                  "conv_strip": r"conv_tile_kernel<\d+,false>",
+                  "conv_strip_depthwise": r"conv_tile_kernel<\d+,true>",
+                  "conv_bank": r"conv_tile_kernel<\d+,false>"}
 
 
 class SmokeFailure(RuntimeError):
@@ -90,7 +142,7 @@ def nvidia_smi() -> str:
 
 
 # ---------------------------------------------------------------------------
-# inputs, made from a seed with numpy
+# programs and inputs, made from a seed with numpy
 # ---------------------------------------------------------------------------
 
 def numpy_params(layers, seed):
@@ -115,7 +167,7 @@ def numpy_params(layers, seed):
     return params
 
 
-def programs():
+def vision_programs():
     from repro_torch import Program
     from repro_torch.models.vision import MODEL_INPUT_HWC, VISION_MODELS
     from repro_torch.weights import params_from_numpy
@@ -128,29 +180,56 @@ def programs():
     return out
 
 
-def frames_for(name, n, seed):
+def imaging_programs(hw=IMAGING_HW):
+    from repro_torch import Program
+    from repro_torch.imaging import PIPELINES
+    return {name: Program.from_pipeline(name, hw, hw, 3)
+            for name in sorted(PIPELINES)}
+
+
+def frames_for(prog, n, seed):
+    """Frames in [0, 1]: uniform noise for the CNNs; for the imaging
+    pipelines, smooth gradients and waves with noise on top, so the filters
+    see edges and texture. Every third frame is dimmed, so per-frame
+    calibration matters."""
     import numpy as np
-    from repro_torch.models.vision import MODEL_INPUT_HWC
     rng = np.random.default_rng(seed)
-    f = rng.random((n, *MODEL_INPUT_HWC[name])).astype(np.float32)
-    f[::3] *= 0.1                  # dim frames: per-frame scales matter
+    h, w, c = prog.input_hwc
+    if prog.name in ("lenet", "vgg9"):
+        f = rng.random((n, h, w, c))
+    else:
+        yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+        f = np.empty((n, h, w, c))
+        for i in range(n):
+            fx, fy, ph = rng.uniform(2, 12, 2).tolist() + [rng.uniform(0, 6)]
+            base = 0.5 + 0.3 * np.sin(2 * np.pi * (fx * xx + ph)) \
+                * np.cos(2 * np.pi * fy * yy) + 0.2 * (xx - yy)
+            for ch in range(c):
+                f[i, ..., ch] = base * (0.8 + 0.2 * ch / max(c - 1, 1))
+        f = np.clip(f + rng.normal(0, 0.05, f.shape), 0, 1)
+    f = f.astype(np.float32)
+    f[::3] *= 0.1
     return f
 
 
 # ---------------------------------------------------------------------------
-# the kernels' calls on the serving path, from the compiled plans
+# the kernels' calls on the served paths, from the compiled plans
 # ---------------------------------------------------------------------------
 
-def path_calls(exes, device):
-    """The inputs each kernel gets for one bucket-8 batch of each model:
-    photonic_mvm (a, wq, ws), conv_chain (codes, scale, stages, aq) and
-    ca_pool (img, pool). Codes are random 0..15, weights the programs'
-    own quantized levels."""
+def path_calls(exes, device, batch=BUCKET):
+    """The inputs each kernel gets for one batch of each program, by kernel:
+    photonic_mvm (a, wq), conv_chain (codes, scale, stages, aq), ca_pool
+    (img, pool), conv_strip (x_padded, w, stride, strip_h, conv) and
+    conv_strip_depthwise (x_padded, w_taps, stride, strip_h, conv). Codes
+    are random 0..15, weights the programs' own quantized levels, and a
+    strip conv's input is padded as dispatch pads it."""
     import torch
-    from repro_torch.core.plan import ConvStep, DenseStep, CAStep
+    import torch.nn.functional as F
+    from repro_torch.core.plan import CAStep, ConvStep, DenseStep
     from repro_torch.core.quant import quantize_weight
-    gen = torch.Generator().manual_seed(SEED)
-    mvm, chain, ca = [], [], []
+    from repro_torch.kernels.conv_bank.strip import pad_rows_for_strips
+    gen = torch.Generator().manual_seed(SEED + batch)
+    calls = {k: [] for k in KERNELS if k != "conv_bank"}
     for name, exe in exes.items():
         plan, params = exe.plan, exe.params()
         seg_at = {s.start: s for s in plan.fused_segments}
@@ -163,53 +242,102 @@ def path_calls(exes, device):
                 stages = []
                 for s in plan.steps[i:i + seg.length]:
                     wq, ws = quantize_weight(params[s.name]["w"], s.wa)
-                    stages.append((s.geom, wq, ws, params[s.name]["b"]))
+                    stages.append((s.geom, wq, ws, params[s.name].get("b")))
                 g0 = stages[0][0]
-                codes = torch.randint(0, 16, (BUCKET, g0.h_in, g0.w_in,
+                codes = torch.randint(0, 16, (batch, g0.h_in, g0.w_in,
                                               g0.c_in), generator=gen)
-                scale = torch.rand((BUCKET, 1, 1, 1), generator=gen) + 0.01
-                chain.append((codes.float().to(device), scale.to(device),
-                              stages, float(plan.consts["a_qmax"])))
+                scale = torch.rand((batch, 1, 1, 1), generator=gen) + 0.01
+                calls["conv_chain"].append((
+                    codes.float().to(device), scale.to(device), stages,
+                    float(plan.consts["a_qmax"])))
                 i += seg.length
                 continue
             if isinstance(step, CAStep):
                 need(i == 0, f"{name}: a CA step after step 0")
-                img = torch.rand((BUCKET, h, w, c), generator=gen)
-                ca.append((img.to(device), step.pool))
+                img = torch.rand((batch, h, w, c), generator=gen)
+                calls["ca_pool"].append((img.to(device), step.pool))
             elif isinstance(step, ConvStep):
                 g = step.geom
-                hc, wc = g.conv_hw()
                 wq, _ = quantize_weight(params[step.name]["w"], step.wa)
-                k = g.kernel * g.kernel * g.c_in
-                a = torch.randint(0, 16, (BUCKET * hc * wc, k), generator=gen)
-                mvm.append((a.to(torch.int8).to(device),
-                            wq.reshape(k, g.c_out)))
+                need(g.groups == 1 or g.depthwise,
+                     f"{name}.{step.name}: a grouped conv on the path")
+                if step.strategy.kind == "strip":
+                    codes = torch.randint(0, 16, (batch, g.h_in, g.w_in,
+                                                  g.c_in), generator=gen)
+                    (plo, phi), (qlo, qhi) = g.pads
+                    sh = step.strategy.strip_rows
+                    xp = pad_rows_for_strips(
+                        F.pad(codes.float(), (0, 0, qlo, qhi, plo, phi)),
+                        g.kernel, g.stride, sh, step.strategy.n_strips)
+                    wf = wq.float()
+                    key = "conv_strip"
+                    if g.depthwise:
+                        key = "conv_strip_depthwise"
+                        wf = wf.reshape(g.kernel * g.kernel, g.c_out)
+                    calls[key].append((xp.to(device), wf, g.stride, sh,
+                                       f"{name}.{step.name}"))
+                else:
+                    need(g.groups == 1, f"{name}.{step.name}: a resident "
+                         f"depthwise conv")
+                    hc, wc = g.conv_hw()
+                    k = g.kernel * g.kernel * g.c_in
+                    a = torch.randint(0, 16, (batch * hc * wc, k),
+                                      generator=gen)
+                    calls["photonic_mvm"].append((
+                        a.to(torch.int8).to(device),
+                        wq.reshape(k, g.c_out)))
             elif isinstance(step, DenseStep):
                 wq, _ = quantize_weight(params[step.name]["w"], step.wa)
-                a = torch.randint(0, 16, (BUCKET, wq.shape[0]), generator=gen)
-                mvm.append((a.to(torch.int8).to(device), wq))
+                a = torch.randint(0, 16, (batch, wq.shape[0]), generator=gen)
+                calls["photonic_mvm"].append((a.to(torch.int8).to(device),
+                                              wq))
             i += 1
-    return mvm, chain, ca
+    return calls
+
+
+def conv_bank_calls(device):
+    """(x, w, bias) of the conv_bank op's own calls."""
+    import torch
+    gen = torch.Generator().manual_seed(SEED + 11)
+    out = []
+    for b, h, w, ci, co, k in CONV_BANK:
+        x = torch.rand((b, h, w, ci), generator=gen)
+        wt = torch.randn((k, k, ci, co), generator=gen) * 0.2
+        bias = torch.randn((co,), generator=gen) * 0.1
+        out.append((x.to(device), wt.to(device), bias.to(device)))
+    return out
+
+
+def run_conv_bank_op(calls, strategies=("resident", "strip")):
+    from repro_torch.core.quant import W4A4
+    from repro_torch.kernels.conv_bank.ops import conv_bank
+    return [conv_bank(x, w, spec=W4A4, strategy=s, act="relu", bias=b)
+            for x, w, b in calls for s in strategies]
 
 
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
 
-def phase_kernels(device, mvm_calls, chain_calls, ca_calls):
+def phase_kernels(device, vision, imaging):
     """Every kernel against its plain version, bitwise."""
     import torch
+    from repro_torch import Options, Program
     from repro_torch.core.accelerator import ConvSpec
     from repro_torch.core.compressive import compressive_acquire
     from repro_torch.core.plan import padtype_to_pads
+    from repro_torch.core.quant import W4A4
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.ca_pool.ops import ca_pool
+    from repro_torch.kernels.conv_bank import strip
     from repro_torch.kernels.conv_bank.fused import conv_chain
-    from repro_torch.kernels.conv_bank.ref import conv_chain_ref
+    from repro_torch.kernels.conv_bank.ops import conv_bank, conv_bank_plain
+    from repro_torch.kernels.conv_bank.ref import conv_chain_ref, conv_int_ref
     from repro_torch.kernels.photonic_mvm.ops import mvm_int
     from repro_torch.kernels.photonic_mvm.ref import mvm_int_ref
     gen = torch.Generator().manual_seed(SEED + 7)
-    errs = {"photonic_mvm": [], "conv_chain": [], "ca_pool": []}
+    errs = {k: [] for k in KERNELS}
+    dev = str(device)
 
     def compare(kernel, got, want, what):
         need(got.shape == want.shape, f"{kernel} {what}: shape "
@@ -220,20 +348,40 @@ def phase_kernels(device, mvm_calls, chain_calls, ca_calls):
         need(torch.equal(got, want), f"{kernel} {what}: differs from its "
              f"plain version (max abs err {err})")
 
+    # extra geometries from compiled plans: edge_detect's fused segment at
+    # 64x64, and the 512x512 multi-strip convs (batch 2)
+    extra = path_calls({
+        "edge64": Program.from_pipeline("edge_detect", 64, 64).compile(
+            Options(device=dev)),
+        **{f"{n}512": Program.from_pipeline(n, 512, 512).compile(
+            Options(device=dev))
+           for n in ("denoise_gauss", "compress_recon_deconv")}},
+        device, batch=2)
+    need(len(extra["conv_chain"]) == 1, "edge_detect at 64x64 did not fuse")
+    strips = {c[4]: c[3] for k in ("conv_strip", "conv_strip_depthwise")
+              for c in extra[k]}
+    for conv, n_strips in (("denoise_gauss512.gauss", 2),
+                           ("compress_recon_deconv512.rec2", 3)):
+        rows = strips[conv]
+        need(-(-512 // rows) == n_strips,
+             f"{conv}: {rows}-row strips, expected {n_strips} strips")
+    calls = {k: vision.get(k, []) + imaging.get(k, []) + extra.get(k, [])
+             for k in KERNELS}
+
     ragged = []
     for m, k, n in RAGGED_MVM:
         a = torch.randint(0, 16, (m, k), generator=gen).to(torch.int8)
         w = torch.randint(-127, 128, (k, n), generator=gen).to(torch.int8)
         ragged.append((a.to(device), w.to(device)))
-    for a, w in mvm_calls + ragged:
+    for a, w in calls["photonic_mvm"] + ragged:
         ws = (torch.rand((w.shape[1],), generator=gen) + 0.5).to(device)
         for act_scale, scales in ((1.0, None), (0.37, ws)):
             compare("photonic_mvm", mvm_int(a, w, scales, act_scale),
                     mvm_int_ref(a, w, scales, act_scale),
                     f"M,K,N={a.shape[0]},{a.shape[1]},{w.shape[1]}")
 
-    chains = list(chain_calls)
-    for ci, (h, w, c, specs) in enumerate(CHAINS):
+    chains = list(calls["conv_chain"])
+    for h, w, c, specs in CHAINS:
         stages, hh, ww, cc = [], h, w, c
         for j, (co, k, s, pad, dw, act, pool, bias) in enumerate(specs):
             layer = ConvSpec(f"s{j}", cc, cc if dw else co, k, s, pad, act,
@@ -264,7 +412,7 @@ def phase_kernels(device, mvm_calls, chain_calls, ca_calls):
         compare("conv_chain", got[0], want[0], f"{names} codes")
         compare("conv_chain", got[1], want[1], f"{names} scales")
 
-    cases = [(img, p, True) for img, p in ca_calls]
+    cases = [(img, p, True) for img, p in calls["ca_pool"]]
     for shape, p in (((8, 32, 32, 3), 4), ((8, 32, 32, 1), 2),
                      ((5, 28, 28, 1), 4), ((4, 16, 24, 3), 2)):
         img = torch.rand(shape, generator=gen).to(device)
@@ -273,15 +421,77 @@ def phase_kernels(device, mvm_calls, chain_calls, ca_calls):
         compare("ca_pool", ca_pool(img, p, gray),
                 compressive_acquire(img, p, gray),
                 f"{tuple(img.shape)} p={p} gray={gray}")
-    return {k: max(v) for k, v in errs.items()}, {
-        k: len(v) for k, v in errs.items()}
+
+    # the strip kernels: raw accumulate (the path's form) and the fused
+    # epilogue with act_scale != 1, relu and bias
+    for kernel, run, plain in (
+            ("conv_strip", strip.conv_strip, strip.conv_strip_ref),
+            ("conv_strip_depthwise", strip.conv_strip_depthwise,
+             strip.conv_strip_depthwise_ref)):
+        for xp, wf, stride, sh, conv in calls[kernel]:
+            kw = dict(stride=stride, strip_h=sh)
+            compare(kernel, run(xp, wf, **kw), plain(xp, wf, **kw), conv)
+            co = wf.shape[-1]
+            ws = (torch.rand((co,), generator=gen) + 0.5).to(device)
+            bias = torch.randn((co,), generator=gen).to(device)
+            kw.update(act_scale=0.37, act="relu", bias=bias)
+            compare(kernel, run(xp, wf, ws, **kw), plain(xp, wf, ws, **kw),
+                    f"{conv} with epilogue")
+    for name, xs, wshape, stride, padding, groups in STRIP_CONVS:
+        x = torch.randint(0, 16, xs, generator=gen).float().to(device)
+        wq = torch.randint(-7, 8, wshape, generator=gen).float().to(device)
+        pads = padtype_to_pads(xs[1:3], wshape[0], stride, padding)
+        h_out = (xs[1] + sum(pads[0]) - wshape[0]) // stride + 1
+        w_out = (xs[2] + sum(pads[1]) - wshape[0]) // stride + 1
+        strat = dispatch.select_conv_strategy(
+            h_out, w_out, xs[3], wshape[3], wshape[0], stride, groups,
+            mode="strip")
+        compare("conv_strip", dispatch.conv_int(x, wq, stride, pads, groups,
+                                                strat),
+                conv_int_ref(x, wq, stride, pads, groups),
+                f"{name} {xs}x{wshape}")
+
+    bank_calls = conv_bank_calls(device)
+    float_err = 0.0
+    for x, w, b in bank_calls:
+        for strategy in ("resident", "strip"):
+            kw = dict(spec=W4A4, strategy=strategy, act="relu", bias=b)
+            kernel = "conv_bank" if strategy == "resident" else "conv_strip"
+            compare(kernel, conv_bank(x, w, **kw), conv_bank_plain(x, w, **kw),
+                    f"conv_bank {strategy} k={w.shape[0]}")
+            got = conv_bank(x, w, strategy=strategy)
+            want = conv_bank_plain(x, w, strategy=strategy)
+            float_err = max(float_err, float((got - want).abs().max()))
+            need(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
+                 f"conv_bank float mode {strategy} k={w.shape[0]}: off its "
+                 f"plain version by {float_err}")
+    return ({k: max(v) for k, v in errs.items()},
+            {k: len(v) for k, v in errs.items()}, float_err)
+
+
+def phase_conv_bank_op(device):
+    """The conv_bank op's entry point on its own calls, counts zeroed
+    around it (no served path reaches it)."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    calls = conv_bank_calls(device)
+    reset_launch_counts()
+    outs = run_conv_bank_op(calls)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    for out, (x, w, _) in zip(outs, [c for c in calls for _ in range(2)]):
+        need(out.shape == (*x.shape[:3], w.shape[-1])
+             and bool(torch.isfinite(out).all()),
+             f"conv_bank op: bad answer {tuple(out.shape)}")
+    return counts
 
 
 def timer(device):
     import torch
 
-    def time_ms(fn, iters=50):
-        for _ in range(3):
+    def time_ms(fn, iters=50 if device.type == "cuda" else 2):
+        for _ in range(3 if device.type == "cuda" else 1):
             fn()
         if device.type == "cuda":
             torch.cuda.synchronize()
@@ -306,19 +516,24 @@ def bound_ms(nbytes, ops, kind):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_timing(device, mvm_calls, chain_calls, ca_calls):
-    """Per kernel: its calls for one bucket-8 batch of each model, summed."""
+def phase_timing(device, vision, imaging):
+    """Per kernel, its calls for one bucket-8 batch summed: the slice-1
+    kernels on the vision path, the strip kernels on the imaging path, the
+    conv_bank op on its own calls."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.compressive import ca_coefficients
     from repro_torch.core.compressive import compressive_acquire
+    from repro_torch.core.quant import W4A4
     from repro_torch.kernels.ca_pool.ops import ca_pool
+    from repro_torch.kernels.conv_bank import strip
     from repro_torch.kernels.conv_bank.fused import conv_chain
-    from repro_torch.kernels.conv_bank.ref import conv_chain_ref
+    from repro_torch.kernels.conv_bank.ops import conv_bank, conv_bank_plain
+    from repro_torch.kernels.conv_bank.ref import conv_chain_ref, float32_convs
     from repro_torch.kernels.photonic_mvm.ops import mvm_int
     from repro_torch.kernels.photonic_mvm.ref import mvm_int_ref
     time_ms = timer(device)
-    rows, detail = {}, {"photonic_mvm": [], "conv_chain": [], "ca_pool": []}
+    rows, detail = {}, {k: [] for k in KERNELS}
 
     def add(kernel, ms, plain, lib, nbytes, ops, kind, **shape):
         b, by = bound_ms(nbytes, ops, kind)
@@ -327,7 +542,8 @@ def phase_timing(device, mvm_calls, chain_calls, ca_calls):
                                    bytes=nbytes, ops=ops))
         r = rows.setdefault(kernel, {"ms": 0.0, "plain_ms": 0.0,
                                      "library_ms": 0.0, "bound_ms": 0.0,
-                                     "t_bytes": 0.0, "t_ops": 0.0})
+                                     "t_bytes": 0.0, "t_ops": 0.0,
+                                     "library_exact": None})
         r["ms"] += ms
         r["plain_ms"] += plain
         r["library_ms"] = None if lib is None or r["library_ms"] is None \
@@ -335,8 +551,11 @@ def phase_timing(device, mvm_calls, chain_calls, ca_calls):
         r["bound_ms"] += b
         r["t_bytes"] += nbytes / HBM_BYTES_PER_S * 1e3
         r["t_ops"] += ops / PEAK_OPS[kind] * 1e3
+        if "library_exact" in shape:       # None: not the same function
+            r["library_exact"] = shape["library_exact"] and \
+                r["library_exact"] is not False
 
-    for a, w in mvm_calls:          # the path's form: raw accumulate, no ws
+    for a, w in vision["photonic_mvm"]:   # the path's form: no ws
         m, k = a.shape
         n = w.shape[1]
         if device.type == "cuda" and m > 16 and k % 8 == 0 and n % 8 == 0:
@@ -350,7 +569,7 @@ def phase_timing(device, mvm_calls, chain_calls, ca_calls):
             m * k + k * n + 4 * m * n, 2 * m * n * k, "int8",
             M=m, K=k, N=n, library=lib_name)
 
-    for codes, scale, stages, aq in chain_calls:
+    for codes, scale, stages, aq in vision["conv_chain"]:
         b = codes.shape[0]
         nbytes = codes.numel() * 4 + b * 4 * 2
         ops = 0
@@ -368,122 +587,282 @@ def phase_timing(device, mvm_calls, chain_calls, ca_calls):
             nbytes, ops, "int8", B=b,
             stages="+".join(g.name for g, _, _, _ in stages))
 
-    for img, p in ca_calls:
+    for img, p in vision["ca_pool"]:
         b, h, w, c = img.shape
         coef = ca_coefficients(p, c, device=device)
         bank = coef.permute(2, 0, 1)[None].contiguous()   # [1, C, p, p]
         nchw = img.permute(0, 3, 1, 2)
-        if device.type == "cuda":
-            torch.backends.cudnn.allow_tf32 = False
         out_n = b * (h // p) * (w // p)
+        with float32_convs():
+            lib = time_ms(lambda: F.conv2d(nchw, bank, stride=p))
         add("ca_pool", time_ms(lambda: ca_pool(img, p, True)),
-            time_ms(lambda: compressive_acquire(img, p, True)),
-            time_ms(lambda: F.conv2d(nchw, bank, stride=p)),
+            time_ms(lambda: compressive_acquire(img, p, True)), lib,
             img.numel() * 4 + coef.numel() * 4 + out_n * 4,
             2 * out_n * p * p * c, "tf32", B=b, H=h, W=w, C=c, pool=p,
             library="F.conv2d with the coefficient bank")
+
+    # the strip kernels: F.conv2d (TF32 off; groups=C for depthwise) on the
+    # same padded codes is the yardstick; record whether cuDNN was exact
+    for kernel, run, plain in (
+            ("conv_strip", strip.conv_strip, strip.conv_strip_ref),
+            ("conv_strip_depthwise", strip.conv_strip_depthwise,
+             strip.conv_strip_depthwise_ref)):
+        for xp, wf, stride, sh, conv in imaging[kernel]:
+            b, hp, wp, c_in = xp.shape
+            dw = kernel == "conv_strip_depthwise"
+            k = math.isqrt(wf.shape[0]) if dw else wf.shape[0]
+            co = wf.shape[-1]
+            w_oihw = (wf.t().reshape(co, 1, k, k) if dw
+                      else wf.permute(3, 2, 0, 1)).contiguous()
+            nchw = xp.permute(0, 3, 1, 2)
+            groups = co if dw else 1
+
+            def lib_fn(nchw=nchw, w_oihw=w_oihw, stride=stride,
+                       groups=groups):
+                return F.conv2d(nchw, w_oihw, stride=stride, groups=groups)
+            kw = dict(stride=stride, strip_h=sh)
+            out = run(xp, wf, **kw)
+            with float32_convs():
+                lib = time_ms(lib_fn)
+                exact = torch.equal(lib_fn().permute(0, 2, 3, 1), out)
+            n_out = out.numel()
+            macs = n_out * k * k * (1 if dw else c_in)
+            add(kernel, time_ms(lambda: run(xp, wf, **kw)),
+                time_ms(lambda: plain(xp, wf, **kw)), lib,
+                (xp.numel() + wf.numel() + n_out) * 4, 2 * macs, "int8",
+                conv=conv, x_padded=list(xp.shape), w=list(wf.shape),
+                stride=stride, library="F.conv2d" + (
+                    f" groups={co}" if dw else ""), library_exact=exact)
+
+    for x, w, bias in conv_bank_calls(device):
+        b, h, ww, ci = x.shape
+        k, co = w.shape[0], w.shape[-1]
+        kw = dict(spec=W4A4, strategy="resident", act="relu", bias=bias)
+        nchw = x.permute(0, 3, 1, 2)
+        w_oihw = w.permute(3, 2, 0, 1).contiguous()
+
+        def lib_fn(nchw=nchw, w_oihw=w_oihw, k=k, bias=bias):
+            return torch.relu(F.conv2d(nchw, w_oihw, bias, padding=k // 2))
+        with float32_convs():
+            lib = time_ms(lib_fn)
+        n_out = b * h * ww * co
+        add("conv_bank", time_ms(lambda: conv_bank(x, w, **kw)),
+            time_ms(lambda: conv_bank_plain(x, w, **kw)), lib,
+            (x.numel() + w.numel() + 2 * co + n_out) * 4,
+            2 * n_out * k * k * ci, "int8", x=list(x.shape), w=list(w.shape),
+            strategy="resident", library="F.conv2d + bias + relu (float)")
     return rows, detail
 
 
-KERNEL_SYMBOLS = {"photonic_mvm": ("mvm_int_kernel",),
-                  "conv_chain": ("conv_chain_kernel",),
-                  "ca_pool": ("ca_gray_kernel", "ca_mean_kernel")}
+def load_trace(prof, path):
+    """Export a finished profiler session as a Chrome trace at ``path``
+    and return its events."""
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        return json.load(f)["traceEvents"]
 
 
-def phase_device_time(device, mvm_calls, chain_calls, ca_calls, iters=20):
-    """Device time of each kernel per bucket-8 batch (all its path calls),
-    from ``torch.profiler``'s CUDA activity; None where the profiler shows
-    no device time for the kernel."""
+def host_range(events, name):
+    """(start, end) in µs of the one host annotation ``name``."""
+    found = [e for e in events if e.get("name") == name
+             and e.get("cat") == "user_annotation"]
+    need(len(found) == 1, f"trace: {len(found)} ranges named {name}")
+    return found[0]["ts"], found[0]["ts"] + found[0]["dur"]
+
+
+def phase_device_time(device, vision, imaging, trace_path, iters=20):
+    """Device time of each kernel per bucket-8 batch (all its calls), from
+    one ``torch.profiler`` session: each kernel's batches run in a host
+    range that ends in a synchronize, so its device work lies inside the
+    range; the kernel's own device time there is summed. None where the
+    profiler shows no device time for the kernel."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.kernels.ca_pool.ops import ca_pool
+    from repro_torch.kernels.conv_bank import strip
     from repro_torch.kernels.conv_bank.fused import conv_chain
     from repro_torch.kernels.photonic_mvm.ops import mvm_int
     if device.type != "cuda":
-        return {k: None for k in KERNEL_SYMBOLS}
-
-    def batch():
-        for a, w in mvm_calls:
-            mvm_int(a, w)
-        for codes, scale, stages, aq in chain_calls:
-            conv_chain(codes, scale, stages, aq)
-        for img, p in ca_calls:
-            ca_pool(img, p, True)
-
-    batch()
+        return {k: None for k in KERNELS}
+    bank = conv_bank_calls(device)
+    batches = {
+        "photonic_mvm": lambda: [mvm_int(a, w) for a, w in
+                                 vision["photonic_mvm"]],
+        "conv_chain": lambda: [conv_chain(*c) for c in vision["conv_chain"]],
+        "ca_pool": lambda: [ca_pool(img, p, True)
+                            for img, p in vision["ca_pool"]],
+        "conv_strip": lambda: [strip.conv_strip(xp, w, stride=s, strip_h=sh)
+                               for xp, w, s, sh, _ in imaging["conv_strip"]],
+        "conv_strip_depthwise": lambda: [
+            strip.conv_strip_depthwise(xp, w, stride=s, strip_h=sh)
+            for xp, w, s, sh, _ in imaging["conv_strip_depthwise"]],
+        "conv_bank": lambda: run_conv_bank_op(bank, ("resident",))}
+    for batch in batches.values():
+        batch()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            batch()
-        torch.cuda.synchronize()
-    totals = {k: 0.0 for k in KERNEL_SYMBOLS}
-    for ev in prof.key_averages():
-        t = getattr(ev, "device_time_total", None)
-        if t is None:
-            t = getattr(ev, "cuda_time_total", 0.0)
-        for k, syms in KERNEL_SYMBOLS.items():
-            if any(sym in ev.key for sym in syms):
-                totals[k] += t
-    # microseconds over `iters` batches -> ms per batch
-    return {k: (v / iters / 1e3 if v > 0 else None)
-            for k, v in totals.items()}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for name, batch in batches.items():
+            with record_function(DEVICE_RANGE + name):
+                for _ in range(iters):
+                    batch()
+                torch.cuda.synchronize()
+    events = load_trace(prof, trace_path)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    out = {}
+    for name in batches:
+        lo, hi = host_range(events, DEVICE_RANGE + name)
+        total = sum(e["dur"] for e in kernels if lo <= e["ts"] <= hi
+                    and re.search(KERNEL_SYMBOLS[name],
+                                  e["name"].replace(" ", "")))
+        # microseconds over `iters` batches -> ms per batch
+        out[name] = total / iters / 1e3 if total > 0 else None
+    return out
 
 
-def phase_serve(device, progs):
-    """LeNet and VGG9-CA behind one Server on the card."""
+def check_served(name, prog, frames, served, dev, out_shape):
+    """Served answers against batch-1 runs, the reference backend and the
+    CPU port, all bitwise."""
     import numpy as np
-    import torch
     from repro_torch import Options
-    from repro_torch import serve
+    from repro_torch.core.quant import W4A4
+    need(served.shape == (frames.shape[0], *out_shape),
+         f"{name}: answer shape {served.shape}")
+    need(bool(np.isfinite(served).all()), f"{name}: non-finite answer")
+    exe = prog.compile(Options(scheme=W4A4, device=dev))
+    singles = np.concatenate([exe.run_per_frame(frames[i:i + 1]).cpu()
+                              .numpy() for i in range(len(frames))])
+    need(np.array_equal(served, singles),
+         f"{name}: served answers differ from batch-1 run_per_frame")
+    ref = prog.compile(Options(scheme=W4A4, device=dev, backend="reference"))
+    need(np.array_equal(served, ref.run_per_frame(frames).cpu().numpy()),
+         f"{name}: served answers differ from the reference backend")
+    cpu = prog.compile(Options(scheme=W4A4, device="cpu"))
+    need(np.array_equal(served[:4], cpu.run_per_frame(frames[:4]).numpy()),
+         f"{name}: served answers differ from the port's CPU run")
+
+
+def serve_path(device, progs, reqs):
+    """One ``serve.Server`` with buckets 1/2/4/8 hosting ``progs``: the
+    requests submitted at once, the launch counts zeroed just before and
+    read just after. Returns (answers, counts, stats, wall seconds)."""
+    import torch.profiler
+    from repro_torch import Options, serve
     from repro_torch.core.quant import W4A4
     from repro_torch.kernels import launch_counts, reset_launch_counts
     dev = str(device)
-    server = serve.Server(serve.ServeConfig(max_batch=BUCKET, max_wait_ms=2.0,
-                                            device=dev))
+    server = serve.Server(serve.ServeConfig(
+        max_batch=BUCKET, max_wait_ms=2.0, device=dev,
+        batch_buckets=(1, 2, 4, 8)))
     for name, prog in progs.items():
         server.register(name, prog, Options(scheme=W4A4, device=dev))
     server.start()
-    sizes = [1, 2, 3, 1, 5, 1, 2, 8]
-    reqs = []
-    for i in range(32):
-        name = ("lenet", "vgg9")[i % 2]
-        reqs.append((name, frames_for(name, sizes[(i // 2) % len(sizes)],
-                                      100 + i)))
     try:
         reset_launch_counts()
         t0 = time.perf_counter()
-        futs = [server.submit(name, f) for name, f in reqs]
-        outs = [f.result(timeout=300) for f in futs]
+        # the window a profiler trace reads the device's busy share in
+        with torch.profiler.record_function(SERVE_WINDOW):
+            futs = [server.submit(name, f) for name, f in reqs]
+            outs = [f.result(timeout=600) for f in futs]
         wall = time.perf_counter() - t0
         counts = launch_counts()
     finally:
         server.stop()
-    stats = server.stats()
+    return outs, counts, server.stats(), wall
 
-    n_classes = {"lenet": 10, "vgg9": 100}
-    by_prog = {"lenet": ([], []), "vgg9": ([], [])}
+
+def by_program(reqs, outs):
+    import numpy as np
+    grouped = {}
     for (name, f), out in zip(reqs, outs):
-        need(out.shape == (f.shape[0], n_classes[name]),
-             f"{name}: answer shape {out.shape}")
-        need(bool(np.isfinite(out).all()), f"{name}: non-finite answer")
-        by_prog[name][0].append(f)
-        by_prog[name][1].append(out)
-    for name, (fs, os_) in by_prog.items():
-        frames, served = np.concatenate(fs), np.concatenate(os_)
-        exe = progs[name].compile(Options(scheme=W4A4, device=dev))
-        singles = np.concatenate([exe.run_per_frame(frames[i:i + 1]).cpu()
-                                  .numpy() for i in range(len(frames))])
-        need(np.array_equal(served, singles),
-             f"{name}: served answers differ from batch-1 run_per_frame")
-        ref = progs[name].compile(Options(scheme=W4A4, device=dev,
-                                          backend="reference"))
-        need(np.array_equal(served, ref.run_per_frame(frames).cpu().numpy()),
-             f"{name}: served answers differ from the reference backend")
-        cpu = progs[name].compile(Options(scheme=W4A4, device="cpu"))
-        need(np.array_equal(served[:4], cpu.run_per_frame(frames[:4])
-                            .numpy()),
-             f"{name}: served answers differ from the port's CPU run")
+        fs, os_ = grouped.setdefault(name, ([], []))
+        fs.append(f)
+        os_.append(np.asarray(out))
+    return {name: (np.concatenate(fs), np.concatenate(os_))
+            for name, (fs, os_) in grouped.items()}
+
+
+def phase_serve_vision(device, progs):
+    """LeNet and VGG9-CA behind one Server on the card."""
+    sizes = [1, 2, 3, 1, 5, 1, 2, 8]
+    reqs = []
+    for i in range(32):
+        name = ("lenet", "vgg9")[i % 2]
+        reqs.append((name, frames_for(progs[name],
+                                      sizes[(i // 2) % len(sizes)], 100 + i)))
+    outs, counts, stats, wall = serve_path(device, progs, reqs)
+    n_classes = {"lenet": (10,), "vgg9": (100,)}
+    for name, (frames, served) in by_program(reqs, outs).items():
+        check_served(name, progs[name], frames, served, str(device),
+                     n_classes[name])
     return counts, stats, wall, sum(f.shape[0] for _, f in reqs)
+
+
+def imaging_requests(progs):
+    return [(name, frames_for(progs[name], n, 200 + 10 * i + j))
+            for i, n in enumerate((1, 3, 8))
+            for j, name in enumerate(progs)]
+
+
+def phase_serve_imaging(device, progs):
+    """The eight imaging pipelines at 256x256x3 behind one Server on the
+    card; PSNR of the served answers against the float oracle."""
+    from repro_torch.imaging import apply_float, psnr
+    reqs = imaging_requests(progs)
+    outs, counts, stats, wall = serve_path(device, progs, reqs)
+    quality = {}
+    for name, (frames, served) in by_program(reqs, outs).items():
+        prog = progs[name]
+        h, w, _ = prog.input_hwc
+        c_out = 3 if name.startswith("denoise") else 1
+        check_served(name, prog, frames, served, str(device), (h, w, c_out))
+        ref = apply_float(prog.layers, prog.params, frames_on(frames, device))
+        quality[name] = float(psnr(ref, frames_on(served, device)))
+    return counts, stats, wall, sum(f.shape[0] for _, f in reqs), quality
+
+
+def phase_busy_share(device, progs, trace_path):
+    """The imaging requests served once more under ``torch.profiler``: the
+    share of the serving window in which the card ran anything (the union
+    of its kernel, copy and memset intervals over the window's length),
+    with the device time summed by kind of work. None on the CPU."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if device.type != "cuda":
+        return None
+    reqs = imaging_requests(progs)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        serve_path(device, progs, reqs)
+        torch.cuda.synchronize()
+    events = load_trace(prof, trace_path)
+    lo, hi = host_range(events, SERVE_WINDOW)
+    spans, by_kind = [], {}
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in (
+                "kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        a, b = max(e["ts"], lo), min(e["ts"] + e["dur"], hi)
+        if b <= a:
+            continue
+        spans.append((a, b))
+        kind = e["cat"] if e["cat"] != "kernel" else (
+            "port kernels" if re.search("|".join(KERNEL_SYMBOLS.values()),
+                                        e["name"].replace(" ", ""))
+            else "torch ops")
+        by_kind[kind] = by_kind.get(kind, 0.0) + (b - a) / 1e3
+    busy, end = 0.0, lo
+    for a, b in sorted(spans):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return {"window_ms": (hi - lo) / 1e3, "busy_ms": busy / 1e3,
+            "busy_share": busy / (hi - lo), "device_ms_by_kind": by_kind,
+            "frames": sum(f.shape[0] for _, f in reqs)}
+
+
+def frames_on(a, device):
+    import torch
+    return torch.from_numpy(a).to(device)
 
 
 def main(argv) -> int:
@@ -514,6 +893,7 @@ def main(argv) -> int:
               f"script ({e})", file=sys.stderr)
         return 1
     device = torch.device("cpu" if rehearse else "cuda")
+    os.makedirs(os.path.dirname(os.path.abspath(args.details)), exist_ok=True)
     t_start = time.perf_counter()
     try:
         if rehearse:
@@ -535,71 +915,108 @@ def main(argv) -> int:
                         if "registers" in l or "spill" in l]
                 log(f"[build] {name}: {' | '.join(info)}")
 
-        progs = programs()
         from repro_torch import Options
         from repro_torch.core.quant import W4A4
-        exes = {n: p.compile(Options(scheme=W4A4, device=str(device)))
-                for n, p in progs.items()}
-        mvm_calls, chain_calls, ca_calls = path_calls(exes, device)
-        log(f"[path] bucket {BUCKET}: photonic_mvm "
-            f"{[(a.shape[0], a.shape[1], w.shape[1]) for a, w in mvm_calls]}"
-            f"; conv_chain {[tuple(c.shape) for c, _, _, _ in chain_calls]}"
-            f"; ca_pool {[tuple(i.shape) for i, _ in ca_calls]}")
+        vision_progs, imaging_progs = vision_programs(), imaging_programs()
+        opts = Options(scheme=W4A4, device=str(device))
+        vision = path_calls({n: p.compile(opts)
+                             for n, p in vision_progs.items()}, device)
+        imaging = path_calls({n: p.compile(opts)
+                              for n, p in imaging_progs.items()}, device)
+        for path, calls in (("vision", vision), ("imaging", imaging)):
+            log(f"[path] {path}, bucket {BUCKET}: photonic_mvm "
+                f"{[(a.shape[0], a.shape[1], w.shape[1]) for a, w in calls['photonic_mvm']]}"
+                f"; conv_chain {[tuple(c.shape) for c, _, _, _ in calls['conv_chain']]}"
+                f"; ca_pool {[(tuple(i.shape), p) for i, p in calls['ca_pool']]}"
+                f"; conv_strip {[(c[4], tuple(c[0].shape)) for c in calls['conv_strip']]}"
+                f"; conv_strip_depthwise "
+                f"{[(c[4], tuple(c[0].shape)) for c in calls['conv_strip_depthwise']]}")
 
-        max_err, n_cmp = phase_kernels(device, mvm_calls, chain_calls,
-                                       ca_calls)
+        max_err, n_cmp, bank_float_err = phase_kernels(device, vision,
+                                                       imaging)
         log(f"[kernels] bitwise equal to their plain versions: {n_cmp} "
-            f"comparisons, max abs err {max_err}")
+            f"comparisons, max abs err {max_err}; conv_bank float mode "
+            f"within {bank_float_err:.3g} of its plain version")
+        bank_counts = phase_conv_bank_op(device)
+        log(f"[conv_bank op] launches {bank_counts}")
 
-        rows, detail = phase_timing(device, mvm_calls, chain_calls, ca_calls)
-        device_ms = phase_device_time(device, mvm_calls, chain_calls,
-                                      ca_calls)
+        rows, detail = phase_timing(device, vision, imaging)
+        out_dir = os.path.dirname(os.path.abspath(args.details))
+        device_ms = phase_device_time(device, vision, imaging, os.path.join(
+            out_dir, "device_time_trace.json"))
         for k, r in rows.items():
             log(f"[timing] {k}: {r['ms']:.4f} ms per call sequence (plain "
-                f"{r['plain_ms']:.4f}, library {r['library_ms']}, bound "
-                f"{r['bound_ms']:.6f}, device {device_ms[k]})")
+                f"{r['plain_ms']:.4f}, library {r['library_ms']} exact "
+                f"{r['library_exact']}, bound {r['bound_ms']:.6f}, device "
+                f"{device_ms[k]})")
 
-        counts, stats, wall, n_frames = phase_serve(device, progs)
+        served = {}
+        counts, stats, wall, n_frames = phase_serve_vision(device,
+                                                           vision_progs)
+        served["vision"] = counts
+        log(f"[serve vision] {n_frames} frames in {wall:.3f}s wall; "
+            f"launches {counts}")
         for name, p in stats["programs"].items():
             lat = p["latency_ms"]
-            log(f"[serve] {name}: {p['requests']['served']} requests, "
-                f"{p['frames_served']} frames in {p['batches']} batches; "
+            log(f"[serve vision] {name}: {p['requests']['served']} requests,"
+                f" {p['frames_served']} frames in {p['batches']} batches; "
                 f"p50 {lat.get('p50', 0):.3f} ms p99 {lat.get('p99', 0):.3f}"
                 f" ms; {p['achieved_fps']:.1f} frames/s")
-        log(f"[serve] {n_frames} frames in {wall:.3f}s wall; launches "
-            f"{counts}")
+        counts, istats, iwall, n_iframes, quality = phase_serve_imaging(
+            device, imaging_progs)
+        served["imaging"] = counts
+        log(f"[serve imaging] {n_iframes} frames in {iwall:.3f}s wall; "
+            f"launches {counts}")
+        for name, p in istats["programs"].items():
+            lat = p["latency_ms"]
+            log(f"[serve imaging] {name}: {p['requests']['served']} "
+                f"requests, {p['frames_served']} frames in {p['batches']} "
+                f"batches; p50 {lat.get('p50', 0):.3f} ms p99 "
+                f"{lat.get('p99', 0):.3f} ms; {p['achieved_fps']:.1f} "
+                f"frames/s; PSNR vs apply_float {quality[name]:.2f} dB")
 
-        sources = {"photonic_mvm": (
-            "src/repro_torch/csrc/photonic_mvm.cu",
-            "src/repro/kernels/photonic_mvm/kernel.py:81"),
-            "conv_chain": ("src/repro_torch/csrc/conv_chain.cu",
-                           "src/repro/kernels/conv_bank/fused_kernel.py:167"),
-            "ca_pool": ("src/repro_torch/csrc/ca_pool.cu",
-                        "src/repro/kernels/ca_pool/kernel.py:52")}
+        busy = phase_busy_share(device, imaging_progs, os.path.join(
+            out_dir, "imaging_serve_trace.json"))
+        log(f"[serve imaging, profiled] device busy share {busy}")
+
+        launches = {k: {path: served[path][k] for path in served}
+                    for k in KERNELS}
+        for k in KERNELS:
+            launches[k]["conv_bank_op"] = bank_counts[k]
         kernels = []
-        for name, (src, replaces) in sources.items():
+        for name in KERNELS:
+            src, replaces = SOURCES[name]
             r = rows[name]
+            n = bank_counts[name] if name == "conv_bank" else \
+                sum(served[path][name] for path in served)
             kernels.append({
                 "name": name, "route": "cuda", "source": src,
-                "replaces": replaces, "launches": counts[name],
+                "replaces": replaces, "launches": n,
+                "launches_by_path": launches[name],
                 "max_abs_err": max_err[name],
                 "bitwise_equal": max_err[name] == 0.0, "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": ("bytes" if r["t_bytes"] >= r["t_ops"]
                              else "operations"),
                 "library_ms": r["library_ms"],
+                "library_exact": r["library_exact"],
                 "device_ms": device_ms[name]})
-        os.makedirs(os.path.dirname(os.path.abspath(args.details)),
-                    exist_ok=True)
         with open(args.details, "w") as f:
             json.dump({"device": kind, "nvidia_smi": smi, "kernels": kernels,
                        "per_call": detail, "serve_stats": stats,
+                       "imaging_serve_stats": istats, "psnr_db": quality,
+                       "imaging_busy_share": busy,
+                       "comparisons": n_cmp,
+                       "conv_bank_float_err": bank_float_err,
                        "seconds": time.perf_counter() - t_start}, f,
                       indent=1, default=str)
         if not rehearse:
-            for k in kernels:
-                need(k["launches"] > 0, f"{k['name']} never launched on the "
-                     f"serving path")
+            for path, names in PATH_KERNELS.items():
+                for k in names:
+                    need(served[path][k] > 0, f"{k} never launched on the "
+                         f"{path} serving path")
+            need(bank_counts["conv_bank"] > 0,
+                 "conv_bank never launched by the conv_bank op")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -8,8 +8,10 @@ first use.
   core/      quantization, layer IR, compressive acquisition, the power
              model, the plan compiler/executor and the Program API
   kernels/   dispatch plus each kernel's wrapper and plain version:
-             photonic_mvm, conv_bank (the fused chain), ca_pool
+             photonic_mvm, conv_bank (strip convs, the conv_bank op, the
+             fused chain), ca_pool
   models/    the paper's CNNs
+  imaging/   the imaging pipelines, their float oracle and metrics
   serve/     the micro-batching serving runtime, one device
   weights    params across the two packages (numpy)
 

@@ -27,6 +27,7 @@ from repro_torch.core import power_model as pmod
 from repro_torch.core.accelerator import (CASpec, ConvSpec, DenseSpec,
                                           FlattenSpec, UpsampleSpec,
                                           _activation, _crc_requant, _pool)
+from repro_torch.core.compressive import upsample_reconstruct
 from repro_torch.core.quant import (ACT_BITS, MixedPrecisionScheme, WASpec,
                                     quantize_weight, resolve_layer_specs)
 from repro_torch.kernels import dispatch
@@ -357,9 +358,9 @@ def _execute_steps(steps: Tuple[PlanStep, ...], params: Dict[str, Dict],
                 y = _pool(y, *step.pool)
             x, act_scale = _crc_requant(y, a_qmax, per_frame)
         elif isinstance(step, UpsampleStep):
-            raise NotImplementedError(
-                "UpsampleStep: the bilinear reconstruction upsample is not "
-                "ported yet (ROADMAP Queue 1, the imaging slice)")
+            intens = x * act_scale
+            up = upsample_reconstruct(intens, step.factor, step.method)
+            x, act_scale = _crc_requant(up, a_qmax, per_frame)
         elif isinstance(step, FlattenStep):
             intens = x * act_scale
             flat = intens.reshape(intens.shape[0], -1)

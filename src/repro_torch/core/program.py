@@ -144,6 +144,17 @@ class Program:
         from repro_torch.models.vision import vision_program
         return vision_program(name, generator=generator, params=params)
 
+    @classmethod
+    def from_pipeline(cls, name: str, h: int, w: int,
+                      c: int = 3) -> "Program":
+        """An imaging pipeline by registry name, built for [h, w, c]
+        frames (:data:`repro_torch.imaging.PIPELINES`)."""
+        from repro_torch.imaging import PIPELINES
+        if name not in PIPELINES:
+            raise ValueError(f"unknown pipeline {name!r}; choose from "
+                             f"{sorted(PIPELINES)}")
+        return PIPELINES[name].program(h, w, c)
+
     def compile(self, options: Optional[Options] = None) -> "Executable":
         """Static pass: resolve the (cached) plan under ``options``."""
         options = options if options is not None else Options()

@@ -13,8 +13,11 @@ from typing import Dict
 def _counters():
     from repro_torch.kernels.ca_pool.ops import LAUNCHES as ca
     from repro_torch.kernels.conv_bank.fused import LAUNCHES as chain
+    from repro_torch.kernels.conv_bank.ops import LAUNCHES as bank
+    from repro_torch.kernels.conv_bank.strip import DW_LAUNCHES as strip_dw
+    from repro_torch.kernels.conv_bank.strip import LAUNCHES as strip
     from repro_torch.kernels.photonic_mvm.ops import LAUNCHES as mvm
-    return (mvm, chain, ca)
+    return (mvm, chain, ca, strip, strip_dw, bank)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,10 +1,12 @@
-"""Plain PyTorch versions of the conv kernels.
+"""Plain PyTorch versions of the conv kernels, and the conv_bank oracles.
 
 ``conv_taps_int`` is the integer-exact conv accumulate on float-carried
-codes, written as the k*k tap loop the fused chain kernel runs;
-``conv_int_ref`` runs it per feature group; ``conv_chain_ref`` is the
-plain version of the fused chain kernel, whole frames through every stage
-with the epilogue of ``core.plan._execute_steps`` term for term.
+codes, written as the k*k tap loop the conv kernels run; ``conv_int_ref``
+runs it per feature group; ``conv_chain_ref`` is the plain version of the
+fused chain kernel, whole frames through every stage with the epilogue of
+``core.plan._execute_steps`` term for term. ``conv_bank_ref`` and
+``conv_bank_quant_ref`` are the reference's oracles of the ``conv_bank``
+op (a float conv; the integer device semantics without the epilogue).
 
 The accumulate is exact: the operands are small integers (codes 0..15,
 levels |q| <= 127) and each tap's matmul runs in float64, where every
@@ -15,6 +17,8 @@ exact sum.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -63,6 +67,59 @@ def conv_taps_int(x: torch.Tensor, wq: torch.Tensor, kernel: int,
             else:
                 acc = acc + torch.matmul(patch, wf[di, dj])
     return acc.float()
+
+
+def _stride1_pads(kernel: int, padding: str):
+    """XLA's stride-1 SAME/VALID padding, as the reference's oracles pass
+    the padding string to ``lax.conv_general_dilated``."""
+    if padding not in ("SAME", "VALID"):
+        raise ValueError(f"unknown padding {padding!r}")
+    lo = (kernel - 1) // 2 if padding == "SAME" else 0
+    hi = kernel - 1 - lo if padding == "SAME" else 0
+    return ((lo, hi), (lo, hi))
+
+
+@contextlib.contextmanager
+def float32_convs():
+    """Full float32 convolutions and matmuls for the block: on the card
+    cuDNN runs float32 convolutions in TF32 unless told not to."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def conv_bank_ref(x: torch.Tensor, w: torch.Tensor,
+                  padding: str = "SAME") -> torch.Tensor:
+    """Float conv oracle. x [B,H,W,Cin]; w [k,k,Cin,Cout] -> [B,H',W',Cout].
+
+    ``F.conv2d`` in float32 with TF32 off; its summation order is cuDNN's
+    or the CPU's own, so it is an oracle within a tolerance.
+    """
+    xp = _pad_nhwc(x.float(), _stride1_pads(w.shape[0], padding))
+    with float32_convs():
+        y = F.conv2d(xp.permute(0, 3, 1, 2), w.float().permute(3, 2, 0, 1))
+    return y.permute(0, 2, 3, 1)
+
+
+def conv_bank_quant_ref(x: torch.Tensor, w: torch.Tensor, spec,
+                        act_scale: float = 1.0 / 15.0,
+                        padding: str = "SAME") -> torch.Tensor:
+    """Quantized conv oracle — the device's integer semantics: CRC codes of
+    ``x / act_scale`` times the weight levels, exact accumulate, then
+    ``acc * act_scale * ws``."""
+    from repro_torch.core.quant import quantize_weight, true_div
+    codes = torch.clamp(torch.round(true_div(x.float(), act_scale)), 0,
+                        spec.a_qmax)
+    wq, ws = quantize_weight(w, spec)
+    acc = conv_taps_int(codes, wq, w.shape[0], 1,
+                        _stride1_pads(w.shape[0], padding))
+    return acc * act_scale * ws.reshape(1, 1, 1, -1)
 
 
 def conv_chain_ref(codes: torch.Tensor, act_scale, stages, a_qmax):

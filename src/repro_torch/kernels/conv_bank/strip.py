@@ -1,0 +1,212 @@
+"""Wrappers of the strip conv kernels (``csrc/conv_strip.cu``) and their
+plain versions.
+
+``conv_strip`` (dense, any stride) and ``conv_strip_depthwise`` (depthwise,
+multiplier 1) take the reference's strip contract: the caller pads the
+input's rows so ``n_strips`` strips of ``strip_h`` output rows tile exactly,
+``Hp == (n_strips*strip_h - 1)*stride + k`` (:func:`pad_rows_for_strips`),
+and gets every output row back; rows past the conv's true height are its
+padding to slice off. The CUDA kernel tiles the output for shared memory
+on its own, so the strips fix only that contract.
+
+With ``ws`` the per-layer epilogue follows the accumulate, in the
+reference kernel's association: ``acc * act_scale * ws``, then ``+ bias``,
+then the activation. Without ``ws`` the raw accumulate comes back.
+
+A CUDA tensor launches the kernel; a CPU tensor takes the plain version
+(``conv_strip_ref`` / ``conv_strip_depthwise_ref``: the float64 tap loop of
+``ref.conv_taps_int`` and the same epilogue). There is no fallback between
+the two.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.accelerator import _activation
+from repro_torch.kernels import _build
+from repro_torch.kernels.conv_bank.fused import ACTS
+from repro_torch.kernels.conv_bank.ref import conv_taps_int
+
+LAUNCHES = _build.LaunchCounter("conv_strip")
+DW_LAUNCHES = _build.LaunchCounter("conv_strip_depthwise")
+_ENTRY = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7 + (
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
+_SIGNATURES = {"conv_strip_launch": _ENTRY,
+               "conv_strip_dw_launch": _ENTRY[:9] + _ENTRY[10:]}
+
+
+def pad_rows_for_strips(xp: torch.Tensor, kk: int, stride: int,
+                        strip_rows: int, n_strips: int) -> torch.Tensor:
+    """Zero-pad the bottom rows of a spatially padded input so ``n_strips``
+    strips of ``strip_rows`` output rows tile exactly: the padded height is
+    ``(n_strips*strip_rows - 1)*stride + kk``. An input that already has
+    surplus rows (a strided VALID conv drops up to stride-1) is returned as
+    it is."""
+    extra = (n_strips * strip_rows - 1) * stride + kk - xp.shape[1]
+    if extra <= 0:
+        return xp
+    return F.pad(xp, (0, 0, 0, 0, 0, extra))
+
+
+def _out_rows(x_padded: torch.Tensor, kk: int, stride: int,
+              strip_h: int, what: str) -> int:
+    if x_padded.ndim != 4:
+        raise ValueError(f"{what}: x_padded must be [B, Hp, Wp, C], got "
+                         f"{tuple(x_padded.shape)}")
+    if strip_h < 1:
+        raise ValueError(f"{what}: strip_h={strip_h} must be >= 1")
+    hp, wp = x_padded.shape[1], x_padded.shape[2]
+    if hp < kk or wp < kk:
+        raise ValueError(f"{what}: padded input {hp}x{wp} is smaller than "
+                         f"the {kk}x{kk} kernel")
+    n_rows = (hp - kk) // stride + 1
+    if n_rows % strip_h:
+        raise ValueError(f"{what}: padded rows {hp} give {n_rows} output "
+                         f"rows, not a multiple of strip_h={strip_h}")
+    return n_rows
+
+
+def _check_epilogue(ws, bias, act: str, c_out: int, what: str) -> None:
+    if act not in ACTS:
+        raise ValueError(f"{what}: act {act!r} not in {tuple(ACTS)}")
+    if ws is None and (bias is not None or act != "none"):
+        raise ValueError(f"{what}: bias and act need ws (the epilogue runs "
+                         f"only after a dequant)")
+    for name, t in (("ws", ws), ("bias", bias)):
+        if t is not None and t.numel() != c_out:
+            raise ValueError(f"{what}: {name} has {t.numel()} entries for "
+                             f"{c_out} output channels")
+
+
+def _epilogue(acc: torch.Tensor, act_scale: float, ws, bias,
+              act: str) -> torch.Tensor:
+    """``acc * act_scale * ws`` -> ``+ bias`` -> activation, as the reference
+    strip kernel's ``_epilogue`` associates it."""
+    if ws is None:
+        return acc
+    out = acc * act_scale * ws.reshape(-1).float()
+    if bias is not None:
+        out = out + bias.reshape(-1).float()
+    return _activation(out, act)
+
+
+def conv_strip_ref(x_padded: torch.Tensor, w: torch.Tensor,
+                   ws: Optional[torch.Tensor] = None, stride: int = 1,
+                   strip_h: int = 8, act_scale: float = 1.0,
+                   act: str = "none", bias: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+    """Plain version of :func:`conv_strip`."""
+    kk, c_out = w.shape[0], w.shape[-1]
+    _out_rows(x_padded, kk, stride, strip_h, "conv_strip")
+    _check_epilogue(ws, bias, act, c_out, "conv_strip")
+    acc = conv_taps_int(x_padded, w, kk, stride, ((0, 0), (0, 0)))
+    return _epilogue(acc, act_scale, ws, bias, act)
+
+
+def conv_strip_depthwise_ref(x_padded: torch.Tensor, w_taps: torch.Tensor,
+                             ws: Optional[torch.Tensor] = None,
+                             stride: int = 1, strip_h: int = 8,
+                             act_scale: float = 1.0, act: str = "none",
+                             bias: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """Plain version of :func:`conv_strip_depthwise`."""
+    kk, c = _taps_kernel(w_taps, x_padded)
+    _out_rows(x_padded, kk, stride, strip_h, "conv_strip_depthwise")
+    _check_epilogue(ws, bias, act, c, "conv_strip_depthwise")
+    acc = conv_taps_int(x_padded, w_taps.reshape(kk, kk, 1, c), kk, stride,
+                        ((0, 0), (0, 0)), depthwise=True)
+    return _epilogue(acc, act_scale, ws, bias, act)
+
+
+def _taps_kernel(w_taps: torch.Tensor, x_padded: torch.Tensor):
+    kk = math.isqrt(w_taps.shape[0])
+    c = w_taps.shape[-1]
+    if w_taps.ndim != 2 or kk * kk != w_taps.shape[0] or \
+            x_padded.shape[-1] != c:
+        raise ValueError(f"conv_strip_depthwise: w_taps {tuple(w_taps.shape)}"
+                         f" is not [k*k, C] for C={x_padded.shape[-1]}")
+    return kk, c
+
+
+def launch(x_padded: torch.Tensor, w: torch.Tensor, ws, bias,
+           act_scale: float, act: str, stride: int, depthwise: bool,
+           counter: _build.LaunchCounter) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors (validated by the caller) and
+    count it on ``counter``: dense ``w`` is [k, k, C_in, C_out], depthwise
+    ``w`` is [k*k, C]. Returns every output row of the padded input."""
+    dev = x_padded.device
+    kk = w.shape[0] if not depthwise else math.isqrt(w.shape[0])
+    b, hp, wp, c_in = x_padded.shape
+    c_out = w.shape[-1]
+    n_rows = (hp - kk) // stride + 1
+    w_out = (wp - kk) // stride + 1
+    for t in (w, ws, bias):
+        if t is not None and t.device != dev:
+            raise ValueError(f"conv_strip: operands on {dev} and {t.device}")
+    # float32, contiguous; ws and bias flat (the plan's ws is [1, 1, 1, C])
+    ops = [t.to(torch.float32).contiguous() for t in (x_padded, w)]
+    ops += [t if t is None else t.reshape(-1).to(torch.float32).contiguous()
+            for t in (ws, bias)]
+    out = torch.empty((b, n_rows, w_out, c_out), dtype=torch.float32,
+                      device=dev)
+    if out.numel() == 0:
+        return out
+    ptr = [None if t is None else t.data_ptr() for t in ops]
+    lib = _build.library("conv_strip", _SIGNATURES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if depthwise:
+        err = lib.conv_strip_dw_launch(*ptr, out.data_ptr(), b, hp, wp, c_in,
+                                       kk, stride, float(act_scale),
+                                       ACTS[act], stream)
+    else:
+        err = lib.conv_strip_launch(*ptr, out.data_ptr(), b, hp, wp, c_in,
+                                    c_out, kk, stride, float(act_scale),
+                                    ACTS[act], stream)
+    _build.check(err, "conv_strip_depthwise" if depthwise else "conv_strip")
+    counter.inc()
+    return out
+
+
+def conv_strip(x_padded: torch.Tensor, w: torch.Tensor,
+               ws: Optional[torch.Tensor] = None, stride: int = 1,
+               strip_h: int = 8, act_scale: float = 1.0, act: str = "none",
+               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Dense k x k conv over strips: x_padded [B, Hp, Wp, C_in], w [k, k,
+    C_in, C_out] -> [B, (Hp-k)/stride+1, W', C_out] float32, bitwise equal
+    to :func:`conv_strip_ref` on integer-valued operands."""
+    kk, c_out = w.shape[0], w.shape[-1]
+    if w.ndim != 4 or w.shape[1] != kk or w.shape[2] != x_padded.shape[-1]:
+        raise ValueError(f"conv_strip: w {tuple(w.shape)} is not [k, k, "
+                         f"{x_padded.shape[-1]}, C_out]")
+    if not x_padded.is_cuda:
+        return conv_strip_ref(x_padded, w, ws, stride, strip_h, act_scale,
+                              act, bias)
+    _out_rows(x_padded, kk, stride, strip_h, "conv_strip")
+    _check_epilogue(ws, bias, act, c_out, "conv_strip")
+    return launch(x_padded, w, ws, bias, act_scale, act, stride, False,
+                  LAUNCHES)
+
+
+def conv_strip_depthwise(x_padded: torch.Tensor, w_taps: torch.Tensor,
+                         ws: Optional[torch.Tensor] = None, stride: int = 1,
+                         strip_h: int = 8, act_scale: float = 1.0,
+                         act: str = "none",
+                         bias: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Depthwise k x k conv over strips: x_padded [B, Hp, Wp, C], w_taps
+    [k*k, C] (tap-major) -> [B, (Hp-k)/stride+1, W', C] float32, bitwise
+    equal to :func:`conv_strip_depthwise_ref`."""
+    if not x_padded.is_cuda:
+        return conv_strip_depthwise_ref(x_padded, w_taps, ws, stride,
+                                        strip_h, act_scale, act, bias)
+    kk, c = _taps_kernel(w_taps, x_padded)
+    _out_rows(x_padded, kk, stride, strip_h, "conv_strip_depthwise")
+    _check_epilogue(ws, bias, act, c, "conv_strip_depthwise")
+    return launch(x_padded, w_taps, ws, bias, act_scale, act, stride, True,
+                  DW_LAUNCHES)

@@ -3,11 +3,12 @@
 Two backends, chosen per executable by ``Options(backend=...)``:
 
   kernel     — the hand-written CUDA kernels through their wrappers
-               (``photonic_mvm.ops``, ``conv_bank.fused``, ``ca_pool.ops``).
-               A wrapper given a CUDA tensor launches its kernel; given a
-               CPU tensor it runs the kernel's plain version. So on the CPU
-               this backend runs the same Python around the kernels (im2col,
-               stage descriptors, shapes) with plain arithmetic inside.
+               (``photonic_mvm.ops``, ``conv_bank.strip``,
+               ``conv_bank.fused``, ``ca_pool.ops``). A wrapper given a CUDA
+               tensor launches its kernel; given a CPU tensor it runs the
+               kernel's plain version. So on the CPU this backend runs the
+               same Python around the kernels (im2col, strip padding, stage
+               descriptors, shapes) with plain arithmetic inside.
   reference  — the plain PyTorch oracles (``conv_int_ref``, the exact
                float64 tap loop of ``conv_taps_int``; ``mvm_int_ref``,
                ``conv_chain_ref``, ``compressive_acquire``) on whatever
@@ -16,17 +17,24 @@ Two backends, chosen per executable by ``Options(backend=...)``:
 Both backends are bitwise equal: the accumulates are exact integers and
 every float step rounds the same way.
 
-Conv strategy and chain fusion follow the reference package's rules and
-its default 4 MiB budget, so plans and reports equal the reference's:
+Conv strategies follow the reference package's rules and its default 4 MiB
+budget, so they equal the reference's:
 
   resident   — im2col into the photonic MVM kernel.
   strip      — convs whose per-frame patch matrix would exceed the budget,
-               and every depthwise conv. The strip kernels are not ported
-               yet: on CUDA a strip conv raises ``NotImplementedError``;
-               on the CPU it runs the plain accumulate.
+               and every depthwise conv: the strip conv kernels
+               (``conv_strip``, ``conv_strip_depthwise``; general grouped
+               convs one dense call per group).
   fused      — runs of chainable convs execute as one ``conv_chain`` launch
                per segment (``select_fused_segments``), under per-frame
                calibration or at batch 1.
+
+Fusion differs from the reference in one rule: the chain kernel holds a
+whole frame's stages in one block's shared memory (227 KB on the H100),
+so ``auto`` grows a run only while the segment fits there, and ``on``
+refuses at compile time a segment that cannot fit. Where the reference
+fuses past that (``edge_detect`` at 256x256, for one), the port's plan has
+fewer segments; the numbers are bitwise the same either way.
 """
 
 from __future__ import annotations
@@ -35,20 +43,18 @@ import dataclasses
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.conv_bank.fused import SMEM_PER_BLOCK, smem_layout
 
 BACKENDS = ("kernel", "reference")
 CONV_STRATEGIES = ("auto", "resident", "strip", "fused")
 FUSE_MODES = ("auto", "on", "off")
 
 # What one conv's working set may claim, in bytes: the reference's TPU
-# VMEM budget, kept so the port resolves the same strategies and segments.
-# Re-deriving it for Hopper's 227 KB of shared memory per block is later
-# work; the fused kernel checks the shared memory a segment needs itself.
+# VMEM budget, kept so the port resolves the same conv strategies (the
+# strip kernel tiles for shared memory on its own, whatever the strips).
 DEFAULT_CONV_VMEM_BUDGET = 4 << 20
-
-STRIP_NOT_PORTED = ("the strip conv kernels (conv_strip_kernel, "
-                    "conv_strip_depthwise_kernel) are not ported to CUDA "
-                    "yet: ROADMAP Queue 2 items 2 and 3")
 
 
 # ---------------------------------------------------------------------------
@@ -235,8 +241,11 @@ def select_fused_segments(geoms: Sequence[Optional[ChainGeom]],
 
     ``geoms`` is aligned with the plan's steps (``None`` for non-conv steps,
     which break a run). ``auto`` fuses maximal runs of >= 2 stages under the
-    channel cap and budget; ``on`` fuses every legal run, singletons
-    included; ``off`` returns no segments.
+    channel cap and budget whose frames fit the chain kernel's shared
+    memory (a stage that would overflow it closes the run and starts the
+    next); ``on`` fuses every legal run, singletons included, and raises
+    ``ValueError`` for a run that does not fit; ``off`` returns no
+    segments.
     """
     if mode not in FUSE_MODES:
         raise ValueError(f"unknown fuse mode {mode!r}; expected {FUSE_MODES}")
@@ -246,7 +255,16 @@ def select_fused_segments(geoms: Sequence[Optional[ChainGeom]],
     min_len = 2 if auto else 1
     segments, run_start, run = [], 0, []
 
+    def _fits(stages) -> bool:
+        return smem_layout(stages)[2] <= SMEM_PER_BLOCK
+
     def _flush():
+        if run and not _fits(run):
+            names = [g.name for g in run]
+            raise ValueError(
+                f"fuse='on': segment {names} needs {smem_layout(run)[2]} "
+                f"bytes of shared memory per frame; the chain kernel's block "
+                f"has {SMEM_PER_BLOCK}")
         if len(run) >= min_len:
             segments.append(FusedSegmentSpec(
                 run_start, tuple(g.name for g in run),
@@ -255,12 +273,16 @@ def select_fused_segments(geoms: Sequence[Optional[ChainGeom]],
         run.clear()
 
     for i, g in enumerate(geoms):
-        if g is not None and _fusable(g, budget, auto):
-            if not run:
-                run_start = i
-            run.append(g)
-        else:
+        if g is None or not _fusable(g, budget, auto):
             _flush()
+            continue
+        if auto and not _fits(run + [g]):
+            _flush()
+            if not _fits([g]):
+                continue
+        if not run:
+            run_start = i
+        run.append(g)
     _flush()
     return tuple(segments)
 
@@ -312,8 +334,9 @@ def conv_int(codes: torch.Tensor, wq: torch.Tensor, stride: int, pads,
     levels -> f32 [B,H',W',Cout], no dequant.
 
     The kernel backend runs a resident conv as im2col into the photonic MVM
-    kernel (one call per group). ``strategy`` is what the plan resolved at
-    compile time; ``None`` resolves it here with the default rules.
+    kernel (one call per group) and a strip conv through the strip kernels.
+    ``strategy`` is what the plan resolved at compile time; ``None``
+    resolves it here with the default rules.
     """
     _check_backend(backend)
     from repro_torch.kernels.conv_bank.ref import conv_int_ref
@@ -331,9 +354,8 @@ def conv_int(codes: torch.Tensor, wq: torch.Tensor, stride: int, pads,
         strategy = select_conv_strategy(h_out, w_out, codes.shape[-1],
                                         c_out, k, stride, groups)
     if strategy.kind == "strip":
-        if codes.is_cuda:
-            raise NotImplementedError(STRIP_NOT_PORTED)
-        return conv_int_ref(codes, wq, stride, pads, groups)
+        return _conv_int_strip(codes, wq, stride, pads, groups, strategy,
+                               h_out)
     b = codes.shape[0]
     og = c_out // groups
     outs = []
@@ -344,6 +366,36 @@ def conv_int(codes: torch.Tensor, wq: torch.Tensor, stride: int, pads,
             k * k * cg, og), backend)
         outs.append(acc.reshape(b, h_out, w_out, og))
     return outs[0] if groups == 1 else torch.cat(outs, dim=-1)
+
+
+def _conv_int_strip(codes: torch.Tensor, wq: torch.Tensor, stride: int,
+                    pads, groups: int, strat: ConvStrategy,
+                    h_out: int) -> torch.Tensor:
+    """Raw integer accumulate through the strip conv kernels.
+
+    Pads the rows so ``n_strips`` strips tile exactly (zero rows add zero;
+    the surplus output rows are sliced off), then routes: dense ->
+    ``conv_strip``; depthwise, multiplier 1 -> ``conv_strip_depthwise``;
+    general grouped -> one ``conv_strip`` call per group.
+    """
+    from repro_torch.kernels.conv_bank import strip as SK
+    k, _, cg, c_out = wq.shape
+    (plo, phi), (qlo, qhi) = pads
+    xp = SK.pad_rows_for_strips(F.pad(codes, (0, 0, qlo, qhi, plo, phi)),
+                                k, stride, strat.strip_rows, strat.n_strips)
+    w = wq.to(torch.float32)
+    kw = dict(stride=stride, strip_h=strat.strip_rows)
+    if groups == 1:
+        out = SK.conv_strip(xp, w, **kw)
+    elif cg == 1 and groups == codes.shape[-1] and c_out == groups:
+        out = SK.conv_strip_depthwise(xp, w.reshape(k * k, c_out), **kw)
+    else:
+        og = c_out // groups
+        out = torch.cat([
+            SK.conv_strip(xp[..., g * cg:(g + 1) * cg],
+                          w[..., g * og:(g + 1) * og], **kw)
+            for g in range(groups)], dim=-1)
+    return out[:, :h_out]
 
 
 def conv_chain(codes: torch.Tensor, act_scale, stages: Sequence, a_qmax,

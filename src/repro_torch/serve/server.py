@@ -120,7 +120,8 @@ class ServeConfig:
         if self.devices is not None and self.devices > 1:
             raise NotImplementedError(
                 f"devices={self.devices}: the multi-device pool is not "
-                f"ported yet (ROADMAP Queue 1 item 6); serve on one device")
+                f"ported yet (ROADMAP Queue 1, the multi-GPU pool); serve on "
+                f"one device")
         if self.devices is not None and self.devices < 1:
             raise ValueError(f"devices must be >= 1, got {self.devices}")
         resolve_device(self.device)

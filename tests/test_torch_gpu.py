@@ -4,21 +4,27 @@ Every test here needs a CUDA device and skips without one (the ``gpu``
 marker; run them on the card with ``pytest -m gpu tests/test_torch_gpu.py``).
 On the card each kernel's wrapper must launch its kernel, count the launch,
 and be bitwise equal to its plain PyTorch version on the same inputs; the
-whole serving path on the card must equal the port's CPU run.
+whole serving path on the card must equal the port's CPU run, and an
+imaging pipeline served through ``serve.Server`` must equal batch-1 runs.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch import Options, Program
+from repro_torch import Options, Program, serve
 from repro_torch.core.compressive import compressive_acquire
 from repro_torch.core.plan import padtype_to_pads
+from repro_torch.core.quant import W4A4
 from repro_torch.kernels import dispatch, launch_counts, reset_launch_counts
 from repro_torch.kernels.ca_pool.ops import ca_pool
+from repro_torch.kernels.conv_bank import strip
 from repro_torch.kernels.conv_bank.fused import conv_chain
+from repro_torch.kernels.conv_bank.ops import conv_bank, conv_bank_plain
 from repro_torch.kernels.conv_bank.ref import conv_chain_ref
 from repro_torch.kernels.photonic_mvm.ops import mvm_int
 from repro_torch.kernels.photonic_mvm.ref import mvm_int_ref
@@ -96,12 +102,114 @@ def test_ca_kernel_bitwise_equal_to_plain(cuda, shape, pool, gray):
     assert torch.equal(got, compressive_acquire(img, pool, gray))
 
 
-def test_strip_conv_raises_on_cuda(cuda):
-    codes = torch.zeros((1, 8, 8, 2), device=cuda)
-    wq = torch.zeros((3, 3, 2, 2), dtype=torch.int8, device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dispatch.conv_int(codes, wq, 1, ((1, 1), (1, 1)),
-                          strategy=dispatch.ConvStrategy("strip", 8, 1))
+@pytest.mark.parametrize("b,h,w,ci,co,k,stride,strip_h,n_strips", [
+    (8, 256, 256, 1, 1, 5, 1, 256, 1),        # unsharp_mask at bucket 8
+    (8, 256, 256, 4, 1, 3, 1, 256, 1),        # compress_recon_deconv's rec2
+    (2, 56, 56, 64, 128, 3, 1, 28, 2),        # a VGG16-like layer
+    (3, 31, 29, 3, 5, 3, 2, 5, 3),            # stride 2, ragged tiles
+    (1, 40, 40, 2, 16, 11, 4, 8, 1)])         # k 11 stride 4 (opt-in smem)
+def test_strip_kernel_bitwise_equal_to_plain(cuda, b, h, w, ci, co, k,
+                                             stride, strip_h, n_strips):
+    g = torch.Generator().manual_seed(h + w + k)
+    xp = torch.randint(0, 16, (b, (n_strips * strip_h - 1) * stride + k,
+                               w, ci), generator=g).float().to(cuda)
+    wq = torch.randint(-7, 8, (k, k, ci, co), generator=g).float().to(cuda)
+    ws = (torch.rand((co,), generator=g) + 0.5).to(cuda)
+    bias = torch.randn((co,), generator=g).to(cuda)
+    reset_launch_counts()
+    got = strip.conv_strip(xp, wq, stride=stride, strip_h=strip_h)
+    assert launch_counts()["conv_strip"] == 1
+    assert torch.equal(got, strip.conv_strip_ref(xp, wq, stride=stride,
+                                                 strip_h=strip_h))
+    kw = dict(stride=stride, strip_h=strip_h, act_scale=0.37, act="relu",
+              bias=bias)
+    assert torch.equal(strip.conv_strip(xp, wq, ws, **kw),
+                       strip.conv_strip_ref(xp, wq, ws, **kw))
+
+
+@pytest.mark.parametrize("b,h,c,k,stride,strip_h,n_strips", [
+    (8, 256, 3, 5, 1, 256, 1), (8, 256, 3, 3, 1, 256, 1),
+    (2, 512, 3, 5, 1, 256, 2), (2, 37, 20, 3, 2, 6, 3)])
+def test_depthwise_strip_kernel_bitwise_equal_to_plain(cuda, b, h, c, k,
+                                                       stride, strip_h,
+                                                       n_strips):
+    g = torch.Generator().manual_seed(h + c + k)
+    xp = torch.randint(0, 16, (b, (n_strips * strip_h - 1) * stride + k,
+                               h + k - 1, c), generator=g).float().to(cuda)
+    taps = torch.randint(-7, 8, (k * k, c), generator=g).float().to(cuda)
+    ws = (torch.rand((c,), generator=g) + 0.5).to(cuda)
+    reset_launch_counts()
+    got = strip.conv_strip_depthwise(xp, taps, stride=stride,
+                                     strip_h=strip_h)
+    assert launch_counts()["conv_strip_depthwise"] == 1
+    assert torch.equal(got, strip.conv_strip_depthwise_ref(
+        xp, taps, stride=stride, strip_h=strip_h))
+    kw = dict(stride=stride, strip_h=strip_h, act_scale=0.11, act="abs")
+    assert torch.equal(strip.conv_strip_depthwise(xp, taps, ws, **kw),
+                       strip.conv_strip_depthwise_ref(xp, taps, ws, **kw))
+
+
+@pytest.mark.parametrize("strategy", ["resident", "strip"])
+@pytest.mark.parametrize("k", [3, 5, 7])
+def test_conv_bank_kernels_bitwise_equal_to_plain(cuda, k, strategy):
+    g = torch.Generator().manual_seed(k)
+    x = torch.rand((2, 33, 30, 8), generator=g).to(cuda)
+    w = (torch.randn((k, k, 8, 16), generator=g) * 0.2).to(cuda)
+    bias = (torch.randn((16,), generator=g) * 0.1).to(cuda)
+    kw = dict(spec=W4A4, strategy=strategy, act="relu", bias=bias)
+    reset_launch_counts()
+    got = conv_bank(x, w, **kw)
+    counts = launch_counts()
+    assert counts["conv_bank" if strategy == "resident" else "conv_strip"] \
+        == 1
+    assert torch.equal(got, conv_bank_plain(x, w, **kw))
+    # float mode: float64 products summed in the kernel's own order
+    torch.testing.assert_close(conv_bank(x, w, strategy=strategy),
+                               conv_bank_plain(x, w, strategy=strategy),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["unsharp_mask", "denoise_gauss",
+                                  "compress_recon_deconv"])
+def test_pipeline_served_on_card_equals_batch1_and_cpu(cuda, name):
+    prog = Program.from_pipeline(name, 64, 64)
+    f = np.random.default_rng(3).random((5, 64, 64, 3)).astype(np.float32)
+    opts = Options(device="cuda", conv_vmem_budget=64 << 10)
+    exe = prog.compile(opts)
+    assert any(s.strategy.kind == "strip" for s in exe.plan.steps
+               if hasattr(s, "strategy"))
+    reset_launch_counts()
+    padded = exe.run_padded(f, 8).cpu().numpy()
+    assert launch_counts()["conv_strip" if name != "denoise_gauss"
+                           else "conv_strip_depthwise"] > 0
+    singles = np.concatenate([exe.run_per_frame(f[i:i + 1]).cpu().numpy()
+                              for i in range(5)])
+    np.testing.assert_array_equal(padded, singles)
+    cpu = prog.compile(dataclasses.replace(opts, device="cpu"))
+    np.testing.assert_array_equal(padded, cpu.run_per_frame(f).numpy())
+
+
+def test_pipeline_through_server_on_card_equals_batch1(cuda):
+    prog = Program.from_pipeline("unsharp_mask", 256, 256)
+    server = serve.Server(serve.ServeConfig(max_batch=8, max_wait_ms=2.0,
+                                            batch_buckets=(1, 2, 4, 8)))
+    server.register("unsharp_mask", prog)
+    server.start()
+    rng = np.random.default_rng(4)
+    reqs = [rng.random((n, 256, 256, 3)).astype(np.float32)
+            for n in (1, 3, 2)]
+    try:
+        reset_launch_counts()
+        outs = [f.result(timeout=120) for f in
+                [server.submit("unsharp_mask", r) for r in reqs]]
+        assert launch_counts()["conv_strip"] > 0
+    finally:
+        server.stop()
+    exe = prog.compile(Options())
+    for frames, out in zip(reqs, outs):
+        singles = np.concatenate([exe.run_per_frame(frames[i:i + 1]).cpu()
+                                  .numpy() for i in range(len(frames))])
+        np.testing.assert_array_equal(np.asarray(out), singles)
 
 
 @pytest.mark.parametrize("name", ["lenet", "vgg9"])

@@ -148,8 +148,8 @@ def test_run_padded_equals_batch1_runs(pair, name):
 
 
 def test_forced_strip_runs_plain_accumulate_on_cpu(pair):
-    """A strip conv has no CUDA kernel yet; on the CPU it runs the plain
-    accumulate and still equals the reference."""
+    """A forced strip strategy runs the strip kernels' plain versions on the
+    CPU and still equals the reference."""
     jprog, tprog = pair["lenet"]
     f = frames("lenet")
     jexe = jprog.compile(repro.Options(scheme=jquant.W4A4,
@@ -162,12 +162,9 @@ def test_forced_strip_runs_plain_accumulate_on_cpu(pair):
 
 
 def test_unported_pieces_raise():
-    with pytest.raises(NotImplementedError, match="upsample"):
-        from repro_torch.core.accelerator import (CASpec, FlattenSpec,
-                                                  UpsampleSpec)
-        Program((CASpec(2, True), UpsampleSpec(2), FlattenSpec()), {},
-                (8, 8, 3)).compile(Options(device="cpu")).run(
-                    np.zeros((1, 8, 8, 3), np.float32))
+    from repro_torch import serve
+    with pytest.raises(NotImplementedError, match="multi-device pool"):
+        serve.ServeConfig(device="cpu", devices=2)
     with pytest.raises(ValueError, match="backend"):
         Options(device="cpu", backend="pallas")
 
