@@ -6,6 +6,8 @@
                                        # kernels' plain versions; exits 2
     python3 chip_smoke.py --details PATH   # where the detail JSON goes
                                            # (default build/chip_smoke.json)
+    python3 chip_smoke.py --reread DIR     # re-read the two profiler traces
+                                           # a run left in DIR; no card
 
 Two served paths, each driven through ``serve.Server`` with the kernel
 launch counts zeroed just before its requests and read just after:
@@ -48,6 +50,12 @@ The last three lines of standard output are the ``kernels`` JSON object,
 ``{"ok": true, "device": {...}}``. Longer detail (per-call times, serving
 stats) goes to the ``--details`` file. The script imports nothing of JAX
 or of the reference package.
+
+``--reread DIR`` reads the two Chrome traces that a run of this script (of
+this commit or an earlier one) wrote beside its details file, and prints
+as JSON each timing range's device time per batch by kernel function and
+the imaging serving window's busy share, attributed as a run of this
+commit attributes them: one yardstick for runs of different commits.
 """
 
 from __future__ import annotations
@@ -91,6 +99,11 @@ STRIP_CONVS = [("stride2_valid", (2, 65, 63, 8), (3, 3, 8, 16), 2, "VALID", 1),
                ("vgg16_like", (2, 56, 56, 64), (3, 3, 64, 128), 1, "SAME", 1)]
 SERVE_WINDOW = "chip_smoke.serve_window"
 DEVICE_RANGE = "chip_smoke.device_time."
+DEVICE_ITERS = 20                   # batches in each device-time range
+DEVICE_TRACE = "device_time_trace.json"
+SERVE_TRACE = "imaging_serve_trace.json"
+# the port's kernels are top-level functions of an anonymous namespace
+PORT_KERNEL = r"^(void )?\(anonymous namespace\)::"
 KERNELS = ("photonic_mvm", "conv_chain", "ca_pool", "conv_strip",
            "conv_strip_depthwise", "conv_bank")
 # the kernels each served path must launch
@@ -111,12 +124,12 @@ SOURCES = {
     "conv_bank": ("src/repro_torch/csrc/conv_strip.cu",
                   "src/repro/kernels/conv_bank/kernel.py:85")}
 # device-time symbols (space-free regexes over the profiler's kernel names)
-KERNEL_SYMBOLS = {"photonic_mvm": r"mvm_int_kernel",
+KERNEL_SYMBOLS = {"photonic_mvm": r"mvm_(gemm|reduce|skinny)_kernel",
                   "conv_chain": r"conv_chain_kernel",
                   "ca_pool": r"ca_gray_kernel|ca_mean_kernel",
-                  "conv_strip": r"conv_tile_kernel<\d+,false>",
-                  "conv_strip_depthwise": r"conv_tile_kernel<\d+,true>",
-                  "conv_bank": r"conv_tile_kernel<\d+,false>"}
+                  "conv_strip": r"conv_dense_kernel",
+                  "conv_strip_depthwise": r"conv_dw_kernel",
+                  "conv_bank": r"conv_dense_kernel"}
 
 
 class SmokeFailure(RuntimeError):
@@ -139,6 +152,37 @@ def nvidia_smi() -> str:
         timeout=60)
     need(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_report(log_text):
+    """Per kernel function in an ``nvcc -Xptxas -v`` log: registers, static
+    shared memory and spill bytes. Names are demangled enough to read:
+    ``mvm_gemm_kernel<16,64,1,4>``."""
+    out, cur = [], None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            base = re.search(r"\d+([a-z_]+_kernel)", name)
+            args = re.findall(r"Li(\d+)E", name)
+            label = (base.group(1) if base else name) + (
+                f"<{','.join(args)}>" if args else "")
+            cur = {"function": label, "registers": None, "smem_bytes": 0,
+                   "spill_stores": 0, "spill_loads": 0}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["smem_bytes"] = int(m.group(1)) if m else 0
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -333,6 +377,8 @@ def phase_kernels(device, vision, imaging):
     from repro_torch.kernels.conv_bank.fused import conv_chain
     from repro_torch.kernels.conv_bank.ops import conv_bank, conv_bank_plain
     from repro_torch.kernels.conv_bank.ref import conv_chain_ref, conv_int_ref
+    from repro_torch.kernels.edge_shapes import (MVM_EDGES, STRIP_EDGES,
+                                                 odd_offset)
     from repro_torch.kernels.photonic_mvm.ops import mvm_int
     from repro_torch.kernels.photonic_mvm.ref import mvm_int_ref
     gen = torch.Generator().manual_seed(SEED + 7)
@@ -369,10 +415,12 @@ def phase_kernels(device, vision, imaging):
              for k in KERNELS}
 
     ragged = []
-    for m, k, n in RAGGED_MVM:
+    for m, k, n in RAGGED_MVM + [e[:3] for e in MVM_EDGES]:
         a = torch.randint(0, 16, (m, k), generator=gen).to(torch.int8)
         w = torch.randint(-127, 128, (k, n), generator=gen).to(torch.int8)
         ragged.append((a.to(device), w.to(device)))
+        # the same operands one byte past an allocation: no aligned copy
+        ragged.append((odd_offset(a.to(device)), odd_offset(w.to(device))))
     for a, w in calls["photonic_mvm"] + ragged:
         ws = (torch.rand((w.shape[1],), generator=gen) + 0.5).to(device)
         for act_scale, scales in ((1.0, None), (0.37, ws)):
@@ -437,6 +485,22 @@ def phase_kernels(device, vision, imaging):
             kw.update(act_scale=0.37, act="relu", bias=bias)
             compare(kernel, run(xp, wf, ws, **kw), plain(xp, wf, ws, **kw),
                     f"{conv} with epilogue")
+    for b, h_out, w_out, ci, co, k, stride in STRIP_EDGES:
+        xp = torch.randint(0, 16, (b, (h_out - 1) * stride + k,
+                                   (w_out - 1) * stride + k, ci),
+                           generator=gen).float().to(device)
+        wq = torch.randint(-127, 128, (k, k, ci, co),
+                           generator=gen).float().to(device)
+        ws = (torch.rand((co,), generator=gen) + 0.5).to(device)
+        bias = torch.randn((co,), generator=gen).to(device)
+        what = f"edge {xp.shape[1:3]} {ci}->{co} k{k} s{stride}"
+        kw = dict(stride=stride, strip_h=h_out)
+        compare("conv_strip", strip.conv_strip(xp, wq, **kw),
+                strip.conv_strip_ref(xp, wq, **kw), what)
+        for act in ("relu", "abs", "sign"):
+            kw.update(act_scale=0.37, act=act, bias=bias)
+            compare("conv_strip", strip.conv_strip(xp, wq, ws, **kw),
+                    strip.conv_strip_ref(xp, wq, ws, **kw), f"{what} {act}")
     for name, xs, wshape, stride, padding, groups in STRIP_CONVS:
         x = torch.randint(0, 16, xs, generator=gen).float().to(device)
         wq = torch.randint(-7, 8, wshape, generator=gen).float().to(device)
@@ -516,6 +580,32 @@ def bound_ms(nbytes, ops, kind):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def mvm_library(a, w):
+    """One PyTorch call for photonic_mvm's raw accumulate: ``torch._int_mm``
+    where it is legal (M > 16, K and N multiples of 8), else a float32
+    matmul of the same integers (exact: the sums stay below 2^24)."""
+    import torch
+    m, k = a.shape
+    n = w.shape[1]
+    if a.is_cuda and m > 16 and k % 8 == 0 and n % 8 == 0:
+        return (lambda: torch._int_mm(a, w)), "torch._int_mm"
+    af, wf = a.float(), w.float()
+    return (lambda: af @ wf), "f32 matmul"
+
+
+def strip_library(xp, wf, stride, dw):
+    """``F.conv2d`` on the same padded codes (NCHW views; groups=C for the
+    depthwise kernel): the strip kernels' one-call yardstick."""
+    import torch.nn.functional as F
+    co = wf.shape[-1]
+    k = math.isqrt(wf.shape[0]) if dw else wf.shape[0]
+    w_oihw = (wf.t().reshape(co, 1, k, k) if dw
+              else wf.permute(3, 2, 0, 1)).contiguous()
+    nchw = xp.permute(0, 3, 1, 2)
+    groups = co if dw else 1
+    return lambda: F.conv2d(nchw, w_oihw, stride=stride, groups=groups)
+
+
 def phase_timing(device, vision, imaging):
     """Per kernel, its calls for one bucket-8 batch summed: the slice-1
     kernels on the vision path, the strip kernels on the imaging path, the
@@ -535,39 +625,45 @@ def phase_timing(device, vision, imaging):
     time_ms = timer(device)
     rows, detail = {}, {k: [] for k in KERNELS}
 
-    def add(kernel, ms, plain, lib, nbytes, ops, kind, **shape):
+    def add(kernel, ms, plain, lib, nbytes, ops, kind, path=None, **shape):
         b, by = bound_ms(nbytes, ops, kind)
-        detail[kernel].append(dict(shape, ms=ms, plain_ms=plain,
+        detail[kernel].append(dict(shape, path=path, ms=ms, plain_ms=plain,
                                    library_ms=lib, bound_ms=b, bound_by=by,
                                    bytes=nbytes, ops=ops))
         r = rows.setdefault(kernel, {"ms": 0.0, "plain_ms": 0.0,
                                      "library_ms": 0.0, "bound_ms": 0.0,
                                      "t_bytes": 0.0, "t_ops": 0.0,
-                                     "library_exact": None})
-        r["ms"] += ms
-        r["plain_ms"] += plain
-        r["library_ms"] = None if lib is None or r["library_ms"] is None \
-            else r["library_ms"] + lib
-        r["bound_ms"] += b
+                                     "library_exact": None, "by_path": {}})
+        p = r["by_path"].setdefault(path, {"ms": 0.0, "plain_ms": 0.0,
+                                           "library_ms": 0.0,
+                                           "bound_ms": 0.0, "calls": 0})
+        for acc in (r, p):
+            acc["ms"] += ms
+            acc["plain_ms"] += plain
+            acc["library_ms"] = None if lib is None or \
+                acc["library_ms"] is None else acc["library_ms"] + lib
+            acc["bound_ms"] += b
+        p["calls"] += 1
         r["t_bytes"] += nbytes / HBM_BYTES_PER_S * 1e3
         r["t_ops"] += ops / PEAK_OPS[kind] * 1e3
         if "library_exact" in shape:       # None: not the same function
             r["library_exact"] = shape["library_exact"] and \
                 r["library_exact"] is not False
 
-    for a, w in vision["photonic_mvm"]:   # the path's form: no ws
+    from repro_torch.kernels.conv_bank.strip import strip_config
+    from repro_torch.kernels.photonic_mvm.ops import mvm_config
+    mvm_calls = [("vision", a, w) for a, w in vision["photonic_mvm"]] + \
+        [("imaging", a, w) for a, w in imaging["photonic_mvm"]]
+    for path, a, w in mvm_calls:          # the path's form: no ws
         m, k = a.shape
         n = w.shape[1]
-        if device.type == "cuda" and m > 16 and k % 8 == 0 and n % 8 == 0:
-            lib_fn, lib_name = (lambda a=a, w=w: torch._int_mm(a, w)), \
-                "torch._int_mm"
-        else:
-            af, wf = a.float(), w.float()
-            lib_fn, lib_name = (lambda af=af, wf=wf: af @ wf), "f32 matmul"
+        cfg = mvm_config(m, k, n)
+        lib_fn, lib_name = mvm_library(a, w)
         add("photonic_mvm", time_ms(lambda: mvm_int(a, w)),
             time_ms(lambda: mvm_int_ref(a, w)), time_ms(lib_fn),
-            m * k + k * n + 4 * m * n, 2 * m * n * k, "int8",
-            M=m, K=k, N=n, library=lib_name)
+            m * k + k * n + 4 * m * n, 2 * m * n * k, "int8", path,
+            M=m, K=k, N=n, library=lib_name, route=cfg.route,
+            tile=[cfg.bm, cfg.bn], split=cfg.split, ctas=cfg.ctas)
 
     for codes, scale, stages, aq in vision["conv_chain"]:
         b = codes.shape[0]
@@ -584,7 +680,7 @@ def phase_timing(device, vision, imaging):
         add("conv_chain",
             time_ms(lambda: conv_chain(codes, scale, stages, aq)),
             time_ms(lambda: conv_chain_ref(codes, scale, stages, aq)), None,
-            nbytes, ops, "int8", B=b,
+            nbytes, ops, "int8", "vision", B=b,
             stages="+".join(g.name for g, _, _, _ in stages))
 
     for img, p in vision["ca_pool"]:
@@ -598,7 +694,8 @@ def phase_timing(device, vision, imaging):
         add("ca_pool", time_ms(lambda: ca_pool(img, p, True)),
             time_ms(lambda: compressive_acquire(img, p, True)), lib,
             img.numel() * 4 + coef.numel() * 4 + out_n * 4,
-            2 * out_n * p * p * c, "tf32", B=b, H=h, W=w, C=c, pool=p,
+            2 * out_n * p * p * c, "tf32", "vision", B=b, H=h, W=w, C=c,
+            pool=p,
             library="F.conv2d with the coefficient bank")
 
     # the strip kernels: F.conv2d (TF32 off; groups=C for depthwise) on the
@@ -612,14 +709,7 @@ def phase_timing(device, vision, imaging):
             dw = kernel == "conv_strip_depthwise"
             k = math.isqrt(wf.shape[0]) if dw else wf.shape[0]
             co = wf.shape[-1]
-            w_oihw = (wf.t().reshape(co, 1, k, k) if dw
-                      else wf.permute(3, 2, 0, 1)).contiguous()
-            nchw = xp.permute(0, 3, 1, 2)
-            groups = co if dw else 1
-
-            def lib_fn(nchw=nchw, w_oihw=w_oihw, stride=stride,
-                       groups=groups):
-                return F.conv2d(nchw, w_oihw, stride=stride, groups=groups)
+            lib_fn = strip_library(xp, wf, stride, dw)
             kw = dict(stride=stride, strip_h=sh)
             out = run(xp, wf, **kw)
             with float32_convs():
@@ -627,12 +717,15 @@ def phase_timing(device, vision, imaging):
                 exact = torch.equal(lib_fn().permute(0, 2, 3, 1), out)
             n_out = out.numel()
             macs = n_out * k * k * (1 if dw else c_in)
+            launch = {} if dw else dict(ctas=strip_config(
+                b, out.shape[1], out.shape[2], c_in, co, k, stride).ctas)
             add(kernel, time_ms(lambda: run(xp, wf, **kw)),
                 time_ms(lambda: plain(xp, wf, **kw)), lib,
                 (xp.numel() + wf.numel() + n_out) * 4, 2 * macs, "int8",
-                conv=conv, x_padded=list(xp.shape), w=list(wf.shape),
-                stride=stride, library="F.conv2d" + (
-                    f" groups={co}" if dw else ""), library_exact=exact)
+                "imaging", conv=conv, x_padded=list(xp.shape),
+                w=list(wf.shape), stride=stride, library="F.conv2d" + (
+                    f" groups={co}" if dw else ""), library_exact=exact,
+                **launch)
 
     for x, w, bias in conv_bank_calls(device):
         b, h, ww, ci = x.shape
@@ -649,8 +742,10 @@ def phase_timing(device, vision, imaging):
         add("conv_bank", time_ms(lambda: conv_bank(x, w, **kw)),
             time_ms(lambda: conv_bank_plain(x, w, **kw)), lib,
             (x.numel() + w.numel() + 2 * co + n_out) * 4,
-            2 * n_out * k * k * ci, "int8", x=list(x.shape), w=list(w.shape),
-            strategy="resident", library="F.conv2d + bias + relu (float)")
+            2 * n_out * k * k * ci, "int8", "conv_bank_op", x=list(x.shape),
+            w=list(w.shape), strategy="resident",
+            library="F.conv2d + bias + relu (float)",
+            ctas=strip_config(b, h, ww, ci, co, k, 1).ctas)
     return rows, detail
 
 
@@ -670,24 +765,51 @@ def host_range(events, name):
     return found[0]["ts"], found[0]["ts"] + found[0]["dur"]
 
 
-def phase_device_time(device, vision, imaging, trace_path, iters=20):
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_work(events, name, cats=DEVICE_CATS):
+    """The device events (of the categories ``cats``) that the host called
+    for inside the host range ``name``, and how many launches of a kernel
+    it made there. Matched by CUPTI correlation id to the runtime or
+    driver call that issued them, not by timestamp: the trace's device
+    clock can sit further from the host clock than a range is long."""
+    lo, hi = host_range(events, name)
+    calls = [e for e in events
+             if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and lo <= e["ts"] <= hi and "correlation" in e.get("args", {})]
+    ids = {e["args"]["correlation"] for e in calls}
+    launches = sum("LaunchKernel" in e["name"] for e in calls)
+    return [e for e in events if e.get("cat") in cats
+            and e.get("args", {}).get("correlation") in ids], launches
+
+
+def phase_device_time(device, vision, imaging, trace_path,
+                      iters=DEVICE_ITERS):
     """Device time of each kernel per bucket-8 batch (all its calls), from
     one ``torch.profiler`` session: each kernel's batches run in a host
     range that ends in a synchronize, so its device work lies inside the
-    range; the kernel's own device time there is summed. None where the
-    profiler shows no device time for the kernel."""
+    range; the kernel's own device time there is summed. photonic_mvm's
+    imaging calls are their own range (``photonic_mvm.imaging``), and each
+    path shape of photonic_mvm and of the dense strip conv is timed alone,
+    beside its library call (``<kernel>.shape<i>``, ``library.<kernel>.
+    shape<i>``: every kernel the library launched). None where the
+    profiler shows no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.kernels.ca_pool.ops import ca_pool
     from repro_torch.kernels.conv_bank import strip
     from repro_torch.kernels.conv_bank.fused import conv_chain
+    from repro_torch.kernels.conv_bank.ref import float32_convs
     from repro_torch.kernels.photonic_mvm.ops import mvm_int
     if device.type != "cuda":
-        return {k: None for k in KERNELS}
+        return {k: None for k in KERNELS + ("photonic_mvm.imaging",)}
     bank = conv_bank_calls(device)
     batches = {
         "photonic_mvm": lambda: [mvm_int(a, w) for a, w in
                                  vision["photonic_mvm"]],
+        "photonic_mvm.imaging": lambda: [mvm_int(a, w) for a, w in
+                                         imaging["photonic_mvm"]],
         "conv_chain": lambda: [conv_chain(*c) for c in vision["conv_chain"]],
         "ca_pool": lambda: [ca_pool(img, p, True)
                             for img, p in vision["ca_pool"]],
@@ -697,24 +819,42 @@ def phase_device_time(device, vision, imaging, trace_path, iters=20):
             strip.conv_strip_depthwise(xp, w, stride=s, strip_h=sh)
             for xp, w, s, sh, _ in imaging["conv_strip_depthwise"]],
         "conv_bank": lambda: run_conv_bank_op(bank, ("resident",))}
-    for batch in batches.values():
-        batch()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for name, batch in batches.items():
-            with record_function(DEVICE_RANGE + name):
-                for _ in range(iters):
-                    batch()
-                torch.cuda.synchronize()
+    # per path shape of the two redesigned kernels: the kernel, and the
+    # library call on the same inputs (all of its kernels)
+    mvm_calls = vision["photonic_mvm"] + imaging["photonic_mvm"]
+    for i, (a, w) in enumerate(mvm_calls):
+        batches[f"photonic_mvm.shape{i}"] = lambda a=a, w=w: mvm_int(a, w)
+        batches[f"library.photonic_mvm.shape{i}"] = mvm_library(a, w)[0]
+    for i, (xp, w, s, sh, _) in enumerate(imaging["conv_strip"]):
+        batches[f"conv_strip.shape{i}"] = \
+            lambda xp=xp, w=w, s=s, sh=sh: strip.conv_strip(
+                xp, w, stride=s, strip_h=sh)
+        batches[f"library.conv_strip.shape{i}"] = strip_library(xp, w, s,
+                                                                False)
+    with float32_convs():                # F.conv2d without TF32
+        for batch in batches.values():
+            batch()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for name, batch in batches.items():
+                with record_function(DEVICE_RANGE + name):
+                    for _ in range(iters):
+                        batch()
+                    torch.cuda.synchronize()
     events = load_trace(prof, trace_path)
-    kernels = [e for e in events if e.get("cat") == "kernel"]
     out = {}
     for name in batches:
-        lo, hi = host_range(events, DEVICE_RANGE + name)
-        total = sum(e["dur"] for e in kernels if lo <= e["ts"] <= hi
-                    and re.search(KERNEL_SYMBOLS[name],
-                                  e["name"].replace(" ", "")))
+        kernels, launches = device_work(events, DEVICE_RANGE + name,
+                                        ("kernel",))
+        head = name.split(".")[0]
+        symbol = ".*" if head == "library" else KERNEL_SYMBOLS[head]
+        total = sum(e["dur"] for e in kernels
+                    if re.search(symbol, e["name"].replace(" ", "")))
+        if len(kernels) < launches:       # the profiler lost a record
+            log(f"[device time] {name}: {len(kernels)} kernel records for "
+                f"{launches} launches; not measured")
+            total = 0
         # microseconds over `iters` batches -> ms per batch
         out[name] = total / iters / 1e3 if total > 0 else None
     return out
@@ -824,8 +964,9 @@ def phase_serve_imaging(device, progs):
 def phase_busy_share(device, progs, trace_path):
     """The imaging requests served once more under ``torch.profiler``: the
     share of the serving window in which the card ran anything (the union
-    of its kernel, copy and memset intervals over the window's length),
-    with the device time summed by kind of work. None on the CPU."""
+    of the kernel, copy and memset intervals that the window's host calls
+    issued, over the window's length), with the device time summed by kind
+    of work. None on the CPU."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     if device.type != "cuda":
@@ -835,29 +976,55 @@ def phase_busy_share(device, progs, trace_path):
                              ProfilerActivity.CUDA]) as prof:
         serve_path(device, progs, reqs)
         torch.cuda.synchronize()
-    events = load_trace(prof, trace_path)
+    return dict(busy_share(load_trace(prof, trace_path)),
+                frames=sum(f.shape[0] for _, f in reqs))
+
+
+def busy_share(events):
+    """The serving window's length, the union of the device intervals its
+    host calls issued, their share of the window, and the device time by
+    kind of work (copies, memsets, the port's kernels, torch ops)."""
     lo, hi = host_range(events, SERVE_WINDOW)
     spans, by_kind = [], {}
-    for e in events:
-        if e.get("ph") != "X" or e.get("cat") not in (
-                "kernel", "gpu_memcpy", "gpu_memset"):
-            continue
-        a, b = max(e["ts"], lo), min(e["ts"] + e["dur"], hi)
-        if b <= a:
-            continue
+    for e in device_work(events, SERVE_WINDOW)[0]:
+        a, b = e["ts"], e["ts"] + e["dur"]
         spans.append((a, b))
         kind = e["cat"] if e["cat"] != "kernel" else (
-            "port kernels" if re.search("|".join(KERNEL_SYMBOLS.values()),
-                                        e["name"].replace(" ", ""))
+            "port kernels" if re.search(PORT_KERNEL, e["name"])
             else "torch ops")
         by_kind[kind] = by_kind.get(kind, 0.0) + (b - a) / 1e3
-    busy, end = 0.0, lo
+    busy, end = 0.0, None
     for a, b in sorted(spans):
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
+        busy += max(0.0, b - (a if end is None else max(a, end)))
+        end = b if end is None else max(end, b)
     return {"window_ms": (hi - lo) / 1e3, "busy_ms": busy / 1e3,
-            "busy_share": busy / (hi - lo), "device_ms_by_kind": by_kind,
-            "frames": sum(f.shape[0] for _, f in reqs)}
+            "busy_share": busy / (hi - lo), "device_ms_by_kind": by_kind}
+
+
+def reread(trace_dir):
+    """Each device-time range of the run whose traces lie in ``trace_dir``:
+    its launches, kernel records and device ms per batch by kernel
+    function; and the imaging serving window's busy share."""
+    def events(name):
+        with open(os.path.join(trace_dir, name)) as f:
+            return json.load(f)["traceEvents"]
+    timed = events(DEVICE_TRACE)
+    ranges = sorted({e["name"] for e in timed
+                     if e.get("cat") == "user_annotation"
+                     and e["name"].startswith(DEVICE_RANGE)})
+    out = {}
+    for name in ranges:
+        kernels, launches = device_work(timed, name, ("kernel",))
+        by_fn = {}
+        for e in kernels:
+            fn = e["name"].replace("(anonymous namespace)::", "")
+            fn = fn.removeprefix("void ").split("(")[0]
+            by_fn[fn] = by_fn.get(fn, 0.0) + e["dur"] / DEVICE_ITERS / 1e3
+        out[name[len(DEVICE_RANGE):]] = {
+            "launches": launches, "kernel_records": len(kernels),
+            "ms_per_batch": by_fn}
+    return {"device_time": out,
+            "imaging_busy_share": busy_share(events(SERVE_TRACE))}
 
 
 def frames_on(a, device):
@@ -873,7 +1040,13 @@ def main(argv) -> int:
     ap.add_argument("--details", default=os.path.join(HERE, "build",
                                                       "chip_smoke.json"),
                     help="where to write the detail JSON")
+    ap.add_argument("--reread", metavar="DIR",
+                    help="print the device times and busy share of the "
+                         "traces a run left in DIR, and exit")
     args = ap.parse_args(argv)
+    if args.reread:
+        print(json.dumps(reread(args.reread), indent=1))
+        return 0
     rehearse = args.rehearse
     try:
         import torch
@@ -896,6 +1069,7 @@ def main(argv) -> int:
     os.makedirs(os.path.dirname(os.path.abspath(args.details)), exist_ok=True)
     t_start = time.perf_counter()
     try:
+        ptxas = {}
         if rehearse:
             smi, kind, count = "rehearsal (no card)", "cpu", 0
         else:
@@ -909,11 +1083,15 @@ def main(argv) -> int:
             log(f"[build] {time.perf_counter() - t0:.1f}s wall for "
                 f"{sorted(built)} (per kernel: "
                 f"{ {k: round(v, 1) for k, v in built.items()} })")
-            for name in _build.KERNELS:
-                log_path = _build.library_path(name).with_suffix(".log")
-                info = [l for l in log_path.read_text().splitlines()
-                        if "registers" in l or "spill" in l]
-                log(f"[build] {name}: {' | '.join(info)}")
+            ptxas = {name: ptxas_report(_build.library_path(name)
+                                        .with_suffix(".log").read_text())
+                     for name in _build.KERNELS}
+            for name, fns in ptxas.items():
+                log(f"[build] {name}: " + "; ".join(
+                    f"{f['function']} {f['registers']} regs, "
+                    f"{f['smem_bytes']} B smem, spills "
+                    f"{f['spill_stores']}/{f['spill_loads']} B"
+                    for f in fns))
 
         from repro_torch import Options
         from repro_torch.core.quant import W4A4
@@ -943,12 +1121,32 @@ def main(argv) -> int:
         rows, detail = phase_timing(device, vision, imaging)
         out_dir = os.path.dirname(os.path.abspath(args.details))
         device_ms = phase_device_time(device, vision, imaging, os.path.join(
-            out_dir, "device_time_trace.json"))
+            out_dir, DEVICE_TRACE))
+        # photonic_mvm's row is both paths' calls; each path's device time
+        # is its own profiler range
+        mvm_dev = (device_ms["photonic_mvm"], device_ms["photonic_mvm.imaging"])
+        rows["photonic_mvm"]["by_path"]["vision"]["device_ms"] = mvm_dev[0]
+        rows["photonic_mvm"]["by_path"]["imaging"]["device_ms"] = mvm_dev[1]
+        device_ms["photonic_mvm"] = None if None in mvm_dev else sum(mvm_dev)
         for k, r in rows.items():
             log(f"[timing] {k}: {r['ms']:.4f} ms per call sequence (plain "
                 f"{r['plain_ms']:.4f}, library {r['library_ms']} exact "
                 f"{r['library_exact']}, bound {r['bound_ms']:.6f}, device "
-                f"{device_ms[k]})")
+                f"{device_ms[k]}); by path {r['by_path']}")
+        for k in ("photonic_mvm", "conv_strip"):
+            for i, d in enumerate(detail[k]):
+                d["device_ms"] = device_ms.pop(f"{k}.shape{i}", None)
+                d["library_device_ms"] = device_ms.pop(
+                    f"library.{k}.shape{i}", None)
+        for k in ("photonic_mvm", "conv_strip", "conv_bank"):
+            for d in detail[k]:
+                log(f"[timing] {k} {d['path']} "
+                    f"{d.get('conv') or d.get('x') or (d['M'], d['K'], d['N'])}"
+                    f": device {d.get('device_ms')} ms (library "
+                    f"{d.get('library_device_ms')}), per call {d['ms']:.4f} "
+                    f"ms, plain {d['plain_ms']:.4f}, library "
+                    f"{d['library_ms']:.4f}, bound {d['bound_ms']:.6f}, CTAs "
+                    f"{d['ctas']}")
 
         served = {}
         counts, stats, wall, n_frames = phase_serve_vision(device,
@@ -976,7 +1174,7 @@ def main(argv) -> int:
                 f"frames/s; PSNR vs apply_float {quality[name]:.2f} dB")
 
         busy = phase_busy_share(device, imaging_progs, os.path.join(
-            out_dir, "imaging_serve_trace.json"))
+            out_dir, SERVE_TRACE))
         log(f"[serve imaging, profiled] device busy share {busy}")
 
         launches = {k: {path: served[path][k] for path in served}
@@ -1000,9 +1198,10 @@ def main(argv) -> int:
                              else "operations"),
                 "library_ms": r["library_ms"],
                 "library_exact": r["library_exact"],
-                "device_ms": device_ms[name]})
+                "device_ms": device_ms[name], "by_path": r["by_path"]})
         with open(args.details, "w") as f:
             json.dump({"device": kind, "nvidia_smi": smi, "kernels": kernels,
+                       "ptxas": ptxas,
                        "per_call": detail, "serve_stats": stats,
                        "imaging_serve_stats": istats, "psnr_db": quality,
                        "imaging_busy_share": busy,

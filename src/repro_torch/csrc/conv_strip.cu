@@ -19,40 +19,63 @@
 //
 // The TPU geometry is not carried over. A TPU strip is 256 rows x 258
 // columns x C_in f32 in VMEM; a block here has 227 KB of shared memory. So
-// the caller's strips only fix the padded-rows contract, and each block
-// takes a 16 x 16 tile of output pixels (one thread a pixel) for a block of
-// CO_B output channels, stages the tile's input rows and columns plus the
-// (k-1) halo in shared memory, C_in in chunks that fit, with the weights of
-// the chunk beside them, and runs the tap loop out of shared memory.
+// the caller's strips only fix the padded-rows contract, and each CTA takes
+// a tile of output pixels for a block of CO_B output channels, staging the
+// tile's input plus the (k-1) halo in shared memory, C_in in chunks.
 //
-// Numerics: the accumulate is float64 (staged values are converted once,
-// at the copy into shared memory; every product of two float32 is exact in
-// float64). For the integer codes x levels of the device path every partial
-// sum is an exact integer far below 2^53, so the order of the taps cannot
-// change a bit and the result equals the plain version's float64 tap loop
-// (repro_torch/kernels/conv_bank/ref.py::conv_taps_int) rounded once to
-// float32 -- bitwise, with no bound to check before the launch. Float
-// inputs (the conv_bank op without a quantization spec) round differently
-// from the plain version only through the order of float64 additions. The
-// epilogue uses explicit _rn intrinsics, so nvcc cannot contract it into an
-// FMA.
+// Dense (conv_dense_kernel<K, RUN, CO_B>): what bounds it on an H100 (the
+// SXM data sheet's rates at its 700 W limit). The path's convs (1-4 input
+// channels, k = 3 or 5, 256 x 256 frames at batch 8) do 9-100 MACs per
+// 4-byte input, so bytes bound them (1.3 and 3.2 us at 3.35 TB/s); the
+// conv_bank op (16 -> 32 channels, k <= 7, 32 x 32 frames) is bound by its
+// float64 FMAs instead (12 us for k = 7 at 17 TFMA/s). The first design
+// (16 x 16 tiles, one pixel
+// a thread, scalar loads widened to doubles, one buffer) paid a fixed cost
+// per block for little work, re-read a 1.56x halo at k = 5, and gave the
+// conv_bank op 64 blocks. Now:
+//   * each thread computes a run of RUN output rows of one column for CO_B
+//     channels; lanes take neighbouring columns, so the tile is 32 or 64
+//     wide (halo 1.2x at 64 x 32, k = 5) and every shared-memory read is a
+//     conflict-free row of 32 floats. A thread converts the RUN + k - 1
+//     inputs of a tap column to float64 once and slides them past the k
+//     taps of that column;
+//   * staging copies float32 (codes are exact in it) with cp.async: 16
+//     bytes at a time along a 1-channel row when the rows are aligned, else
+//     4 bytes with hardware zero fill; nested loops, no runtime division;
+//     C_in chunks are double-buffered, so chunk i+1 is in flight while
+//     chunk i is summed; the weights come in by cp.async too, as float32,
+//     and are widened to float64 in shared memory once they land (one
+//     synchronous load per tap made the CTA wait on latency k*k times);
+//   * k = 3, 5, 7 at stride 1 are template instantiations (K), every other
+//     k and stride runs the K = 0 instantiation with runtime loops;
+//   * the tile, RUN, CO_B and the chunk come from the wrapper's plain
+//     Python function (kernels/conv_bank/strip.py::strip_config), which
+//     splits the output channels over more CTAs until the card's 132 SMs
+//     each get one where the shape allows it.
+// Depthwise (conv_dw_kernel<CO_B>) keeps its first design: 16 x 16 tiles,
+// one thread a pixel, the tile staged as float64.
 //
-// What bounds it on an H100: bytes. The path's convs (1-4 input channels,
-// k = 3 or 5, 256 x 256 frames) do 9-100 MACs for each 4-byte input read,
-// below the card's ridge even at the float64 rate, so the least time is the
-// input and output traffic over 3.35 TB/s. The design reads each input
-// tile once per block from device memory (halo rows are re-read by the
-// neighbouring tile, from L2), writes each output once, and keeps partial
-// sums in registers. Tensor cores, TMA and a pipelined copy are later work.
+// Numerics: the accumulate is float64. Every product of two float32 is
+// exact in float64, and for the integer codes x levels of the device path
+// every partial sum is an exact integer far below 2^53, so the order of
+// the taps cannot change a bit and the result equals the plain version's
+// float64 tap loop (repro_torch/kernels/conv_bank/ref.py::conv_taps_int)
+// rounded once to float32 -- bitwise, with no bound to check before the
+// launch. Float inputs (the conv_bank op without a quantization spec)
+// round differently from the plain version only through the order of
+// float64 additions. The epilogue uses explicit _rn intrinsics, so nvcc
+// cannot contract it into an FMA.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kTile = 16;                  // output tile: kTile x kTile pixels
+constexpr int kTile = 16;                  // depthwise tile: kTile x kTile
 constexpr int kThreads = kTile * kTile;    // one thread per output pixel
 constexpr int kSmemDefault = 48 * 1024;    // without the opt-in attribute
 constexpr int kSmemMax = 232448;           // H100: 227 KB a block can opt into
+constexpr int kDenseThreads = 128;         // most threads of a dense CTA
 
 __device__ __forceinline__ float activate(float v, int act) {
   switch (act) {
@@ -63,30 +86,305 @@ __device__ __forceinline__ float activate(float v, int act) {
   }
 }
 
-struct Geom {
+// dequant -> bias -> act when ws is given; the raw accumulate otherwise
+__device__ __forceinline__ float epilogue(double acc, const float* ws,
+                                          const float* bias, int co,
+                                          float act_scale, int act) {
+  float v = __double2float_rn(acc);
+  if (ws != nullptr) {
+    v = __fmul_rn(__fmul_rn(v, act_scale), ws[co]);
+    if (bias != nullptr) v = __fadd_rn(v, bias[co]);
+    v = activate(v, act);
+  }
+  return v;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(s), "l"(gmem));
+}
+
+// 4 bytes, or 4 zero bytes when `valid` is false (src-size 0: nothing read)
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(s), "l"(gmem), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// ---------------------------------------------------------------------------
+// dense
+// ---------------------------------------------------------------------------
+
+struct Dense {
   int hp, wp, c_in, c_out, k, stride;
   int n_rows, w_out;        // output rows and columns
   int tiles_w;              // output tiles across a row
-  int ci_chunk;             // input channels staged at once (dense)
+  int cc;                   // input channels a stage holds
+  int rows_in, cols_ld;     // a stage's input plane: rows x row length
+  int x_bytes, wf_bytes;    // a stage: input planes, float32 weights,
+  int stage_bytes;          // then the weights widened to float64
+  int vec;                  // 1-channel rows copy 16 bytes at a time
   float act_scale;
   int act;
 };
 
-// Shared memory, in doubles: the input tile as ci_chunk channel planes of
-// rows_in x cols_in, then the chunk's weights as [k*k][ci_chunk][CO_B]
-// (dense) or [k*k][CO_B] (depthwise: ci_chunk == CO_B).
-template <int CO_B, bool kDepthwise>
+// blockDim = (TX, TYT): lane tx owns output column tw*TX + tx, thread row
+// ty owns output rows th*TYT*RUN + ty*RUN .. + RUN - 1, for output channels
+// blockIdx.y*CO_B ... Stage layout: float xs[cc][rows_in][cols_ld], float
+// wf[k*k][cc][CO_B] as copied, double wd[k*k][cc][CO_B] widened from wf.
+template <int K, int RUN, int CO_B>
+__global__ void __launch_bounds__(kDenseThreads)
+conv_dense_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                  const float* __restrict__ ws, const float* __restrict__ bias,
+                  float* __restrict__ out, const Dense g) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int k = K > 0 ? K : g.k;
+  const int s = K > 0 ? 1 : g.stride;
+  const int taps = k * k;
+  const int TX = blockDim.x;
+  const int tx = threadIdx.x;
+  const int ty = threadIdx.y;
+  const int tid = ty * TX + tx;
+  const int nthr = TX * blockDim.y;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = (nthr + 31) >> 5;
+  const int th = blockIdx.x / g.tiles_w;
+  const int tw = blockIdx.x - th * g.tiles_w;
+  const int TH = blockDim.y * RUN;
+  const int co0 = blockIdx.y * CO_B;
+  const int b = blockIdx.z;
+  const int ih0 = th * TH * s;
+  const int iw0 = tw * TX * s;
+  const int oh0 = th * TH + ty * RUN;
+  const int ow = tw * TX + tx;
+  const int plane = g.rows_in * g.cols_ld;
+  const int n_chunks = (g.c_in + g.cc - 1) / g.cc;
+
+  auto stage = [&](int slot, int cb) {
+    float* xs = (float*)(smem + (size_t)slot * g.stage_bytes);
+    float* wf = (float*)(smem + (size_t)slot * g.stage_bytes + g.x_bytes);
+    const int nc = min(g.cc, g.c_in - cb);
+    if (g.vec) {               // c_in == 1: rows of floats, 16-byte aligned
+      const int quads = g.cols_ld >> 2;
+      for (int row = warp; row < g.rows_in; row += nwarps) {
+        const int gy = ih0 + row;
+        const float* src = x + ((size_t)b * g.hp + gy) * g.wp + iw0;
+        float* dst = xs + row * g.cols_ld;
+        for (int q = lane; q < quads; q += 32) {
+          const int gx = iw0 + 4 * q;
+          if (gy < g.hp && gx + 4 <= g.wp) {
+            cp_async16(dst + 4 * q, src + 4 * q);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const bool ok = gy < g.hp && gx + e < g.wp;
+              cp_async4(dst + 4 * q + e, ok ? src + 4 * q + e : x, ok);
+            }
+          }
+        }
+      }
+    } else {
+      for (int c = 0; c < nc; ++c) {
+        for (int row = warp; row < g.rows_in; row += nwarps) {
+          const int gy = ih0 + row;
+          const float* src = x + (((size_t)b * g.hp + gy) * g.wp + iw0) *
+                                     g.c_in + cb + c;
+          float* dst = xs + c * plane + row * g.cols_ld;
+          for (int col = lane; col < g.cols_ld; col += 32) {
+            const bool ok = gy < g.hp && iw0 + col < g.wp;
+            cp_async4(dst + col, ok ? src + (size_t)col * g.c_in : x, ok);
+          }
+        }
+      }
+    }
+    // the chunk's weights as float32, zero past c_out; widened to float64
+    // once they have landed (widen below)
+    for (int tap = 0; tap < taps; ++tap) {
+      for (int i = tid; i < nc * CO_B; i += nthr) {
+        const int c = i / CO_B;
+        const int co = co0 + i - c * CO_B;
+        const bool ok = co < g.c_out;
+        cp_async4(wf + tap * g.cc * CO_B + i,
+                  ok ? w + ((size_t)tap * g.c_in + cb + c) * g.c_out + co : w,
+                  ok);
+      }
+    }
+  };
+  auto widen = [&](int slot, int nc) {
+    const float* wf = (const float*)(smem + (size_t)slot * g.stage_bytes +
+                                     g.x_bytes);
+    double* wd = (double*)(smem + (size_t)slot * g.stage_bytes + g.x_bytes +
+                           g.wf_bytes);
+    for (int tap = 0; tap < taps; ++tap) {
+      for (int i = tid; i < nc * CO_B; i += nthr) {
+        wd[tap * g.cc * CO_B + i] = (double)wf[tap * g.cc * CO_B + i];
+      }
+    }
+  };
+
+  double acc[RUN][CO_B];
+#pragma unroll
+  for (int r = 0; r < RUN; ++r)
+#pragma unroll
+    for (int j = 0; j < CO_B; ++j) acc[r][j] = 0.0;
+
+  stage(0, 0);
+  cp_async_commit();
+  for (int ci = 0; ci < n_chunks; ++ci) {
+    if (ci + 1 < n_chunks) stage((ci + 1) & 1, (ci + 1) * g.cc);
+    cp_async_commit();
+    cp_async_wait<1>();        // chunk ci has landed
+    __syncthreads();
+    const int slot = ci & 1;
+    const int nc = min(g.cc, g.c_in - ci * g.cc);
+    widen(slot, nc);
+    __syncthreads();
+    const float* xs = (const float*)(smem + (size_t)slot * g.stage_bytes);
+    const double* wd = (const double*)(smem + (size_t)slot * g.stage_bytes +
+                                       g.x_bytes + g.wf_bytes);
+    for (int c = 0; c < nc; ++c) {
+      const float* base = xs + c * plane + (ty * RUN * s) * g.cols_ld + tx * s;
+      if (K > 0) {
+        // stride 1: the RUN + K - 1 inputs of tap column dj, converted once,
+        // serve all K taps of that column
+#pragma unroll
+        for (int dj = 0; dj < K; ++dj) {
+          double win[RUN + K - 1];
+#pragma unroll
+          for (int i = 0; i < RUN + K - 1; ++i) {
+            win[i] = (double)base[i * g.cols_ld + dj];
+          }
+#pragma unroll
+          for (int di = 0; di < K; ++di) {
+            const double* wt = wd + ((di * K + dj) * g.cc + c) * CO_B;
+#pragma unroll
+            for (int j = 0; j < CO_B; ++j) {
+              const double wv = wt[j];
+#pragma unroll
+              for (int r = 0; r < RUN; ++r) {
+                acc[r][j] = fma(win[r + di], wv, acc[r][j]);
+              }
+            }
+          }
+        }
+      } else {
+        for (int di = 0; di < k; ++di) {
+          for (int dj = 0; dj < k; ++dj) {
+            const double* wt = wd + ((di * k + dj) * g.cc + c) * CO_B;
+            double xv[RUN];
+#pragma unroll
+            for (int r = 0; r < RUN; ++r) {
+              xv[r] = (double)base[(r * s + di) * g.cols_ld + dj];
+            }
+#pragma unroll
+            for (int j = 0; j < CO_B; ++j) {
+              const double wv = wt[j];
+#pragma unroll
+              for (int r = 0; r < RUN; ++r) {
+                acc[r][j] = fma(xv[r], wv, acc[r][j]);
+              }
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();           // slot free for chunk ci + 2
+  }
+
+  if (ow >= g.w_out) return;
+#pragma unroll
+  for (int r = 0; r < RUN; ++r) {
+    const int oh = oh0 + r;
+    if (oh >= g.n_rows) break;
+    float* o = out + (((size_t)b * g.n_rows + oh) * g.w_out + ow) * g.c_out;
+#pragma unroll
+    for (int j = 0; j < CO_B; ++j) {
+      const int co = co0 + j;
+      if (co >= g.c_out) break;
+      o[co] = epilogue(acc[r][j], ws, bias, co, g.act_scale, g.act);
+    }
+  }
+}
+
+struct DenseLaunch {
+  const void* x;
+  const void* w;
+  const void* ws;
+  const void* bias;
+  void* out;
+  int batch, tx, tyt;
+  Dense g;
+  cudaStream_t stream;
+};
+
+template <int K, int RUN, int CO_B>
+int launch_dense_k(const DenseLaunch& l) {
+  const Dense& g = l.g;
+  const int stages = g.c_in > g.cc ? 2 : 1;
+  const size_t bytes = (size_t)stages * g.stage_bytes;
+  if (bytes > (size_t)kSmemMax) return (int)cudaErrorInvalidConfiguration;
+  if (bytes > (size_t)kSmemDefault) {
+    cudaError_t err = cudaFuncSetAttribute(
+        conv_dense_kernel<K, RUN, CO_B>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int th = l.tyt * RUN;
+  const dim3 grid((g.n_rows + th - 1) / th * g.tiles_w,
+                  (g.c_out + CO_B - 1) / CO_B, l.batch);
+  conv_dense_kernel<K, RUN, CO_B><<<grid, dim3(l.tx, l.tyt), bytes,
+                                    l.stream>>>(
+      (const float*)l.x, (const float*)l.w, (const float*)l.ws,
+      (const float*)l.bias, (float*)l.out, g);
+  return (int)cudaGetLastError();
+}
+
+template <int RUN, int CO_B>
+int launch_dense_run(const DenseLaunch& l) {
+  if (l.g.stride == 1 && l.g.k == 3) return launch_dense_k<3, RUN, CO_B>(l);
+  if (l.g.stride == 1 && l.g.k == 5) return launch_dense_k<5, RUN, CO_B>(l);
+  if (l.g.stride == 1 && l.g.k == 7) return launch_dense_k<7, RUN, CO_B>(l);
+  return launch_dense_k<0, RUN, CO_B>(l);
+}
+
+// ---------------------------------------------------------------------------
+// depthwise
+// ---------------------------------------------------------------------------
+
+struct Geom {
+  int hp, wp, c, k, stride;
+  int n_rows, w_out;        // output rows and columns
+  int tiles_w;              // output tiles across a row
+  float act_scale;
+  int act;
+};
+
+// Shared memory, in doubles: the input tile as CO_B channel planes of
+// rows_in x cols_in, then the weights as [k*k][CO_B].
+template <int CO_B>
 __global__ void __launch_bounds__(kThreads)
-conv_tile_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                 const float* __restrict__ ws, const float* __restrict__ bias,
-                 float* __restrict__ out, const Geom g) {
-  extern __shared__ double smem[];
+conv_dw_kernel(const float* __restrict__ x, const float* __restrict__ w,
+               const float* __restrict__ ws, const float* __restrict__ bias,
+               float* __restrict__ out, const Geom g) {
+  extern __shared__ double smem_dw[];
   const int rows_in = (kTile - 1) * g.stride + g.k;
   const int cols_in = rows_in;
   const int plane = rows_in * cols_in;
   const int taps = g.k * g.k;
-  double* xs = smem;
-  double* wsm = smem + (size_t)g.ci_chunk * plane;
+  double* xs = smem_dw;
+  double* wsm = smem_dw + (size_t)CO_B * plane;
 
   const int th = blockIdx.x / g.tiles_w;
   const int tw = blockIdx.x % g.tiles_w;
@@ -104,129 +402,90 @@ conv_tile_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
   for (int j = 0; j < CO_B; ++j) acc[j] = 0.0;
 
-  // depthwise: the input channels are this block's output channels
-  const int ci_begin = kDepthwise ? co0 : 0;
-  const int ci_end = kDepthwise ? min(co0 + CO_B, g.c_in) : g.c_in;
-  for (int cb = ci_begin; cb < ci_end; cb += g.ci_chunk) {
-    const int nc = min(g.ci_chunk, ci_end - cb);
-    // input tile + halo; channels fastest for coalesced reads, planes in
-    // shared memory so that neighbouring threads read neighbouring words;
-    // pixels past the padded input are zero (they feed masked outputs
-    // only), and so are a depthwise block's planes past the last channel
-    const int planes = kDepthwise ? CO_B : nc;
-    for (int i = threadIdx.x; i < planes * plane; i += kThreads) {
-      const int c = i % planes;
-      const int p = i / planes;
-      const int gy = ih0 + p / cols_in;
-      const int gx = iw0 + p % cols_in;
-      float v = 0.0f;
-      if (c < nc && gy < g.hp && gx < g.wp) {
-        v = x[(((size_t)b * g.hp + gy) * g.wp + gx) * g.c_in + cb + c];
-      }
-      xs[c * plane + p] = (double)v;
+  // the input channels are this block's output channels: input tile +
+  // halo, channels fastest for coalesced reads, planes in shared memory so
+  // that neighbouring threads read neighbouring words; pixels past the
+  // padded input and planes past the last channel are zero
+  const int nc = min(co0 + CO_B, g.c) - co0;
+  for (int i = threadIdx.x; i < CO_B * plane; i += kThreads) {
+    const int c = i % CO_B;
+    const int p = i / CO_B;
+    const int gy = ih0 + p / cols_in;
+    const int gx = iw0 + p % cols_in;
+    float v = 0.0f;
+    if (c < nc && gy < g.hp && gx < g.wp) {
+      v = x[(((size_t)b * g.hp + gy) * g.wp + gx) * g.c + co0 + c];
     }
-    if (kDepthwise) {
-      for (int i = threadIdx.x; i < taps * CO_B; i += kThreads) {
-        const int co = co0 + i % CO_B;
-        wsm[i] = co < g.c_out ? (double)w[(i / CO_B) * g.c_out + co] : 0.0;
-      }
-    } else {
-      for (int i = threadIdx.x; i < taps * nc * CO_B; i += kThreads) {
-        const int co = co0 + i % CO_B;
-        const int t = i / CO_B;
-        const int c = t % nc;
-        const int tap = t / nc;
-        wsm[i] = co < g.c_out
-                     ? (double)w[((size_t)tap * g.c_in + cb + c) * g.c_out + co]
-                     : 0.0;
-      }
-    }
-    __syncthreads();
-    if (live) {
-      for (int di = 0; di < g.k; ++di) {
-        for (int dj = 0; dj < g.k; ++dj) {
-          const int off = (ty * g.stride + di) * cols_in + tx * g.stride + dj;
-          const int tap = di * g.k + dj;
-          if (kDepthwise) {
-#pragma unroll
-            for (int j = 0; j < CO_B; ++j) {
-              acc[j] = fma(xs[j * plane + off], wsm[tap * CO_B + j], acc[j]);
-            }
-          } else {
-            const double* wt = wsm + (size_t)tap * nc * CO_B;
-            for (int c = 0; c < nc; ++c) {
-              const double xv = xs[c * plane + off];
-#pragma unroll
-              for (int j = 0; j < CO_B; ++j) {
-                acc[j] = fma(xv, wt[c * CO_B + j], acc[j]);
-              }
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();
+    xs[c * plane + p] = (double)v;
   }
-
+  for (int i = threadIdx.x; i < taps * CO_B; i += kThreads) {
+    const int co = co0 + i % CO_B;
+    wsm[i] = co < g.c ? (double)w[(i / CO_B) * g.c + co] : 0.0;
+  }
+  __syncthreads();
   if (!live) return;
-  float* o = out + (((size_t)b * g.n_rows + oh) * g.w_out + ow) * g.c_out;
+  for (int di = 0; di < g.k; ++di) {
+    for (int dj = 0; dj < g.k; ++dj) {
+      const int off = (ty * g.stride + di) * cols_in + tx * g.stride + dj;
+      const int tap = di * g.k + dj;
+#pragma unroll
+      for (int j = 0; j < CO_B; ++j) {
+        acc[j] = fma(xs[j * plane + off], wsm[tap * CO_B + j], acc[j]);
+      }
+    }
+  }
+  float* o = out + (((size_t)b * g.n_rows + oh) * g.w_out + ow) * g.c;
 #pragma unroll
   for (int j = 0; j < CO_B; ++j) {
     const int co = co0 + j;
-    if (co >= g.c_out) break;
-    float v = __double2float_rn(acc[j]);
-    if (ws != nullptr) {
-      v = __fmul_rn(__fmul_rn(v, g.act_scale), ws[co]);
-      if (bias != nullptr) v = __fadd_rn(v, bias[co]);
-      v = activate(v, g.act);
-    }
-    o[co] = v;
+    if (co >= g.c) break;
+    o[co] = epilogue(acc[j], ws, bias, co, g.act_scale, g.act);
   }
 }
 
-template <int CO_B, bool kDepthwise>
-int launch_tiles(const void* x, const void* w, const void* ws,
-                 const void* bias, void* out, int batch, Geom g,
-                 cudaStream_t stream) {
+template <int CO_B>
+int launch_dw(const void* x, const void* w, const void* ws, const void* bias,
+              void* out, int batch, Geom g, cudaStream_t stream) {
   const int rows_in = (kTile - 1) * g.stride + g.k;
   const size_t plane = (size_t)rows_in * rows_in;
-  const size_t taps = (size_t)g.k * g.k;
-  size_t bytes;
-  if (kDepthwise) {
-    g.ci_chunk = CO_B;
-    bytes = (CO_B * plane + taps * CO_B) * sizeof(double);
-  } else {
-    // as many input channels a chunk as fit the default 48 KB, at least one
-    const size_t per_channel = (plane + taps * CO_B) * sizeof(double);
-    size_t chunk = kSmemDefault / per_channel;
-    if (chunk < 1) chunk = 1;
-    if (chunk > (size_t)g.c_in) chunk = g.c_in;
-    g.ci_chunk = (int)chunk;
-    bytes = chunk * per_channel;
-  }
+  const size_t bytes = (CO_B * plane + (size_t)g.k * g.k * CO_B) *
+                       sizeof(double);
   if (bytes > (size_t)kSmemMax) return (int)cudaErrorInvalidConfiguration;
   if (bytes > (size_t)kSmemDefault) {
     cudaError_t err = cudaFuncSetAttribute(
-        conv_tile_kernel<CO_B, kDepthwise>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        conv_dw_kernel<CO_B>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
     if (err != cudaSuccess) return (int)err;
   }
   g.tiles_w = (g.w_out + kTile - 1) / kTile;
   const int tiles_h = (g.n_rows + kTile - 1) / kTile;
-  const dim3 grid(tiles_h * g.tiles_w, (g.c_out + CO_B - 1) / CO_B, batch);
-  conv_tile_kernel<CO_B, kDepthwise><<<grid, kThreads, bytes, stream>>>(
+  const dim3 grid(tiles_h * g.tiles_w, (g.c + CO_B - 1) / CO_B, batch);
+  conv_dw_kernel<CO_B><<<grid, kThreads, bytes, stream>>>(
       (const float*)x, (const float*)w, (const float*)ws, (const float*)bias,
       (float*)out, g);
   return (int)cudaGetLastError();
 }
 
-// CO_B: the smallest of 1, 4, 16 that covers the output (depthwise: all)
-// channels, so a 1-channel conv does no idle channel work
-template <bool kDepthwise>
-int launch(const void* x, const void* w, const void* ws, const void* bias,
-           void* out, int batch, int hp, int wp, int c_in, int c_out, int k,
-           int stride, float act_scale, int act, void* stream) {
-  Geom g{};
+}  // namespace
+
+// x [B, Hp, Wp, C_in], w [k, k, C_in, C_out] (float32, contiguous);
+// ws, bias: [C_out] or null; out [B, (Hp-k)/stride+1, (Wp-k)/stride+1,
+// C_out]. The tile is tx columns x tyt*run rows (tx 32 or 64, tx*tyt <=
+// 128), co_b output channels a thread, cc input channels a stage, as
+// kernels/conv_bank/strip.py::strip_config picks them; a (run, co_b) pair
+// the kernel is not built for is refused with cudaErrorInvalidValue.
+extern "C" int conv_strip_launch(const void* x, const void* w, const void* ws,
+                                 const void* bias, void* out, int batch,
+                                 int hp, int wp, int c_in, int c_out, int k,
+                                 int stride, float act_scale, int act,
+                                 int tx, int tyt, int run, int co_b, int cc,
+                                 void* stream) {
+  const int bad = (int)cudaErrorInvalidValue;
+  if ((tx != 32 && tx != 64) || tyt < 1 || tx * tyt > kDenseThreads ||
+      cc < 1 || cc > c_in || k < 1 || stride < 1 || hp < k || wp < k) {
+    return bad;
+  }
+  Dense g{};
   g.hp = hp;
   g.wp = wp;
   g.c_in = c_in;
@@ -235,33 +494,47 @@ int launch(const void* x, const void* w, const void* ws, const void* bias,
   g.stride = stride;
   g.n_rows = (hp - k) / stride + 1;
   g.w_out = (wp - k) / stride + 1;
+  g.tiles_w = (g.w_out + tx - 1) / tx;
+  g.cc = cc;
+  g.rows_in = (tyt * run - 1) * stride + k;
+  g.cols_ld = ((tx - 1) * stride + k + 3) / 4 * 4;
+  g.x_bytes = (cc * g.rows_in * g.cols_ld * 4 + 15) / 16 * 16;
+  g.wf_bytes = (k * k * cc * co_b * 4 + 15) / 16 * 16;
+  g.stage_bytes = g.x_bytes + g.wf_bytes + k * k * cc * co_b * 8;
+  g.vec = c_in == 1 && wp % 4 == 0 && (uintptr_t)x % 16 == 0;
   g.act_scale = act_scale;
   g.act = act;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (c_out <= 1) return launch_tiles<1, kDepthwise>(x, w, ws, bias, out, batch, g, s);
-  if (c_out <= 4) return launch_tiles<4, kDepthwise>(x, w, ws, bias, out, batch, g, s);
-  return launch_tiles<16, kDepthwise>(x, w, ws, bias, out, batch, g, s);
+  const DenseLaunch l{x, w, ws, bias, out, batch, tx, tyt, g,
+                      (cudaStream_t)stream};
+  switch (run * 100 + co_b) {
+    case 408: return launch_dense_run<4, 8>(l);
+    case 804: return launch_dense_run<8, 4>(l);
+    case 404: return launch_dense_run<4, 4>(l);
+    case 801: return launch_dense_run<8, 1>(l);
+    case 401: return launch_dense_run<4, 1>(l);
+    default: return bad;
+  }
 }
 
-}  // namespace
-
-// x [B, Hp, Wp, C_in], w [k, k, C_in, C_out] (float32, contiguous);
-// ws, bias: [C_out] or null; out [B, (Hp-k)/stride+1, (Wp-k)/stride+1, C_out]
-extern "C" int conv_strip_launch(const void* x, const void* w, const void* ws,
-                                 const void* bias, void* out, int batch,
-                                 int hp, int wp, int c_in, int c_out, int k,
-                                 int stride, float act_scale, int act,
-                                 void* stream) {
-  return launch<false>(x, w, ws, bias, out, batch, hp, wp, c_in, c_out, k,
-                       stride, act_scale, act, stream);
-}
-
-// depthwise, multiplier 1: w_taps [k*k, C], c_in == c_out == C
+// depthwise, multiplier 1: w_taps [k*k, C]; CO_B, the smallest of 1, 4, 16
+// that covers the channels, so a 1-channel conv does no idle channel work
 extern "C" int conv_strip_dw_launch(const void* x, const void* w_taps,
                                     const void* ws, const void* bias,
                                     void* out, int batch, int hp, int wp,
                                     int c, int k, int stride, float act_scale,
                                     int act, void* stream) {
-  return launch<true>(x, w_taps, ws, bias, out, batch, hp, wp, c, c, k,
-                      stride, act_scale, act, stream);
+  Geom g{};
+  g.hp = hp;
+  g.wp = wp;
+  g.c = c;
+  g.k = k;
+  g.stride = stride;
+  g.n_rows = (hp - k) / stride + 1;
+  g.w_out = (wp - k) / stride + 1;
+  g.act_scale = act_scale;
+  g.act = act;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (c <= 1) return launch_dw<1>(x, w_taps, ws, bias, out, batch, g, s);
+  if (c <= 4) return launch_dw<4>(x, w_taps, ws, bias, out, batch, g, s);
+  return launch_dw<16>(x, w_taps, ws, bias, out, batch, g, s);
 }

@@ -7,7 +7,9 @@ input's rows so ``n_strips`` strips of ``strip_h`` output rows tile exactly,
 ``Hp == (n_strips*strip_h - 1)*stride + k`` (:func:`pad_rows_for_strips`),
 and gets every output row back; rows past the conv's true height are its
 padding to slice off. The CUDA kernel tiles the output for shared memory
-on its own, so the strips fix only that contract.
+on its own, so the strips fix only that contract: :func:`strip_config`
+picks the dense kernel's tile, output-channel block and input-channel
+chunk from the shape alone (tested on the CPU).
 
 With ``ws`` the per-layer epilogue follows the accumulate, in the
 reference kernel's association: ``acc * act_scale * ws``, then ``+ bias``,
@@ -22,7 +24,9 @@ the two.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -35,10 +39,102 @@ from repro_torch.kernels.conv_bank.ref import conv_taps_int
 
 LAUNCHES = _build.LaunchCounter("conv_strip")
 DW_LAUNCHES = _build.LaunchCounter("conv_strip_depthwise")
-_ENTRY = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7 + (
+_DW_ENTRY = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6 + (
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
-_SIGNATURES = {"conv_strip_launch": _ENTRY,
-               "conv_strip_dw_launch": _ENTRY[:9] + _ENTRY[10:]}
+_SIGNATURES = {
+    "conv_strip_launch": (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7 + (
+        ctypes.c_float,) + (ctypes.c_int,) * 6 + (ctypes.c_void_p,),
+    "conv_strip_dw_launch": _DW_ENTRY}
+
+SMS = 132                       # H100 SXM
+SMEM_MAX = 232448               # bytes a CTA can opt into
+STAGE_BUDGET = 24 * 1024        # bytes of one C_in stage (two fit 48 KB)
+FAST_K = (3, 5, 7)              # k instantiated at stride 1
+# (co_b, run, threads) in order of preference: most work per thread first,
+# then the smaller CTA (more CTAs an SM)
+DENSE_SHAPES = ((8, 4, 128), (4, 8, 128), (4, 4, 128), (4, 4, 64),
+                (1, 8, 128), (1, 4, 64))
+
+
+@dataclass(frozen=True)
+class StripConfig:
+    """One launch of the dense strip kernel: a tile of ``tx`` columns x
+    ``tyt * run`` rows (``tx * tyt`` threads, each ``run`` rows of one
+    column for ``co_b`` output channels), ``cc`` input channels a stage."""
+    k_inst: int                 # the kernel's K: 3, 5, 7, or 0 (any k, stride)
+    tx: int
+    tyt: int
+    run: int
+    co_b: int
+    cc: int
+    stages: int
+    smem: int                   # dynamic shared memory, bytes
+    ctas: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def stage_bytes(tx: int, tyt: int, run: int, co_b: int, cc: int, k: int,
+                stride: int) -> int:
+    """Bytes of one C_in stage: ``cc`` float32 input planes (rows padded to
+    a multiple of 4 floats), then the chunk's weights as float32 and as
+    float64, as the kernel's launcher lays them out."""
+    rows_in = (tyt * run - 1) * stride + k
+    cols_ld = _cdiv((tx - 1) * stride + k, 4) * 4
+    n_w = k * k * cc * co_b
+    return _cdiv(cc * rows_in * cols_ld * 4, 16) * 16 + \
+        _cdiv(n_w * 4, 16) * 16 + n_w * 8
+
+
+def _shape_config(batch: int, n_rows: int, w_out: int, c_in: int,
+                 c_out: int, k: int, stride: int, co_b: int, run: int,
+                 threads: int) -> StripConfig:
+    """The launch of one of ``DENSE_SHAPES`` at this conv: the tile is 32
+    columns wide for outputs up to 32 wide, else 64; the C_in chunk the
+    largest whose stage fits ``STAGE_BUDGET`` (one channel at least), two
+    stages when C_in takes more than one chunk."""
+    tx = 32 if w_out <= 32 else 64
+    tyt = max(1, threads // tx)
+    ctas = batch * _cdiv(n_rows, tyt * run) * _cdiv(w_out, tx) * \
+        _cdiv(c_out, co_b)
+    one = stage_bytes(tx, tyt, run, co_b, 1, k, stride)
+    cc = max(1, min(c_in, STAGE_BUDGET // one))
+    stages = 2 if c_in > cc else 1
+    return StripConfig(k if stride == 1 and k in FAST_K else 0, tx, tyt,
+                       run, co_b, cc, stages,
+                       stages * stage_bytes(tx, tyt, run, co_b, cc, k,
+                                            stride), ctas)
+
+
+@functools.lru_cache(maxsize=1024)
+def strip_config(batch: int, n_rows: int, w_out: int, c_in: int, c_out: int,
+                 k: int, stride: int) -> StripConfig:
+    """The dense kernel's launch for output [batch, n_rows, w_out, c_out]
+    from c_in channels at k x k, stride ``stride``: the first of
+    ``DENSE_SHAPES`` that gives every SM a CTA, else the one with the most
+    CTAs (:func:`_shape_config`). A shape whose CTA tile of a block of
+    output channels needs more shared memory than a CTA has (a large k at a
+    large stride) is passed over; :func:`launch` raises if every one
+    does."""
+    cap = 1 if c_out == 1 else 4 if c_out <= 4 else 8
+    best = None
+    for co_b, run, threads in DENSE_SHAPES:
+        if co_b > cap:
+            continue
+        cfg = _shape_config(batch, n_rows, w_out, c_in, c_out, k, stride,
+                           co_b, run, threads)
+        if cfg.smem > SMEM_MAX:
+            continue
+        if best is None or cfg.ctas > best.ctas:
+            best = cfg
+        if cfg.ctas >= SMS:
+            return cfg
+    if best is None:                        # nothing fits: the smallest
+        best = _shape_config(batch, n_rows, w_out, c_in, c_out, k, stride,
+                            *DENSE_SHAPES[-1])
+    return best
 
 
 def pad_rows_for_strips(xp: torch.Tensor, kk: int, stride: int,
@@ -139,7 +235,8 @@ def launch(x_padded: torch.Tensor, w: torch.Tensor, ws, bias,
            counter: _build.LaunchCounter) -> torch.Tensor:
     """Launch the kernel on CUDA tensors (validated by the caller) and
     count it on ``counter``: dense ``w`` is [k, k, C_in, C_out], depthwise
-    ``w`` is [k*k, C]. Returns every output row of the padded input."""
+    ``w`` is [k*k, C]. Returns every output row of the padded input; the
+    dense launch takes :func:`strip_config`'s configuration."""
     dev = x_padded.device
     kk = w.shape[0] if not depthwise else math.isqrt(w.shape[0])
     b, hp, wp, c_in = x_padded.shape
@@ -165,9 +262,15 @@ def launch(x_padded: torch.Tensor, w: torch.Tensor, ws, bias,
                                        kk, stride, float(act_scale),
                                        ACTS[act], stream)
     else:
+        cfg = strip_config(b, n_rows, w_out, c_in, c_out, kk, stride)
+        if cfg.smem > SMEM_MAX:
+            raise ValueError(f"conv_strip: {cfg.smem} bytes of shared memory "
+                             f"for one input channel at k={kk} stride="
+                             f"{stride}; a CTA has {SMEM_MAX}")
         err = lib.conv_strip_launch(*ptr, out.data_ptr(), b, hp, wp, c_in,
                                     c_out, kk, stride, float(act_scale),
-                                    ACTS[act], stream)
+                                    ACTS[act], cfg.tx, cfg.tyt, cfg.run,
+                                    cfg.co_b, cfg.cc, stream)
     _build.check(err, "conv_strip_depthwise" if depthwise else "conv_strip")
     counter.inc()
     return out

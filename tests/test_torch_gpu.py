@@ -26,6 +26,8 @@ from repro_torch.kernels.conv_bank import strip
 from repro_torch.kernels.conv_bank.fused import conv_chain
 from repro_torch.kernels.conv_bank.ops import conv_bank, conv_bank_plain
 from repro_torch.kernels.conv_bank.ref import conv_chain_ref
+from repro_torch.kernels.edge_shapes import (MVM_EDGES, STRIP_EDGES,
+                                             odd_offset)
 from repro_torch.kernels.photonic_mvm.ops import mvm_int
 from repro_torch.kernels.photonic_mvm.ref import mvm_int_ref
 
@@ -50,6 +52,27 @@ def test_mvm_kernel_bitwise_equal_to_plain(cuda, m, k, n):
     got = mvm_int(a, w, ws, 0.37)
     assert launch_counts()["photonic_mvm"] == 1
     assert torch.equal(got, mvm_int_ref(a, w, ws, 0.37))
+
+
+@pytest.mark.parametrize("odd", [False, True])
+@pytest.mark.parametrize("m,k,n,route,split", MVM_EDGES)
+def test_mvm_kernel_configs_bitwise_equal_to_plain(cuda, m, k, n, route,
+                                                   split, odd):
+    from repro_torch.kernels.photonic_mvm.ops import mvm_config
+    cfg = mvm_config(m, k, n)
+    assert (cfg.route, cfg.split > 1) == (route, split)
+    g = torch.Generator().manual_seed(m * 7 + k * 3 + n)
+    a = torch.randint(-15, 16, (m, k), generator=g).to(torch.int8).to(cuda)
+    w = torch.randint(-127, 128, (k, n), generator=g).to(torch.int8).to(cuda)
+    if odd:
+        a, w = odd_offset(a), odd_offset(w)
+        assert a.data_ptr() % 2 == 1 and a.is_contiguous()
+    ws = (torch.rand((n,), generator=g) + 0.5).to(cuda)
+    reset_launch_counts()
+    got = mvm_int(a, w)
+    assert launch_counts()["photonic_mvm"] == 1     # the split-K pass too
+    assert torch.equal(got, mvm_int_ref(a, w))
+    assert torch.equal(mvm_int(a, w, ws, 0.37), mvm_int_ref(a, w, ws, 0.37))
 
 
 @pytest.mark.parametrize("dw,act,pool,stride", [
@@ -125,6 +148,35 @@ def test_strip_kernel_bitwise_equal_to_plain(cuda, b, h, w, ci, co, k,
               bias=bias)
     assert torch.equal(strip.conv_strip(xp, wq, ws, **kw),
                        strip.conv_strip_ref(xp, wq, ws, **kw))
+
+
+@pytest.mark.parametrize("b,h_out,w_out,ci,co,k,stride", STRIP_EDGES)
+def test_strip_kernel_configs_bitwise_equal_to_plain(cuda, b, h_out, w_out,
+                                                     ci, co, k, stride):
+    cfg = strip.strip_config(b, h_out, w_out, ci, co, k, stride)
+    assert cfg.k_inst == (k if stride == 1 and k in (3, 5, 7) else 0)
+    if ci == 40:
+        assert cfg.cc < ci and cfg.stages == 2
+    g = torch.Generator().manual_seed(b + h_out + w_out + ci + co + k)
+    xp = torch.randint(0, 16, (b, (h_out - 1) * stride + k,
+                               (w_out - 1) * stride + k, ci),
+                       generator=g).float().to(cuda)
+    wq = torch.randint(-127, 128, (k, k, ci, co), generator=g).float() \
+        .to(cuda)
+    ws = (torch.rand((co,), generator=g) + 0.5).to(cuda)
+    bias = torch.randn((co,), generator=g).to(cuda)
+    kw = dict(stride=stride, strip_h=h_out)
+    reset_launch_counts()
+    got = strip.conv_strip(xp, wq, **kw)
+    assert launch_counts()["conv_strip"] == 1
+    assert torch.equal(got, strip.conv_strip_ref(xp, wq, **kw))
+    for act in ("none", "relu", "abs", "sign"):
+        e = dict(kw, act_scale=0.37, act=act, bias=bias)
+        assert torch.equal(strip.conv_strip(xp, wq, ws, **e),
+                           strip.conv_strip_ref(xp, wq, ws, **e)), act
+    e = dict(kw, act_scale=0.37)                       # ws, no bias
+    assert torch.equal(strip.conv_strip(xp, wq, ws, **e),
+                       strip.conv_strip_ref(xp, wq, ws, **e))
 
 
 @pytest.mark.parametrize("b,h,c,k,stride,strip_h,n_strips", [

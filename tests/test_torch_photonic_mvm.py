@@ -92,3 +92,66 @@ def test_matmul_int_is_the_raw_accumulate(backend):
     np.testing.assert_array_equal(
         acc.numpy(), (a.astype(np.int64) @ w.astype(np.int64))
         .astype(np.float32))
+
+
+# photonic_mvm's calls at bucket 8 (M x K x N), from the compiled plans of
+# VGG9-CA and LeNet (vision) and of the eight imaging pipelines at 256x256
+VISION_SHAPES = [(2048, 9, 64), (2048, 576, 64), (512, 576, 128),
+                 (512, 1152, 128), (128, 1152, 256), (128, 2304, 256),
+                 (8, 1024, 512), (8, 512, 512), (8, 512, 100), (8, 400, 120),
+                 (8, 120, 84), (8, 84, 10)]
+IMAGING_SHAPES = [(524288, 9, 2), (524288, 2, 1), (524288, 9, 1),
+                  (524288, 9, 4)]
+
+
+def _assert_legal(cfg, m, k, n):
+    from repro_torch.kernels.photonic_mvm import ops
+    assert cfg.smem <= 232448
+    if cfg.route == "skinny":
+        assert n <= ops.SKINNY_MAX_N and k <= ops.SKINNY_MAX_K
+        assert (cfg.bn, cfg.split) == (n, 1)
+        assert cfg.ctas == -(-m // ops.SKINNY_ROWS)
+        return
+    assert cfg.route == "gemm" and (cfg.bm, cfg.bn) in ops.GEMM_TILES
+    steps = max(1, -(-k // ops.BK))
+    # every split has work, and the splits cover every K step
+    assert (cfg.split - 1) * cfg.steps_per < steps <= cfg.split * \
+        cfg.steps_per
+    assert cfg.ctas == -(-m // cfg.bm) * -(-n // cfg.bn) * cfg.split
+
+
+def _most_ctas(m, k, n):
+    """The most CTAs any gemm tile and split can give: one K step each."""
+    from repro_torch.kernels.photonic_mvm import ops
+    steps = max(1, -(-k // ops.BK))
+    return max(-(-m // bm) * -(-n // bn) * steps
+               for bm, bn in ops.GEMM_TILES)
+
+
+@pytest.mark.parametrize("m,k,n", VISION_SHAPES + IMAGING_SHAPES)
+def test_mvm_config_is_legal_and_fills_the_card_at_path_shapes(m, k, n):
+    from repro_torch.kernels.photonic_mvm.ops import mvm_config
+    cfg = mvm_config(m, k, n)
+    _assert_legal(cfg, m, k, n)
+    assert cfg.route == ("skinny" if (m, k, n) in IMAGING_SHAPES else "gemm")
+    # one full wave of 132 SMs wherever the shape has that much work
+    assert cfg.ctas >= min(132, _most_ctas(m, k, n))
+
+
+def test_mvm_config_split_k_only_where_m_n_small_and_k_large():
+    from repro_torch.kernels.photonic_mvm.ops import mvm_config
+    assert mvm_config(2048, 9, 64).split == 1       # one K step
+    assert mvm_config(128, 2304, 256).split > 1
+    assert mvm_config(8, 1024, 512).split > 1
+    assert mvm_config(4096, 1024, 512).split == 1   # tiles fill the card
+
+
+def test_mvm_config_is_legal_on_ragged_shapes():
+    from repro_torch.kernels.photonic_mvm.ops import mvm_config
+    rng = np.random.default_rng(13)
+    for _ in range(400):
+        m, k, n = (int(v) for v in rng.integers(1, (5000, 3000, 600)))
+        _assert_legal(mvm_config(m, k, n), m, k, n)
+    for m, k, n in [(1, 0, 1), (1, 32, 8), (1, 33, 8), (1, 32, 9),
+                    (17, 1, 513), (1, 4097, 1)]:
+        _assert_legal(mvm_config(m, k, n), m, k, n)

@@ -289,3 +289,55 @@ def test_conv_bank_plain_is_the_cpu_path_and_counts_nothing():
     assert launch_counts()["conv_bank"] == 0
     with pytest.raises(ValueError, match="padding"):
         ops.conv_bank(*args, padding="FULL")
+
+
+# the dense strip kernel's calls: (batch, n_rows, w_out, c_in, c_out, k,
+# stride) -- the imaging path at bucket 8 (unsharp, rec2), the 512x512
+# multi-strip rec2 (batch 2, 3 strips), the conv_bank op's convs and the
+# VGG16-like layer of the chip smoke test
+STRIP_PATH_SHAPES = [(8, 256, 256, 1, 1, 5, 1), (8, 256, 256, 4, 1, 3, 1),
+                     (2, 513, 512, 4, 1, 3, 1), (8, 32, 32, 16, 32, 3, 1),
+                     (8, 32, 32, 16, 32, 5, 1), (8, 32, 32, 16, 32, 7, 1),
+                     (2, 56, 56, 64, 128, 3, 1)]
+
+
+def _assert_strip_legal(cfg, b, h, w, ci, co, k, s):
+    assert cfg.smem <= strip.SMEM_MAX
+    assert (cfg.co_b, cfg.run, cfg.tx * cfg.tyt) in strip.DENSE_SHAPES
+    assert cfg.tx in (32, 64) and 1 <= cfg.cc <= ci
+    assert cfg.stages == (2 if ci > cfg.cc else 1)
+    assert cfg.k_inst == (k if s == 1 and k in strip.FAST_K else 0)
+    assert cfg.ctas == b * -(-h // (cfg.tyt * cfg.run)) * \
+        -(-w // cfg.tx) * -(-co // cfg.co_b)
+    # a thread's output channels never exceed what the conv has but for
+    # the block size the kernel is built for
+    assert cfg.co_b <= (1 if co == 1 else 4 if co <= 4 else 8)
+
+
+@pytest.mark.parametrize("shape", STRIP_PATH_SHAPES)
+def test_strip_config_is_legal_and_fills_the_card_at_path_shapes(shape):
+    cfg = strip.strip_config(*shape)
+    _assert_strip_legal(cfg, *shape)
+    assert cfg.ctas >= 132
+
+
+def test_strip_config_is_legal_on_ragged_shapes():
+    rng = np.random.default_rng(17)
+    for _ in range(300):
+        b, h, w = (int(v) for v in rng.integers(1, (9, 300, 300)))
+        ci, co = (int(v) for v in rng.integers(1, (70, 140)))
+        k = int(rng.choice([1, 2, 3, 4, 5, 7, 9, 11]))
+        s = int(rng.choice([1, 1, 2, 4]))
+        _assert_strip_legal(strip.strip_config(b, h, w, ci, co, k, s),
+                            b, h, w, ci, co, k, s)
+
+
+def test_strip_config_stage_bytes_match_the_kernel_layout():
+    # 16 x 64 tile, k 5, 2 channels: rows 20, row of 68 floats (64 + 4,
+    # a multiple of 4); weights 25 x 2 x 4 as float32 (16-byte rounded)
+    # and float64
+    assert strip.stage_bytes(64, 2, 8, 4, 2, 5, 1) == \
+        2 * 20 * 68 * 4 + 800 + 25 * 2 * 4 * 8
+    # large k at a large stride: shapes that overflow a CTA are passed over
+    cfg = strip.strip_config(1, 8, 8, 2, 16, 11, 4)
+    assert cfg.smem <= strip.SMEM_MAX
