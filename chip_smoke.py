@@ -24,21 +24,25 @@ Phases, each fatal on failure:
   2. build: ``nvcc`` compiles every kernel from ``src/repro_torch/csrc``
      (one process per source, all at once);
   3. kernels: each kernel's wrapper runs on the card at the shapes the two
-     paths give it at bucket 8, plus extra shapes (ragged GEMMs, random
-     chains, edge_detect's fused segment at 64x64, the 512x512 multi-strip
-     geometries, a stride-2 VALID and a grouped conv, a VGG16-like layer,
-     the conv_bank op in both strategies at k = 3, 5, 7), and is held
-     bitwise equal to its plain PyTorch version on the same inputs. The
-     conv_bank op, which no served path reaches, is driven once on its own
-     with the counts zeroed around it;
+     paths give it at bucket 8, plus extra shapes (the edge lists of
+     ``kernels/edge_shapes.py``: ragged GEMMs, strip tiles, depthwise
+     tiles and fused chains; random chains, edge_detect's fused segment at
+     64x64, the 512x512 multi-strip geometries, a stride-2 VALID and a
+     grouped conv, a VGG16-like layer, the conv_bank op in both strategies
+     at k = 3, 5, 7), and is held bitwise equal to its plain PyTorch
+     version on the same inputs. The conv_bank op, which no served path
+     reaches, is driven once on its own with the counts zeroed around it;
   4. timing: each kernel at its path shapes (the conv_bank op at its own),
      beside its plain version, one library call as a yardstick where
      PyTorch has one (with TF32 off, and whether its answer was exact), the
-     profiler's device time, and the least time the card could take (bytes
-     over 3.35 TB/s, operations over the dense tensor-core peak for their
-     type: int8 for integer MACs, TF32 for ca_pool's float MACs); the
+     profiler's device time, the launch configuration (the chain kernel's
+     cluster and CTAs, the depthwise kernel's tile, run, channel block and
+     CTAs, the CTAs of the others), and the least time the card could take
+     (bytes over 3.35 TB/s, operations over the dense tensor-core peak for
+     their type: int8 for integer MACs, TF32 for ca_pool's float MACs); the
      device times come from one profiler session, written as a Chrome
-     trace beside the details file;
+     trace beside the details file, with a range per path shape of
+     photonic_mvm, the strip convs and ca_pool (kernel and library call);
   5. serve: both paths, every answer finite, of the right shape and bitwise
      equal to batch-1 ``run_per_frame`` on the card, to the reference
      backend on the card and to the port's CPU run on the first frames;
@@ -76,19 +80,6 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"int8": 1979e12,       # dense tensor-core int8
             "tf32": 495e12}        # dense tensor-core TF32
 RAGGED_MVM = [(1, 1, 1), (37, 101, 53), (130, 777, 129), (300, 2304, 257)]
-# random fused chains: (h, w, c_in, [(c_out, k, stride, padding, depthwise,
-# act, pool, bias)])
-CHAINS = [
-    (12, 12, 3, [(8, 3, 1, "SAME", False, "relu", ("max", 2), True),
-                 (8, 3, 1, "SAME", True, "abs", None, False)]),
-    (16, 16, 4, [(4, 3, 1, "SAME", True, "sign", ("avg", 2), True),
-                 (6, 5, 1, "VALID", False, "none", None, True)]),
-    (15, 15, 2, [(5, 3, 2, "SAME", False, "relu", None, False),
-                 (7, 3, 1, "VALID", False, "abs", ("max", 2), True)]),
-    (20, 20, 1, [(6, 5, 1, "SAME", False, "relu", ("avg", 2), True),
-                 (6, 3, 1, "SAME", True, "relu", ("max", 2), True),
-                 (10, 3, 1, "SAME", False, "sign", None, False)]),
-]
 # the conv_bank op's own calls: x [B, H, W, Cin] -> Cout, k x k, W4A4 with
 # relu and bias, in both strategies
 CONV_BANK = [(BUCKET, 32, 32, 16, 32, k) for k in (3, 5, 7)]
@@ -367,7 +358,6 @@ def phase_kernels(device, vision, imaging):
     """Every kernel against its plain version, bitwise."""
     import torch
     from repro_torch import Options, Program
-    from repro_torch.core.accelerator import ConvSpec
     from repro_torch.core.compressive import compressive_acquire
     from repro_torch.core.plan import padtype_to_pads
     from repro_torch.core.quant import W4A4
@@ -377,7 +367,9 @@ def phase_kernels(device, vision, imaging):
     from repro_torch.kernels.conv_bank.fused import conv_chain
     from repro_torch.kernels.conv_bank.ops import conv_bank, conv_bank_plain
     from repro_torch.kernels.conv_bank.ref import conv_chain_ref, conv_int_ref
-    from repro_torch.kernels.edge_shapes import (MVM_EDGES, STRIP_EDGES,
+    from repro_torch.kernels.edge_shapes import (CHAIN_EDGES, CHAINS,
+                                                 DW_EDGES, MVM_EDGES,
+                                                 STRIP_EDGES, chain_case,
                                                  odd_offset)
     from repro_torch.kernels.photonic_mvm.ops import mvm_int
     from repro_torch.kernels.photonic_mvm.ref import mvm_int_ref
@@ -430,29 +422,13 @@ def phase_kernels(device, vision, imaging):
 
     chains = list(calls["conv_chain"])
     for h, w, c, specs in CHAINS:
-        stages, hh, ww, cc = [], h, w, c
-        for j, (co, k, s, pad, dw, act, pool, bias) in enumerate(specs):
-            layer = ConvSpec(f"s{j}", cc, cc if dw else co, k, s, pad, act,
-                             pool, depthwise=dw)
-            pads = padtype_to_pads((hh, ww), k, s, pad)
-            geom = dispatch.ChainGeom(layer.name, hh, ww, cc, layer.c_out,
-                                      k, s, pads, groups=cc if dw else 1,
-                                      act=act, pool=pool)
-            wq = torch.randint(-7, 8, (k, k, 1 if dw else cc, layer.c_out),
-                               generator=gen).to(torch.int8)
-            ws = torch.rand((layer.c_out,), generator=gen) * 0.1 + 0.01
-            b = (torch.randn((layer.c_out,), generator=gen) * 0.1
-                 if bias else None)
-            stages.append((geom, wq.to(device), ws.to(device),
-                           None if b is None else b.to(device)))
-            hh, ww = geom.out_hw()
-            cc = layer.c_out
-        codes = torch.randint(0, 16, (3, h, w, c), generator=gen).float()
-        scale = torch.rand((3, 1, 1, 1), generator=gen) + 0.01
-        chains.append((codes.to(device), scale.to(device), stages, 15.0))
+        codes, scale, stages = chain_case(3, h, w, c, specs, gen, device)
+        chains.append((codes, scale, stages, 15.0))
         # per-tensor batch-1 form: a 0-d incoming scale
-        chains.append((codes[:1].to(device), scale[0, 0, 0, 0].to(device),
-                       stages, 15.0))
+        chains.append((codes[:1], scale[0, 0, 0, 0], stages, 15.0))
+    for b, h, w, c, specs in CHAIN_EDGES:
+        codes, scale, stages = chain_case(b, h, w, c, specs, gen, device)
+        chains.append((codes, scale, stages, 15.0))
     for codes, scale, stages, aq in chains:
         got = conv_chain(codes, scale, stages, aq)
         want = conv_chain_ref(codes, scale, stages, aq)
@@ -501,6 +477,25 @@ def phase_kernels(device, vision, imaging):
             kw.update(act_scale=0.37, act=act, bias=bias)
             compare("conv_strip", strip.conv_strip(xp, wq, ws, **kw),
                     strip.conv_strip_ref(xp, wq, ws, **kw), f"{what} {act}")
+    for b, h_out, w_out, c, k, stride in DW_EDGES:
+        xp = torch.randint(0, 16, (b, (h_out - 1) * stride + k,
+                                   (w_out - 1) * stride + k, c),
+                           generator=gen).float().to(device)
+        taps = torch.randint(-127, 128, (k * k, c),
+                             generator=gen).float().to(device)
+        ws = (torch.rand((c,), generator=gen) + 0.5).to(device)
+        bias = torch.randn((c,), generator=gen).to(device)
+        what = f"edge {xp.shape[1:3]} c{c} k{k} s{stride}"
+        for x in (xp, odd_offset(xp)):      # aligned rows, then none
+            kw = dict(stride=stride, strip_h=h_out)
+            compare("conv_strip_depthwise",
+                    strip.conv_strip_depthwise(x, taps, **kw),
+                    strip.conv_strip_depthwise_ref(x, taps, **kw), what)
+            kw.update(act_scale=0.37, act="sign", bias=bias)
+            compare("conv_strip_depthwise",
+                    strip.conv_strip_depthwise(x, taps, ws, **kw),
+                    strip.conv_strip_depthwise_ref(x, taps, ws, **kw),
+                    f"{what} sign")
     for name, xs, wshape, stride, padding, groups in STRIP_CONVS:
         x = torch.randint(0, 16, xs, generator=gen).float().to(device)
         wq = torch.randint(-7, 8, wshape, generator=gen).float().to(device)
@@ -650,7 +645,9 @@ def phase_timing(device, vision, imaging):
             r["library_exact"] = shape["library_exact"] and \
                 r["library_exact"] is not False
 
-    from repro_torch.kernels.conv_bank.strip import strip_config
+    from repro_torch.kernels.conv_bank.fused import (chain_config,
+                                                     max_active_clusters)
+    from repro_torch.kernels.conv_bank.strip import dw_config, strip_config
     from repro_torch.kernels.photonic_mvm.ops import mvm_config
     mvm_calls = [("vision", a, w) for a, w in vision["photonic_mvm"]] + \
         [("imaging", a, w) for a, w in imaging["photonic_mvm"]]
@@ -677,13 +674,21 @@ def phase_timing(device, vision, imaging):
                                                       else 1)
         h, w = stages[-1][0].out_hw()
         nbytes += b * h * w * stages[-1][0].c_out * 4
+        cfg = chain_config(b, [g for g, _, _, _ in stages])
+        active = (max_active_clusters(cfg.cluster, cfg.smem)
+                  if device.type == "cuda" else None)
         add("conv_chain",
             time_ms(lambda: conv_chain(codes, scale, stages, aq)),
             time_ms(lambda: conv_chain_ref(codes, scale, stages, aq)), None,
             nbytes, ops, "int8", "vision", B=b,
-            stages="+".join(g.name for g, _, _, _ in stages))
+            stages="+".join(g.name for g, _, _, _ in stages),
+            cluster=cfg.cluster, ctas=cfg.ctas, splits=list(cfg.splits),
+            weights_in_smem=[o >= 0 for o in cfg.w_offsets], smem=cfg.smem,
+            active_clusters=active)
 
-    for img, p in vision["ca_pool"]:
+    ca_calls = [("vision", img, p) for img, p in vision["ca_pool"]] + \
+        [("imaging", img, p) for img, p in imaging["ca_pool"]]
+    for path, img, p in ca_calls:
         b, h, w, c = img.shape
         coef = ca_coefficients(p, c, device=device)
         bank = coef.permute(2, 0, 1)[None].contiguous()   # [1, C, p, p]
@@ -694,7 +699,7 @@ def phase_timing(device, vision, imaging):
         add("ca_pool", time_ms(lambda: ca_pool(img, p, True)),
             time_ms(lambda: compressive_acquire(img, p, True)), lib,
             img.numel() * 4 + coef.numel() * 4 + out_n * 4,
-            2 * out_n * p * p * c, "tf32", "vision", B=b, H=h, W=w, C=c,
+            2 * out_n * p * p * c, "tf32", path, B=b, H=h, W=w, C=c,
             pool=p,
             library="F.conv2d with the coefficient bank")
 
@@ -717,8 +722,14 @@ def phase_timing(device, vision, imaging):
                 exact = torch.equal(lib_fn().permute(0, 2, 3, 1), out)
             n_out = out.numel()
             macs = n_out * k * k * (1 if dw else c_in)
-            launch = {} if dw else dict(ctas=strip_config(
-                b, out.shape[1], out.shape[2], c_in, co, k, stride).ctas)
+            if dw:
+                cfg = dw_config(b, out.shape[1], out.shape[2], c_in, k,
+                                stride)
+                launch = dict(tile=[cfg.tx, cfg.tyt * cfg.run], run=cfg.run,
+                              cb=cfg.cb, ctas=cfg.ctas)
+            else:
+                launch = dict(ctas=strip_config(
+                    b, out.shape[1], out.shape[2], c_in, co, k, stride).ctas)
             add(kernel, time_ms(lambda: run(xp, wf, **kw)),
                 time_ms(lambda: plain(xp, wf, **kw)), lib,
                 (xp.numel() + wf.numel() + n_out) * 4, 2 * macs, "int8",
@@ -796,14 +807,17 @@ def phase_device_time(device, vision, imaging, trace_path,
     shape<i>``: every kernel the library launched). None where the
     profiler shows no device time."""
     import torch
+    import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.core.compressive import ca_coefficients
     from repro_torch.kernels.ca_pool.ops import ca_pool
     from repro_torch.kernels.conv_bank import strip
     from repro_torch.kernels.conv_bank.fused import conv_chain
     from repro_torch.kernels.conv_bank.ref import float32_convs
     from repro_torch.kernels.photonic_mvm.ops import mvm_int
     if device.type != "cuda":
-        return {k: None for k in KERNELS + ("photonic_mvm.imaging",)}
+        return {k: None for k in KERNELS + ("photonic_mvm.imaging",
+                                          "ca_pool.imaging")}
     bank = conv_bank_calls(device)
     batches = {
         "photonic_mvm": lambda: [mvm_int(a, w) for a, w in
@@ -813,6 +827,8 @@ def phase_device_time(device, vision, imaging, trace_path,
         "conv_chain": lambda: [conv_chain(*c) for c in vision["conv_chain"]],
         "ca_pool": lambda: [ca_pool(img, p, True)
                             for img, p in vision["ca_pool"]],
+        "ca_pool.imaging": lambda: [ca_pool(img, p, True)
+                                    for img, p in imaging["ca_pool"]],
         "conv_strip": lambda: [strip.conv_strip(xp, w, stride=s, strip_h=sh)
                                for xp, w, s, sh, _ in imaging["conv_strip"]],
         "conv_strip_depthwise": lambda: [
@@ -825,12 +841,22 @@ def phase_device_time(device, vision, imaging, trace_path,
     for i, (a, w) in enumerate(mvm_calls):
         batches[f"photonic_mvm.shape{i}"] = lambda a=a, w=w: mvm_int(a, w)
         batches[f"library.photonic_mvm.shape{i}"] = mvm_library(a, w)[0]
-    for i, (xp, w, s, sh, _) in enumerate(imaging["conv_strip"]):
-        batches[f"conv_strip.shape{i}"] = \
-            lambda xp=xp, w=w, s=s, sh=sh: strip.conv_strip(
-                xp, w, stride=s, strip_h=sh)
-        batches[f"library.conv_strip.shape{i}"] = strip_library(xp, w, s,
-                                                                False)
+    for kernel, run in (("conv_strip", strip.conv_strip),
+                        ("conv_strip_depthwise", strip.conv_strip_depthwise)):
+        for i, (xp, w, s, sh, _) in enumerate(imaging[kernel]):
+            batches[f"{kernel}.shape{i}"] = \
+                lambda xp=xp, w=w, s=s, sh=sh, run=run: run(
+                    xp, w, stride=s, strip_h=sh)
+            batches[f"library.{kernel}.shape{i}"] = strip_library(
+                xp, w, s, kernel == "conv_strip_depthwise")
+    for i, (img, p) in enumerate(vision["ca_pool"] + imaging["ca_pool"]):
+        coef = ca_coefficients(p, img.shape[-1], device=device)
+        coef_bank = coef.permute(2, 0, 1)[None].contiguous()
+        batches[f"ca_pool.shape{i}"] = lambda img=img, p=p: ca_pool(img, p,
+                                                                   True)
+        batches[f"library.ca_pool.shape{i}"] = \
+            lambda nchw=img.permute(0, 3, 1, 2), cb=coef_bank, p=p: F.conv2d(
+                nchw, cb, stride=p)
     with float32_convs():                # F.conv2d without TF32
         for batch in batches.values():
             batch()
@@ -1027,6 +1053,24 @@ def reread(trace_dir):
             "imaging_busy_share": busy_share(events(SERVE_TRACE))}
 
 
+def call_label(d):
+    """A per-call detail's shape, as the timing lines print it."""
+    if "stages" in d:
+        return f"{d['stages']} B={d['B']}"
+    if "pool" in d:
+        return f"{d['B']}x{d['H']}x{d['W']}x{d['C']} p={d['pool']}"
+    return d.get("conv") or d.get("x") or (d["M"], d["K"], d["N"])
+
+
+def launch_label(d):
+    """A per-call detail's launch configuration: cluster and CTAs of the
+    chain kernel, tile, run, channel block and CTAs of the depthwise one,
+    CTAs of the others (none for ca_pool)."""
+    keys = ("cluster", "splits", "weights_in_smem", "smem",
+            "active_clusters", "tile", "run", "cb", "route", "split", "ctas")
+    return ", ".join(f"{k} {d[k]}" for k in keys if k in d) or "-"
+
+
 def frames_on(a, device):
     import torch
     return torch.from_numpy(a).to(device)
@@ -1122,31 +1166,32 @@ def main(argv) -> int:
         out_dir = os.path.dirname(os.path.abspath(args.details))
         device_ms = phase_device_time(device, vision, imaging, os.path.join(
             out_dir, DEVICE_TRACE))
-        # photonic_mvm's row is both paths' calls; each path's device time
-        # is its own profiler range
-        mvm_dev = (device_ms["photonic_mvm"], device_ms["photonic_mvm.imaging"])
-        rows["photonic_mvm"]["by_path"]["vision"]["device_ms"] = mvm_dev[0]
-        rows["photonic_mvm"]["by_path"]["imaging"]["device_ms"] = mvm_dev[1]
-        device_ms["photonic_mvm"] = None if None in mvm_dev else sum(mvm_dev)
+        # photonic_mvm's and ca_pool's rows are both paths' calls; each
+        # path's device time is its own profiler range
+        for k in ("photonic_mvm", "ca_pool"):
+            dev = (device_ms[k], device_ms.pop(f"{k}.imaging"))
+            rows[k]["by_path"]["vision"]["device_ms"] = dev[0]
+            rows[k]["by_path"]["imaging"]["device_ms"] = dev[1]
+            device_ms[k] = None if None in dev else sum(dev)
         for k, r in rows.items():
             log(f"[timing] {k}: {r['ms']:.4f} ms per call sequence (plain "
                 f"{r['plain_ms']:.4f}, library {r['library_ms']} exact "
                 f"{r['library_exact']}, bound {r['bound_ms']:.6f}, device "
                 f"{device_ms[k]}); by path {r['by_path']}")
-        for k in ("photonic_mvm", "conv_strip"):
+        for k in ("photonic_mvm", "conv_strip", "conv_strip_depthwise",
+                  "ca_pool"):
             for i, d in enumerate(detail[k]):
                 d["device_ms"] = device_ms.pop(f"{k}.shape{i}", None)
                 d["library_device_ms"] = device_ms.pop(
                     f"library.{k}.shape{i}", None)
-        for k in ("photonic_mvm", "conv_strip", "conv_bank"):
+        for k in KERNELS:
             for d in detail[k]:
-                log(f"[timing] {k} {d['path']} "
-                    f"{d.get('conv') or d.get('x') or (d['M'], d['K'], d['N'])}"
-                    f": device {d.get('device_ms')} ms (library "
+                log(f"[timing] {k} {d['path']} {call_label(d)}: device "
+                    f"{d.get('device_ms')} ms (library "
                     f"{d.get('library_device_ms')}), per call {d['ms']:.4f} "
                     f"ms, plain {d['plain_ms']:.4f}, library "
-                    f"{d['library_ms']:.4f}, bound {d['bound_ms']:.6f}, CTAs "
-                    f"{d['ctas']}")
+                    f"{d['library_ms']}, bound {d['bound_ms']:.6f}; launch "
+                    f"{launch_label(d)}")
 
         served = {}
         counts, stats, wall, n_frames = phase_serve_vision(device,

@@ -52,9 +52,39 @@
 //     Python function (kernels/conv_bank/strip.py::strip_config), which
 //     splits the output channels over more CTAs until the card's 132 SMs
 //     each get one where the shape allows it.
-// Depthwise (conv_dw_kernel<CO_B>) keeps its first design: 16 x 16 tiles,
-// one thread a pixel, the tile staged as float64.
-//
+// Depthwise (conv_dw_kernel<K, RUN, CB>): the path's two calls (denoise_gauss
+// k = 5 and denoise_box k = 3, 3 channels, 8 x 256 x 256) do 9-25 MACs per
+// 4-byte input, so bytes bound them (3.8 us each at 3.35 TB/s). The first
+// design (16 x 16 tiles, one thread a pixel, 4 channels a block for 3, the
+// tile widened to float64 in shared memory by scalar loads with a division
+// per element) re-read a 1.56x halo and read ~800 B of shared memory per
+// output pixel at k = 5. Now, as the dense kernel:
+//   * each thread computes a run of RUN output rows of one column for all
+//     CB channels of its block (CB = C for 1 and 3 channels, so none
+//     idles; 4-channel blocks otherwise), from a float64 window per tap
+//     column and channel converted once in registers;
+//   * tiles are 32 or 64 columns wide (64 x 16 on the path: halo 1.33x at
+//     k = 5), one tile a CTA, all CTAs of the path's calls in one wave;
+//   * the tile is staged as float32, channel-interleaved as in device
+//     memory, so a row segment of a C-channel input is one run of floats:
+//     cp.async copies it 16 bytes at a time from its first 16-byte aligned
+//     float (each staged row is shifted by its source's phase so the
+//     shared words are aligned too), 4 bytes with zero fill for the rest;
+//     lanes read neighbouring columns at a stride of CB floats, which for
+//     an odd CB such as 3 hits 32 different banks;
+//   * the outputs go back through shared memory and out a tile row at a
+//     time, 16 bytes a store where aligned;
+//   * K = 3, 5, 7 at stride 1 are instantiations with RUN = 8; every other
+//     k and stride runs K = 0 with RUN = 4 and runtime loops;
+//   * the tile comes from the wrapper's plain Python function
+//     (kernels/conv_bank/strip.py::dw_config).
+// All CTAs of a path call run in one wave, so the copies in, the tap loop
+// and the stores out do not overlap. Three versions that walked several
+// tiles a CTA with the next one in flight (widened once to float64 in
+// shared memory; float32 slots; two loader warps beside four compute
+// warps) were all bitwise and all slower on the path's calls (PERF.md,
+// Findings).
+
 // Numerics: the accumulate is float64. Every product of two float32 is
 // exact in float64, and for the integer codes x levels of the device path
 // every partial sum is an exact integer far below 2^53, so the order of
@@ -71,11 +101,12 @@
 
 namespace {
 
-constexpr int kTile = 16;                  // depthwise tile: kTile x kTile
-constexpr int kThreads = kTile * kTile;    // one thread per output pixel
 constexpr int kSmemDefault = 48 * 1024;    // without the opt-in attribute
 constexpr int kSmemMax = 232448;           // H100: 227 KB a block can opt into
 constexpr int kDenseThreads = 128;         // most threads of a dense CTA
+constexpr int kDwThreads = 128;            // most threads of a depthwise CTA
+constexpr int kDwFastRun = 8;              // depthwise rows a thread, k 3/5/7
+constexpr int kDwRun = 4;                  // the same, any other k or stride
 
 __device__ __forceinline__ float activate(float v, int act) {
   switch (act) {
@@ -363,107 +394,250 @@ int launch_dense_run(const DenseLaunch& l) {
 // depthwise
 // ---------------------------------------------------------------------------
 
-struct Geom {
+struct Dw {
   int hp, wp, c, k, stride;
   int n_rows, w_out;        // output rows and columns
   int tiles_w;              // output tiles across a row
+  int rows_in, cols_in;     // the staged input tile, halo included
+  int ld;                   // floats a staged row takes
+  int w_offset;             // bytes: the float64 taps after the rows
+  int contiguous;           // CB == c: a row segment is one run of floats
   float act_scale;
   int act;
 };
 
-// Shared memory, in doubles: the input tile as CO_B channel planes of
-// rows_in x cols_in, then the weights as [k*k][CO_B].
-template <int CO_B>
-__global__ void __launch_bounds__(kThreads)
+// blockDim = (TX, TYT): lane tx owns output column tw*TX + tx, thread row
+// ty owns output rows th*TYT*RUN + ty*RUN .. + RUN - 1, for the channels
+// blockIdx.y*CB .. + CB - 1. Shared memory: the input tile as float
+// xs[rows_in][ld], channel-interleaved as in device memory (element e =
+// col*CB + c of row r at xs[r*ld + rph[r] + e], where the row's phase
+// rph[r] puts its 16-byte aligned source floats on 16-byte aligned shared
+// words), int rph[rows_in], then double wd[k*k][CB]. The tile's outputs
+// pass through xs on their way out.
+template <int K, int RUN, int CB>
+__global__ void __launch_bounds__(kDwThreads)
 conv_dw_kernel(const float* __restrict__ x, const float* __restrict__ w,
                const float* __restrict__ ws, const float* __restrict__ bias,
-               float* __restrict__ out, const Geom g) {
-  extern __shared__ double smem_dw[];
-  const int rows_in = (kTile - 1) * g.stride + g.k;
-  const int cols_in = rows_in;
-  const int plane = rows_in * cols_in;
-  const int taps = g.k * g.k;
-  double* xs = smem_dw;
-  double* wsm = smem_dw + (size_t)CO_B * plane;
-
+               float* __restrict__ out, const Dw g) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* xs = (float*)smem;
+  int* rph = (int*)(xs + g.rows_in * g.ld);
+  double* wd = (double*)(smem + g.w_offset);
+  const int k = K > 0 ? K : g.k;
+  const int s = K > 0 ? 1 : g.stride;
+  const int TX = blockDim.x;
+  const int tx = threadIdx.x;
+  const int ty = threadIdx.y;
+  const int tid = ty * TX + tx;
+  const int nthr = TX * blockDim.y;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = (nthr + 31) >> 5;
   const int th = blockIdx.x / g.tiles_w;
-  const int tw = blockIdx.x % g.tiles_w;
-  const int co0 = blockIdx.y * CO_B;
+  const int tw = blockIdx.x - th * g.tiles_w;
+  const int TH = blockDim.y * RUN;
+  const int c0 = blockIdx.y * CB;
   const int b = blockIdx.z;
-  const int ty = threadIdx.x / kTile;
-  const int tx = threadIdx.x % kTile;
-  const int oh = th * kTile + ty;
-  const int ow = tw * kTile + tx;
-  const int ih0 = th * kTile * g.stride;
-  const int iw0 = tw * kTile * g.stride;
-  const bool live = oh < g.n_rows && ow < g.w_out;
+  const int ih0 = th * TH * s;
+  const int iw0 = tw * TX * s;
+  const int n_el = g.cols_in * CB;
 
-  double acc[CO_B];
+  // the tile, a warp a row: a contiguous row goes 16 bytes at a time from
+  // its first 16-byte aligned float, 4 bytes (zero past the input) for the
+  // head, the tail and anything past the padded input; a channel block of
+  // a wider input goes 4 bytes a float
+  for (int row = warp; row < g.rows_in; row += nwarps) {
+    const int gy = ih0 + row;
+    float* dst = xs + row * g.ld;
+    if (g.contiguous) {
+      const float* src = x + (((size_t)b * g.hp + min(gy, g.hp - 1)) *
+                              g.wp + iw0) * CB;
+      const int nv = gy < g.hp ? min(g.cols_in, g.wp - iw0) * CB : 0;
+      const int ph = (int)(((uintptr_t)src >> 2) & 3);
+      const int e0 = (4 - ph) & 3;
+      dst += ph;
+      for (int e = e0 + 4 * lane; e < n_el; e += 128) {
+        if (e + 4 <= nv) {
+          cp_async16(dst + e, src + e);
+        } else {
 #pragma unroll
-  for (int j = 0; j < CO_B; ++j) acc[j] = 0.0;
-
-  // the input channels are this block's output channels: input tile +
-  // halo, channels fastest for coalesced reads, planes in shared memory so
-  // that neighbouring threads read neighbouring words; pixels past the
-  // padded input and planes past the last channel are zero
-  const int nc = min(co0 + CO_B, g.c) - co0;
-  for (int i = threadIdx.x; i < CO_B * plane; i += kThreads) {
-    const int c = i % CO_B;
-    const int p = i / CO_B;
-    const int gy = ih0 + p / cols_in;
-    const int gx = iw0 + p % cols_in;
-    float v = 0.0f;
-    if (c < nc && gy < g.hp && gx < g.wp) {
-      v = x[(((size_t)b * g.hp + gy) * g.wp + gx) * g.c + co0 + c];
+          for (int j = 0; j < 4; ++j) {
+            if (e + j < n_el) {
+              cp_async4(dst + e + j, e + j < nv ? src + e + j : x,
+                        e + j < nv);
+            }
+          }
+        }
+      }
+      if (lane < e0 && lane < n_el) {
+        cp_async4(dst + lane, lane < nv ? src + lane : x, lane < nv);
+      }
+      if (lane == 0) rph[row] = ph;
+    } else {
+      for (int e = lane; e < n_el; e += 32) {
+        const int col = e / CB;
+        const int c = e - col * CB;
+        const bool ok = gy < g.hp && iw0 + col < g.wp && c0 + c < g.c;
+        cp_async4(dst + e,
+                  ok ? x + (((size_t)b * g.hp + gy) * g.wp + iw0 + col) *
+                               g.c + c0 + c
+                     : x,
+                  ok);
+      }
+      if (lane == 0) rph[row] = 0;
     }
-    xs[c * plane + p] = (double)v;
   }
-  for (int i = threadIdx.x; i < taps * CO_B; i += kThreads) {
-    const int co = co0 + i % CO_B;
-    wsm[i] = co < g.c ? (double)w[(i / CO_B) * g.c + co] : 0.0;
+  cp_async_commit();
+  // the block's taps widened to float64 (zero past the last channel)
+  for (int i = tid; i < k * k * CB; i += nthr) {
+    const int tap = i / CB;
+    const int c = i - tap * CB;
+    wd[i] = c0 + c < g.c ? (double)w[tap * g.c + c0 + c] : 0.0;
   }
+  cp_async_wait<0>();
   __syncthreads();
-  if (!live) return;
-  for (int di = 0; di < g.k; ++di) {
-    for (int dj = 0; dj < g.k; ++dj) {
-      const int off = (ty * g.stride + di) * cols_in + tx * g.stride + dj;
-      const int tap = di * g.k + dj;
+
+  double acc[RUN][CB];
 #pragma unroll
-      for (int j = 0; j < CO_B; ++j) {
-        acc[j] = fma(xs[j * plane + off], wsm[tap * CO_B + j], acc[j]);
+  for (int r = 0; r < RUN; ++r)
+#pragma unroll
+    for (int c = 0; c < CB; ++c) acc[r][c] = 0.0;
+
+  const int r0 = ty * RUN * s;
+  if (K > 0) {
+    // stride 1: the RUN + K - 1 inputs of tap column dj of a channel,
+    // converted once, serve all K taps of that column
+    int rb[RUN + K - 1];
+#pragma unroll
+    for (int i = 0; i < RUN + K - 1; ++i) {
+      rb[i] = (r0 + i) * g.ld + rph[r0 + i] + tx * CB;
+    }
+#pragma unroll
+    for (int dj = 0; dj < K; ++dj) {
+#pragma unroll
+      for (int c = 0; c < CB; ++c) {
+        double win[RUN + K - 1];
+#pragma unroll
+        for (int i = 0; i < RUN + K - 1; ++i) {
+          win[i] = (double)xs[rb[i] + dj * CB + c];
+        }
+#pragma unroll
+        for (int di = 0; di < K; ++di) {
+          const double wv = wd[(di * K + dj) * CB + c];
+#pragma unroll
+          for (int r = 0; r < RUN; ++r) {
+            acc[r][c] = fma(win[r + di], wv, acc[r][c]);
+          }
+        }
+      }
+    }
+  } else {
+    for (int di = 0; di < k; ++di) {
+      int rb[RUN];
+#pragma unroll
+      for (int r = 0; r < RUN; ++r) {
+        const int row = r0 + r * s + di;
+        rb[r] = row * g.ld + rph[row] + tx * s * CB;
+      }
+      for (int dj = 0; dj < k; ++dj) {
+#pragma unroll
+        for (int c = 0; c < CB; ++c) {
+          const double wv = wd[(di * k + dj) * CB + c];
+#pragma unroll
+          for (int r = 0; r < RUN; ++r) {
+            acc[r][c] = fma((double)xs[rb[r] + dj * CB + c], wv, acc[r][c]);
+          }
+        }
       }
     }
   }
-  float* o = out + (((size_t)b * g.n_rows + oh) * g.w_out + ow) * g.c;
+
+  // the tile's outputs into shared memory, channel-interleaved as in the
+  // output (the input tile is no longer read), then out a row at a time:
+  // a row of the tile is one run of floats when CB == C, written 16 bytes
+  // at a time where the destination is aligned
+  const int ldo = TX * CB;
+  __syncthreads();
 #pragma unroll
-  for (int j = 0; j < CO_B; ++j) {
-    const int co = co0 + j;
-    if (co >= g.c) break;
-    o[co] = epilogue(acc[j], ws, bias, co, g.act_scale, g.act);
+  for (int r = 0; r < RUN; ++r) {
+#pragma unroll
+    for (int c = 0; c < CB; ++c) {
+      const int co = min(c0 + c, g.c - 1);
+      xs[(ty * RUN + r) * ldo + tx * CB + c] =
+          epilogue(acc[r][c], ws, bias, co, g.act_scale, g.act);
+    }
+  }
+  __syncthreads();
+  const int ow0 = tw * TX;
+  const int ncols = min(TX, g.w_out - ow0);
+  for (int row = warp; row < TH; row += nwarps) {
+    const int oh = th * TH + row;
+    if (oh >= g.n_rows) break;
+    const float* src = xs + row * ldo;
+    float* dst = out + (((size_t)b * g.n_rows + oh) * g.w_out + ow0) * g.c;
+    if (g.contiguous) {
+      const int n_o = ncols * CB;
+      const int e0 = (int)((4 - (((uintptr_t)dst >> 2) & 3)) & 3);
+      for (int e = e0 + 4 * lane; e < n_o; e += 128) {
+        if (e + 4 <= n_o) {
+          *(float4*)(dst + e) = make_float4(src[e], src[e + 1], src[e + 2],
+                                            src[e + 3]);
+        } else {
+          for (int j = e; j < n_o; ++j) dst[j] = src[j];
+        }
+      }
+      if (lane < e0 && lane < n_o) dst[lane] = src[lane];
+    } else {
+      for (int e = lane; e < ncols * CB; e += 32) {
+        const int col = e / CB;
+        const int c = e - col * CB;
+        if (c0 + c < g.c) dst[col * g.c + c0 + c] = src[e];
+      }
+    }
   }
 }
 
-template <int CO_B>
-int launch_dw(const void* x, const void* w, const void* ws, const void* bias,
-              void* out, int batch, Geom g, cudaStream_t stream) {
-  const int rows_in = (kTile - 1) * g.stride + g.k;
-  const size_t plane = (size_t)rows_in * rows_in;
-  const size_t bytes = (CO_B * plane + (size_t)g.k * g.k * CO_B) *
-                       sizeof(double);
-  if (bytes > (size_t)kSmemMax) return (int)cudaErrorInvalidConfiguration;
-  if (bytes > (size_t)kSmemDefault) {
+struct DwLaunch {
+  const void* x;
+  const void* w;
+  const void* ws;
+  const void* bias;
+  void* out;
+  int batch, tx, tyt, bytes;
+  Dw g;
+  cudaStream_t stream;
+};
+
+template <int K, int RUN, int CB>
+int launch_dw_k(const DwLaunch& l) {
+  if (l.bytes > kSmemMax) return (int)cudaErrorInvalidConfiguration;
+  if (l.bytes > kSmemDefault) {
     cudaError_t err = cudaFuncSetAttribute(
-        conv_dw_kernel<CO_B>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
+        conv_dw_kernel<K, RUN, CB>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, l.bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  g.tiles_w = (g.w_out + kTile - 1) / kTile;
-  const int tiles_h = (g.n_rows + kTile - 1) / kTile;
-  const dim3 grid(tiles_h * g.tiles_w, (g.c + CO_B - 1) / CO_B, batch);
-  conv_dw_kernel<CO_B><<<grid, kThreads, bytes, stream>>>(
-      (const float*)x, (const float*)w, (const float*)ws, (const float*)bias,
-      (float*)out, g);
+  const int th = l.tyt * RUN;
+  const dim3 grid((l.g.n_rows + th - 1) / th * l.g.tiles_w,
+                  (l.g.c + CB - 1) / CB, l.batch);
+  conv_dw_kernel<K, RUN, CB><<<grid, dim3(l.tx, l.tyt), l.bytes,
+                               l.stream>>>(
+      (const float*)l.x, (const float*)l.w, (const float*)l.ws,
+      (const float*)l.bias, (float*)l.out, l.g);
   return (int)cudaGetLastError();
+}
+
+template <int CB>
+int launch_dw_cb(const DwLaunch& l, int run) {
+  const bool fast = l.g.stride == 1 && (l.g.k == 3 || l.g.k == 5 ||
+                                        l.g.k == 7);
+  if (run != (fast ? kDwFastRun : kDwRun)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (!fast) return launch_dw_k<0, kDwRun, CB>(l);
+  if (l.g.k == 3) return launch_dw_k<3, kDwFastRun, CB>(l);
+  if (l.g.k == 5) return launch_dw_k<5, kDwFastRun, CB>(l);
+  return launch_dw_k<7, kDwFastRun, CB>(l);
 }
 
 }  // namespace
@@ -516,14 +690,23 @@ extern "C" int conv_strip_launch(const void* x, const void* w, const void* ws,
   }
 }
 
-// depthwise, multiplier 1: w_taps [k*k, C]; CO_B, the smallest of 1, 4, 16
-// that covers the channels, so a 1-channel conv does no idle channel work
+// depthwise, multiplier 1: w_taps [k*k, C]. The tile is tx columns x
+// tyt*run rows (tx 32 or 64, tx*tyt <= 256), cb channels a thread (1, 3 or
+// 4), as kernels/conv_bank/strip.py::dw_config picks them; run is 8 for k
+// = 3, 5, 7 at stride 1 and 4 otherwise, anything else is refused with
+// cudaErrorInvalidValue.
 extern "C" int conv_strip_dw_launch(const void* x, const void* w_taps,
                                     const void* ws, const void* bias,
                                     void* out, int batch, int hp, int wp,
                                     int c, int k, int stride, float act_scale,
-                                    int act, void* stream) {
-  Geom g{};
+                                    int act, int tx, int tyt, int run, int cb,
+                                    void* stream) {
+  const int bad = (int)cudaErrorInvalidValue;
+  if ((tx != 32 && tx != 64) || tyt < 1 || tx * tyt > kDwThreads ||
+      k < 1 || stride < 1 || hp < k || wp < k || c < 1) {
+    return bad;
+  }
+  Dw g{};
   g.hp = hp;
   g.wp = wp;
   g.c = c;
@@ -531,10 +714,21 @@ extern "C" int conv_strip_dw_launch(const void* x, const void* w_taps,
   g.stride = stride;
   g.n_rows = (hp - k) / stride + 1;
   g.w_out = (wp - k) / stride + 1;
+  g.tiles_w = (g.w_out + tx - 1) / tx;
+  g.rows_in = (tyt * run - 1) * stride + k;
+  g.cols_in = (tx - 1) * stride + k;
+  g.ld = (g.cols_in * cb + 3) / 4 * 4 + 4;
+  g.w_offset = ((g.rows_in * g.ld + g.rows_in) * 4 + 7) / 8 * 8;
+  g.contiguous = cb == c;
   g.act_scale = act_scale;
   g.act = act;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (c <= 1) return launch_dw<1>(x, w_taps, ws, bias, out, batch, g, s);
-  if (c <= 4) return launch_dw<4>(x, w_taps, ws, bias, out, batch, g, s);
-  return launch_dw<16>(x, w_taps, ws, bias, out, batch, g, s);
+  const int bytes = g.w_offset + k * k * cb * 8;
+  const DwLaunch l{x, w_taps, ws, bias, out, batch, tx, tyt, bytes, g,
+                   (cudaStream_t)stream};
+  switch (cb) {
+    case 1: return launch_dw_cb<1>(l, run);
+    case 3: return launch_dw_cb<3>(l, run);
+    case 4: return launch_dw_cb<4>(l, run);
+    default: return bad;
+  }
 }

@@ -9,7 +9,8 @@ and gets every output row back; rows past the conv's true height are its
 padding to slice off. The CUDA kernel tiles the output for shared memory
 on its own, so the strips fix only that contract: :func:`strip_config`
 picks the dense kernel's tile, output-channel block and input-channel
-chunk from the shape alone (tested on the CPU).
+chunk, and :func:`dw_config` the depthwise kernel's tile, run and channel
+block, from the shape alone (tested on the CPU).
 
 With ``ws`` the per-layer epilogue follows the accumulate, in the
 reference kernel's association: ``acc * act_scale * ws``, then ``+ bias``,
@@ -40,7 +41,7 @@ from repro_torch.kernels.conv_bank.ref import conv_taps_int
 LAUNCHES = _build.LaunchCounter("conv_strip")
 DW_LAUNCHES = _build.LaunchCounter("conv_strip_depthwise")
 _DW_ENTRY = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6 + (
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
+    ctypes.c_float,) + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
 _SIGNATURES = {
     "conv_strip_launch": (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7 + (
         ctypes.c_float,) + (ctypes.c_int,) * 6 + (ctypes.c_void_p,),
@@ -54,6 +55,9 @@ FAST_K = (3, 5, 7)              # k instantiated at stride 1
 # then the smaller CTA (more CTAs an SM)
 DENSE_SHAPES = ((8, 4, 128), (4, 8, 128), (4, 4, 128), (4, 4, 64),
                 (1, 8, 128), (1, 4, 64))
+DW_THREADS = (128, 64, 32)      # depthwise CTA sizes in order of preference
+DW_FAST_RUN, DW_RUN = 8, 4      # depthwise rows a thread: k 3/5/7 at
+                                # stride 1, and any other k or stride
 
 
 @dataclass(frozen=True)
@@ -135,6 +139,55 @@ def strip_config(batch: int, n_rows: int, w_out: int, c_in: int, c_out: int,
         best = _shape_config(batch, n_rows, w_out, c_in, c_out, k, stride,
                             *DENSE_SHAPES[-1])
     return best
+
+
+@dataclass(frozen=True)
+class DwConfig:
+    """One launch of the depthwise strip kernel: a tile of ``tx`` columns x
+    ``tyt * run`` rows (``tx * tyt`` threads, each ``run`` rows of one
+    column for the ``cb`` channels of its block), a CTA a tile."""
+    k_inst: int                 # the kernel's K: 3, 5, 7, or 0 (any k, stride)
+    tx: int
+    tyt: int
+    run: int
+    cb: int
+    smem: int                   # dynamic shared memory, bytes
+    ctas: int
+
+
+def dw_bytes(tx: int, tyt: int, run: int, cb: int, k: int,
+             stride: int) -> int:
+    """Shared memory of a depthwise CTA, as the kernel's launcher lays it
+    out: the float32 input rows (``cols_in * cb`` floats rounded up to 4,
+    plus 4 for the row's phase), an int phase a row, then the taps as
+    float64 (8-byte aligned)."""
+    rows_in = (tyt * run - 1) * stride + k
+    ld = _cdiv(((tx - 1) * stride + k) * cb, 4) * 4 + 4
+    return _cdiv((rows_in * ld + rows_in) * 4, 8) * 8 + k * k * cb * 8
+
+
+@functools.lru_cache(maxsize=1024)
+def dw_config(batch: int, n_rows: int, w_out: int, c: int, k: int,
+              stride: int) -> DwConfig:
+    """The depthwise kernel's launch for output [batch, n_rows, w_out, c]
+    at k x k, stride ``stride``: channel blocks of all ``c`` channels for 1
+    and 3 (none idles, rows copy as one run of floats), else of 4; tiles 32
+    columns wide for outputs up to 32 wide, else 64 (32 where a large k and
+    stride need it), of the first of ``DW_THREADS`` whose shared memory fits
+    a CTA (:func:`launch` raises if none does)."""
+    k_inst = k if stride == 1 and k in FAST_K else 0
+    run = DW_FAST_RUN if k_inst else DW_RUN
+    cb = c if c in (1, 3) else 4
+    shapes = [(tx, threads // tx) for tx in ((32,) if w_out <= 32 else
+                                              (64, 32))
+              for threads in DW_THREADS if threads >= tx]
+    for tx, tyt in shapes:
+        smem = dw_bytes(tx, tyt, run, cb, k, stride)
+        if smem <= SMEM_MAX:
+            break
+    return DwConfig(k_inst, tx, tyt, run, cb, smem,
+                    batch * _cdiv(n_rows, tyt * run) * _cdiv(w_out, tx) *
+                    _cdiv(c, cb))
 
 
 def pad_rows_for_strips(xp: torch.Tensor, kk: int, stride: int,
@@ -236,7 +289,8 @@ def launch(x_padded: torch.Tensor, w: torch.Tensor, ws, bias,
     """Launch the kernel on CUDA tensors (validated by the caller) and
     count it on ``counter``: dense ``w`` is [k, k, C_in, C_out], depthwise
     ``w`` is [k*k, C]. Returns every output row of the padded input; the
-    dense launch takes :func:`strip_config`'s configuration."""
+    dense launch takes :func:`strip_config`'s configuration, the depthwise
+    one :func:`dw_config`'s."""
     dev = x_padded.device
     kk = w.shape[0] if not depthwise else math.isqrt(w.shape[0])
     b, hp, wp, c_in = x_padded.shape
@@ -258,9 +312,15 @@ def launch(x_padded: torch.Tensor, w: torch.Tensor, ws, bias,
     lib = _build.library("conv_strip", _SIGNATURES)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if depthwise:
+        cfg = dw_config(b, n_rows, w_out, c_in, kk, stride)
+        if cfg.smem > SMEM_MAX:
+            raise ValueError(f"conv_strip_depthwise: {cfg.smem} bytes of "
+                             f"shared memory at k={kk} stride={stride}; a "
+                             f"CTA has {SMEM_MAX}")
         err = lib.conv_strip_dw_launch(*ptr, out.data_ptr(), b, hp, wp, c_in,
                                        kk, stride, float(act_scale),
-                                       ACTS[act], stream)
+                                       ACTS[act], cfg.tx, cfg.tyt, cfg.run,
+                                       cfg.cb, stream)
     else:
         cfg = strip_config(b, n_rows, w_out, c_in, c_out, kk, stride)
         if cfg.smem > SMEM_MAX:

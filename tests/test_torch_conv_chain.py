@@ -203,3 +203,127 @@ def test_fused_segment_selection_matches_reference():
             theirs = jdispatch.select_fused_segments(jgeoms, mode=mode)
             assert [dataclasses.asdict(s) for s in mine] == \
                 [dataclasses.asdict(s) for s in theirs], (name, mode)
+
+
+# --- the chain kernel's launch configuration (fused.chain_config) ---------
+
+def _program_segments():
+    """{program: [segment geoms]} for every program whose plan fuses: LeNet,
+    VGG9-CA, the imaging pipelines at 64x64 (edge_detect's among them) and
+    256x256 (the served size)."""
+    from repro_torch import Options, Program
+    from repro_torch.imaging import PIPELINES
+    progs = {n: Program.from_model(n, torch.Generator().manual_seed(0))
+             for n in ("lenet", "vgg9")}
+    for n in sorted(PIPELINES):
+        for hw in (64, 256):
+            progs[f"{n}{hw}"] = Program.from_pipeline(n, hw, hw)
+    out = {}
+    for name, prog in progs.items():
+        plan = prog.compile(Options(device="cpu")).plan
+        out[name] = [[s.geom for s in plan.steps[seg.start:seg.start +
+                                                 seg.length]]
+                     for seg in plan.fused_segments]
+    return out
+
+
+def _edge_segments():
+    from repro_torch.kernels.edge_shapes import (CHAIN_EDGES, CHAINS,
+                                                 chain_case)
+    gen = torch.Generator().manual_seed(0)
+    cases = list(CHAIN_EDGES) + [(3,) + c for c in CHAINS]
+    return [(b, [g for g, _, _, _ in chain_case(b, h, w, c, specs, gen,
+                                                "cpu")[2]])
+            for b, h, w, c, specs in cases]
+
+
+def test_fused_segments_of_every_program_are_unchanged():
+    """The kernel's redesign keeps the fusion rule: the same segments."""
+    segs = {name: [tuple(g.name for g in seg) for seg in s]
+            for name, s in _program_segments().items()}
+    fused_progs = {n: s for n, s in segs.items() if s}
+    assert fused_progs == {
+        "lenet": [("conv1", "conv2")],
+        "compress_recon_deconv64": [("rec1", "rec2")],
+        "edge_detect64": [("grad", "edge_mag")],
+        "prewitt_edge64": [("grad", "edge_mag")]}
+
+
+def _ranges(n_out, cluster):
+    """The kernel's ranges of a stage's pooled outputs, by CTA rank."""
+    return [(n_out * r // cluster, n_out * (r + 1) // cluster)
+            for r in range(cluster)]
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8, 13, 16, 33, 200])
+def test_chain_config_ranges_cover_every_pooled_output_once(batch):
+    from repro_torch.kernels.conv_bank.fused import (MAX_CLUSTER, THREADS,
+                                                     chain_config)
+    segments = [seg for segs in _program_segments().values()
+                for seg in segs] + [g for _, g in _edge_segments()]
+    for geoms in segments:
+        cfg = chain_config(batch, geoms)
+        assert 1 <= cfg.cluster <= MAX_CLUSTER
+        assert cfg.ctas == batch * cfg.cluster
+        for g, split in zip(geoms, cfg.splits):
+            h, w = g.out_hw()
+            n_out = h * w * g.c_out
+            ranges = _ranges(n_out, cfg.cluster)
+            # contiguous, in rank order, every pooled output exactly once
+            assert ranges[0][0] == 0 and ranges[-1][1] == n_out
+            assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+            # a pooled output is a whole pool window: the conv positions
+            # the ranks compute never overlap and cover every window
+            p = g.pool[1] if g.pool is not None else 1
+            owner = {}
+            for rank, (lo, hi) in enumerate(ranges):
+                for o in range(lo, hi):
+                    co, t = o % g.c_out, o // g.c_out
+                    pw, ph = t % w, t // w
+                    for pi in range(p):
+                        for pj in range(p):
+                            key = (ph * p + pi, pw * p + pj, co)
+                            assert key not in owner
+                            owner[key] = rank
+            assert len(owner) == n_out * p * p
+            # lanes per output: a power of two up to 32, within the fan-in
+            fan = g.kernel * g.kernel * (g.c_in // g.groups)
+            assert split in (1, 2, 4, 8, 16, 32) and split <= max(fan, 1)
+            assert THREADS % split == 0
+
+
+def test_chain_config_fits_shared_memory_on_every_admitted_segment():
+    from repro_torch.kernels.conv_bank.fused import (SMEM_PER_BLOCK,
+                                                     chain_config)
+    segments = [(8, seg) for segs in _program_segments().values()
+                for seg in segs] + _edge_segments()
+    assert len(segments) >= 14
+    staged_somewhere, global_somewhere = False, False
+    for batch, geoms in segments:
+        cfg = chain_config(batch, geoms)
+        frames = smem_layout(geoms)[2]
+        assert frames <= cfg.smem <= SMEM_PER_BLOCK
+        # staged weights lie after the frames, 16-byte aligned, apart
+        end = frames
+        for g, off in zip(geoms, cfg.w_offsets):
+            if off < 0:
+                global_somewhere = True
+                continue
+            staged_somewhere = True
+            fan = g.kernel * g.kernel * (g.c_in // g.groups)
+            assert off % 4 == 0 and off * 4 >= end
+            end = (off + fan * g.c_out + 2 * g.c_out) * 4
+            assert end <= cfg.smem
+    assert staged_somewhere and global_somewhere
+
+
+def test_chain_config_picks_a_cluster_of_8_on_the_served_path():
+    from repro_torch.kernels.conv_bank.fused import chain_config
+    lenet = _program_segments()["lenet"][0]
+    for batch in (1, 2, 4, 8):
+        cfg = chain_config(batch, lenet)
+        assert cfg.cluster == 8 and cfg.ctas == 8 * batch
+        assert all(o >= 0 for o in cfg.w_offsets)
+    # enough frames fill the SMs with smaller clusters
+    assert chain_config(33, lenet).cluster == 4
+    assert chain_config(132, lenet).cluster == 1

@@ -26,8 +26,9 @@ from repro_torch.kernels.conv_bank import strip
 from repro_torch.kernels.conv_bank.fused import conv_chain
 from repro_torch.kernels.conv_bank.ops import conv_bank, conv_bank_plain
 from repro_torch.kernels.conv_bank.ref import conv_chain_ref
-from repro_torch.kernels.edge_shapes import (MVM_EDGES, STRIP_EDGES,
-                                             odd_offset)
+from repro_torch.kernels.edge_shapes import (CHAIN_EDGES, CHAINS, DW_EDGES,
+                                             MVM_EDGES, STRIP_EDGES,
+                                             chain_case, odd_offset)
 from repro_torch.kernels.photonic_mvm.ops import mvm_int
 from repro_torch.kernels.photonic_mvm.ref import mvm_int_ref
 
@@ -101,6 +102,34 @@ def test_chain_kernel_bitwise_equal_to_plain(cuda, dw, act, pool, stride):
     assert launch_counts()["conv_chain"] == 1
     want = conv_chain_ref(codes, scale, stages, 15.0)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _chain_matches_plain(codes, scale, stages):
+    reset_launch_counts()
+    got = conv_chain(codes, scale, stages, 15.0)
+    assert launch_counts()["conv_chain"] == 1
+    want = conv_chain_ref(codes, scale, stages, 15.0)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("i", range(len(CHAIN_EDGES)))
+def test_chain_kernel_configs_bitwise_equal_to_plain(cuda, i):
+    from repro_torch.kernels.conv_bank.fused import chain_config
+    b, h, w, c, specs = CHAIN_EDGES[i]
+    codes, scale, stages = chain_case(b, h, w, c, specs,
+                                      torch.Generator().manual_seed(i), cuda)
+    assert chain_config(b, [s[0] for s in stages]).cluster == 8
+    _chain_matches_plain(codes, scale, stages)
+
+
+@pytest.mark.parametrize("i", range(len(CHAINS)))
+def test_chain_kernel_chains_both_calibrations_bitwise_equal(cuda, i):
+    h, w, c, specs = CHAINS[i]
+    codes, scale, stages = chain_case(3, h, w, c, specs,
+                                      torch.Generator().manual_seed(i), cuda)
+    _chain_matches_plain(codes, scale, stages)
+    # per-tensor calibration at batch 1: a 0-d incoming scale
+    _chain_matches_plain(codes[:1], scale[0, 0, 0, 0], stages)
 
 
 def test_chain_kernel_refuses_frames_beyond_shared_memory(cuda):
@@ -199,6 +228,33 @@ def test_depthwise_strip_kernel_bitwise_equal_to_plain(cuda, b, h, c, k,
     kw = dict(stride=stride, strip_h=strip_h, act_scale=0.11, act="abs")
     assert torch.equal(strip.conv_strip_depthwise(xp, taps, ws, **kw),
                        strip.conv_strip_depthwise_ref(xp, taps, ws, **kw))
+
+
+@pytest.mark.parametrize("odd", [False, True])
+@pytest.mark.parametrize("b,h_out,w_out,c,k,stride", DW_EDGES)
+def test_depthwise_kernel_configs_bitwise_equal_to_plain(cuda, b, h_out,
+                                                         w_out, c, k, stride,
+                                                         odd):
+    cfg = strip.dw_config(b, h_out, w_out, c, k, stride)
+    assert cfg.k_inst == (k if stride == 1 and k in (3, 5, 7) else 0)
+    g = torch.Generator().manual_seed(b + h_out + w_out + c + k)
+    xp = torch.randint(0, 16, (b, (h_out - 1) * stride + k,
+                               (w_out - 1) * stride + k, c),
+                       generator=g).float().to(cuda)
+    if odd:                       # 4 bytes past an allocation
+        xp = odd_offset(xp)
+    taps = torch.randint(-127, 128, (k * k, c), generator=g).float().to(cuda)
+    ws = (torch.rand((c,), generator=g) + 0.5).to(cuda)
+    bias = torch.randn((c,), generator=g).to(cuda)
+    kw = dict(stride=stride, strip_h=h_out)
+    reset_launch_counts()
+    got = strip.conv_strip_depthwise(xp, taps, **kw)
+    assert launch_counts()["conv_strip_depthwise"] == 1
+    assert torch.equal(got, strip.conv_strip_depthwise_ref(xp, taps, **kw))
+    for act in ("none", "relu", "abs", "sign"):
+        e = dict(kw, act_scale=0.37, act=act, bias=bias)
+        assert torch.equal(strip.conv_strip_depthwise(xp, taps, ws, **e),
+                           strip.conv_strip_depthwise_ref(xp, taps, ws, **e))
 
 
 @pytest.mark.parametrize("strategy", ["resident", "strip"])

@@ -341,3 +341,38 @@ def test_strip_config_stage_bytes_match_the_kernel_layout():
     # large k at a large stride: shapes that overflow a CTA are passed over
     cfg = strip.strip_config(1, 8, 8, 2, 16, 11, 4)
     assert cfg.smem <= strip.SMEM_MAX
+
+
+# the depthwise kernel's launch configuration (strip.dw_config) over a grid
+# of channels, k and stride, and the two path calls
+@pytest.mark.parametrize("c", [1, 2, 3, 4, 5, 16, 17])
+@pytest.mark.parametrize("k,stride", [(3, 1), (5, 1), (7, 1), (4, 1),
+                                      (3, 2), (5, 2), (9, 2), (11, 4)])
+def test_dw_config_is_legal_and_covers_the_output(c, k, stride):
+    for b, h, w in ((8, 256, 256), (2, 37, 67), (1, 9, 11), (3, 1, 1)):
+        cfg = strip.dw_config(b, h, w, c, k, stride)
+        assert cfg.k_inst == (k if stride == 1 and k in strip.FAST_K else 0)
+        assert cfg.run == (strip.DW_FAST_RUN if cfg.k_inst else strip.DW_RUN)
+        assert cfg.cb == (c if c in (1, 3) else 4)
+        assert cfg.tx in (32, 64) and cfg.tx * cfg.tyt in strip.DW_THREADS
+        assert cfg.tx == 32 or w > 32
+        assert cfg.smem == strip.dw_bytes(cfg.tx, cfg.tyt, cfg.run, cfg.cb,
+                                          k, stride) <= strip.SMEM_MAX
+        # the tiles cover every output row, column and channel
+        rows, cols = cfg.tyt * cfg.run, cfg.tx
+        assert cfg.ctas == b * -(-h // rows) * -(-w // cols) * \
+            -(-c // cfg.cb)
+
+
+@pytest.mark.parametrize("k", [3, 5])
+def test_dw_config_fills_the_card_at_the_path_shapes(k):
+    cfg = strip.dw_config(8, 256, 256, 3, k, 1)
+    assert (cfg.k_inst, cfg.cb, cfg.tx) == (k, 3, 64)
+    assert cfg.ctas >= strip.SMS
+
+
+def test_dw_bytes_match_the_kernel_layout():
+    # 64 x 16 tile, k 5, 3 channels: 20 rows of 68 * 3 = 204 floats (+ 4
+    # for the row's phase), an int a row, then 25 * 3 taps as float64
+    xs = 20 * 208 * 4 + 20 * 4
+    assert strip.dw_bytes(64, 2, 8, 3, 5, 1) == -(-xs // 8) * 8 + 75 * 8
