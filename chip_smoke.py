@@ -26,23 +26,27 @@ Phases, each fatal on failure:
   3. kernels: each kernel's wrapper runs on the card at the shapes the two
      paths give it at bucket 8, plus extra shapes (the edge lists of
      ``kernels/edge_shapes.py``: ragged GEMMs, strip tiles, depthwise
-     tiles and fused chains; random chains, edge_detect's fused segment at
-     64x64, the 512x512 multi-strip geometries, a stride-2 VALID and a
-     grouped conv, a VGG16-like layer, the conv_bank op in both strategies
-     at k = 3, 5, 7), and is held bitwise equal to its plain PyTorch
-     version on the same inputs. The conv_bank op, which no served path
-     reaches, is driven once on its own with the counts zeroed around it;
+     tiles, fused chains and every ca_pool route; random chains,
+     edge_detect's fused segment at 64x64, the 512x512 multi-strip
+     geometries, a stride-2 VALID and a grouped conv, a VGG16-like layer,
+     the conv_bank op in both strategies at k = 3, 5, 7), and is held
+     bitwise equal to its plain PyTorch version on the same inputs. The
+     conv_bank op, which no served path reaches, is driven once on its own
+     with the counts zeroed around it;
   4. timing: each kernel at its path shapes (the conv_bank op at its own),
      beside its plain version, one library call as a yardstick where
      PyTorch has one (with TF32 off, and whether its answer was exact), the
      profiler's device time, the launch configuration (the chain kernel's
      cluster and CTAs, the depthwise kernel's tile, run, channel block and
-     CTAs, the CTAs of the others), and the least time the card could take
-     (bytes over 3.35 TB/s, operations over the dense tensor-core peak for
-     their type: int8 for integer MACs, TF32 for ca_pool's float MACs); the
-     device times come from one profiler session, written as a Chrome
-     trace beside the details file, with a range per path shape of
-     photonic_mvm, the strip convs and ca_pool (kernel and library call);
+     CTAs, ca_pool's route, run, threads and CTAs, the CTAs of the others),
+     one ca_pool p = 1 call with the L2 cache flushed before each launch
+     (``ca_pool.cold``; the path's calls find their input in L2), and the
+     least time the card could take (bytes over 3.35 TB/s, operations over
+     the dense tensor-core peak for their type: int8 for integer MACs,
+     TF32 for ca_pool's float MACs); the device times come from one
+     profiler session, written as a Chrome trace beside the details file,
+     with a range per path shape of photonic_mvm, the strip convs and
+     ca_pool (kernel and library call);
   5. serve: both paths, every answer finite, of the right shape and bitwise
      equal to batch-1 ``run_per_frame`` on the card, to the reference
      backend on the card and to the port's CPU run on the first frames;
@@ -91,6 +95,8 @@ STRIP_CONVS = [("stride2_valid", (2, 65, 63, 8), (3, 3, 8, 16), 2, "VALID", 1),
 SERVE_WINDOW = "chip_smoke.serve_window"
 DEVICE_RANGE = "chip_smoke.device_time."
 DEVICE_ITERS = 20                   # batches in each device-time range
+L2_FLUSH_BYTES = 128 << 20          # written before each cold launch (the
+                                    # H100's L2 holds 50 MB)
 DEVICE_TRACE = "device_time_trace.json"
 SERVE_TRACE = "imaging_serve_trace.json"
 # the port's kernels are top-level functions of an anonymous namespace
@@ -117,7 +123,7 @@ SOURCES = {
 # device-time symbols (space-free regexes over the profiler's kernel names)
 KERNEL_SYMBOLS = {"photonic_mvm": r"mvm_(gemm|reduce|skinny)_kernel",
                   "conv_chain": r"conv_chain_kernel",
-                  "ca_pool": r"ca_gray_kernel|ca_mean_kernel",
+                  "ca_pool": r"ca_(gray|mean|generic)_kernel",
                   "conv_strip": r"conv_dense_kernel",
                   "conv_strip_depthwise": r"conv_dw_kernel",
                   "conv_bank": r"conv_dense_kernel"}
@@ -367,8 +373,8 @@ def phase_kernels(device, vision, imaging):
     from repro_torch.kernels.conv_bank.fused import conv_chain
     from repro_torch.kernels.conv_bank.ops import conv_bank, conv_bank_plain
     from repro_torch.kernels.conv_bank.ref import conv_chain_ref, conv_int_ref
-    from repro_torch.kernels.edge_shapes import (CHAIN_EDGES, CHAINS,
-                                                 DW_EDGES, MVM_EDGES,
+    from repro_torch.kernels.edge_shapes import (CA_EDGES, CHAIN_EDGES,
+                                                 CHAINS, DW_EDGES, MVM_EDGES,
                                                  STRIP_EDGES, chain_case,
                                                  odd_offset)
     from repro_torch.kernels.photonic_mvm.ops import mvm_int
@@ -441,6 +447,9 @@ def phase_kernels(device, vision, imaging):
                      ((5, 28, 28, 1), 4), ((4, 16, 24, 3), 2)):
         img = torch.rand(shape, generator=gen).to(device)
         cases += [(img, p, True), (img, p, False)]
+    for b, h, w, c, p, gray, odd, _ in CA_EDGES:
+        img = torch.rand((b, h, w, c), generator=gen).to(device)
+        cases.append((odd_offset(img) if odd else img, p, gray))
     for img, p, gray in cases:
         compare("ca_pool", ca_pool(img, p, gray),
                 compressive_acquire(img, p, gray),
@@ -610,7 +619,7 @@ def phase_timing(device, vision, imaging):
     from repro_torch.core.compressive import ca_coefficients
     from repro_torch.core.compressive import compressive_acquire
     from repro_torch.core.quant import W4A4
-    from repro_torch.kernels.ca_pool.ops import ca_pool
+    from repro_torch.kernels.ca_pool.ops import ca_config, ca_pool
     from repro_torch.kernels.conv_bank import strip
     from repro_torch.kernels.conv_bank.fused import conv_chain
     from repro_torch.kernels.conv_bank.ops import conv_bank, conv_bank_plain
@@ -619,6 +628,8 @@ def phase_timing(device, vision, imaging):
     from repro_torch.kernels.photonic_mvm.ref import mvm_int_ref
     time_ms = timer(device)
     rows, detail = {}, {k: [] for k in KERNELS}
+    sms = (torch.cuda.get_device_properties(device).multi_processor_count
+           if device.type == "cuda" else 132)
 
     def add(kernel, ms, plain, lib, nbytes, ops, kind, path=None, **shape):
         b, by = bound_ms(nbytes, ops, kind)
@@ -694,14 +705,15 @@ def phase_timing(device, vision, imaging):
         bank = coef.permute(2, 0, 1)[None].contiguous()   # [1, C, p, p]
         nchw = img.permute(0, 3, 1, 2)
         out_n = b * (h // p) * (w // p)
+        cfg = ca_config(b, h, w, c, p, True, sms, img.data_ptr() % 16 == 0)
         with float32_convs():
             lib = time_ms(lambda: F.conv2d(nchw, bank, stride=p))
         add("ca_pool", time_ms(lambda: ca_pool(img, p, True)),
             time_ms(lambda: compressive_acquire(img, p, True)), lib,
             img.numel() * 4 + coef.numel() * 4 + out_n * 4,
             2 * out_n * p * p * c, "tf32", path, B=b, H=h, W=w, C=c,
-            pool=p,
-            library="F.conv2d with the coefficient bank")
+            pool=p, library="F.conv2d with the coefficient bank",
+            route=cfg.route, r=cfg.r, threads=cfg.threads, ctas=cfg.ctas)
 
     # the strip kernels: F.conv2d (TF32 off; groups=C for depthwise) on the
     # same padded codes is the yardstick; record whether cuDNN was exact
@@ -804,8 +816,10 @@ def phase_device_time(device, vision, imaging, trace_path,
     imaging calls are their own range (``photonic_mvm.imaging``), and each
     path shape of photonic_mvm and of the dense strip conv is timed alone,
     beside its library call (``<kernel>.shape<i>``, ``library.<kernel>.
-    shape<i>``: every kernel the library launched). None where the
-    profiler shows no device time."""
+    shape<i>``: every kernel the library launched); ``ca_pool.cold`` is
+    the first p = 1 imaging call with ``L2_FLUSH_BYTES`` written before
+    each launch, so it reads its input from HBM. None where the profiler
+    shows no device time."""
     import torch
     import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -817,7 +831,7 @@ def phase_device_time(device, vision, imaging, trace_path,
     from repro_torch.kernels.photonic_mvm.ops import mvm_int
     if device.type != "cuda":
         return {k: None for k in KERNELS + ("photonic_mvm.imaging",
-                                          "ca_pool.imaging")}
+                                          "ca_pool.imaging", "ca_pool.cold")}
     bank = conv_bank_calls(device)
     batches = {
         "photonic_mvm": lambda: [mvm_int(a, w) for a, w in
@@ -857,6 +871,9 @@ def phase_device_time(device, vision, imaging, trace_path,
         batches[f"library.ca_pool.shape{i}"] = \
             lambda nchw=img.permute(0, 3, 1, 2), cb=coef_bank, p=p: F.conv2d(
                 nchw, cb, stride=p)
+    img1 = next(img for img, p in imaging["ca_pool"] if p == 1)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device=device)
+    batches["ca_pool.cold"] = lambda: (flush.zero_(), ca_pool(img1, 1, True))
     with float32_convs():                # F.conv2d without TF32
         for batch in batches.values():
             batch()
@@ -1065,9 +1082,10 @@ def call_label(d):
 def launch_label(d):
     """A per-call detail's launch configuration: cluster and CTAs of the
     chain kernel, tile, run, channel block and CTAs of the depthwise one,
-    CTAs of the others (none for ca_pool)."""
+    route, run, threads and CTAs of ca_pool, CTAs of the others."""
     keys = ("cluster", "splits", "weights_in_smem", "smem",
-            "active_clusters", "tile", "run", "cb", "route", "split", "ctas")
+            "active_clusters", "tile", "run", "cb", "route", "r", "threads",
+            "split", "ctas")
     return ", ".join(f"{k} {d[k]}" for k in keys if k in d) or "-"
 
 
@@ -1166,6 +1184,7 @@ def main(argv) -> int:
         out_dir = os.path.dirname(os.path.abspath(args.details))
         device_ms = phase_device_time(device, vision, imaging, os.path.join(
             out_dir, DEVICE_TRACE))
+        ca_cold = device_ms.pop("ca_pool.cold")
         # photonic_mvm's and ca_pool's rows are both paths' calls; each
         # path's device time is its own profiler range
         for k in ("photonic_mvm", "ca_pool"):
@@ -1192,6 +1211,11 @@ def main(argv) -> int:
                     f"ms, plain {d['plain_ms']:.4f}, library "
                     f"{d['library_ms']}, bound {d['bound_ms']:.6f}; launch "
                     f"{launch_label(d)}")
+        cold = next(d for d in detail["ca_pool"] if d["path"] == "imaging"
+                    and d["pool"] == 1)
+        log(f"[timing] ca_pool cold L2 ({L2_FLUSH_BYTES >> 20} MiB written "
+            f"before each launch) {call_label(cold)}: device {ca_cold} ms, "
+            f"warm {cold.get('device_ms')} ms, bound {cold['bound_ms']:.6f}")
 
         served = {}
         counts, stats, wall, n_frames = phase_serve_vision(device,
@@ -1250,6 +1274,7 @@ def main(argv) -> int:
                        "per_call": detail, "serve_stats": stats,
                        "imaging_serve_stats": istats, "psnr_db": quality,
                        "imaging_busy_share": busy,
+                       "ca_pool_cold_device_ms": ca_cold,
                        "comparisons": n_cmp,
                        "conv_bank_float_err": bank_float_err,
                        "seconds": time.perf_counter() - t_start}, f,

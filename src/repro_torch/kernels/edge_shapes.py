@@ -1,6 +1,6 @@
 """Edge shapes of the launch configurations of ``photonic_mvm``, the strip
-convs and the fused conv chain, and an operand copy that defeats aligned
-loads.
+convs, the fused conv chain and ``ca_pool``, and an operand copy that
+defeats aligned loads.
 
 The ``gpu`` tests (``tests/test_torch_gpu.py``) and ``chip_smoke.py`` both
 hold each kernel bitwise against its plain version at these shapes, so the
@@ -85,6 +85,45 @@ CHAINS = [
                  (6, 3, 1, "SAME", True, "relu", ("max", 2), True),
                  (10, 3, 1, "SAME", False, "sign", None, False)]),
 ]
+
+
+# (b, h, w, c, p, gray, odd, route) of ca_pool.ops.ca_config: the served
+# path shapes (imaging p = 1 and 2 at 8x256x256x3, VGG9's 8x32x32x3); every
+# instantiated (p, C) of both modes on the vector route and on the scalar
+# one (W/p not a multiple of R; rows whose byte length is not a multiple of
+# 16; an input one float past an allocation, ``odd``); the generic route
+# (C 2 and 4, p 3, gray p 1 at C 1); batch 1 and 8; a row of more runs than
+# a CTA has threads (two CTAs along it); and more rows than one wave of
+# CTAs (a grid-stride loop)
+CA_EDGES = [(8, 256, 256, 3, 1, True, False, "vector"),
+            (8, 256, 256, 3, 2, True, False, "vector"),
+            (8, 32, 32, 3, 2, True, False, "vector"),
+            (1, 32, 32, 3, 4, True, False, "vector"),
+            (8, 32, 32, 1, 2, True, False, "vector"),
+            (1, 16, 48, 1, 4, True, False, "vector"),
+            (8, 32, 32, 3, 2, False, False, "vector"),
+            (2, 16, 24, 3, 2, False, False, "vector"),
+            (3, 16, 16, 1, 4, False, False, "vector"),
+            (1, 20, 20, 3, 4, False, False, "vector"),
+            (2, 16, 16, 1, 2, False, False, "vector"),
+            (2, 8, 2600, 3, 2, True, False, "vector"),
+            (16, 256, 512, 3, 1, True, False, "vector"),
+            (8, 28, 28, 1, 2, True, False, "scalar"),
+            (5, 28, 28, 1, 4, True, False, "scalar"),
+            (2, 20, 20, 1, 2, True, False, "scalar"),
+            (2, 30, 30, 3, 1, True, False, "scalar"),
+            (1, 30, 30, 3, 2, True, False, "scalar"),
+            (1, 18, 18, 3, 2, False, False, "scalar"),
+            (4, 28, 28, 1, 2, False, False, "scalar"),
+            (2, 20, 20, 1, 4, False, False, "scalar"),
+            (8, 256, 256, 3, 1, True, True, "scalar"),
+            (2, 32, 32, 3, 2, False, True, "scalar"),
+            (1, 12, 12, 3, 4, True, True, "scalar"),
+            (2, 12, 12, 4, 2, True, False, "generic"),
+            (2, 12, 12, 4, 2, False, False, "generic"),
+            (3, 18, 18, 3, 3, True, False, "generic"),
+            (1, 9, 15, 2, 3, False, True, "generic"),
+            (2, 16, 16, 1, 1, True, False, "generic")]
 
 
 def chain_case(batch, h, w, c, specs, gen, device, levels=7):

@@ -34,7 +34,7 @@ from repro.kernels.ca_pool.ops import ca_pool as pallas_ca_pool
 from repro_torch.core.accelerator import _pool
 from repro_torch.core.compressive import (ca_coefficients,
                                           compressive_acquire, fma_f32)
-from repro_torch.kernels import dispatch
+from repro_torch.kernels import dispatch, launch_counts, reset_launch_counts
 from repro_torch.kernels.ca_pool.ops import ca_pool
 
 
@@ -103,7 +103,9 @@ def test_per_channel_mean_bitwise_equal_to_jitted_reference(shape):
 def test_wrapper_and_dispatch_on_cpu_are_the_plain_version(shape, gray):
     img = torch.from_numpy(_img(shape, seed=9))
     want = compressive_acquire(img, 2, gray)
+    reset_launch_counts()
     assert torch.equal(ca_pool(img, 2, gray), want)
+    assert launch_counts()["ca_pool"] == 0
     for backend in dispatch.BACKENDS:
         assert torch.equal(dispatch.ca_acquire(img, 2, gray, backend), want)
 

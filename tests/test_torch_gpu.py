@@ -21,13 +21,13 @@ from repro_torch.core.compressive import compressive_acquire
 from repro_torch.core.plan import padtype_to_pads
 from repro_torch.core.quant import W4A4
 from repro_torch.kernels import dispatch, launch_counts, reset_launch_counts
-from repro_torch.kernels.ca_pool.ops import ca_pool
+from repro_torch.kernels.ca_pool.ops import ca_config, ca_pool
 from repro_torch.kernels.conv_bank import strip
 from repro_torch.kernels.conv_bank.fused import conv_chain
 from repro_torch.kernels.conv_bank.ops import conv_bank, conv_bank_plain
 from repro_torch.kernels.conv_bank.ref import conv_chain_ref
-from repro_torch.kernels.edge_shapes import (CHAIN_EDGES, CHAINS, DW_EDGES,
-                                             MVM_EDGES, STRIP_EDGES,
+from repro_torch.kernels.edge_shapes import (CA_EDGES, CHAIN_EDGES, CHAINS,
+                                             DW_EDGES, MVM_EDGES, STRIP_EDGES,
                                              chain_case, odd_offset)
 from repro_torch.kernels.photonic_mvm.ops import mvm_int
 from repro_torch.kernels.photonic_mvm.ref import mvm_int_ref
@@ -152,6 +152,21 @@ def test_ca_kernel_bitwise_equal_to_plain(cuda, shape, pool, gray):
     got = ca_pool(img, pool, gray)
     assert launch_counts()["ca_pool"] == 1
     assert torch.equal(got, compressive_acquire(img, pool, gray))
+
+
+@pytest.mark.parametrize("b,h,w,c,p,gray,odd,route", CA_EDGES)
+def test_ca_kernel_configs_bitwise_equal_to_plain(cuda, b, h, w, c, p, gray,
+                                                  odd, route):
+    g = torch.Generator().manual_seed(b + h + w + c + p)
+    img = torch.rand((b, h, w, c), generator=g).to(cuda)
+    if odd:                       # 4 bytes past an allocation
+        img = odd_offset(img)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert ca_config(b, h, w, c, p, gray, sms, not odd).route == route
+    reset_launch_counts()
+    got = ca_pool(img, p, gray)
+    assert launch_counts()["ca_pool"] == 1
+    assert torch.equal(got, compressive_acquire(img, p, gray))
 
 
 @pytest.mark.parametrize("b,h,w,ci,co,k,stride,strip_h,n_strips", [
