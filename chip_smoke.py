@@ -6,16 +6,19 @@
                                        # kernels' plain versions; exits 2
     python3 chip_smoke.py --details PATH   # where the detail JSON goes
                                            # (default build/chip_smoke.json)
-    python3 chip_smoke.py --reread DIR     # re-read the two profiler traces
-                                           # a run left in DIR; no card
+    python3 chip_smoke.py --reread DIR     # re-read the profiler traces a
+                                           # run left in DIR; no card
 
-Two served paths, each driven through ``serve.Server`` with the kernel
+Three served paths, each driven through ``serve.Server`` with the kernel
 launch counts zeroed just before its requests and read just after:
 
   vision   LeNet (28x28x1) and VGG9-CA (32x32x3), full width, seeded random
            weights from numpy, W4A4: 32 mixed requests of 1-8 frames;
   imaging  the eight imaging pipelines at 256x256x3 (their fixed filter
-           weights), W4A4: 3 requests of 1, 3 and 8 frames each.
+           weights), W4A4: 3 requests of 1, 3 and 8 frames each;
+  chain    the reference's acceptance chain denoise_gauss -> edge_detect
+           -> sharpen at 256x256x3 as one program (``Program.then``): 3
+           requests of 1, 3 and 8 frames.
 
 Phases, each fatal on failure:
 
@@ -47,11 +50,30 @@ Phases, each fatal on failure:
      profiler session, written as a Chrome trace beside the details file,
      with a range per path shape of photonic_mvm, the strip convs and
      ca_pool (kernel and library call);
-  5. serve: both paths, every answer finite, of the right shape and bitwise
+  5. serve, eager: vision and imaging through each program's unbound
+     executable (the ``Hooks.execute`` seam: eager ``run_padded``,
+     pageable copies), every answer finite, of the right shape and bitwise
      equal to batch-1 ``run_per_frame`` on the card, to the reference
      backend on the card and to the port's CPU run on the first frames;
      every kernel of a path must have launched in it. The imaging answers'
-     PSNR against the float oracle ``apply_float`` is printed.
+     PSNR against the float oracle ``apply_float`` is printed, and the
+     imaging burst is served once more under the profiler for the device's
+     busy share;
+  6. serve, bound: all three paths behind one Server with ``devices=1``,
+     ``max_inflight=2``, through ``Executable.bind`` views (own stream,
+     pinned staging ring, one CUDA graph per bucket, captured at start),
+     each path in its own window: answers held as in 5, each window's
+     launch counts equal to what the graph replays credited (every kernel
+     of the path launched), three batches of different content in flight
+     on one bound view each giving its own answers; the imaging burst's
+     busy share again, bound;
+  7. load: LeNet, VGG9-CA, edge_detect, compress_recon and the chain,
+     bound and eager: ``loadgen.saturate`` frames/s (single-frame
+     requests, ~2 s) and ``loadgen.poisson_load`` p50/p99 at half the
+     bound path's saturation rate (~2 s).
+
+``--rehearse`` runs every phase on the CPU with the plain versions: no
+graphs, and the bound phase on 2 emulated CPU workers.
 
 The last three lines of standard output are the ``kernels`` JSON object,
 ``nvidia-smi``'s name and power limit, and the result object
@@ -59,11 +81,12 @@ The last three lines of standard output are the ``kernels`` JSON object,
 stats) goes to the ``--details`` file. The script imports nothing of JAX
 or of the reference package.
 
-``--reread DIR`` reads the two Chrome traces that a run of this script (of
+``--reread DIR`` reads the Chrome traces that a run of this script (of
 this commit or an earlier one) wrote beside its details file, and prints
 as JSON each timing range's device time per batch by kernel function and
-the imaging serving window's busy share, attributed as a run of this
-commit attributes them: one yardstick for runs of different commits.
+the imaging serving windows' busy shares (eager, and bound where the run
+wrote that trace), attributed as a run of this commit attributes them:
+one yardstick for runs of different commits.
 """
 
 from __future__ import annotations
@@ -99,6 +122,16 @@ L2_FLUSH_BYTES = 128 << 20          # written before each cold launch (the
                                     # H100's L2 holds 50 MB)
 DEVICE_TRACE = "device_time_trace.json"
 SERVE_TRACE = "imaging_serve_trace.json"
+BOUND_SERVE_TRACE = "imaging_bound_serve_trace.json"
+BUCKETS = (1, 2, 4, 8)
+VISION_REQUESTS = 32
+# the reference's acceptance chain: (pipeline, input channels)
+CHAIN = (("denoise_gauss", 3), ("edge_detect", 3), ("sharpen", 1))
+# the programs whose served frames/s and latency are measured, and for how
+# long (seconds; the rehearsal's on the CPU)
+LOAD_PROGRAMS = ("lenet", "vgg9", "edge_detect", "compress_recon", "chain")
+LOAD_S = {"saturate": 2.0, "poisson": 2.0}
+REHEARSAL_LOAD_S = {"saturate": 0.2, "poisson": 0.2}
 # the port's kernels are top-level functions of an anonymous namespace
 PORT_KERNEL = r"^(void )?\(anonymous namespace\)::"
 KERNELS = ("photonic_mvm", "conv_chain", "ca_pool", "conv_strip",
@@ -106,7 +139,8 @@ KERNELS = ("photonic_mvm", "conv_chain", "ca_pool", "conv_strip",
 # the kernels each served path must launch
 PATH_KERNELS = {"vision": ("photonic_mvm", "conv_chain", "ca_pool"),
                 "imaging": ("photonic_mvm", "ca_pool", "conv_strip",
-                            "conv_strip_depthwise")}
+                            "conv_strip_depthwise"),
+                "chain": ("photonic_mvm", "ca_pool", "conv_strip_depthwise")}
 SOURCES = {
     "photonic_mvm": ("src/repro_torch/csrc/photonic_mvm.cu",
                      "src/repro/kernels/photonic_mvm/kernel.py:81"),
@@ -925,30 +959,71 @@ def check_served(name, prog, frames, served, dev, out_shape):
          f"{name}: served answers differ from the port's CPU run")
 
 
-def serve_path(device, progs, reqs):
-    """One ``serve.Server`` with buckets 1/2/4/8 hosting ``progs``: the
-    requests submitted at once, the launch counts zeroed just before and
-    read just after. Returns (answers, counts, stats, wall seconds)."""
-    import torch.profiler
+def make_server(device, progs, bound, devices=1):
+    """A ``serve.Server`` on ``device`` with buckets 1/2/4/8 and two batches
+    in flight per device, hosting ``progs``; returns it started, with its
+    hosted programs by name. ``bound``: every batch goes through the bound
+    views (pinned staging ring, one CUDA graph per bucket, captured while
+    the server warms). Otherwise every batch goes, through the
+    ``Hooks.execute`` seam, to the unbound executable's eager
+    ``run_padded``, as the port served before ``Executable.bind`` (each
+    bucket warmed; pageable copies)."""
     from repro_torch import Options, serve
     from repro_torch.core.quant import W4A4
-    from repro_torch.kernels import launch_counts, reset_launch_counts
     dev = str(device)
-    server = serve.Server(serve.ServeConfig(
-        max_batch=BUCKET, max_wait_ms=2.0, device=dev,
-        batch_buckets=(1, 2, 4, 8)))
+    hosted = {}
+
+    def eager(program, index, frames, bucket, default):
+        return hosted[program].executable.run_padded(frames, bucket)
+
+    server = serve.Server(
+        serve.ServeConfig(max_batch=BUCKET, max_wait_ms=2.0, device=dev,
+                          devices=devices, max_inflight=2,
+                          batch_buckets=BUCKETS),
+        hooks=None if bound else serve.Hooks(execute=eager))
     for name, prog in progs.items():
-        server.register(name, prog, Options(scheme=W4A4, device=dev))
-    server.start()
+        hosted[name] = server.register(name, prog,
+                                       Options(scheme=W4A4, device=dev))
+    server.start(warm=bound)
+    if not bound:
+        for h in hosted.values():
+            h.executable.warm(BUCKETS)
+    return server, hosted
+
+
+def credited(hosted):
+    """Launches credited so far by the replays of every captured graph of
+    the hosted programs' bound views, by kernel."""
+    out = dict.fromkeys(KERNELS, 0)
+    for h in hosted.values():
+        for exe in h.bound:
+            for g in exe._binding.graphs.values():
+                for k, n in g.launches.items():
+                    out[k] += g.replays * n
+    return out
+
+
+def serve_window(server, reqs, window=SERVE_WINDOW):
+    """The requests submitted at once, the launch counts zeroed just before
+    and read just after. Returns (answers, counts, wall seconds)."""
+    import torch.profiler
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    # the window a profiler trace reads the device's busy share in
+    with torch.profiler.record_function(window):
+        futs = [server.submit(name, f) for name, f in reqs]
+        outs = [f.result(timeout=600) for f in futs]
+    wall = time.perf_counter() - t0
+    return outs, launch_counts(), wall
+
+
+def serve_path(device, progs, reqs, bound=False, devices=1):
+    """``reqs`` served once by a fresh :func:`make_server`. Returns
+    (answers, counts, stats, wall seconds)."""
+    server, _ = make_server(device, progs, bound, devices)
     try:
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        # the window a profiler trace reads the device's busy share in
-        with torch.profiler.record_function(SERVE_WINDOW):
-            futs = [server.submit(name, f) for name, f in reqs]
-            outs = [f.result(timeout=600) for f in futs]
-        wall = time.perf_counter() - t0
-        counts = launch_counts()
+        outs, counts, wall = serve_window(server, reqs)
     finally:
         server.stop()
     return outs, counts, server.stats(), wall
@@ -965,60 +1040,203 @@ def by_program(reqs, outs):
             for name, (fs, os_) in grouped.items()}
 
 
-def phase_serve_vision(device, progs):
-    """LeNet and VGG9-CA behind one Server on the card."""
+def vision_requests(progs, n=VISION_REQUESTS):
     sizes = [1, 2, 3, 1, 5, 1, 2, 8]
-    reqs = []
-    for i in range(32):
-        name = ("lenet", "vgg9")[i % 2]
-        reqs.append((name, frames_for(progs[name],
-                                      sizes[(i // 2) % len(sizes)], 100 + i)))
+    return [(("lenet", "vgg9")[i % 2],
+             frames_for(progs[("lenet", "vgg9")[i % 2]],
+                        sizes[(i // 2) % len(sizes)], 100 + i))
+            for i in range(n)]
+
+
+def out_shape(name, prog):
+    """The answer's per-frame shape: classes, or the output image."""
+    if name in ("lenet", "vgg9"):
+        return {"lenet": (10,), "vgg9": (100,)}[name]
+    return prog.output_hwc
+
+
+def phase_serve_vision(device, progs):
+    """LeNet and VGG9-CA behind one Server on the card, eager (unbound)."""
+    reqs = vision_requests(progs)
     outs, counts, stats, wall = serve_path(device, progs, reqs)
-    n_classes = {"lenet": (10,), "vgg9": (100,)}
     for name, (frames, served) in by_program(reqs, outs).items():
         check_served(name, progs[name], frames, served, str(device),
-                     n_classes[name])
+                     out_shape(name, progs[name]))
     return counts, stats, wall, sum(f.shape[0] for _, f in reqs)
 
 
-def imaging_requests(progs):
+def imaging_requests(progs, sizes=(1, 3, 8)):
     return [(name, frames_for(progs[name], n, 200 + 10 * i + j))
-            for i, n in enumerate((1, 3, 8))
+            for i, n in enumerate(sizes)
             for j, name in enumerate(progs)]
+
+
+def psnr_db(prog, frames, served, device):
+    from repro_torch.imaging import apply_float, psnr
+    ref = apply_float(prog.layers, prog.params, frames_on(frames, device))
+    return float(psnr(ref, frames_on(served, device)))
 
 
 def phase_serve_imaging(device, progs):
     """The eight imaging pipelines at 256x256x3 behind one Server on the
-    card; PSNR of the served answers against the float oracle."""
-    from repro_torch.imaging import apply_float, psnr
+    card, eager (unbound); PSNR of the served answers against the float
+    oracle."""
     reqs = imaging_requests(progs)
     outs, counts, stats, wall = serve_path(device, progs, reqs)
     quality = {}
     for name, (frames, served) in by_program(reqs, outs).items():
         prog = progs[name]
-        h, w, _ = prog.input_hwc
-        c_out = 3 if name.startswith("denoise") else 1
-        check_served(name, prog, frames, served, str(device), (h, w, c_out))
-        ref = apply_float(prog.layers, prog.params, frames_on(frames, device))
-        quality[name] = float(psnr(ref, frames_on(served, device)))
+        check_served(name, prog, frames, served, str(device),
+                     out_shape(name, prog))
+        quality[name] = psnr_db(prog, frames, served, device)
     return counts, stats, wall, sum(f.shape[0] for _, f in reqs), quality
 
 
-def phase_busy_share(device, progs, trace_path):
-    """The imaging requests served once more under ``torch.profiler``: the
-    share of the serving window in which the card ran anything (the union
-    of the kernel, copy and memset intervals that the window's host calls
-    issued, over the window's length), with the device time summed by kind
-    of work. None on the CPU."""
+def chain_program(hw=IMAGING_HW):
+    """The reference's acceptance chain, denoise_gauss -> edge_detect ->
+    sharpen, as one program at hw x hw x 3."""
+    from repro_torch import Program
+    first, second, third = (Program.from_pipeline(n, hw, hw, c)
+                            for n, c in CHAIN)
+    return first.then(second).then(third)
+
+
+def triple_in_flight(hosted):
+    """Three batches of different content at bucket 4 through the hosted
+    program's bound view, none waited on until all three are enqueued: the
+    static output is overwritten twice and a staging slot reused before
+    the first answer is read. Each must be its own batch-1 answers."""
+    import numpy as np
+    prog, exe = hosted.program, hosted.executable
+    frames = [frames_for(prog, 4, 900 + i) for i in range(3)]
+    pending = [hosted.bound[0].run_padded(f, 4) for f in frames]
+    outs = [np.asarray(p) for p in pending]
+    for i, (f, out) in enumerate(zip(frames, outs)):
+        want = np.concatenate([exe.run_per_frame(f[j:j + 1]).cpu().numpy()
+                               for j in range(len(f))])
+        need(np.array_equal(out, want), f"{hosted.name}: batch {i} of three "
+             f"in flight differs from its batch-1 answers")
+    need(not any(np.shares_memory(a, b) for a in outs for b in outs
+                 if a is not b), f"{hosted.name}: two answers share memory")
+    need(not np.array_equal(outs[0], outs[1]),
+         f"{hosted.name}: different frames gave one answer")
+
+
+def phase_serve_bound(device, vision_progs, imaging_progs, chain, devices):
+    """Every path through bound views: LeNet, VGG9-CA, the eight pipelines
+    and the chain behind one Server (``devices`` workers, two batches in
+    flight each), each path in its own window with the launch counts
+    zeroed before and read after. Every answer is held against batch-1
+    runs, the reference backend and the CPU port; each window's counts must
+    equal what the replays of the captured graphs credited; three batches
+    in flight on one bound view must each give their own answers."""
+    progs = {**vision_progs, **imaging_progs, "chain": chain}
+    windows = {"vision": vision_requests(vision_progs),
+               "imaging": imaging_requests(imaging_progs),
+               "chain": imaging_requests({"chain": chain})}
+    t0 = time.perf_counter()
+    server, hosted = make_server(device, progs, True, devices)
+    bind_s = time.perf_counter() - t0
+    out = {"bind_and_capture_s": bind_s, "windows": {}}
+    try:
+        for path, reqs in windows.items():
+            before = credited(hosted)
+            outs, counts, wall = serve_window(server, reqs)
+            after = credited(hosted)
+            need(counts == {k: after[k] - before[k] for k in KERNELS},
+                 f"bound {path}: launch counts {counts} are not the "
+                 f"replays' credits")
+            quality = {}
+            for name, (frames, served) in by_program(reqs, outs).items():
+                check_served(name, progs[name], frames, served, str(device),
+                             out_shape(name, progs[name]))
+                if path != "vision":
+                    quality[name] = psnr_db(progs[name], frames, served,
+                                            device)
+            out["windows"][path] = {
+                "counts": counts, "wall_s": wall, "psnr_db": quality,
+                "frames": sum(f.shape[0] for _, f in reqs)}
+        for name in ("lenet", "edge_detect", "chain"):
+            triple_in_flight(hosted[name])
+        out["graphs"] = {name: {
+            str(b): g.launches
+            for b, g in h.bound[0]._binding.graphs.items()}
+            for name, h in hosted.items()}
+    finally:
+        server.stop()
+    out["stats"] = server.stats()
+    return out
+
+
+def saturate_for(server, name, pool, seconds, cap=200000):
+    """``loadgen.saturate`` with single-frame requests, the count grown
+    until one run lasts at least 0.8 * ``seconds`` (or reaches ``cap``);
+    returns that run's report."""
+    from repro_torch import serve
+    n = 64
+    while True:
+        rep = serve.saturate(server, name, pool, n_requests=n)
+        need(rep.served == n, f"{name}: saturate served {rep.served} of {n}")
+        if rep.duration_s >= 0.8 * seconds or n >= cap:
+            return rep
+        n = min(cap, max(2 * n, int(n * seconds / rep.duration_s)))
+
+
+def phase_load(device, progs, saturate_s, poisson_s):
+    """Served frames/s at saturation (``loadgen.saturate``, single-frame
+    requests for about ``saturate_s`` seconds) and p50/p99 under open-loop
+    Poisson load at half the bound path's saturation rate (about
+    ``poisson_s`` seconds), each program bound (graphs) and eager
+    (unbound), bound first."""
+    from repro_torch import serve
+    out = {name: {} for name in progs}
+    for mode in ("bound", "eager"):
+        server, _ = make_server(device, progs, mode == "bound")
+        try:
+            for i, (name, prog) in enumerate(progs.items()):
+                pool = frames_for(prog, 16, 700 + i)
+                sat = saturate_for(server, name, pool, saturate_s)
+                n = sat.submitted
+                rate = 0.5 * out[name]["bound"]["saturate_fps"] \
+                    if mode == "eager" else 0.5 * sat.achieved_fps
+                m = int(min(max(rate * poisson_s, 32), 20000))
+                load = serve.poisson_load(server, name, pool, rate_rps=rate,
+                                          n_requests=m, seed=i)
+                out[name][mode] = {
+                    "saturate_fps": sat.achieved_fps,
+                    "saturate_requests": n,
+                    "poisson_rate_rps": rate, "poisson_requests": m,
+                    "poisson_served": load.served,
+                    "poisson_shed": load.shed,
+                    "poisson_rejected": load.rejected,
+                    "poisson_behind_schedule": load.behind_schedule,
+                    "poisson_achieved_fps": load.achieved_fps,
+                    "latency_ms": load.latency_ms}
+        finally:
+            server.stop()
+    return out
+
+
+def phase_busy_share(device, progs, trace_path, bound=False):
+    """The imaging requests served once more under ``torch.profiler``, eager
+    or through the bound views: the share of the serving window in which
+    the card ran anything (the union of the kernel, copy and memset
+    intervals that the window's host calls issued, over the window's
+    length), with the device time summed by kind of work. None on the
+    CPU."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     if device.type != "cuda":
         return None
     reqs = imaging_requests(progs)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        serve_path(device, progs, reqs)
-        torch.cuda.synchronize()
+    server, _ = make_server(device, progs, bound)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            serve_window(server, reqs)
+            torch.cuda.synchronize()
+    finally:
+        server.stop()
     return dict(busy_share(load_trace(prof, trace_path)),
                 frames=sum(f.shape[0] for _, f in reqs))
 
@@ -1066,8 +1284,11 @@ def reread(trace_dir):
         out[name[len(DEVICE_RANGE):]] = {
             "launches": launches, "kernel_records": len(kernels),
             "ms_per_batch": by_fn}
-    return {"device_time": out,
-            "imaging_busy_share": busy_share(events(SERVE_TRACE))}
+    shares = {"imaging_busy_share": busy_share(events(SERVE_TRACE))}
+    if os.path.exists(os.path.join(trace_dir, BOUND_SERVE_TRACE)):
+        shares["imaging_bound_busy_share"] = busy_share(
+            events(BOUND_SERVE_TRACE))
+    return {"device_time": out, **shares}
 
 
 def call_label(d):
@@ -1246,6 +1467,47 @@ def main(argv) -> int:
             out_dir, SERVE_TRACE))
         log(f"[serve imaging, profiled] device busy share {busy}")
 
+        chain = chain_program()
+        t0 = time.perf_counter()
+        bound = phase_serve_bound(device, vision_progs, imaging_progs, chain,
+                                  devices=2 if rehearse else 1)
+        log(f"[serve bound] bind and capture "
+            f"{bound['bind_and_capture_s']:.2f}s for "
+            f"{len(bound['graphs'])} programs x {len(BUCKETS)} buckets; "
+            f"phase {time.perf_counter() - t0:.1f}s")
+        for path, w in bound["windows"].items():
+            served[f"bound {path}"] = w["counts"]
+            log(f"[serve bound] {path}: {w['frames']} frames in "
+                f"{w['wall_s']:.3f}s wall, bitwise equal to batch-1 "
+                f"run_per_frame; launches {w['counts']} (= the replays' "
+                f"credits); PSNR {w['psnr_db']}")
+        log("[serve bound] three batches in flight on one bound view: each "
+            "its own answer (lenet, edge_detect, chain)")
+        bound_busy = phase_busy_share(device, imaging_progs, os.path.join(
+            out_dir, BOUND_SERVE_TRACE), bound=True)
+        log(f"[serve imaging bound, profiled] device busy share "
+            f"{bound_busy}")
+
+        load_s = REHEARSAL_LOAD_S if rehearse else LOAD_S
+        load = phase_load(device, {
+            name: {**vision_progs, **imaging_progs, "chain": chain}[name]
+            for name in LOAD_PROGRAMS}, load_s["saturate"],
+            load_s["poisson"])
+        for name, modes in load.items():
+            b, e = modes["bound"], modes["eager"]
+            log(f"[load] {name}: saturate {e['saturate_fps']:.1f} -> "
+                f"{b['saturate_fps']:.1f} frames/s (eager -> bound); "
+                f"poisson at {b['poisson_rate_rps']:.1f} req/s: eager p50 "
+                f"{e['latency_ms'].get('p50', float('nan')):.3f} p99 "
+                f"{e['latency_ms'].get('p99', float('nan')):.3f} ms (served "
+                f"{e['poisson_served']}/{e['poisson_requests']}, rejected "
+                f"{e['poisson_rejected']}, behind {e['poisson_behind_schedule']})"
+                f", bound p50 {b['latency_ms'].get('p50', float('nan')):.3f} "
+                f"p99 {b['latency_ms'].get('p99', float('nan')):.3f} ms "
+                f"(served {b['poisson_served']}/{b['poisson_requests']}, "
+                f"rejected {b['poisson_rejected']}, behind "
+                f"{b['poisson_behind_schedule']})")
+
         launches = {k: {path: served[path][k] for path in served}
                     for k in KERNELS}
         for k in KERNELS:
@@ -1274,16 +1536,24 @@ def main(argv) -> int:
                        "per_call": detail, "serve_stats": stats,
                        "imaging_serve_stats": istats, "psnr_db": quality,
                        "imaging_busy_share": busy,
+                       "serve_bound": bound,
+                       "imaging_bound_busy_share": bound_busy,
+                       "load": load,
                        "ca_pool_cold_device_ms": ca_cold,
                        "comparisons": n_cmp,
                        "conv_bank_float_err": bank_float_err,
                        "seconds": time.perf_counter() - t_start}, f,
                       indent=1, default=str)
         if not rehearse:
+            # the eager windows and the bound ones (counted through the
+            # captured graphs' credited replays)
             for path, names in PATH_KERNELS.items():
-                for k in names:
-                    need(served[path][k] > 0, f"{k} never launched on the "
-                         f"{path} serving path")
+                for window in (path, f"bound {path}"):
+                    for k in names:
+                        if window in served:
+                            need(served[window][k] > 0, f"{k} never "
+                                 f"launched on the {window} serving path")
+                need(f"bound {path}" in served, f"no bound {path} window")
             need(bank_counts["conv_bank"] > 0,
                  "conv_bank never launched by the conv_bank op")
     except SmokeFailure as e:

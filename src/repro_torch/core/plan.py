@@ -300,11 +300,23 @@ def _compile_model_uncached(layers, frame_shape, scheme, oc, circuit,
 # Execute pass
 # ---------------------------------------------------------------------------
 
+def quantized_weights(steps: Tuple[PlanStep, ...], params: Dict[str, Dict],
+                      consts: Dict[str, object]) -> Dict[str, Tuple]:
+    """Each conv and dense layer's ``(wq, ws)``: the ``quantize_weight``
+    call :func:`_execute_steps` makes per layer when it is not given them
+    (the same function of the same weights, so the same tensors)."""
+    return {s.name: quantize_weight(params[s.name]["w"], s.wa,
+                                    consts["w_qmax"][s.name])
+            for s in steps if isinstance(s, (ConvStep, DenseStep))}
+
+
 def _execute_steps(steps: Tuple[PlanStep, ...], params: Dict[str, Dict],
                    frames: torch.Tensor, consts: Dict[str, object],
                    per_frame: bool = False,
                    segments: Tuple[dispatch.FusedSegmentSpec, ...] = (),
-                   backend: str = "kernel") -> torch.Tensor:
+                   backend: str = "kernel",
+                   weights: Optional[Dict[str, Tuple]] = None
+                   ) -> torch.Tensor:
     """The device forward, batch-first, kernels via ``kernels.dispatch``.
 
     ``per_frame`` switches every CRC requant to per-frame calibration
@@ -317,7 +329,18 @@ def _execute_steps(steps: Tuple[PlanStep, ...], params: Dict[str, Dict],
     inter-stage CRC scale is a whole-frame max, so fusion applies only
     under per-frame calibration or at batch 1; per-tensor calibration at
     batch > 1 runs the unfused per-layer path (bitwise the same numbers).
+
+    ``weights`` are the layers' quantized ``(wq, ws)`` from
+    :func:`quantized_weights`, made once by a bound view, which has also
+    run the chain kernel's range check (``fused.check_exact``) over every
+    fused segment; ``None`` quantizes each layer's weights on every call.
     """
+    def qweight(step):
+        if weights is not None:
+            return weights[step.name]
+        return quantize_weight(params[step.name]["w"], step.wa,
+                               consts["w_qmax"][step.name])
+
     a_qmax = consts["a_qmax"]
     x, act_scale = _crc_requant(frames, a_qmax, per_frame)
     fuse_ok = per_frame or frames.shape[0] == 1
@@ -329,11 +352,11 @@ def _execute_steps(steps: Tuple[PlanStep, ...], params: Dict[str, Dict],
         if seg is not None:
             stages = []
             for s in steps[i:i + seg.length]:
-                p = params[s.name]
-                wq, ws = quantize_weight(p["w"], s.wa, consts["w_qmax"][s.name])
-                stages.append((s.geom, wq, ws, p.get("b")))
-            x, act_scale = dispatch.conv_chain(x, act_scale, stages, a_qmax,
-                                               per_frame, backend)
+                wq, ws = qweight(s)
+                stages.append((s.geom, wq, ws, params[s.name].get("b")))
+            x, act_scale = dispatch.conv_chain(
+                x, act_scale, stages, a_qmax, per_frame, backend,
+                exact_checked=weights is not None)
             i += seg.length
             continue
         if isinstance(step, CAStep):
@@ -345,8 +368,7 @@ def _execute_steps(steps: Tuple[PlanStep, ...], params: Dict[str, Dict],
             x, act_scale = _crc_requant(g, a_qmax, per_frame)
         elif isinstance(step, ConvStep):
             p = params[step.name]
-            wq, ws = quantize_weight(p["w"], step.wa,
-                                     consts["w_qmax"][step.name])
+            wq, ws = qweight(step)
             acc = dispatch.conv_int(x, wq, step.stride, step.pads,
                                     groups=step.groups,
                                     strategy=step.strategy, backend=backend)
@@ -367,8 +389,7 @@ def _execute_steps(steps: Tuple[PlanStep, ...], params: Dict[str, Dict],
             x, act_scale = _crc_requant(flat, a_qmax, per_frame)
         elif isinstance(step, DenseStep):
             p = params[step.name]
-            wq, ws = quantize_weight(p["w"], step.wa,
-                                     consts["w_qmax"][step.name])
+            wq, ws = qweight(step)
             acc = dispatch.matmul_int(x, wq, backend)
             out = acc * (act_scale * ws.reshape(1, -1))
             if p.get("b") is not None:
@@ -388,7 +409,8 @@ def _execute_steps(steps: Tuple[PlanStep, ...], params: Dict[str, Dict],
 
 def _execute(plan: CompiledPlan, params: Dict[str, Dict],
              frames: torch.Tensor, per_frame: bool = False,
-             backend: str = "kernel") -> torch.Tensor:
+             backend: str = "kernel",
+             weights: Optional[Dict[str, Tuple]] = None) -> torch.Tensor:
     """Run ``frames`` [B, H, W, C] (or one [H, W, C]) through a plan.
 
     Returns logits [B, n] for classifier plans, or an image [B, H', W', C']
@@ -403,4 +425,5 @@ def _execute(plan: CompiledPlan, params: Dict[str, Dict],
     with torch.no_grad():
         return _execute_steps(plan.steps, params, frames.float(),
                               plan.consts, per_frame=per_frame,
-                              segments=plan.fused_segments, backend=backend)
+                              segments=plan.fused_segments, backend=backend,
+                              weights=weights)

@@ -114,8 +114,19 @@ def check(err: int, what: str) -> None:
         raise KernelError(f"{what}: CUDA error {err} at launch")
 
 
+# the launches a thread records into a CUDA graph it is capturing (see
+# ``kernels.recording_launches``): a wrapper called during a capture records
+# its kernel into the graph and launches nothing
+_capturing = threading.local()
+
+
 class LaunchCounter:
-    """Kernel launches of one wrapper: incremented only where it launches."""
+    """Kernel launches of one wrapper: incremented only where it launches.
+
+    While the calling thread captures a CUDA graph, :meth:`inc` adds to
+    that capture's tally instead; each replay of the graph then credits the
+    tally back through :meth:`add`.
+    """
 
     def __init__(self, name: str):
         self.name = name
@@ -123,8 +134,16 @@ class LaunchCounter:
         self._lock = threading.Lock()
 
     def inc(self) -> None:
+        tally = getattr(_capturing, "tally", None)
+        if tally is not None:
+            tally[self.name] = tally.get(self.name, 0) + 1
+            return
         with self._lock:
             self._n += 1
+
+    def add(self, n: int) -> None:
+        with self._lock:
+            self._n += n
 
     @property
     def value(self) -> int:

@@ -175,13 +175,17 @@ def _set_steps(st: _Stage, g, split: int) -> None:
     st.d_pw, st.d_co = divmod(rest, g.c_out)
 
 
-def conv_chain(codes: torch.Tensor, act_scale, stages: Sequence, a_qmax):
+def conv_chain(codes: torch.Tensor, act_scale, stages: Sequence, a_qmax,
+               exact_checked: bool = False):
     """One fused segment: codes [B, H, W, Cin] -> (codes [B, H', W', Cout],
     scale [B, 1, 1, 1]), bitwise equal to ``conv_chain_ref``.
 
     ``stages``: ``(geom: dispatch.ChainGeom, wq, ws, bias)``; ``act_scale``
     is the incoming CRC scale, 0-d or [B, 1, 1, 1]; ``a_qmax`` the CRC
     divisor, which also bounds the incoming codes (0..a_qmax).
+    ``exact_checked``: the caller already ran :func:`check_exact` over
+    these very stages (a bound view does it once, at bind time, so that a
+    CUDA graph capture never reads the device here).
     """
     if not codes.is_cuda:
         return conv_chain_ref(codes, act_scale, stages, a_qmax)
@@ -202,7 +206,8 @@ def conv_chain(codes: torch.Tensor, act_scale, stages: Sequence, a_qmax):
         raise ValueError(
             f"conv_chain: segment {[g.name for g in geoms]} needs {frames} "
             f"bytes of shared memory per frame; a block has {SMEM_PER_BLOCK}")
-    check_exact(stages, a_qmax)
+    if not exact_checked:
+        check_exact(stages, a_qmax)
     x = codes.to(torch.float32).contiguous()
     scale_in = torch.as_tensor(act_scale, dtype=torch.float32, device=dev)
     scale_in = scale_in.reshape(-1).expand(b).contiguous()

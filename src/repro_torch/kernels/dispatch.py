@@ -399,7 +399,8 @@ def _conv_int_strip(codes: torch.Tensor, wq: torch.Tensor, stride: int,
 
 
 def conv_chain(codes: torch.Tensor, act_scale, stages: Sequence, a_qmax,
-               per_frame: bool, backend: str = "kernel"):
+               per_frame: bool, backend: str = "kernel",
+               exact_checked: bool = False):
     """Execute one fused conv segment as a single launch: quantized input
     codes -> (codes, act_scale) after the last stage's CRC requant.
 
@@ -407,7 +408,8 @@ def conv_chain(codes: torch.Tensor, act_scale, stages: Sequence, a_qmax,
     scale is a whole-frame max, so the caller must guarantee frame-
     independent calibration: ``per_frame=True`` or batch 1. Returns the
     scale as [B, 1, 1, 1] when ``per_frame`` else 0-d, like the unfused
-    path.
+    path. ``exact_checked``: the kernel's range check already ran over
+    these stages (``fused.check_exact``).
     """
     _check_backend(backend)
     if not per_frame and codes.shape[0] != 1:
@@ -420,7 +422,7 @@ def conv_chain(codes: torch.Tensor, act_scale, stages: Sequence, a_qmax,
         out, scale = conv_chain_ref(codes, act_scale, stages, a_qmax)
     else:
         from repro_torch.kernels.conv_bank.fused import conv_chain as kern
-        out, scale = kern(codes, act_scale, stages, a_qmax)
+        out, scale = kern(codes, act_scale, stages, a_qmax, exact_checked)
     if not per_frame:
         scale = scale.reshape(())
     return out, scale

@@ -84,7 +84,9 @@ def should_close_early(queued_frames: int, cap: int, inflight_batches: int,
 
 
 def split_results(out: np.ndarray, counts: Sequence[int]) -> list:
-    """Split a stacked result [sum(counts), ...] back per request."""
+    """Split a stacked result [sum(counts), ...] back per request, as
+    zero-copy views of ``out`` (a bound view's result is a host tensor of
+    that batch alone, so no later batch writes under them)."""
     total = int(sum(counts))
     if out.shape[0] != total:
         raise ValueError(

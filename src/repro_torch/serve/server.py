@@ -1,13 +1,17 @@
 """The serving runtime: a multi-program router + async micro-batching
-scheduler over one device.
+scheduler over a pool of device-bound executables.
 
-    submit() ──> per-program FIFO queues ──> scheduler ──> device worker
-    (any thread;   bounded: admission         (collect, shed,    │
-     returns a      control + back-            pad to bucket)     v
-     Future)        pressure)                         done queue ──> completer
-                                                                     (split,
-                                                                      fulfill,
-                                                                      metrics)
+    submit() ──> per-program FIFO queues ──> scheduler ──placement──┐
+    (any thread;   bounded: admission         (collect, shed,       │
+     returns a      control + back-            pad to bucket)       v
+     Future)        pressure)              per-device queues + workers
+                                            (steal when idle; a bound
+                                             view each; pipelined)
+                                                       │
+                                   shared done queue ──┴──> completer
+                                                            (split,
+                                                             fulfill,
+                                                             metrics)
 
 * **Micro-batching** — the scheduler picks the program whose head request
   is oldest and holds the batch open up to ``max_wait_ms`` (from that
@@ -17,6 +21,13 @@ scheduler over one device.
   run with per-frame CRC calibration (``Executable.run_padded``), so
   coalescing and padding are invisible: results are bitwise equal to
   per-request ``run_per_frame`` calls.
+* **Device pool** — :meth:`Server.start` binds every hosted executable to
+  each of ``devices`` devices (``Executable.bind``: its own stream, pinned
+  staging ring, one CUDA graph per bucket, captured while warming), and
+  the pool places closed batches on per-device queues, steals for idle
+  workers, and pipelines ``max_inflight`` batches per device
+  (``serve.pool``). With ``device="cpu"`` (asked for explicitly),
+  ``devices=N`` runs N emulated CPU workers.
 * **Admission control + backpressure** — queued frames are bounded by
   ``max_queue``: ``submit(block=False)`` raises :class:`AdmissionError`
   when full, ``block=True`` (default) waits for room.
@@ -26,11 +37,11 @@ scheduler over one device.
   ``drain=False`` fails it with :class:`ServerClosed`.
 * **Test seams** — every timestamp and timed wait goes through an
   injectable :class:`~repro_torch.serve.clock.Clock`, and
-  :class:`Hooks` exposes the batch-close decision.
+  :class:`Hooks` exposes the batch-close decision and the device execute
+  call (fault injection, emulated devices).
 
-The reference runtime's multi-device pool, SLOs, flight recorder, admin
-endpoint, structured log and trace spans are not ported yet: ``devices``
-above 1 raises ``NotImplementedError``.
+The reference runtime's SLOs, flight recorder, admin endpoint, structured
+log and trace spans are not ported yet.
 """
 
 from __future__ import annotations
@@ -43,6 +54,7 @@ from concurrent.futures import Future, InvalidStateError
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.program import (Executable, Options, Program,
                                       resolve_device)
@@ -67,12 +79,22 @@ class ServerClosed(RuntimeError):
 
 @dataclasses.dataclass
 class Hooks:
-    """``batch_close(program, reason, frames)`` is called the moment a
-    micro-batch stops collecting; reason is ``"full"``, ``"speculative"``
-    (the device was idle), ``"window"`` (``max_wait_ms`` elapsed) or
-    ``"stop"`` (draining)."""
+    """Injectable observation and override points.
+
+    ``batch_close``  ``(program, reason, frames)``, called the moment a
+                     micro-batch stops collecting; reason is ``"full"``,
+                     ``"speculative"`` (a device was idle), ``"window"``
+                     (``max_wait_ms`` elapsed) or ``"stop"`` (draining).
+    ``execute``      wraps every device execution as ``execute(program,
+                     device, frames, bucket, default)``: ``default()`` runs
+                     the bound view (and returns its pending result).
+                     Return an array to substitute the result, call
+                     ``default()`` to pass through, or raise to fail exactly
+                     that batch with a :class:`WorkerError`.
+    """
 
     batch_close: Optional[Callable[[str, str, int], None]] = None
+    execute: Optional[Callable] = None
 
 
 @dataclasses.dataclass
@@ -90,10 +112,18 @@ class ServeConfig:
                        of two up to ``max_batch``).
     ``default_deadline_ms``  deadline of requests that carry none.
     ``speculative_close``  close a collecting batch as soon as the queue is
-                       drained while the device is idle.
-    ``devices``        device count; only 1 is ported.
-    ``device``         the device programs run on when ``register`` is not
-                       given options (``cuda``; ``cpu`` only if asked).
+                       drained while a device is idle.
+    ``devices``        pool width: one bound view of every program per
+                       device (``None``: 1). On ``cuda`` it is checked
+                       against ``torch.cuda.device_count()`` at
+                       :meth:`Server.start`; on the CPU it is that many
+                       emulated workers.
+    ``placement``      ``least_loaded`` or ``round_robin``
+                       (``serve.pool.PLACEMENTS``); a policy object can be
+                       given as ``Server(placement=...)``.
+    ``device``         where the pool runs (``cuda``, the first of
+                       ``devices`` cards; ``cpu`` only if asked), and where
+                       programs compile when ``register`` gets no options.
     """
 
     max_batch: int = 8
@@ -104,6 +134,7 @@ class ServeConfig:
     default_deadline_ms: Optional[float] = None
     speculative_close: bool = True
     devices: Optional[int] = None
+    placement: str = "least_loaded"
     device: str = "cuda"
 
     def __post_init__(self):
@@ -117,13 +148,12 @@ class ServeConfig:
         if self.max_inflight < 1:
             raise ValueError(
                 f"max_inflight must be >= 1, got {self.max_inflight}")
-        if self.devices is not None and self.devices > 1:
-            raise NotImplementedError(
-                f"devices={self.devices}: the multi-device pool is not "
-                f"ported yet (ROADMAP Queue 1, the multi-GPU pool); serve on "
-                f"one device")
         if self.devices is not None and self.devices < 1:
             raise ValueError(f"devices must be >= 1, got {self.devices}")
+        if self.placement not in pool_mod.PLACEMENTS:
+            raise ValueError(
+                f"unknown placement {self.placement!r}; known: "
+                f"{sorted(pool_mod.PLACEMENTS)}")
         resolve_device(self.device)
 
 
@@ -138,7 +168,12 @@ class _Request:
 
 @dataclasses.dataclass
 class HostedProgram:
-    """One program slot in the router: executable + queue + metrics."""
+    """One program slot in the router: executable + queue + metrics.
+
+    ``executable`` is the unbound one ``register`` compiled; ``bound`` holds
+    the pool's view of it, one ``Executable.bind`` per device (set by
+    :meth:`Server.start`).
+    """
 
     name: str
     program: Program
@@ -146,6 +181,7 @@ class HostedProgram:
     buckets: Tuple[int, ...]
     queue: deque = dataclasses.field(default_factory=deque)
     metrics: ProgramMetrics = dataclasses.field(default_factory=ProgramMetrics)
+    bound: Tuple[Executable, ...] = ()
 
 
 _SENTINEL = object()
@@ -178,14 +214,19 @@ class Server:
         server.stop()
 
     Futures resolve to numpy arrays. ``Server`` is also a context manager.
+    ``clock``, ``hooks`` and ``placement`` (a policy object overriding
+    ``config.placement``) are test seams.
     """
 
     def __init__(self, config: Optional[ServeConfig] = None, *,
                  clock: Optional[Clock] = None,
-                 hooks: Optional[Hooks] = None):
+                 hooks: Optional[Hooks] = None, placement=None):
         self.config = config or ServeConfig()
         self._clock = clock or Clock()
         self._hooks = hooks or Hooks()
+        self._ndev = self.config.devices or 1
+        self._placement = (placement if placement is not None
+                           else pool_mod.PLACEMENTS[self.config.placement]())
         self._programs: Dict[str, HostedProgram] = {}
         self._cond = threading.Condition()
         self._queued_total = 0                 # frames across all programs
@@ -222,19 +263,48 @@ class Server:
         self._programs[name] = hosted
         return hosted
 
+    def _pool_devices(self) -> Tuple[torch.device, ...]:
+        """The pool's devices: ``devices`` cards from ``config.device`` on;
+        on the CPU, that many emulated workers on the one CPU device."""
+        base = torch.device(self.config.device)
+        if base.type != "cuda":
+            return (base,) * self._ndev
+        first = base.index or 0
+        local = torch.cuda.device_count()
+        if first + self._ndev > local:
+            raise ValueError(
+                f"devices={self._ndev} from {base} but only {local} local "
+                f"CUDA device(s)")
+        return tuple(torch.device("cuda", first + i)
+                     for i in range(self._ndev))
+
     def start(self, warm: bool = True) -> "Server":
-        """Launch the device worker and the scheduler/completer threads;
-        with ``warm``, run every bucket of every program once first."""
+        """Bind every hosted executable to each pool device and launch the
+        workers and the scheduler/completer threads; with ``warm``, run
+        every (device, bucket) once first, which captures the bound views'
+        CUDA graphs."""
         if self._started:
             raise RuntimeError("server already started")
         if not self._programs:
             raise RuntimeError("no programs registered")
+        devices = self._pool_devices()
+        # the staging ring is as deep as the per-device pipeline: a worker
+        # may have max_inflight batches dispatched but not yet awaited
+        slots = max(2, self.config.max_inflight)
+        for hosted in self._programs.values():
+            hosted.bound = tuple(hosted.executable.bind(d, staging_slots=slots)
+                                 for d in devices)
         if warm:
             for hosted in self._programs.values():
-                hosted.executable.warm(hosted.buckets)
+                for exe in hosted.bound:
+                    exe.warm(hosted.buckets)
         self._warmed = warm
-        self._pool = pool_mod.Pool(self._done, clock=self._clock,
-                                   pipeline=self.config.max_inflight)
+        self._pool = pool_mod.Pool(
+            self._ndev, self._placement, self._done, clock=self._clock,
+            execute_hook=self._hooks.execute,
+            pipeline=self.config.max_inflight,
+            names=[str(d) if d.type == "cuda" else f"{d}#{i}"
+                   for i, d in enumerate(devices)])
         self._started = True
         self._scheduler = threading.Thread(
             target=self._scheduler_loop, name="repro-torch-serve-scheduler",
@@ -390,7 +460,8 @@ class Server:
                    and not self._stopping):
                 if batcher.should_close_early(hosted.metrics.queued_frames,
                                               cap, self._active_batches,
-                                              cfg.speculative_close):
+                                              cfg.speculative_close,
+                                              devices=self._ndev):
                     reason = "speculative"
                     break
                 remaining = close_at - self._clock.now()
@@ -462,7 +533,7 @@ class Server:
                     continue
                 hosted.metrics.record_batch(
                     batcher.padded_slots(batch.n, batch.bucket),
-                    batch.t_dispatch)
+                    batch.t_dispatch, frames=batch.n)
                 for part, req in zip(
                         batcher.split_results(item.out, [r.n for r in live]),
                         live):
@@ -478,11 +549,13 @@ class Server:
 
     # -- observability -----------------------------------------------------
 
-    def stats(self) -> Dict[str, object]:
+    def stats(self, verbose: bool = False) -> Dict[str, object]:
         """JSON-able snapshot: per-program counters, latency percentiles,
         achieved frames/s and padding waste, each program's modeled device
-        FPS/W from its power report, the plan cache, the device worker and
-        the kernel launch counts."""
+        FPS/W from its power report (and the measured rate against it),
+        the plan cache, the pool's per-device rows and the kernel launch
+        counts. ``verbose`` adds each program's batch-occupancy and
+        padding-waste histograms (``serve.format_stats`` renders both)."""
         from repro_torch.core.plan import plan_cache_stats
         from repro_torch.kernels import launch_counts
         programs = {}
@@ -492,9 +565,22 @@ class Server:
         for name, hosted in self._programs.items():
             snap = hosted.metrics.snapshot()
             r = hosted.executable.report
+            # the measured rate at the modeled device power: the drift
+            # isolates host and scheduling losses from the power model
+            e_frame = (r.avg_power_w / r.fps) if r.fps else 0.0
+            measured = ((snap["achieved_fps"] / 1e3) / r.avg_power_w
+                        if r.avg_power_w else 0.0)
             snap["model"] = {"fps": r.fps, "avg_power_w": r.avg_power_w,
-                             "kfps_per_w": r.kfps_per_w}
+                             "kfps_per_w": r.kfps_per_w,
+                             "energy_per_frame_j": e_frame,
+                             "modeled_energy_j":
+                                 e_frame * snap["frames_served"]}
+            snap["measured_kfps_per_w"] = measured
+            snap["kfps_per_w_drift"] = (measured / r.kfps_per_w
+                                        if r.kfps_per_w else 0.0)
             snap["buckets"] = list(hosted.buckets)
+            if verbose:
+                snap["histograms"] = hosted.metrics.histograms()
             programs[name] = snap
             for k in totals:
                 totals[k] += snap["requests"][k]

@@ -352,3 +352,90 @@ def test_model_on_card_equals_cpu_and_reference(cuda, name):
     np.testing.assert_array_equal(ref.run(f).cpu().numpy(),
                                   prog.compile(Options(device="cpu"))
                                   .run(f).numpy())
+
+
+# -- bound views: pinned staging ring + one CUDA graph per bucket -------------
+
+SERVED = ("lenet", "vgg9", "compress_recon", "compress_recon_deconv",
+          "denoise_box", "denoise_gauss", "edge_detect", "prewitt_edge",
+          "sharpen", "unsharp_mask", "chain")
+
+
+def _served_program(name):
+    if name in ("lenet", "vgg9"):
+        return Program.from_model(name, torch.Generator().manual_seed(3))
+    if name == "chain":
+        return (Program.from_pipeline("denoise_gauss", 256, 256, 3)
+                .then(Program.from_pipeline("edge_detect", 256, 256, 3))
+                .then(Program.from_pipeline("sharpen", 256, 256, 1)))
+    return Program.from_pipeline(name, 256, 256, 3)
+
+
+@pytest.fixture(scope="module")
+def bound_views():
+    """(program, unbound executable, bound view) per served program, on the
+    card, made once per module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    out = {}
+    for name in SERVED:
+        prog = _served_program(name)
+        exe = prog.compile(Options(scheme=W4A4))
+        out[name] = (prog, exe, exe.bind("cuda", staging_slots=2))
+    return out
+
+
+def _frames_for(prog, n, seed):
+    f = np.random.default_rng(seed).random(
+        (n, *prog.input_hwc)).astype(np.float32)
+    f[::2] *= 0.1
+    return f
+
+
+@pytest.mark.parametrize("bucket", [1, 2, 4, 8])
+@pytest.mark.parametrize("name", SERVED)
+def test_bound_graph_replay_bitwise_equal_to_eager(bound_views, name, bucket):
+    prog, exe, bound = bound_views[name]
+    f = _frames_for(prog, max(bucket - 1, 1), bucket)
+    got = np.asarray(bound.run_padded(f, bucket))
+    assert bucket in bound._binding.graphs          # replayed, not eager
+    want = np.concatenate([exe.run_per_frame(f[i:i + 1]).cpu().numpy()
+                           for i in range(len(f))])
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["lenet", "edge_detect", "chain"])
+def test_three_pipelined_batches_give_their_own_answers(bound_views, name):
+    """Three batches of different content at one bucket, none waited on
+    until all three are enqueued: the static output is overwritten and a
+    staging slot reused before the first answer is read."""
+    prog, exe, bound = bound_views[name]
+    batches = [_frames_for(prog, 4, 40 + i) for i in range(3)]
+    pending = [bound.run_padded(f, 4) for f in batches]
+    outs = [np.asarray(p) for p in pending]
+    for f, out in zip(batches, outs):
+        np.testing.assert_array_equal(out, exe.run_per_frame(f).cpu().numpy())
+    assert not np.array_equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("name", ["lenet", "vgg9", "unsharp_mask", "chain"])
+def test_replays_credit_the_captures_launch_counts(bound_views, name):
+    prog, _, bound = bound_views[name]
+    f = _frames_for(prog, 8, 5)
+    bound.run_padded(f, 8).wait()                    # captured before
+    tally = bound._binding.graphs[8].launches
+    assert sum(tally.values()) > 0
+    reset_launch_counts()
+    for _ in range(3):
+        bound.run_padded(f, 8)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts == {k: 3 * tally.get(k, 0) for k in counts}
+
+
+def test_bound_view_on_cuda_raises_on_a_cpu_only_host():
+    if torch.cuda.is_available():
+        pytest.skip("needs a host without a CUDA device")
+    exe = Program.from_model("lenet").compile(Options(device="cpu"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        exe.bind("cuda")

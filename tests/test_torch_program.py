@@ -161,10 +161,17 @@ def test_forced_strip_runs_plain_accumulate_on_cpu(pair):
     np.testing.assert_array_equal(exe.run(f).numpy(), np.asarray(jexe.run(f)))
 
 
-def test_unported_pieces_raise():
+def test_unported_pieces_raise(monkeypatch):
     from repro_torch import serve
-    with pytest.raises(NotImplementedError, match="multi-device pool"):
-        serve.ServeConfig(device="cpu", devices=2)
+    # the multi-device pool is ported: devices beyond the local CUDA count
+    # raise ValueError at start (one card faked; nothing touches it)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    server = serve.Server(serve.ServeConfig(device="cuda", devices=2))
+    server.register("lenet", Program.from_model("lenet"),
+                    Options(device="cpu"))
+    with pytest.raises(ValueError, match="local CUDA device"):
+        server.start()
     with pytest.raises(ValueError, match="backend"):
         Options(device="cpu", backend="pallas")
 

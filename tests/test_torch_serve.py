@@ -189,7 +189,9 @@ def test_worker_failure_fails_only_that_batch(progs):
     server = serve.Server(serve.ServeConfig(max_batch=4, max_wait_ms=0.0,
                                             device="cpu"))
     hosted = server.register("lenet", lenet, CPU)
-    real = hosted.executable.run_padded
+    server.start(warm=False)
+    # the pool runs the bound view start() made for its one device
+    real = hosted.bound[0].run_padded
     calls = []
 
     def flaky(frames, bucket):
@@ -198,8 +200,7 @@ def test_worker_failure_fails_only_that_batch(progs):
             raise RuntimeError("injected device fault")
         return real(frames, bucket)
 
-    hosted.executable.run_padded = flaky
-    server.start(warm=False)
+    hosted.bound[0].run_padded = flaky
     try:
         f = _frames(lenet, 2, 5)
         with pytest.raises(serve.WorkerError, match="injected") as info:
@@ -210,12 +211,12 @@ def test_worker_failure_fails_only_that_batch(progs):
             lenet.compile(CPU).run_per_frame(f[1:]).numpy())
         st = server.stats()
         assert st["programs"]["lenet"]["requests"]["failed"] == 1
-        assert st["pool"]["failures"] == 1
+        assert [d["failures"] for d in st["pool"]["per_device"]] == [1]
     finally:
         server.stop()
 
 
-def test_validation(progs):
+def test_validation(progs, monkeypatch):
     lenet = progs["lenet"]
     server = serve.Server(serve.ServeConfig(max_queue=4, device="cpu"))
     server.register("lenet", lenet, CPU)
@@ -229,8 +230,14 @@ def test_validation(progs):
         server.register("lenet", lenet, CPU)
     with pytest.raises(RuntimeError, match="no programs"):
         serve.Server(serve.ServeConfig(device="cpu")).start()
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        serve.ServeConfig(devices=2, device="cpu")
+    # devices beyond the local CUDA count raise at start, before anything
+    # is bound (a host with one card is faked: nothing touches it)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    server = serve.Server(serve.ServeConfig(devices=2, device="cuda"))
+    server.register("lenet", lenet, CPU)
+    with pytest.raises(ValueError, match="only 1 local CUDA device"):
+        server.start()
 
 
 def test_bucket_helpers():
