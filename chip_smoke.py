@@ -70,7 +70,23 @@ Phases, each fatal on failure:
   7. load: LeNet, VGG9-CA, edge_detect, compress_recon and the chain,
      bound and eager: ``loadgen.saturate`` frames/s (single-frame
      requests, ~2 s) and ``loadgen.poisson_load`` p50/p99 at half the
-     bound path's saturation rate (~2 s).
+     bound path's saturation rate (~2 s);
+  8. obs: LeNet, VGG9-CA and edge_detect behind one bound server with a
+     ``Trace`` enabled and the admin endpoint up: answers bitwise as in 5;
+     the exported trace passes ``scripts/check_trace.py --min-devices 1``
+     (run as a subprocess); ``/healthz`` ``/readyz`` ``/metrics``
+     ``/statusz`` (JSON and text) answer 200, ``/metrics`` has each
+     program's ``serve_`` lines, ``/tracez`` passes ``--flight``; LeNet's
+     tight SLO (``p99_ms=0.001``) is breached, counted, logged and dumped,
+     an injected ``WorkerError`` dumps, both dumps pass ``--flight
+     --require-trigger``. The bound imaging burst once more under the
+     profiler and a ``Trace``: the ``serve.device.execute`` spans sum to
+     at least the card's busy time. Then what observability costs:
+     ``loadgen.saturate`` frames/s of LeNet and edge_detect, bound, under
+     A (no recorder), B (the default recorder), C (recorder + ``Trace``)
+     and D (recorder, admin endpoint polled every 100 ms), in the order
+     A B C D D C B A in one call (``[obs]`` lines: frames/s, the ratio to
+     A, the recorder's records per request).
 
 ``--rehearse`` runs every phase on the CPU with the plain versions: no
 graphs, and the bound phase on 2 emulated CPU workers.
@@ -132,6 +148,17 @@ CHAIN = (("denoise_gauss", 3), ("edge_detect", 3), ("sharpen", 1))
 LOAD_PROGRAMS = ("lenet", "vgg9", "edge_detect", "compress_recon", "chain")
 LOAD_S = {"saturate": 2.0, "poisson": 2.0}
 REHEARSAL_LOAD_S = {"saturate": 0.2, "poisson": 0.2}
+# the [obs] phase: its exported trace, the profiler trace of its bound
+# imaging burst, the programs and variant order of its cost runs (A no
+# recorder, B the default recorder, C recorder + Trace, D recorder + the
+# admin endpoint polled every ADMIN_POLL_S), and each run's length
+OBS_TRACE = "obs_serve_trace.json"
+OBS_BUSY_TRACE = "obs_imaging_bound_serve_trace.json"
+OBS_COST_PROGRAMS = ("lenet", "edge_detect")
+OBS_VARIANTS = "ABCDDCBA"
+ADMIN_POLL_S = 0.1
+OBS_COST_S = 2.0
+REHEARSAL_OBS_COST_S = 0.2
 # the port's kernels are top-level functions of an anonymous namespace
 PORT_KERNEL = r"^(void )?\(anonymous namespace\)::"
 KERNELS = ("photonic_mvm", "conv_chain", "ca_pool", "conv_strip",
@@ -959,15 +986,17 @@ def check_served(name, prog, frames, served, dev, out_shape):
          f"{name}: served answers differ from the port's CPU run")
 
 
-def make_server(device, progs, bound, devices=1):
+def make_server(device, progs, bound, devices=1, hooks=None, slo=None,
+                **config):
     """A ``serve.Server`` on ``device`` with buckets 1/2/4/8 and two batches
     in flight per device, hosting ``progs``; returns it started, with its
     hosted programs by name. ``bound``: every batch goes through the bound
     views (pinned staging ring, one CUDA graph per bucket, captured while
-    the server warms). Otherwise every batch goes, through the
-    ``Hooks.execute`` seam, to the unbound executable's eager
+    the server warms), past ``hooks`` if given. Otherwise every batch goes,
+    through the ``Hooks.execute`` seam, to the unbound executable's eager
     ``run_padded``, as the port served before ``Executable.bind`` (each
-    bucket warmed; pageable copies)."""
+    bucket warmed; pageable copies). ``slo`` maps program names to their
+    SLOs; ``config`` adds ``ServeConfig`` fields."""
     from repro_torch import Options, serve
     from repro_torch.core.quant import W4A4
     dev = str(device)
@@ -979,11 +1008,12 @@ def make_server(device, progs, bound, devices=1):
     server = serve.Server(
         serve.ServeConfig(max_batch=BUCKET, max_wait_ms=2.0, device=dev,
                           devices=devices, max_inflight=2,
-                          batch_buckets=BUCKETS),
-        hooks=None if bound else serve.Hooks(execute=eager))
+                          batch_buckets=BUCKETS, **config),
+        hooks=hooks if bound else serve.Hooks(execute=eager))
     for name, prog in progs.items():
         hosted[name] = server.register(name, prog,
-                                       Options(scheme=W4A4, device=dev))
+                                       Options(scheme=W4A4, device=dev),
+                                       slo=(slo or {}).get(name))
     server.start(warm=bound)
     if not bound:
         for h in hosted.values():
@@ -1262,6 +1292,239 @@ def busy_share(events):
             "busy_share": busy / (hi - lo), "device_ms_by_kind": by_kind}
 
 
+def check_trace_cli(path, *flags):
+    """``scripts/check_trace.py`` on ``path`` in a subprocess (the script
+    is stdlib only and not imported here); fails unless it exits 0."""
+    out = subprocess.run(
+        [sys.executable, os.path.join(HERE, "scripts", "check_trace.py"),
+         path, *flags], capture_output=True, text=True, timeout=300)
+    need(out.returncode == 0, f"check_trace.py {os.path.basename(path)} "
+         f"{' '.join(flags)}: {(out.stderr or out.stdout).strip()}")
+
+
+def http_get(url):
+    """(status, body) of a GET on the admin endpoint (loopback)."""
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=30) as r:
+        return r.status, r.read()
+
+
+def phase_obs_serve(device, vision_progs, imaging_progs, out_dir):
+    """LeNet, VGG9-CA and edge_detect behind one bound server with a
+    ``Trace`` enabled, the admin endpoint up, LeNet under a tight SLO and
+    an execute hook that can fail one batch: the answers bitwise as in the
+    serve phases; the five admin routes answer 200, ``/metrics`` has each
+    program's ``serve_`` lines and ``/tracez`` passes ``check_trace.py
+    --flight``; the SLO breach is counted, logged and dumped, an injected
+    ``WorkerError`` dumps, both dumps pass ``--flight --require-trigger``;
+    the exported trace passes ``check_trace.py --min-devices 1``."""
+    from repro_torch import obs, serve
+    progs = {**vision_progs, "edge_detect": imaging_progs["edge_detect"]}
+    armed = {"edge_detect": False}
+
+    def execute(program, index, frames, bucket, default):
+        if armed.get(program):
+            armed[program] = False
+            raise RuntimeError("injected device fault")
+        return default()
+
+    out = {}
+    breaches0 = obs.counter("slo.breach.lenet").get()
+    dump_dir = os.path.join(out_dir, "flight")
+    trace = obs.enable()
+    try:
+        server, _ = make_server(
+            device, progs, True, hooks=serve.Hooks(execute=execute),
+            slo={"lenet": obs.SLO(p99_ms=0.001, min_count=1)},
+            admin_port=0, flight_dump_dir=dump_dir,
+            flight_dump_interval_s=0.0, flight_dump_keep=16)
+        try:
+            ready = server.readiness()
+            need(ready["ready"], f"[obs] not ready after start: {ready}")
+            reqs = vision_requests(vision_progs) + imaging_requests(
+                {"edge_detect": progs["edge_detect"]})
+            outs, counts, wall = serve_window(server, reqs)
+            for name, (frames, served) in by_program(reqs, outs).items():
+                check_served(name, progs[name], frames, served, str(device),
+                             out_shape(name, progs[name]))
+            out["window"] = {"frames": sum(f.shape[0] for _, f in reqs),
+                             "wall_s": wall, "launches": counts}
+
+            url = server.admin.url
+            sizes = {}
+            for route in ("/healthz", "/readyz", "/metrics", "/statusz",
+                          "/statusz?format=text"):
+                code, body = http_get(url + route)
+                need(code == 200, f"[obs] {route} answered {code}")
+                sizes[route] = len(body)
+            metrics = http_get(url + "/metrics")[1].decode()
+            for name in progs:
+                need(f"serve_{name}_served " in metrics,
+                     f"[obs] /metrics has no serve_{name}_served line")
+            tracez = os.path.join(out_dir, "obs_tracez.json")
+            with open(tracez, "wb") as f:
+                f.write(http_get(url + "/tracez")[1])
+            check_trace_cli(tracez, "--flight")
+            out["admin"] = {"url": url, "bytes": sizes}
+
+            need(obs.counter("slo.breach.lenet").get() > breaches0,
+                 "[obs] the tight SLO was not breached")
+            need(any(r["event"] == "serve.slo.breach"
+                     and r["program"] == "lenet"
+                     for r in server.log.recent()),
+                 "[obs] no structured-log line for the SLO breach")
+            slo_dump = next((d for d in server.flight_dumps()
+                             if d["reason"].startswith("slo:lenet:")), None)
+            need(slo_dump is not None and slo_dump["path"] is not None,
+                 "[obs] the SLO breach left no dump")
+            check_trace_cli(slo_dump["path"], "--flight",
+                            "--require-trigger")
+
+            armed["edge_detect"] = True
+            fut = server.submit("edge_detect",
+                                frames_for(progs["edge_detect"], 1, 999))
+            try:
+                fut.result(timeout=120)
+                need(False, "[obs] the injected fault did not fail a batch")
+            except serve.WorkerError:
+                pass
+            t0 = time.perf_counter()
+            while not any(d["reason"] == "worker_error:edge_detect"
+                          for d in server.flight_dumps()):
+                need(time.perf_counter() - t0 < 60,
+                     "[obs] the WorkerError left no dump")
+                time.sleep(0.01)
+            err_dump = next(d for d in server.flight_dumps()
+                            if d["reason"] == "worker_error:edge_detect")
+            check_trace_cli(err_dump["path"], "--flight",
+                            "--require-trigger")
+            out["dumps"] = [{k: v for k, v in d.items() if k != "dump"}
+                            for d in server.flight_dumps()]
+            out["stats"] = server.stats(verbose=True)
+        finally:
+            server.stop()
+    finally:
+        obs.disable()
+    path = os.path.join(out_dir, OBS_TRACE)
+    trace.export(path)
+    check_trace_cli(path, "--min-devices", "1")
+    summary = trace.summary()
+    out["trace"] = {"records": len(trace.records()),
+                    "device_spans": summary.get("serve.device.execute"),
+                    "request_device_spans": summary.get(
+                        "serve.request.device")}
+    return out
+
+
+def phase_obs_busy(device, progs, trace_path):
+    """The bound imaging burst once more, under ``torch.profiler`` and a
+    ``Trace`` at once: the ``serve.device.execute`` spans (each ends when
+    the worker's wait on the batch's answer returned) must sum to at least
+    the card's busy time in the window. None on the CPU."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import obs
+    if device.type != "cuda":
+        return None
+    reqs = imaging_requests(progs)
+    server, _ = make_server(device, progs, True)
+    try:
+        trace = obs.enable()
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                serve_window(server, reqs)
+                torch.cuda.synchronize()
+        finally:
+            obs.disable()
+    finally:
+        server.stop()
+    busy = busy_share(load_trace(prof, trace_path))
+    spans = trace.spans("serve.device.execute")
+    span_ms = sum(s["t1_ns"] - s["t0_ns"] for s in spans) / 1e6
+    need(span_ms >= busy["busy_ms"],
+         f"[obs] device spans sum to {span_ms:.3f} ms, less than the "
+         f"{busy['busy_ms']:.3f} ms the card was busy")
+    return {"device_span_ms": span_ms, "device_spans": len(spans),
+            "cupti_busy_ms": busy["busy_ms"], "window_ms": busy["window_ms"]}
+
+
+def run_variant(server, name, pool, n, variant, recorder):
+    """One ``loadgen.saturate`` run of ``n`` single-frame requests under an
+    observability variant: A no recorder, B the default recorder, C the
+    recorder and a ``Trace``, D the recorder with the admin endpoint
+    polled every ``ADMIN_POLL_S``. Returns (frames/s, recorder records
+    per request)."""
+    import threading
+    from repro_torch import obs, serve
+    stop, errors = threading.Event(), []
+
+    def poll():
+        while not stop.wait(ADMIN_POLL_S):
+            for route in ("/metrics", "/healthz"):
+                try:
+                    code, _ = http_get(server.admin.url + route)
+                    if code != 200:
+                        errors.append(f"{route}: {code}")
+                except OSError as e:
+                    errors.append(f"{route}: {e}")
+
+    if variant == "A":
+        obs.uninstall()
+    trace = obs.enable() if variant == "C" else None
+    poller = threading.Thread(target=poll) if variant == "D" else None
+    if poller is not None:
+        poller.start()
+    rec0 = recorder.stats()["recorded_total"]
+    try:
+        rep = serve.saturate(server, name, pool, n_requests=n)
+    finally:
+        stop.set()
+        if poller is not None:
+            poller.join(60)
+        if trace is not None:
+            obs.disable()
+        obs.install(recorder)
+    need(not errors, f"[obs] admin polling failed: {errors[:3]}")
+    need(poller is None or not poller.is_alive(), "[obs] poller hung")
+    need(rep.served == n, f"[obs] {name} {variant}: served {rep.served} of "
+         f"{n}")
+    per_req = (recorder.stats()["recorded_total"] - rec0) / n
+    return rep.achieved_fps, per_req
+
+
+def phase_obs_cost(device, progs, seconds):
+    """What observability costs the bound path: for each program,
+    ``loadgen.saturate`` with single-frame requests under the variants in
+    the order ``OBS_VARIANTS`` (A B C D D C B A), every run the same
+    request count (sized once to last about ``seconds`` with the default
+    recorder); frames/s per run and each variant's mean over A's."""
+    from repro_torch import obs
+    recorder = obs.get_flight()
+    need(recorder is not None, "[obs] no default flight recorder")
+    server, _ = make_server(device, progs, True, admin_port=0)
+    out = {}
+    try:
+        for i, (name, prog) in enumerate(progs.items()):
+            pool = frames_for(prog, 16, 800 + i)
+            n = saturate_for(server, name, pool, seconds).submitted
+            runs = {v: [] for v in "ABCD"}
+            per_req = {v: [] for v in "ABCD"}
+            for v in OBS_VARIANTS:
+                fps, puts = run_variant(server, name, pool, n, v, recorder)
+                runs[v].append(fps)
+                per_req[v].append(puts)
+            mean = {v: sum(r) / len(r) for v, r in runs.items()}
+            out[name] = {"requests": n, "fps": runs,
+                         "records_per_request": per_req,
+                         "ratio_to_A": {v: mean[v] / mean["A"]
+                                        for v in "BCD"}}
+    finally:
+        server.stop()
+        obs.install(recorder)
+    return out
+
+
 def reread(trace_dir):
     """Each device-time range of the run whose traces lie in ``trace_dir``:
     its launches, kernel records and device ms per batch by kernel
@@ -1508,6 +1771,38 @@ def main(argv) -> int:
                 f"rejected {b['poisson_rejected']}, behind "
                 f"{b['poisson_behind_schedule']})")
 
+        obs_out = {"serve": phase_obs_serve(device, vision_progs,
+                                            imaging_progs, out_dir)}
+        o = obs_out["serve"]
+        log(f"[obs] traced bound server (LeNet, VGG9-CA, edge_detect): "
+            f"{o['window']['frames']} frames bitwise equal to batch-1 "
+            f"run_per_frame; trace {o['trace']['records']} records, device "
+            f"spans {o['trace']['device_spans']}; check_trace.py "
+            f"--min-devices 1 passed")
+        log(f"[obs] admin {o['admin']['url']}: /healthz /readyz /metrics "
+            f"/statusz /statusz?format=text answered 200 "
+            f"({o['admin']['bytes']} bytes); /tracez passed --flight")
+        log(f"[obs] dumps (each passed --flight --require-trigger where "
+            f"triggered): {[(d['reason'], d['records']) for d in o['dumps']]}")
+        obs_out["busy"] = phase_obs_busy(device, imaging_progs, os.path.join(
+            out_dir, OBS_BUSY_TRACE))
+        log(f"[obs] bound imaging burst, traced and profiled: "
+            f"serve.device.execute spans vs CUPTI busy {obs_out['busy']}")
+        obs_out["cost"] = phase_obs_cost(device, {
+            name: {**vision_progs, **imaging_progs}[name]
+            for name in OBS_COST_PROGRAMS},
+            REHEARSAL_OBS_COST_S if rehearse else OBS_COST_S)
+        for name, c in obs_out["cost"].items():
+            fps = {v: sum(r) / len(r) for v, r in c["fps"].items()}
+            recs = {v: sum(r) / len(r)
+                    for v, r in c["records_per_request"].items()}
+            log(f"[obs] {name} bound, saturate x{c['requests']} single-frame"
+                f" requests, {OBS_VARIANTS}: A (no recorder) {fps['A']:.1f}"
+                f" frames/s; " + "; ".join(
+                    f"{v} {fps[v]:.1f} ({c['ratio_to_A'][v]:.4f} of A, "
+                    f"{recs[v]:.2f} records/request)" for v in "BCD")
+                + f"; runs {c['fps']}")
+
         launches = {k: {path: served[path][k] for path in served}
                     for k in KERNELS}
         for k in KERNELS:
@@ -1538,7 +1833,7 @@ def main(argv) -> int:
                        "imaging_busy_share": busy,
                        "serve_bound": bound,
                        "imaging_bound_busy_share": bound_busy,
-                       "load": load,
+                       "load": load, "obs": obs_out,
                        "ca_pool_cold_device_ms": ca_cold,
                        "comparisons": n_cmp,
                        "conv_bank_float_err": bank_float_err,

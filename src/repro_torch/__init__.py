@@ -12,7 +12,9 @@ first use.
              fused chain), ca_pool
   models/    the paper's CNNs
   imaging/   the imaging pipelines, their float oracle and metrics
-  serve/     the micro-batching serving runtime, one device
+  serve/     the micro-batching serving runtime over a device pool, with
+             its admin endpoint
+  obs/       tracing, metrics, the flight recorder, SLOs, structured log
   weights    params across the two packages (numpy)
 
 Entry points run on ``cuda`` unless the caller asks for the CPU.

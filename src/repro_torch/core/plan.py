@@ -13,15 +13,27 @@
       operations are ever contracted into an FMA, and every division is a
       true IEEE division (``quant.true_div``): the numerics are the
       reference's jitted executor's, bit for bit.
+
+Observation (``repro_torch.obs``): ``plan.cache.hit`` / ``plan.cache.miss``
+counters and events and a ``plan.compile`` span per cache miss. The
+reference's jit-trace-time hooks (the ``dispatch.fused.fallback`` counter
+and event, the ``plan.trace.fused_segment`` span, the ``dispatch.conv.*``
+counters) fire in the first run of each trace family of a plan: its
+backend, device, calibration and batch shape (``_execute``). The port has
+no trace time; this is its equivalent, on the eager path and on the
+bound path (whose eager run before each capture is a bucket's first).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import optical_core as ocore
 from repro_torch.core import power_model as pmod
 from repro_torch.core.accelerator import (CASpec, ConvSpec, DenseSpec,
@@ -118,6 +130,20 @@ class CompiledPlan:
     out_features: int
     consts: Dict[str, object] = dataclasses.field(default_factory=dict)
     fused_segments: Tuple[dispatch.FusedSegmentSpec, ...] = ()
+    # the trace families this plan has run (``_execute``)
+    _families: set = dataclasses.field(default_factory=set, repr=False)
+
+    def first_run(self, family: tuple) -> bool:
+        """Record that ``family`` runs; True the first time."""
+        with _FAMILY_LOCK:
+            if family in self._families:
+                return False
+            self._families.add(family)
+            return True
+
+
+_FAMILY_LOCK = threading.Lock()
+_NO_SPAN = contextlib.nullcontext()
 
 
 # ---------------------------------------------------------------------------
@@ -165,11 +191,22 @@ def _compile_model(layers: Sequence, input_shape: Tuple[int, ...],
     cached = _PLAN_CACHE.get(key)
     if cached is not None:
         _CACHE_STATS["hits"] += 1
+        obs.counter("plan.cache.hit").inc()
+        if obs.enabled():
+            obs.event("plan.cache.hit",
+                      attrs={"frame_shape": list(frame_shape),
+                             "layers": len(layers)})
         return cached
     _CACHE_STATS["misses"] += 1
-    plan = _compile_model_uncached(
-        layers, frame_shape, scheme, oc, circuit, profile, weight_sram_kb,
-        act_sram_kb, fc_batch, conv_strategy, conv_vmem_budget, fuse_mode)
+    obs.counter("plan.cache.miss").inc()
+    with obs.span("plan.compile",
+                  attrs={"frame_shape": list(frame_shape),
+                         "layers": len(layers), "fc_batch": fc_batch,
+                         "conv_strategy": conv_strategy, "fuse": fuse_mode}):
+        plan = _compile_model_uncached(
+            layers, frame_shape, scheme, oc, circuit, profile,
+            weight_sram_kb, act_sram_kb, fc_batch, conv_strategy,
+            conv_vmem_budget, fuse_mode)
     _PLAN_CACHE[key] = plan
     return plan
 
@@ -344,19 +381,32 @@ def _execute_steps(steps: Tuple[PlanStep, ...], params: Dict[str, Dict],
     a_qmax = consts["a_qmax"]
     x, act_scale = _crc_requant(frames, a_qmax, per_frame)
     fuse_ok = per_frame or frames.shape[0] == 1
+    hooks = dispatch.trace_hooks()
+    if segments and not fuse_ok and hooks:
+        # per-tensor calibration at batch > 1 couples frames through the
+        # batch-wide CRC max: the fused segments cannot run, and this
+        # family runs the per-layer path
+        obs.counter("dispatch.fused.fallback").inc(len(segments))
+        if obs.enabled():
+            obs.event("dispatch.fused.fallback",
+                      attrs={"segments": len(segments),
+                             "batch": int(frames.shape[0])})
     seg_at = {s.start: s for s in segments} if fuse_ok else {}
     i, n = 0, len(steps)
     while i < n:
         step = steps[i]
         seg = seg_at.get(i)
         if seg is not None:
-            stages = []
-            for s in steps[i:i + seg.length]:
-                wq, ws = qweight(s)
-                stages.append((s.geom, wq, ws, params[s.name].get("b")))
-            x, act_scale = dispatch.conv_chain(
-                x, act_scale, stages, a_qmax, per_frame, backend,
-                exact_checked=weights is not None)
+            with (obs.span("plan.trace.fused_segment",
+                           attrs={"names": list(seg.names)})
+                  if hooks else _NO_SPAN):
+                stages = []
+                for s in steps[i:i + seg.length]:
+                    wq, ws = qweight(s)
+                    stages.append((s.geom, wq, ws, params[s.name].get("b")))
+                x, act_scale = dispatch.conv_chain(
+                    x, act_scale, stages, a_qmax, per_frame, backend,
+                    exact_checked=weights is not None)
             i += seg.length
             continue
         if isinstance(step, CAStep):
@@ -414,7 +464,9 @@ def _execute(plan: CompiledPlan, params: Dict[str, Dict],
     """Run ``frames`` [B, H, W, C] (or one [H, W, C]) through a plan.
 
     Returns logits [B, n] for classifier plans, or an image [B, H', W', C']
-    for plans whose last step is spatial.
+    for plans whose last step is spatial. The trace-time hooks fire only
+    in the first run of the call's trace family (backend, device,
+    calibration, batch shape); every later run of it is silenced.
     """
     if frames.ndim == 3:
         frames = frames[None]
@@ -422,7 +474,9 @@ def _execute(plan: CompiledPlan, params: Dict[str, Dict],
         raise ValueError(f"frames {tuple(frames.shape)} do not match plan "
                          f"frame shape {plan.frame_shape}; expected "
                          f"[B, {', '.join(map(str, plan.frame_shape))}]")
-    with torch.no_grad():
+    family = (backend, frames.device.type, per_frame, tuple(frames.shape))
+    with torch.no_grad(), dispatch.repeat_family(
+            not plan.first_run(family)):
         return _execute_steps(plan.steps, params, frames.float(),
                               plan.consts, per_frame=per_frame,
                               segments=plan.fused_segments, backend=backend,

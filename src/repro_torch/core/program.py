@@ -28,6 +28,7 @@ pinned memory and replays one CUDA graph per batch bucket
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 from typing import Dict, Optional, Sequence, Tuple
@@ -35,6 +36,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import graphs
 from repro_torch.core import optical_core as ocore
 from repro_torch.core import plan as plan_mod
@@ -72,6 +74,14 @@ class Options:
                         (``None``: the reference's 4 MiB).
     ``fuse``            chain fusion ``auto`` | ``on`` | ``off`` (``None``:
                         what the conv strategy implies).
+    ``trace``           span and event emission ``auto`` | ``on`` | ``off``
+                        (``None``: ``auto``, record while an
+                        ``obs.enable()`` collector is installed; ``on``
+                        installs one; ``off`` records nothing into it). It
+                        pins ``obs.use_mode`` on the calling thread for
+                        ``compile`` and every run, and stays out of the
+                        plan cache key: tracing never changes the plan.
+                        The flight recorder records whatever the mode.
     """
 
     scheme: WASpec | MixedPrecisionScheme = W4A4
@@ -86,6 +96,7 @@ class Options:
     conv_strategy: Optional[str] = None
     conv_vmem_budget: Optional[int] = None
     fuse: Optional[str] = None
+    trace: Optional[str] = None
 
     def __post_init__(self):
         if self.fc_batch < 1:
@@ -104,6 +115,9 @@ class Options:
         if self.fuse is not None and self.fuse not in dispatch.FUSE_MODES:
             raise ValueError(f"unknown fuse mode {self.fuse!r}; expected "
                              f"one of {dispatch.FUSE_MODES}")
+        if self.trace is not None and self.trace not in obs.TRACE_MODES:
+            raise ValueError(f"unknown trace mode {self.trace!r}; expected "
+                             f"one of {obs.TRACE_MODES}")
         resolve_device(self.device)
 
     def describe(self) -> str:
@@ -112,9 +126,10 @@ class Options:
         budget = r.conv_vmem_budget
         vmem = (f"{budget >> 20}MB" if budget >= (1 << 20)
                 else f"{budget >> 10}KB")
+        trace = f" trace={r.trace}" if r.trace != "auto" else ""
         return (f"scheme={r.scheme.name} backend={r.backend} "
                 f"device={r.device} conv={r.conv_strategy}(vmem={vmem}) "
-                f"fuse={r.fuse} fc_batch={r.fc_batch}")
+                f"fuse={r.fuse} fc_batch={r.fc_batch}{trace}")
 
     def resolve(self) -> "Options":
         """Every ``None`` field filled with its default."""
@@ -123,7 +138,16 @@ class Options:
             self, conv_strategy=strategy,
             conv_vmem_budget=(self.conv_vmem_budget
                               or dispatch.DEFAULT_CONV_VMEM_BUDGET),
-            fuse=self.fuse or dispatch.conv_fuse_mode(strategy))
+            fuse=self.fuse or dispatch.conv_fuse_mode(strategy),
+            trace=self.trace or obs.trace_mode())
+
+
+def _pinned(options: Options):
+    """``options.trace`` pinned on the calling thread (``obs.use_mode``),
+    or nothing when it is unset."""
+    if options.trace is None:
+        return contextlib.nullcontext()
+    return obs.use_mode(options.trace)
 
 
 # ---------------------------------------------------------------------------
@@ -255,12 +279,13 @@ class Program:
         """Static pass: resolve the (cached) plan under ``options``."""
         options = options if options is not None else Options()
         r = options.resolve()
-        plan = plan_mod._compile_model(
-            self.layers, self.input_hwc, r.scheme, oc=r.oc,
-            circuit=r.circuit, profile=r.profile,
-            weight_sram_kb=r.weight_sram_kb, act_sram_kb=r.act_sram_kb,
-            fc_batch=r.fc_batch, conv_strategy=r.conv_strategy,
-            conv_vmem_budget=r.conv_vmem_budget, fuse=r.fuse)
+        with _pinned(options):
+            plan = plan_mod._compile_model(
+                self.layers, self.input_hwc, r.scheme, oc=r.oc,
+                circuit=r.circuit, profile=r.profile,
+                weight_sram_kb=r.weight_sram_kb, act_sram_kb=r.act_sram_kb,
+                fc_batch=r.fc_batch, conv_strategy=r.conv_strategy,
+                conv_vmem_budget=r.conv_vmem_budget, fuse=r.fuse)
         return Executable(self, options, plan)
 
 
@@ -364,19 +389,21 @@ class Executable:
         """Execute ``frames`` [B, H, W, C] (or one [H, W, C] frame) with the
         seed's per-tensor calibration. Returns logits [B, n] or an image
         [B, H', W', C'], on the executable's device."""
-        return plan_mod._execute(self._plan, self.params(),
-                                 self._frames(frames),
-                                 backend=self.options.backend,
-                                 weights=self._weights())
+        with _pinned(self.options):
+            return plan_mod._execute(self._plan, self.params(),
+                                     self._frames(frames),
+                                     backend=self.options.backend,
+                                     weights=self._weights())
 
     def run_per_frame(self, frames) -> torch.Tensor:
         """Execute with per-frame CRC calibration (serving semantics): every
         frame's result is a pure function of that frame, bitwise equal to
         the same frame run at batch 1."""
-        return plan_mod._execute(self._plan, self.params(),
-                                 self._frames(frames), per_frame=True,
-                                 backend=self.options.backend,
-                                 weights=self._weights())
+        with _pinned(self.options):
+            return plan_mod._execute(self._plan, self.params(),
+                                     self._frames(frames), per_frame=True,
+                                     backend=self.options.backend,
+                                     weights=self._weights())
 
     def run_padded(self, frames, bucket: int):
         """Execute ``frames`` at a fixed batch ``bucket``: zero-pad up to it
@@ -398,7 +425,8 @@ class Executable:
                 raise ValueError(
                     f"frames {frames.shape} do not match plan frame shape "
                     f"{self._plan.frame_shape}")
-            return self._binding.run_padded(frames, bucket)
+            with _pinned(self.options):
+                return self._binding.run_padded(frames, bucket)
         outs = []
         for off in range(0, frames.shape[0], bucket):
             chunk = frames[off:off + bucket]
@@ -410,12 +438,21 @@ class Executable:
             outs.append(self.run_per_frame(chunk)[:real])
         return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
 
+    def captured(self, buckets: Sequence[int]) -> bool:
+        """Can every bucket of ``buckets`` run without capturing first? A
+        bound view on CUDA has then captured each bucket's graph; an
+        unbound executable or a CPU view has nothing to capture."""
+        b = self._binding
+        return (b is None or b.stream is None
+                or all(int(k) in b.graphs for k in buckets))
+
     def warm(self, buckets: Sequence[int] = (1,)) -> "Executable":
         """Run a zero batch at each bucket size and wait for it: builds and
         loads the kernels and primes the device's caches before serving; a
         bound view on CUDA captures each bucket's graph."""
         if self._binding is not None:
-            self._binding.warm(buckets)
+            with _pinned(self.options):
+                self._binding.warm(buckets)
             return self
         h, w, c = self.program.input_hwc
         for b in sorted({int(b) for b in buckets}):

@@ -35,16 +35,27 @@ so ``auto`` grows a run only while the segment fits there, and ``on``
 refuses at compile time a segment that cannot fit. Where the reference
 fuses past that (``edge_detect`` at 256x256, for one), the port's plan has
 fewer segments; the numbers are bitwise the same either way.
+
+The ``dispatch.conv.{resident,strip,reference}`` and ``dispatch.conv.fused``
+counters (``repro_torch.obs``) count conv layers per strategy the way the
+reference's count at jit-trace time: once per trace family of a plan (its
+backend, device, calibration and batch shape), not per batch. The plan
+executor runs a family it has already run under :func:`repeat_family`,
+which silences them; a direct call outside an executor counts every time,
+as an un-jitted call to the reference's does.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Optional, Sequence, Tuple
+import threading
+from typing import Iterator, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.kernels.conv_bank.fused import SMEM_PER_BLOCK, smem_layout
 
 BACKENDS = ("kernel", "reference")
@@ -288,6 +299,33 @@ def select_fused_segments(geoms: Sequence[Optional[ChainGeom]],
 
 
 # ---------------------------------------------------------------------------
+# Trace-family hooks
+# ---------------------------------------------------------------------------
+
+_family = threading.local()        # .repeat: re-running a seen trace family
+
+
+def trace_hooks() -> bool:
+    """Do the trace-time hooks fire on this thread? True outside a plan
+    executor and in the first run of a trace family; False while the
+    executor re-runs a family (every later batch, and a graph capture
+    after its eager run)."""
+    return not getattr(_family, "repeat", False)
+
+
+@contextlib.contextmanager
+def repeat_family(repeat: bool) -> Iterator[None]:
+    """Within the block, the calling thread's trace-time hooks are
+    silenced if ``repeat``."""
+    prev = getattr(_family, "repeat", False)
+    _family.repeat = repeat
+    try:
+        yield
+    finally:
+        _family.repeat = prev
+
+
+# ---------------------------------------------------------------------------
 # Dispatch entry points
 # ---------------------------------------------------------------------------
 
@@ -346,6 +384,8 @@ def conv_int(codes: torch.Tensor, wq: torch.Tensor, stride: int, pads,
             f"conv_int: groups={groups} must divide c_out={c_out} and "
             f"match c_in={codes.shape[-1]} against weight slice {cg}")
     if backend == "reference":
+        if trace_hooks():
+            obs.counter("dispatch.conv.reference").inc()
         return conv_int_ref(codes, wq, stride, pads, groups)
     (plo, phi), (qlo, qhi) = pads
     h_out = (codes.shape[1] + plo + phi - k) // stride + 1
@@ -353,6 +393,8 @@ def conv_int(codes: torch.Tensor, wq: torch.Tensor, stride: int, pads,
     if strategy is None:
         strategy = select_conv_strategy(h_out, w_out, codes.shape[-1],
                                         c_out, k, stride, groups)
+    if trace_hooks():
+        obs.counter(f"dispatch.conv.{strategy.kind}").inc()
     if strategy.kind == "strip":
         return _conv_int_strip(codes, wq, stride, pads, groups, strategy,
                                h_out)
@@ -417,6 +459,9 @@ def conv_chain(codes: torch.Tensor, act_scale, stages: Sequence, a_qmax,
             "conv_chain: per-tensor calibration fuses only at batch 1 "
             f"(got batch {codes.shape[0]}); the executor should have "
             "fallen back to the unfused path")
+    if trace_hooks():
+        # one tick per conv stage run through the fused chain
+        obs.counter("dispatch.conv.fused").inc(len(stages))
     if backend == "reference":
         from repro_torch.kernels.conv_bank.ref import conv_chain_ref
         out, scale = conv_chain_ref(codes, act_scale, stages, a_qmax)

@@ -16,6 +16,12 @@
     PYTHONPATH=src python -m repro_torch.launch.serve_vision \
         --model lenet --load 500 --requests 64 --devices 4
 
+    # a traced run (Chrome trace; check with scripts/check_trace.py), the
+    # admin endpoint on an ephemeral port and a structured log
+    PYTHONPATH=src python -m repro_torch.launch.serve_vision \
+        --model lenet --load 500 --requests 200 --trace out.json \
+        --admin-port 0 --log serve.jsonl
+
 Each run compiles once (``Server.register``), binds the program to each
 pool device and warms every batch bucket (which captures the bound views'
 CUDA graphs), then streams single-frame requests through the micro-batching
@@ -28,6 +34,8 @@ power model's device FPS and kFPS/W and, for imaging pipelines, the PSNR
 of the quantized answer against the float oracle. ``--load`` switches to
 the open-loop Poisson generator and reports p50/p95/p99 latency, the
 achieved rate and the sheds. Runs on ``cuda`` unless ``--device cpu``.
+``--trace`` records the run (``repro_torch.obs``), writes the Chrome trace
+and prints the verbose stats table and a summary line.
 """
 
 from __future__ import annotations
@@ -38,7 +46,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import serve
+from repro_torch import obs, serve
 from repro_torch.core.program import Options
 from repro_torch.core.quant import MX_42, MX_43, W2A4, W3A4, W4A4
 from repro_torch.kernels import dispatch
@@ -96,6 +104,20 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu, where --devices are "
                          "emulated workers")
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="record spans and events and write a Chrome trace "
+                         "(chrome://tracing, Perfetto); also prints the "
+                         "verbose stats table")
+    ap.add_argument("--admin-port", type=int, default=None,
+                    help="serve the admin endpoint (/metrics /healthz "
+                         "/readyz /statusz /tracez) on this port while the "
+                         "run lasts; 0 binds an ephemeral port")
+    ap.add_argument("--log", default=None, metavar="OUT.jsonl",
+                    help="structured JSON-lines event log (serve start and "
+                         "stop, SLO breaches, worker failures, flight dumps)")
+    ap.add_argument("--no-flight", action="store_true",
+                    help="run with the flight recorder uninstalled "
+                         "(obs.uninstall()); it is restored on exit")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.batch < 1 or args.batches < 1 or args.requests < 1:
@@ -105,6 +127,7 @@ def main(argv=None):
     if args.load is not None and args.load <= 0:
         ap.error("--load must be > 0 requests/s")
 
+    trace = obs.enable() if args.trace is not None else None
     options = Options(scheme=SCHEMES[args.scheme], fc_batch=args.batch,
                       backend=args.backend, device=args.device,
                       conv_strategy=args.conv_strategy)
@@ -125,13 +148,17 @@ def main(argv=None):
         max_batch=args.batch, max_wait_ms=args.max_wait_ms,
         max_queue=max(8 * args.batch, 64), max_inflight=args.max_inflight,
         default_deadline_ms=args.deadline_ms, devices=args.devices,
-        placement=args.placement, device=args.device))
+        placement=args.placement, device=args.device,
+        admin_port=args.admin_port, log_path=args.log))
     t0 = time.perf_counter()
     hosted = server.register(prog.name, prog, options)
     t_compile = time.perf_counter() - t0
     t0 = time.perf_counter()
     server.start(warm=True)
     t_warm = time.perf_counter() - t0
+    if server.admin is not None:
+        print(f"[serve_vision] admin endpoint at {server.admin.url} "
+              f"(/metrics /healthz /readyz /statusz /tracez)")
     where = (torch.cuda.get_device_name(torch.device(args.device))
              if torch.device(args.device).type == "cuda" else "cpu")
 
@@ -151,6 +178,7 @@ def main(argv=None):
             + (f"[fused#{seg_of[n]}]" if n in seg_of else "")
             for n, v in r.conv_strategy.items()))
 
+    recorder = obs.uninstall() if args.no_flight else None
     try:
         if args.load is not None:
             rep = serve.poisson_load(server, prog.name, pool,
@@ -174,7 +202,7 @@ def main(argv=None):
             rep = serve.saturate(server, prog.name, pool,
                                  n_requests=args.batches * args.batch)
         fps = rep.achieved_fps
-        stats = server.stats()
+        stats = server.stats(verbose=trace is not None)
         snap = stats["programs"][prog.name]
         print(f"[serve_vision] measured {fps:,.0f} frames/s on {where} "
               f"(avg_batch {snap['avg_batch']:.1f}, padding waste "
@@ -198,6 +226,19 @@ def main(argv=None):
                   f"{float(psnr(ref, out)):.2f} dB (per-frame calibration)")
     finally:
         server.stop()
+        if trace is not None:
+            obs.disable()
+        if recorder is not None:
+            obs.install(recorder)
+    if trace is not None:
+        trace.export(args.trace)
+        dev = trace.summary().get("serve.device.execute",
+                                  {"count": 0, "total_ms": 0.0})
+        print("[serve_vision] stats breakdown:")
+        print(serve.format_stats(stats))
+        print(f"[serve_vision] trace: {len(trace.records())} records "
+              f"({dev['count']} device spans, {dev['total_ms']:.1f} ms "
+              f"device time) -> {args.trace}")
     return fps
 
 

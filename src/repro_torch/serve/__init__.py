@@ -8,7 +8,10 @@ stream, a pinned staging ring, one CUDA graph per bucket; least-loaded
 placement, work stealing, per-device pipelining; ``devices``), bounded
 admission with backpressure, deadline shedding, load generators and a
 stats snapshot (p50/p95/p99 latency, achieved frames/s, padding waste,
-per-device occupancy).
+per-device occupancy), and the operability layer over ``repro_torch.obs``:
+per-request trace spans, SLOs, triggered flight dumps, a structured log
+and the admin endpoint (``AdminServer``: ``/healthz`` ``/readyz``
+``/metrics`` ``/statusz`` ``/tracez``).
 
     from repro_torch import Program, serve
 
@@ -19,6 +22,7 @@ per-device occupancy).
     server.stop()
 """
 
+from repro_torch.serve.admin import AdminServer
 from repro_torch.serve.batcher import (padded_slots, pick_bucket,
                                        power_of_two_buckets,
                                        should_close_early, split_results)
@@ -33,7 +37,7 @@ from repro_torch.serve.server import (AdmissionError, DeadlineExceeded, Hooks,
                                       ServerClosed)
 
 __all__ = [
-    "AdmissionError", "Clock", "DeadlineExceeded", "Hooks", "HostedProgram",
+    "AdminServer", "AdmissionError", "Clock", "DeadlineExceeded", "Hooks", "HostedProgram",
     "LeastLoaded", "LoadReport", "PLACEMENTS", "Pool", "ProgramMetrics",
     "RoundRobin", "ServeConfig", "Server", "ServerClosed", "VirtualClock",
     "WorkerError", "format_stats", "latency_summary", "padded_slots",

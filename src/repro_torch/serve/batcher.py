@@ -25,6 +25,8 @@ from typing import Sequence, Tuple
 
 import numpy as np
 
+from repro_torch import obs
+
 
 def power_of_two_buckets(max_batch: int) -> Tuple[int, ...]:
     """The default bucket ladder: 1, 2, 4, ... capped by ``max_batch``.
@@ -52,6 +54,10 @@ def pick_bucket(n: int, buckets: Sequence[int]) -> int:
         if b >= n:
             best = b
             break
+    if obs.recording():
+        obs.event("batcher.pick_bucket",
+                  attrs={"frames": n, "bucket": best,
+                         "pad": padded_slots(n, best) - n})
     return best
 
 
@@ -95,4 +101,7 @@ def split_results(out: np.ndarray, counts: Sequence[int]) -> list:
     for n in counts:
         parts.append(out[off:off + n])
         off += n
+    if obs.recording():
+        obs.event("batcher.split",
+                  attrs={"requests": len(counts), "frames": total})
     return parts

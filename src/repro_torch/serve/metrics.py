@@ -1,24 +1,28 @@
 """Serving metrics: request counters, latency percentiles, throughput,
-padding waste, batch-occupancy histograms — plain counters under one lock
-per hosted program — and :func:`format_stats`, the breakdown table.
+padding waste, batch-occupancy histograms, and :func:`format_stats`, the
+breakdown table.
 
-The snapshot keeps the reference runtime's shape (``Server.stats()``), so
-the two runtimes report alike; the reference's registry, Prometheus and
-trace layers (``repro.obs``) are not ported yet.
+:class:`ProgramMetrics` is a facade over a private
+:class:`repro_torch.obs.Registry` per hosted program: the counters,
+gauge and histograms are registry metrics named ``serve.<program>.*``
+(the reference package's names, dumpable with ``obs.prometheus_text``),
+and every update and the snapshot run under the registry's one lock, so
+a snapshot is internally consistent. The snapshot keeps the reference
+runtime's shape (``Server.stats()``), so the two runtimes report alike.
 """
 
 from __future__ import annotations
 
-import threading
 import time
 from collections import deque
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional
 
 import numpy as np
 
+from repro_torch import obs
+
 PERCENTILES = (50.0, 95.0, 99.0)
 _MIN_WINDOW_S = 1e-9          # achieved_fps divisor clamp (clock ticks)
-RATIO_BUCKETS = (0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0)
 
 
 def now() -> float:
@@ -26,83 +30,91 @@ def now() -> float:
     return time.perf_counter()
 
 
-class Histogram:
-    """Fixed-bucket histogram with sum/count/min/max (``buckets`` are upper
-    bounds; an implicit +Inf bucket takes the rest). The caller locks."""
-
-    def __init__(self, buckets: Sequence[float] = RATIO_BUCKETS):
-        self.buckets = tuple(sorted(buckets))
-        self.counts = [0] * (len(self.buckets) + 1)
-        self.sum = 0.0
-        self.count = 0
-        self.min: Optional[float] = None
-        self.max: Optional[float] = None
-
-    def observe(self, v: float) -> None:
-        i = next((i for i, le in enumerate(self.buckets) if v <= le),
-                 len(self.buckets))
-        self.counts[i] += 1
-        self.sum += v
-        self.count += 1
-        self.min = v if self.min is None else min(self.min, v)
-        self.max = v if self.max is None else max(self.max, v)
-
-    def summary(self) -> Dict[str, object]:
-        return {
-            "count": self.count, "sum": self.sum,
-            "mean": self.sum / self.count if self.count else 0.0,
-            "min": self.min, "max": self.max,
-            "buckets": {**{f"le_{le:g}": c
-                           for le, c in zip(self.buckets, self.counts)},
-                        "le_inf": self.counts[-1]}}
-
-
 class ProgramMetrics:
-    """Counters + latency reservoir for one hosted program (thread-safe)."""
+    """Counters + latency reservoir for one hosted program (thread-safe).
 
-    def __init__(self, window: int = 8192, name: str = "program"):
-        self.name = name
-        self._lock = threading.Lock()
-        self.submitted = 0
-        self.served = 0
-        self.shed = 0
-        self.rejected = 0
-        self.failed = 0
-        self.frames_served = 0
-        self.batches = 0
-        self.slots = 0
-        self.queued_frames = 0
-        self._occupancy = Histogram()
-        self._waste = Histogram()
+    The ``queued_frames`` gauge is written only through :meth:`add_queued`;
+    the counts read as properties (``metrics.served``).
+    """
+
+    def __init__(self, window: int = 8192, name: str = "program",
+                 registry: Optional[obs.Registry] = None):
+        # a private registry by default: two Servers hosting the same
+        # program name never alias each other's counters
+        self.registry = registry if registry is not None else obs.Registry()
+        self._lock = self.registry._lock
+        p = f"serve.{name}"
+        self._submitted = self.registry.counter(f"{p}.submitted")
+        self._served = self.registry.counter(f"{p}.served")
+        self._shed = self.registry.counter(f"{p}.shed_deadline")
+        self._rejected = self.registry.counter(f"{p}.rejected")
+        self._failed = self.registry.counter(f"{p}.failed")
+        self._frames_served = self.registry.counter(f"{p}.frames_served")
+        self._batches = self.registry.counter(f"{p}.batches")
+        self._slots = self.registry.counter(f"{p}.slots")
+        self._queued = self.registry.gauge(f"{p}.queued_frames")
+        self._occupancy = self.registry.histogram(f"{p}.batch_occupancy")
+        self._waste = self.registry.histogram(f"{p}.padding_waste")
         self._latencies_ms: deque = deque(maxlen=window)
         self._t_first: Optional[float] = None
         self._t_last: Optional[float] = None
 
+    @property
+    def submitted(self) -> int:
+        return self._submitted.get()
+
+    @property
+    def served(self) -> int:
+        return self._served.get()
+
+    @property
+    def shed(self) -> int:
+        return self._shed.get()
+
+    @property
+    def rejected(self) -> int:
+        return self._rejected.get()
+
+    @property
+    def failed(self) -> int:
+        return self._failed.get()
+
+    @property
+    def frames_served(self) -> int:
+        return self._frames_served.get()
+
+    @property
+    def batches(self) -> int:
+        return self._batches.get()
+
+    @property
+    def slots(self) -> int:
+        return self._slots.get()
+
+    @property
+    def queued_frames(self) -> int:
+        return int(self._queued.get())
+
     def record_admit(self, n_requests: int = 1) -> None:
-        with self._lock:
-            self.submitted += n_requests
+        self._submitted.inc(n_requests)
 
     def record_reject(self) -> None:
-        with self._lock:
-            self.rejected += 1
+        self._rejected.inc()
 
     def record_shed(self, n: int = 1) -> None:
-        with self._lock:
-            self.shed += n
+        self._shed.inc(n)
 
     def record_failed(self, n: int = 1) -> None:
-        with self._lock:
-            self.failed += n
+        self._failed.inc(n)
 
     def add_queued(self, delta: int) -> None:
-        with self._lock:
-            self.queued_frames += delta
+        self._queued.add(delta)
 
     def record_batch(self, slots: int, t_dispatch: float,
                      frames: Optional[int] = None) -> None:
         with self._lock:
-            self.batches += 1
-            self.slots += slots
+            self._batches.inc()
+            self._slots.inc(slots)
             if frames is not None and slots > 0:
                 self._occupancy.observe(frames / slots)
                 self._waste.observe(1.0 - frames / slots)
@@ -112,8 +124,8 @@ class ProgramMetrics:
     def record_served(self, latency_s: float, frames: int,
                       t_done: float) -> None:
         with self._lock:
-            self.served += 1
-            self.frames_served += frames
+            self._served.inc()
+            self._frames_served.inc(frames)
             self._latencies_ms.append(latency_s * 1e3)
             self._t_last = t_done
 
@@ -125,34 +137,34 @@ class ProgramMetrics:
                 # first dispatch -> last completion, clamped so a single
                 # batch within clock resolution stays finite
                 span = max(self._t_last - self._t_first, _MIN_WINDOW_S)
+            submitted, served = self.submitted, self.served
+            shed, failed = self.shed, self.failed
+            frames_served, batches = self.frames_served, self.batches
+            slots = self.slots
             return {
                 "requests": {
-                    "submitted": self.submitted,
-                    "served": self.served,
-                    "shed_deadline": self.shed,
+                    "submitted": submitted,
+                    "served": served,
+                    "shed_deadline": shed,
                     "rejected": self.rejected,
-                    "failed": self.failed,
-                    "pending": (self.submitted - self.served - self.shed
-                                - self.failed),
+                    "failed": failed,
+                    "pending": submitted - served - shed - failed,
                 },
-                "frames_served": self.frames_served,
+                "frames_served": frames_served,
                 "queue_depth": self.queued_frames,
-                "batches": self.batches,
-                "avg_batch": (self.frames_served / self.batches
-                              if self.batches else 0.0),
-                "padding_waste": (1.0 - self.frames_served / self.slots
-                                  if self.slots else 0.0),
-                "achieved_fps": (self.frames_served / span if span else 0.0),
+                "batches": batches,
+                "avg_batch": (frames_served / batches if batches else 0.0),
+                "padding_waste": (1.0 - frames_served / slots
+                                  if slots else 0.0),
+                "achieved_fps": (frames_served / span if span else 0.0),
                 "latency_ms": latency_summary(lat),
             }
-
 
     def histograms(self) -> Dict[str, Dict]:
         """Batch-occupancy and padding-waste histogram summaries
         (``Server.stats(verbose=True)``)."""
-        with self._lock:
-            return {"batch_occupancy": self._occupancy.summary(),
-                    "padding_waste": self._waste.summary()}
+        return {"batch_occupancy": self._occupancy.summary(),
+                "padding_waste": self._waste.summary()}
 
 
 def latency_summary(lat_ms: np.ndarray) -> Dict[str, float]:
@@ -172,7 +184,8 @@ def format_stats(stats: Dict[str, object]) -> str:
     """Render ``Server.stats(verbose=True)`` as a breakdown table: one row
     per program (requests, latency percentiles, achieved frames/s, batching
     efficiency, measured against modeled kFPS/W), then the pool, the plan
-    cache and the kernel launches. Pure formatting."""
+    cache, the conv dispatch counts, the flight recorder, each program's
+    SLO window and the kernel launches. Pure formatting."""
     lines = []
     hdr = (f"{'program':<18} {'served':>7} {'shed':>5} {'fail':>5} "
            f"{'p50ms':>8} {'p99ms':>8} {'fps':>9} {'avg_b':>6} "
@@ -212,6 +225,28 @@ def format_stats(stats: Dict[str, object]) -> str:
         lines.append(f"plan cache: {cache['hits']} hits / "
                      f"{cache['misses']} misses "
                      f"(hit rate {cache['hit_rate']:.1%})")
+    disp = stats.get("conv_dispatch")
+    if disp:
+        lines.append("conv dispatch: " + " ".join(
+            f"{k}={v}" for k, v in sorted(disp.items())))
+    flight = stats.get("flight")
+    if flight:
+        rec = flight.get("recorder")
+        lines.append(
+            f"flight: {flight['dumps']} dump(s), {flight['suppressed']} "
+            f"suppressed, last {flight['last_reason']}"
+            + (f"; recorder {rec['retained']} retained of "
+               f"{rec['recorded_total']} in {rec['rings']} ring(s)"
+               if rec else "; no recorder"))
+    for name, p in sorted(stats.get("programs", {}).items()):
+        slo = p.get("slo")
+        if slo:
+            objs = " ".join(
+                f"{k}={v['value']}/{v['limit']}"
+                for k, v in slo["objectives"].items()
+                if v["limit"] is not None)
+            lines.append(f"slo {name}: {objs} n={slo['n']} breaches "
+                         f"{slo['breaches'] or 0}")
     launches = stats.get("kernel_launches")
     if launches:
         lines.append("kernel launches: " + " ".join(

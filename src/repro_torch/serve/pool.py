@@ -21,6 +21,13 @@
   event while the new one runs (``pipeline >= 2``; 1 runs each batch
   synchronously). The wait is on the worker thread, so the completer
   never waits on a device.
+* **Observation** — placement, steals and failures are ``serve.pool.*``
+  events, and each batch's device-busy interval is a
+  ``serve.device.execute`` span on its device's lane (``device<i>``): it
+  ends when the worker has waited for the batch's answer (the event
+  behind its device-to-host copy), and a pipelined batch's span starts
+  when its predecessor's ended. Counters live in the pool's private
+  ``obs.Registry`` (``serve.pool.*``).
 * **Fault isolation** — an exception from a worker's execution (or from
   the ``Hooks.execute`` seam around it) fails exactly that batch's
   requests with a typed :class:`WorkerError` naming the device (the
@@ -46,8 +53,13 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.serve.clock import Clock
-from repro_torch.serve.metrics import Histogram
+
+# Chrome-trace lane ids of the per-device execute spans: a span is
+# recorded after its batch's wait returns, so it goes on a synthetic
+# lane per device instead of the worker thread's live span stack.
+_DEVICE_LANE_BASE = 1 << 21
 
 
 class WorkerError(RuntimeError):
@@ -143,21 +155,22 @@ def to_host(out) -> np.ndarray:
 
 
 class _Worker:
-    """One device: its queue, its counters and its thread. The counters
-    change under the pool's lock."""
+    """One device: its queue, its load (under the pool's lock), its
+    registry counters and its thread."""
 
-    def __init__(self, index: int, name: str):
+    def __init__(self, index: int, name: str, registry: obs.Registry):
         self.index = index
         self.name = name
         self.queue: deque = deque()
         self.queued_frames = 0
         self.inflight_frames = 0
         self.inflight: List[Batch] = []   # dispatched, not yet completed
-        self.batches = 0
-        self.frames = 0
-        self.steals = 0
-        self.failures = 0
-        self.busy_s = 0.0
+        p = f"serve.pool.device{index}"
+        self.batches = registry.counter(f"{p}.batches")
+        self.frames = registry.counter(f"{p}.frames")
+        self.steals = registry.counter(f"{p}.steals")
+        self.failures = registry.counter(f"{p}.failures")
+        self.busy_s = registry.gauge(f"{p}.busy_s")
         # this device's last completion (worker-thread private): a
         # pipelined batch is dispatched while its predecessor still runs,
         # so its busy time starts at max(t_dispatch, predecessor ready)
@@ -175,7 +188,8 @@ class Pool:
     The pool moves :class:`Batch` objects from :meth:`dispatch` to the
     ``done`` queue, running each through the hosted program's bound view
     on one device (``hosted.bound[index]``). ``names`` label the devices
-    in stats and errors (default ``device<i>``).
+    in stats and errors (default ``device<i>``); ``registry`` holds the
+    ``serve.pool.*`` metrics.
     """
 
     def __init__(self, n_devices: int, policy, done: queue_mod.Queue,
@@ -189,6 +203,7 @@ class Pool:
         if len(names) != n_devices:
             raise ValueError(f"{len(names)} device names for {n_devices} "
                              f"devices")
+        self.registry = obs.Registry()
         self._policy = policy
         self._done = done
         self._clock = clock or Clock()
@@ -197,10 +212,12 @@ class Pool:
         self._cond = threading.Condition()
         self._stopping = False
         self._t_start: Optional[float] = None
-        self._steals = 0
-        self._placement_us = Histogram(
-            (1.0, 5.0, 10.0, 50.0, 100.0, 500.0, 1000.0, 5000.0))
-        self._workers = [_Worker(i, names[i]) for i in range(n_devices)]
+        self._steals = self.registry.counter("serve.pool.steals")
+        self._placement_us = self.registry.histogram(
+            "serve.pool.placement_us",
+            buckets=(1.0, 5.0, 10.0, 50.0, 100.0, 500.0, 1000.0, 5000.0))
+        self._workers = [_Worker(i, names[i], self.registry)
+                         for i in range(n_devices)]
 
     @property
     def size(self) -> int:
@@ -269,8 +286,12 @@ class Pool:
             w = self._workers[idx]
             w.queue.append(batch)
             w.queued_frames += batch.n
-            self._placement_us.observe((self._clock.now() - t0) * 1e6)
             self._cond.notify_all()
+        self._placement_us.observe((self._clock.now() - t0) * 1e6)
+        if obs.recording():
+            obs.event("serve.pool.place",
+                      attrs={"device": idx, "program": batch.hosted.name,
+                             "frames": batch.n, "bucket": batch.bucket})
         return idx
 
     # -- worker loop -------------------------------------------------------
@@ -290,8 +311,13 @@ class Pool:
                 if victim is not None:
                     batch = victim.queue.popleft()    # oldest: FIFO-fair
                     victim.queued_frames -= batch.n
-                    w.steals += 1
-                    self._steals += 1
+                    w.steals.inc()
+                    self._steals.inc()
+                    if obs.recording():
+                        obs.event("serve.pool.steal",
+                                  attrs={"thief": w.index,
+                                         "victim": victim.index,
+                                         "frames": batch.n})
                     return batch
                 if self._stopping:
                     return _STOP
@@ -350,6 +376,8 @@ class Pool:
         except Exception as e:          # noqa: BLE001 — isolate the batch
             self._fail(w, batch, e)
             return
+        # stamped after the wait on the batch's event: the device span
+        # ends when the work ended, not when it was enqueued
         t_ready = self._clock.now()
         # the device is serial: a pipelined batch's busy time starts when
         # its predecessor finished, not when it was dispatched
@@ -360,21 +388,34 @@ class Pool:
         with self._cond:
             w.inflight_frames -= batch.n
             w.inflight.remove(batch)
-            w.busy_s += t_ready - t0
-            w.batches += 1
-            w.frames += batch.n
+        w.busy_s.add(t_ready - t0)
+        w.batches.inc()
+        w.frames.inc(batch.n)
+        if obs.recording():
+            obs.span_at("serve.device.execute", t0, t_ready,
+                        attrs={"device": w.index,
+                               "program": batch.hosted.name,
+                               "bucket": batch.bucket, "frames": batch.n,
+                               "queued_ms": (t0 - batch.t_dispatch) * 1e3},
+                        lane_tid=_DEVICE_LANE_BASE + w.index,
+                        lane=f"device{w.index}")
         self._done.put(Done(batch, w.index, out_np, None, t_ready))
 
     def _fail(self, w: _Worker, batch: Batch, exc: BaseException) -> None:
         with self._cond:
             w.inflight_frames -= batch.n
             w.inflight.remove(batch)
-            w.failures += 1
+        w.failures.inc()
         err = WorkerError(
             f"device {w.index} ({w.name}) failed executing a bucket-"
             f"{batch.bucket} batch of {batch.hosted.name!r}: {exc}",
             program=batch.hosted.name, device=w.index)
         err.__cause__ = exc
+        if obs.recording():
+            obs.event("serve.pool.failure",
+                      attrs={"device": w.index,
+                             "program": batch.hosted.name,
+                             "error": type(exc).__name__})
         self._done.put(Done(batch, w.index, None, err, self._clock.now()))
 
     # -- observability -----------------------------------------------------
@@ -390,18 +431,18 @@ class Pool:
             per_device = [{
                 "device": w.index, "name": w.name, "alive": (
                     w.thread is not None and w.thread.is_alive()),
-                "batches": w.batches, "frames": w.frames,
-                "steals": w.steals, "failures": w.failures,
+                "batches": w.batches.get(), "frames": w.frames.get(),
+                "steals": w.steals.get(), "failures": w.failures.get(),
                 "queued_frames": w.queued_frames,
                 "inflight_frames": w.inflight_frames,
-                "busy_s": w.busy_s,
-                "occupancy": w.busy_s / wall if wall else 0.0,
+                "busy_s": w.busy_s.get(),
+                "occupancy": w.busy_s.get() / wall if wall else 0.0,
             } for w in self._workers]
             return {
                 "devices": len(self._workers),
                 "placement": type(self._policy).__name__,
                 "pipeline": self._pipeline,
-                "steals": self._steals,
+                "steals": self._steals.get(),
                 "placement_us": self._placement_us.summary(),
                 "per_device": per_device,
             }

@@ -39,14 +39,28 @@ scheduler over a pool of device-bound executables.
   injectable :class:`~repro_torch.serve.clock.Clock`, and
   :class:`Hooks` exposes the batch-close decision and the device execute
   call (fault injection, emulated devices).
+* **Observability** (``repro_torch.obs``) — every request carries a
+  ``trace_id`` (``<program>/req-<seq>``); once answered, its latency is
+  stitched into the trace as queue-wait → batch-assembly → device → split
+  spans on a lane of its own, from the server clock's timestamps. Per
+  program :class:`~repro_torch.obs.SLO` objectives are watched on every
+  outcome; a breach, a worker failure or a stop that strands batches
+  counts, logs (``Server.log``, a structured JSON-lines log) and takes a
+  rate-limited flight-recorder dump. ``health()``, ``readiness()``,
+  ``prometheus_metrics()`` and ``stats()`` are served over HTTP by the
+  admin endpoint (``ServeConfig(admin_port=)``, ``serve.admin``).
 
-The reference runtime's SLOs, flight recorder, admin endpoint, structured
-log and trace spans are not ported yet.
+Every hook observes shapes, counts and host timestamps: none reads a
+tensor, so none adds work to a captured graph, and a flight dump is host
+memory only.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import json
+import os
 import queue as queue_mod
 import threading
 from collections import deque
@@ -56,12 +70,19 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.program import (Executable, Options, Program,
                                       resolve_device)
+from repro_torch.obs.slo import SLO, SLOMonitor
 from repro_torch.serve import batcher
 from repro_torch.serve import pool as pool_mod
 from repro_torch.serve.clock import Clock
 from repro_torch.serve.metrics import ProgramMetrics
+
+# Chrome-trace lane ids of the per-request timelines: a request's spans are
+# recorded after it is answered (its life crosses three threads), so they
+# go on a synthetic lane per request, not on a live thread's span stack.
+_REQ_LANE_BASE = 1 << 20
 
 
 class AdmissionError(RuntimeError):
@@ -124,6 +145,19 @@ class ServeConfig:
     ``device``         where the pool runs (``cuda``, the first of
                        ``devices`` cards; ``cpu`` only if asked), and where
                        programs compile when ``register`` gets no options.
+    ``admin_port``     serve the admin endpoint (``/healthz`` ``/readyz``
+                       ``/metrics`` ``/statusz`` ``/tracez``,
+                       ``serve.admin``) on this port while the server runs;
+                       ``0`` binds an ephemeral port (``Server.admin.port``),
+                       ``None`` none.
+    ``admin_host``     its bind address (loopback by default).
+    ``log_path``       the structured JSON-lines log's file (``None``: the
+                       in-memory tail only, ``Server.log``).
+    ``flight_dump_dir``  where triggered flight dumps are written (``None``:
+                       kept in memory only, ``Server.flight_dumps()``).
+    ``flight_dump_interval_s``  least time between two triggered dumps;
+                       suppressed triggers are counted.
+    ``flight_dump_keep``  how many dumps the in-memory ring keeps.
     """
 
     max_batch: int = 8
@@ -136,6 +170,12 @@ class ServeConfig:
     devices: Optional[int] = None
     placement: str = "least_loaded"
     device: str = "cuda"
+    admin_port: Optional[int] = None
+    admin_host: str = "127.0.0.1"
+    log_path: Optional[str] = None
+    flight_dump_dir: Optional[str] = None
+    flight_dump_interval_s: float = 30.0
+    flight_dump_keep: int = 4
 
     def __post_init__(self):
         if self.max_batch < 1:
@@ -154,6 +194,16 @@ class ServeConfig:
             raise ValueError(
                 f"unknown placement {self.placement!r}; known: "
                 f"{sorted(pool_mod.PLACEMENTS)}")
+        if self.admin_port is not None and not (0 <= self.admin_port <= 65535):
+            raise ValueError(
+                f"admin_port must be in [0, 65535], got {self.admin_port}")
+        if self.flight_dump_interval_s < 0:
+            raise ValueError(
+                f"flight_dump_interval_s must be >= 0, got "
+                f"{self.flight_dump_interval_s}")
+        if self.flight_dump_keep < 1:
+            raise ValueError(
+                f"flight_dump_keep must be >= 1, got {self.flight_dump_keep}")
         resolve_device(self.device)
 
 
@@ -164,6 +214,8 @@ class _Request:
     future: Future
     t_submit: float
     deadline: Optional[float]         # absolute, server-clock seconds
+    trace_id: str = ""                # per-request id, across threads
+    seq: int = 0                      # request ordinal (trace lane id)
 
 
 @dataclasses.dataclass
@@ -182,6 +234,7 @@ class HostedProgram:
     queue: deque = dataclasses.field(default_factory=deque)
     metrics: ProgramMetrics = dataclasses.field(default_factory=ProgramMetrics)
     bound: Tuple[Executable, ...] = ()
+    slo: Optional[SLOMonitor] = None  # rolling-window objectives (obs.slo)
 
 
 _SENTINEL = object()
@@ -239,14 +292,28 @@ class Server:
         self._completer: Optional[threading.Thread] = None
         self._pool: Optional[pool_mod.Pool] = None
         self._done: queue_mod.Queue = queue_mod.Queue()
+        self._req_seq = itertools.count()
+        self.log = obs.StructuredLog(path=self.config.log_path)
+        self.admin = None                      # serve.admin.AdminServer
+        # triggered flight dumps: rate-limited, an in-memory ring and
+        # optional files
+        self._dump_lock = threading.Lock()
+        self._flight_dumps: deque = deque(maxlen=self.config.flight_dump_keep)
+        self._last_dump_t: Optional[float] = None
+        self._dump_seq = 0
+        self._dumps_suppressed = 0
+        self._last_dump_reason: Optional[str] = None
 
     # -- lifecycle ---------------------------------------------------------
 
     def register(self, name: str, program: Program,
                  options: Optional[Options] = None,
-                 buckets: Optional[Sequence[int]] = None) -> HostedProgram:
+                 buckets: Optional[Sequence[int]] = None,
+                 slo: Optional[SLO] = None) -> HostedProgram:
         """Host ``program`` under ``name``; compiles it now (on the
-        config's device when no ``options`` are given)."""
+        config's device when no ``options`` are given). ``slo`` declares
+        rolling-window objectives for it: a breach counts
+        ``slo.breach.<name>``, logs and triggers a flight dump."""
         if self._started:
             raise RuntimeError("register() before start()")
         if name in self._programs:
@@ -259,7 +326,8 @@ class Server:
         if min(bks) < 1:
             raise ValueError(f"buckets must be >= 1, got {bks}")
         hosted = HostedProgram(name, program, exe, bks,
-                               metrics=ProgramMetrics(name=name))
+                               metrics=ProgramMetrics(name=name),
+                               slo=SLOMonitor(name, slo) if slo else None)
         self._programs[name] = hosted
         return hosted
 
@@ -315,6 +383,13 @@ class Server:
         self._pool.start()
         self._completer.start()
         self._scheduler.start()
+        if self.config.admin_port is not None:
+            from repro_torch.serve.admin import AdminServer
+            self.admin = AdminServer(self, port=self.config.admin_port,
+                                     host=self.config.admin_host).start()
+        self.log.info("serve.start", devices=self._ndev,
+                      programs=sorted(self._programs),
+                      admin_port=self.admin.port if self.admin else None)
         return self
 
     def stop(self, drain: bool = True, timeout: Optional[float] = None) -> None:
@@ -350,6 +425,11 @@ class Server:
                                    exc=ServerClosed("server stopped")):
                             hosted.metrics.record_failed()
                 self._cond.notify_all()    # release backpressured submitters
+        # the admin endpoint outlives the serving threads, so a probe while
+        # stopping reads "unhealthy"; it goes down last
+        if self.admin is not None:
+            self.admin.stop(timeout)
+        self.log.info("serve.stop", drain=drain)
 
     def _fail_stranded(self) -> None:
         """Fail every batch a timed-out worker shutdown left behind."""
@@ -362,6 +442,10 @@ class Server:
                     f"of {batch.hosted.name!r} was outstanding)")))
             if failed:
                 batch.hosted.metrics.record_failed(failed)
+        if queued or inflight:
+            self.log.error("serve.stop.stranded",
+                           queued=len(queued), inflight=len(inflight))
+            self._flight_dump("stop_timeout")
         if queued:
             # queued batches produce no Done: the completer will never
             # decrement the active count for them
@@ -411,9 +495,14 @@ class Server:
         if deadline_ms is None:
             deadline_ms = self.config.default_deadline_ms
         t_submit = self._clock.now()
+        seq = next(self._req_seq)
         req = _Request(frames, n, Future(), t_submit,
                        t_submit + deadline_ms / 1e3
-                       if deadline_ms is not None else None)
+                       if deadline_ms is not None else None,
+                       trace_id=f"{name}/req-{seq}", seq=seq)
+        if obs.recording():
+            obs.event("serve.submit", attrs={"program": name, "frames": n},
+                      trace_id=req.trace_id)
         with self._cond:
             while (self._queued_total + n > self.config.max_queue
                    and not self._stopping):
@@ -506,6 +595,7 @@ class Server:
                             f"{(t - req.deadline) * 1e3:.1f}ms "
                             f"waiting for dispatch")):
                         hosted.metrics.record_shed()
+                        self._observe_slo(hosted, "shed", t)
                 else:
                     live.append(req)
             if not live:
@@ -530,6 +620,17 @@ class Server:
                                  if _settle(req.future, exc=item.error))
                     if failed:
                         hosted.metrics.record_failed(failed)
+                    t_fail = self._clock.now()
+                    for _ in range(failed):
+                        self._observe_slo(hosted, "failed", t_fail)
+                    self.log.error(
+                        "serve.worker.failure", program=hosted.name,
+                        device=item.device, requests=failed,
+                        error=str(item.error))
+                    # the incident the flight recorder is for: keep the
+                    # moments before it (host memory only: after a sticky
+                    # CUDA error no device call works)
+                    self._flight_dump(f"worker_error:{hosted.name}")
                     continue
                 hosted.metrics.record_batch(
                     batcher.padded_slots(batch.n, batch.bucket),
@@ -542,10 +643,160 @@ class Server:
                     t_done = self._clock.now()
                     hosted.metrics.record_served(t_done - req.t_submit,
                                                  req.n, t_done)
+                    self._observe_slo(hosted, "served", t_done,
+                                      latency_ms=(t_done - req.t_submit) * 1e3)
+                    if obs.recording():
+                        self._emit_request_timeline(
+                            hosted, req, batch.bucket, item.device,
+                            batch.t_closed, batch.t_dispatch, item.t_ready,
+                            t_done)
             finally:
                 with self._cond:
                     self._active_batches -= 1
                     self._cond.notify_all()
+
+    @staticmethod
+    def _emit_request_timeline(hosted: HostedProgram, req: _Request,
+                               bucket: int, device: int, t_closed: float,
+                               t_dispatch: float, t_ready: float,
+                               t_done: float) -> None:
+        """One request's latency as four spans on its own lane, all with
+        its ``trace_id``: queue-wait, batch-assembly, device (dispatch to
+        the answer waited for on the host), split. The device phase names
+        the pool device that ran it."""
+        lane = _REQ_LANE_BASE + req.seq
+        attrs = {"program": hosted.name, "frames": req.n, "bucket": bucket,
+                 "device": device}
+        for name, t0, t1 in (
+                ("serve.request.queue_wait", req.t_submit, t_closed),
+                ("serve.request.batch_assembly", t_closed, t_dispatch),
+                ("serve.request.device", t_dispatch, t_ready),
+                ("serve.request.split", t_ready, t_done)):
+            obs.span_at(name, t0, t1, attrs=attrs, trace_id=req.trace_id,
+                        lane_tid=lane, lane=req.trace_id)
+
+    # -- SLOs and incident capture -------------------------------------------
+
+    def _observe_slo(self, hosted: HostedProgram, kind: str, t: float,
+                     latency_ms: Optional[float] = None) -> None:
+        """Feed one request outcome to the program's SLO monitor, if any,
+        and handle every breach its evaluation reports."""
+        if hosted.slo is None:
+            return
+        for breach in hosted.slo.observe(kind, t, latency_ms=latency_ms):
+            self._handle_breach(hosted, breach)
+
+    def _handle_breach(self, hosted: HostedProgram, breach: Dict) -> None:
+        """One SLO breach: counter, event, structured log line, dump."""
+        obs.counter(f"slo.breach.{hosted.name}").inc()
+        obs.event("serve.slo.breach",
+                  attrs={"program": hosted.name, **breach})
+        self.log.warning("serve.slo.breach", program=hosted.name, **breach)
+        self._flight_dump(
+            f"slo:{hosted.name}:{breach['objective']}", detail=breach)
+
+    def _flight_dump(self, reason: str,
+                     detail: Optional[Dict] = None) -> Optional[Dict]:
+        """Dump the flight recorder, at most once per
+        ``config.flight_dump_interval_s``. Returns the dump, or None when
+        no recorder is installed or the rate limit suppressed it.
+
+        The ``flight.trigger`` event is recorded before the dump, so the
+        dump shows where in the retained history the incident sits
+        (``check_trace.py --flight`` wants spans from before it)."""
+        fl = obs.get_flight()
+        if fl is None:
+            return None
+        t = self._clock.now()
+        with self._dump_lock:
+            if (self._last_dump_t is not None
+                    and t - self._last_dump_t
+                    < self.config.flight_dump_interval_s):
+                self._dumps_suppressed += 1
+                return None
+            self._last_dump_t = t
+            self._last_dump_reason = reason
+            self._dump_seq += 1
+            seq = self._dump_seq
+        obs.event("flight.trigger", attrs={"reason": reason,
+                                           **(detail or {})})
+        dump = fl.dump(reason=reason)
+        path = None
+        if self.config.flight_dump_dir is not None:
+            slug = "".join(c if c.isalnum() else "-" for c in reason)[:48]
+            path = os.path.join(self.config.flight_dump_dir,
+                                f"flight-{seq:03d}-{slug}.json")
+            os.makedirs(self.config.flight_dump_dir, exist_ok=True)
+            with open(path, "w") as f:
+                json.dump(dump, f)
+        with self._dump_lock:
+            self._flight_dumps.append(
+                {"seq": seq, "reason": reason, "t": t, "path": path,
+                 "records": dump["otherData"]["records"], "dump": dump})
+        self.log.info("serve.flight.dump", reason=reason, path=path,
+                      records=dump["otherData"]["records"])
+        return dump
+
+    def flight_dumps(self) -> list:
+        """The retained triggered dumps, oldest first (metadata + dump)."""
+        with self._dump_lock:
+            return list(self._flight_dumps)
+
+    # -- health and the admin surface ----------------------------------------
+
+    def health(self) -> Dict[str, object]:
+        """The ``/healthz`` answer: started, not stopping, and every serving
+        thread running (a pool that lost one worker still serves, but is
+        reported unhealthy)."""
+        pool = self._pool
+        with self._cond:
+            stopping = self._stopping
+        checks = {
+            "started": self._started,
+            "not_stopping": not stopping,
+            "scheduler_alive": (self._scheduler is not None
+                                and self._scheduler.is_alive()),
+            "completer_alive": (self._completer is not None
+                                and self._completer.is_alive()),
+            "pool_workers": pool.workers_alive() if pool is not None else 0,
+            "pool_size": pool.size if pool is not None else 0,
+        }
+        healthy = bool(
+            checks["started"] and checks["not_stopping"]
+            and checks["scheduler_alive"] and checks["completer_alive"]
+            and pool is not None and pool.healthy())
+        return {"healthy": healthy, "checks": checks}
+
+    def readiness(self) -> Dict[str, object]:
+        """The ``/readyz`` answer: healthy, every bound view has its graph
+        for every bucket (a first replay would otherwise pay the capture),
+        and the admission queue has room."""
+        h = self.health()
+        with self._cond:
+            depth = self._queued_total
+        checks = {
+            "warmed": self._warmed and all(
+                exe.captured(hosted.buckets)
+                for hosted in self._programs.values()
+                for exe in hosted.bound),
+            "queue_depth": depth,
+            "max_queue": self.config.max_queue,
+            "queue_has_room": depth < self.config.max_queue,
+        }
+        ready = bool(h["healthy"] and checks["warmed"]
+                     and checks["queue_has_room"])
+        return {"ready": ready, "checks": {**h["checks"], **checks}}
+
+    def prometheus_metrics(self) -> str:
+        """Every registry the server touches in one exposition: the
+        process-wide ``obs.REGISTRY`` (plan cache, conv dispatch, SLO
+        breaches), each hosted program's and the pool's."""
+        parts = [obs.prometheus_text()]
+        for hosted in self._programs.values():
+            parts.append(obs.prometheus_text(hosted.metrics.registry))
+        if self._pool is not None:
+            parts.append(obs.prometheus_text(self._pool.registry))
+        return "".join(parts)
 
     # -- observability -----------------------------------------------------
 
@@ -554,8 +805,10 @@ class Server:
         achieved frames/s and padding waste, each program's modeled device
         FPS/W from its power report (and the measured rate against it),
         the plan cache, the pool's per-device rows and the kernel launch
-        counts. ``verbose`` adds each program's batch-occupancy and
-        padding-waste histograms (``serve.format_stats`` renders both)."""
+        counts, the conv dispatch counts, the flight dumps and each
+        program's SLO window. ``verbose`` adds each program's
+        batch-occupancy and padding-waste histograms and the whole
+        ``obs.REGISTRY`` (``serve.format_stats`` renders them)."""
         from repro_torch.core.plan import plan_cache_stats
         from repro_torch.kernels import launch_counts
         programs = {}
@@ -579,6 +832,8 @@ class Server:
             snap["kfps_per_w_drift"] = (measured / r.kfps_per_w
                                         if r.kfps_per_w else 0.0)
             snap["buckets"] = list(hosted.buckets)
+            if hosted.slo is not None:
+                snap["slo"] = hosted.slo.state(self._clock.now())
             if verbose:
                 snap["histograms"] = hosted.metrics.histograms()
             programs[name] = snap
@@ -589,6 +844,10 @@ class Server:
             depth = self._queued_total
         cache = plan_cache_stats()
         lookups = cache["hits"] + cache["misses"]
+        strategies = {
+            kind: c.get() for kind in ("resident", "strip", "fused",
+                                       "reference")
+            if (c := obs.REGISTRY.get(f"dispatch.conv.{kind}")) is not None}
         out = {
             "config": dataclasses.asdict(self.config),
             "queue_depth": depth,
@@ -596,9 +855,23 @@ class Server:
             "requests": totals,
             "plan_cache": {**cache, "hit_rate": (cache["hits"] / lookups
                                                  if lookups else 0.0)},
+            "conv_dispatch": strategies,
             "kernel_launches": launch_counts(),
             "programs": programs,
         }
         if self._pool is not None:
             out["pool"] = self._pool.stats()
+        with self._dump_lock:
+            out["flight"] = {
+                "dumps": self._dump_seq,
+                "suppressed": self._dumps_suppressed,
+                "last_reason": self._last_dump_reason,
+                "retained": [{k: v for k, v in d.items() if k != "dump"}
+                             for d in self._flight_dumps],
+            }
+        fl = obs.get_flight()
+        if fl is not None:
+            out["flight"]["recorder"] = fl.stats()
+        if verbose:
+            out["obs"] = obs.REGISTRY.snapshot()
         return out

@@ -439,3 +439,117 @@ def test_bound_view_on_cuda_raises_on_a_cpu_only_host():
     exe = Program.from_model("lenet").compile(Options(device="cpu"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         exe.bind("cuda")
+
+
+# -- observability on the bound path ------------------------------------------
+
+@pytest.mark.parametrize("name", ["lenet", "edge_detect", "chain"])
+def test_bound_replay_bitwise_with_a_trace_and_without_the_recorder(
+        bound_views, name):
+    from repro_torch import obs
+    prog, exe, bound = bound_views[name]
+    f = _frames_for(prog, 3, 60)
+    want = np.concatenate([exe.run_per_frame(f[i:i + 1]).cpu().numpy()
+                           for i in range(len(f))])
+    trace = obs.enable()
+    try:
+        traced = np.asarray(bound.run_padded(f, 4))
+    finally:
+        obs.disable()
+    prev = obs.uninstall()
+    try:
+        bare = np.asarray(bound.run_padded(f, 4))
+    finally:
+        obs.install(prev)
+    assert 4 in bound._binding.graphs
+    np.testing.assert_array_equal(traced, want)
+    np.testing.assert_array_equal(bare, want)
+
+
+def _dispatch_counts():
+    from repro_torch import obs
+    return {k: v for k, v in obs.REGISTRY.snapshot().items()
+            if k.startswith("dispatch.")}
+
+
+@pytest.mark.parametrize("name,per_bucket", [
+    ("lenet", {"dispatch.conv.fused": 2}),
+    ("edge_detect", {"dispatch.conv.resident": 2})])
+def test_trace_time_counters_tick_once_per_bucket(cuda, name, per_bucket):
+    """A fresh plan's bound view: the eager run before each capture is the
+    bucket's trace family's first run and counts; the capture and every
+    replay count nothing."""
+    prog = _served_program(name)
+    view = prog.compile(Options(scheme=W4A4, act_sram_kb=251.0)).bind(cuda)
+    buckets = (1, 2, 4, 8)
+    before = _dispatch_counts()
+    view.warm(buckets)
+    f = _frames_for(prog, 8, 7)
+    for _ in range(5):
+        for b in buckets:
+            view.run_padded(f[:b], b)
+    torch.cuda.synchronize()
+    after = _dispatch_counts()
+    delta = {k: after[k] - before.get(k, 0) for k in after
+             if after[k] != before.get(k, 0)}
+    assert delta == {k: len(buckets) * v for k, v in per_bucket.items()}
+    assert all(g.replays >= 5 for g in view._binding.graphs.values())
+
+
+def test_readiness_turns_ready_only_after_every_capture(cuda):
+    lenet = _served_program("lenet")
+    server = serve.Server(serve.ServeConfig(max_batch=8, batch_buckets=(1, 8)))
+    hosted = server.register("lenet", lenet, Options(scheme=W4A4))
+    server.start(warm=True)
+    try:
+        assert server.readiness()["ready"]
+        graphs = hosted.bound[0]._binding.graphs
+        assert set(graphs) == {1, 8}
+        del graphs[8]                     # as if bucket 8 were never captured
+        r = server.readiness()
+        assert not r["ready"] and not r["checks"]["warmed"]
+        hosted.bound[0].warm((8,))
+        assert server.readiness()["ready"]
+    finally:
+        server.stop()
+
+
+def test_flight_dump_after_graph_replays_passes_flight_check(cuda,
+                                                              tmp_path):
+    import importlib.util
+    import json
+    from pathlib import Path
+    from repro_torch import obs
+    spec = importlib.util.spec_from_file_location(
+        "check_trace",
+        Path(__file__).resolve().parents[1] / "scripts" / "check_trace.py")
+    check_trace = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(check_trace)
+    prev = obs.get_flight()
+    recorder = obs.install(obs.FlightRecorder(capacity=256))
+    try:
+        edge = _served_program("edge_detect")
+        server = serve.Server(serve.ServeConfig(max_batch=8))
+        server.register("edge", edge, Options(scheme=W4A4))
+        server.start()
+        try:
+            futs = [server.submit("edge", _frames_for(edge, n, n))
+                    for n in (1, 3, 8, 2)]
+            for fut in futs:
+                fut.result(timeout=120)
+            assert server._flight_dump("after_replays") is not None
+        finally:
+            server.stop()
+        graphs = server._programs["edge"].bound[0]._binding.graphs
+        assert sum(g.replays for g in graphs.values()) >= 4
+        dump = recorder.dump(reason="unit")
+    finally:
+        obs.install(prev)
+    names = {e["name"] for e in dump["traceEvents"]}
+    assert {"serve.device.execute", "serve.request.device"} <= names
+    path = tmp_path / "dump.json"
+    path.write_text(json.dumps(dump))
+    assert check_trace.flight_check(str(path)) == []
+    (kept,) = server.flight_dumps()
+    path.write_text(json.dumps(kept["dump"]))
+    assert check_trace.flight_check(str(path), require_trigger=True) == []
