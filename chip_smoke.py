@@ -18,7 +18,9 @@ launch counts zeroed just before its requests and read just after:
            weights), W4A4: 3 requests of 1, 3 and 8 frames each;
   chain    the reference's acceptance chain denoise_gauss -> edge_detect
            -> sharpen at 256x256x3 as one program (``Program.then``): 3
-           requests of 1, 3 and 8 frames.
+           requests of 1, 3 and 8 frames;
+  vgg16    VGG16 at 224x224x3, full width, seeded random weights from
+           numpy, W4A4: 3 requests of 1, 3 and 8 frames, eager and bound.
 
 Phases, each fatal on failure:
 
@@ -87,9 +89,24 @@ Phases, each fatal on failure:
      and D (recorder, admin endpoint polled every 100 ms), in the order
      A B C D D C B A in one call (``[obs]`` lines: frames/s, the ratio to
      A, the recorder's records per request).
+  9. vgg16: VGG16 compiled under W4A4 and MX_43 with ``Options(verify=
+     "on")``, each report clean, the per-step accumulator headroom printed
+     and the ``plan.verify`` span's time on the cold compile; the strip and
+     photonic_mvm kernels bitwise equal to their plain versions at every
+     distinct VGG16 shape (``edge_shapes.VGG16_SHAPES``) at buckets 1 and
+     8; served eager and bound (``devices=1``, ``max_inflight=2``), every
+     answer bitwise equal to batch-1 ``run_per_frame``, the reference
+     backend on the card and the port's CPU run on the first 2 frames, the
+     bound window's launch counts equal to the replays' credits; each conv
+     and dense step timed at bucket 8 beside its plain version, its
+     library call and its bound (each strip step also forced resident);
+     the bound window's device busy share and a short saturation run's
+     frames/s (``[vgg16]`` lines).
 
 ``--rehearse`` runs every phase on the CPU with the plain versions: no
-graphs, and the bound phase on 2 emulated CPU workers.
+graphs, the bound phase on 2 emulated CPU workers, VGG16 at 32x32x3
+(``vgg16_ir(in_hw=32)``, full channel widths, a conv budget that splits
+its convs into strip and resident as 224x224x3 does).
 
 The last three lines of standard output are the ``kernels`` JSON object,
 ``nvidia-smi``'s name and power limit, and the result object
@@ -159,6 +176,24 @@ OBS_VARIANTS = "ABCDDCBA"
 ADMIN_POLL_S = 0.1
 OBS_COST_S = 2.0
 REHEARSAL_OBS_COST_S = 0.2
+# the [vgg16] phase: frame size (the rehearsal's, with the conv budget that
+# gives it 224x224x3's split: conv1-conv10 strip, conv11-13 resident), the
+# frames of its requests, how many frames the CPU port is held to, the
+# buckets its shapes are held at, the timing iterations a layer, its
+# saturation run and its profiler trace
+VGG16_HW = 224
+REHEARSAL_VGG16_HW = 32
+REHEARSAL_VGG16_BUDGET = 100_000
+VGG16_REQUESTS = (1, 3, 8)
+VGG16_CPU_FRAMES = 2
+VGG16_SHAPE_BUCKETS = (1, BUCKET)
+VGG16_ITERS = 10
+VGG16_DEVICE_ITERS = 3
+VGG16_WARM_LAUNCHES = 64
+VGG16_SATURATE_S = 2.0
+REHEARSAL_VGG16_SATURATE_S = 0.2
+VGG16_TRACE = "vgg16_bound_serve_trace.json"
+VGG16_DEVICE_TRACE = "vgg16_device_time_trace.json"
 # the port's kernels are top-level functions of an anonymous namespace
 PORT_KERNEL = r"^(void )?\(anonymous namespace\)::"
 KERNELS = ("photonic_mvm", "conv_chain", "ca_pool", "conv_strip",
@@ -167,7 +202,8 @@ KERNELS = ("photonic_mvm", "conv_chain", "ca_pool", "conv_strip",
 PATH_KERNELS = {"vision": ("photonic_mvm", "conv_chain", "ca_pool"),
                 "imaging": ("photonic_mvm", "ca_pool", "conv_strip",
                             "conv_strip_depthwise"),
-                "chain": ("photonic_mvm", "ca_pool", "conv_strip_depthwise")}
+                "chain": ("photonic_mvm", "ca_pool", "conv_strip_depthwise"),
+                "vgg16": ("photonic_mvm", "conv_strip")}
 SOURCES = {
     "photonic_mvm": ("src/repro_torch/csrc/photonic_mvm.cu",
                      "src/repro/kernels/photonic_mvm/kernel.py:81"),
@@ -297,7 +333,7 @@ def frames_for(prog, n, seed):
     import numpy as np
     rng = np.random.default_rng(seed)
     h, w, c = prog.input_hwc
-    if prog.name in ("lenet", "vgg9"):
+    if prog.name in ("lenet", "vgg9", "vgg16"):
         f = rng.random((n, h, w, c))
     else:
         yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
@@ -987,7 +1023,7 @@ def check_served(name, prog, frames, served, dev, out_shape):
 
 
 def make_server(device, progs, bound, devices=1, hooks=None, slo=None,
-                **config):
+                options=None, **config):
     """A ``serve.Server`` on ``device`` with buckets 1/2/4/8 and two batches
     in flight per device, hosting ``progs``; returns it started, with its
     hosted programs by name. ``bound``: every batch goes through the bound
@@ -996,7 +1032,8 @@ def make_server(device, progs, bound, devices=1, hooks=None, slo=None,
     through the ``Hooks.execute`` seam, to the unbound executable's eager
     ``run_padded``, as the port served before ``Executable.bind`` (each
     bucket warmed; pageable copies). ``slo`` maps program names to their
-    SLOs; ``config`` adds ``ServeConfig`` fields."""
+    SLOs; ``options`` replaces the W4A4 ``Options`` on ``device``;
+    ``config`` adds ``ServeConfig`` fields."""
     from repro_torch import Options, serve
     from repro_torch.core.quant import W4A4
     dev = str(device)
@@ -1011,9 +1048,9 @@ def make_server(device, progs, bound, devices=1, hooks=None, slo=None,
                           batch_buckets=BUCKETS, **config),
         hooks=hooks if bound else serve.Hooks(execute=eager))
     for name, prog in progs.items():
-        hosted[name] = server.register(name, prog,
-                                       Options(scheme=W4A4, device=dev),
-                                       slo=(slo or {}).get(name))
+        hosted[name] = server.register(
+            name, prog, options or Options(scheme=W4A4, device=dev),
+            slo=(slo or {}).get(name))
     server.start(warm=bound)
     if not bound:
         for h in hosted.values():
@@ -1080,8 +1117,8 @@ def vision_requests(progs, n=VISION_REQUESTS):
 
 def out_shape(name, prog):
     """The answer's per-frame shape: classes, or the output image."""
-    if name in ("lenet", "vgg9"):
-        return {"lenet": (10,), "vgg9": (100,)}[name]
+    if name in ("lenet", "vgg9", "vgg16"):
+        return {"lenet": (10,), "vgg9": (100,), "vgg16": (1000,)}[name]
     return prog.output_hwc
 
 
@@ -1274,9 +1311,10 @@ def phase_busy_share(device, progs, trace_path, bound=False):
 def busy_share(events):
     """The serving window's length, the union of the device intervals its
     host calls issued, their share of the window, and the device time by
-    kind of work (copies, memsets, the port's kernels, torch ops)."""
+    kind of work (copies, memsets, the port's kernels, torch ops) and by
+    port kernel."""
     lo, hi = host_range(events, SERVE_WINDOW)
-    spans, by_kind = [], {}
+    spans, by_kind, by_kernel = [], {}, {}
     for e in device_work(events, SERVE_WINDOW)[0]:
         a, b = e["ts"], e["ts"] + e["dur"]
         spans.append((a, b))
@@ -1284,12 +1322,18 @@ def busy_share(events):
             "port kernels" if re.search(PORT_KERNEL, e["name"])
             else "torch ops")
         by_kind[kind] = by_kind.get(kind, 0.0) + (b - a) / 1e3
+        if kind == "port kernels":
+            name = e["name"].replace(" ", "")
+            k = next((k for k in KERNELS[:-1]
+                      if re.search(KERNEL_SYMBOLS[k], name)), "other")
+            by_kernel[k] = by_kernel.get(k, 0.0) + (b - a) / 1e3
     busy, end = 0.0, None
     for a, b in sorted(spans):
         busy += max(0.0, b - (a if end is None else max(a, end)))
         end = b if end is None else max(end, b)
     return {"window_ms": (hi - lo) / 1e3, "busy_ms": busy / 1e3,
-            "busy_share": busy / (hi - lo), "device_ms_by_kind": by_kind}
+            "busy_share": busy / (hi - lo), "device_ms_by_kind": by_kind,
+            "port_kernel_ms": by_kernel}
 
 
 def check_trace_cli(path, *flags):
@@ -1523,6 +1567,429 @@ def phase_obs_cost(device, progs, seconds):
         server.stop()
         obs.install(recorder)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the [vgg16] phase
+# ---------------------------------------------------------------------------
+
+def vgg16_program(hw=VGG16_HW):
+    """VGG16 at hw x hw x 3, full channel widths, seeded numpy weights."""
+    from repro_torch import Program
+    from repro_torch.models.vision import vgg16_ir
+    from repro_torch.weights import params_from_numpy
+    layers = tuple(vgg16_ir(in_hw=hw))
+    return Program(layers, params_from_numpy(numpy_params(layers, SEED + 2),
+                                             "cpu"), (hw, hw, 3),
+                   name="vgg16")
+
+
+def plan_kernels(plan):
+    """The kernels a plan's steps launch through the kernel backend."""
+    from repro_torch.core.plan import CAStep, ConvStep, DenseStep
+    fused = {i for s in plan.fused_segments
+             for i in range(s.start, s.start + s.length)}
+    out = {"conv_chain"} if fused else set()
+    for i, step in enumerate(plan.steps):
+        if i in fused:
+            continue
+        if isinstance(step, CAStep):
+            out.add("ca_pool")
+        elif isinstance(step, ConvStep) and step.strategy.kind == "strip":
+            out.add("conv_strip_depthwise" if step.geom.depthwise
+                    else "conv_strip")
+        elif isinstance(step, (ConvStep, DenseStep)):
+            out.add("photonic_mvm")
+    return out
+
+
+def vgg16_compile(prog, device, budget):
+    """VGG16 compiled cold under W4A4 and MX_43 with ``verify="on"``: each
+    report clean and the plan's kernels ``PATH_KERNELS["vgg16"]``; the
+    ``plan.verify`` span's time, and the per-step headroom
+    (``verify_plan(include_info=True)``'s LTR003 findings)."""
+    from repro_torch import Options, analysis, obs
+    from repro_torch.core.quant import MX_43, W4A4
+    out, exes = {}, {}
+    for label, scheme in (("w4a4", W4A4), ("mx43", MX_43)):
+        opts = Options(scheme=scheme, device=str(device),
+                       conv_vmem_budget=budget, verify="on")
+        trace = obs.enable()
+        try:
+            t0 = time.perf_counter()
+            exe = prog.compile(opts)
+            compile_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            obs.disable()
+        span = trace.summary().get("plan.verify")
+        need(span is not None and span["count"] == 1,
+             f"[vgg16] {label}: the cold compile ran {span} plan.verify spans")
+        need(exe.report.verification == [],
+             f"[vgg16] {label}: verification {exe.report.verification}")
+        need(exe.plan.exact_proven, f"[vgg16] {label}: not proven exact")
+        kernels = plan_kernels(exe.plan)
+        need(kernels == set(PATH_KERNELS["vgg16"]),
+             f"[vgg16] {label}: the plan launches {sorted(kernels)}")
+        diags = analysis.verify_plan(exe.plan, budget=budget)
+        need(not analysis.errors(diags), f"[vgg16] {label}: errors")
+        out[label] = {
+            "compile_ms": compile_ms, "verify_span_ms": span["total_ms"],
+            "headroom_bits": {
+                d.step: float(d.message.split("headroom ")[1].split(" ")[0])
+                for d in diags if d.code == "LTR003"},
+            "strategies": {n: v["kind"] for n, v in
+                           exe.report.conv_strategy.items()}}
+        exes[label] = (exe, opts)
+    return out, exes
+
+
+def vgg16_kernels(device, buckets):
+    """The strip and photonic_mvm kernels at every ``VGG16_SHAPES`` entry
+    and bucket, raw and with the epilogue, bitwise against their plain
+    versions. Returns ({kernel: max abs err}, {kernel: comparisons})."""
+    import torch
+    from repro_torch.kernels.conv_bank import strip
+    from repro_torch.kernels.edge_shapes import VGG16_SHAPES, vgg16_case
+    from repro_torch.kernels.photonic_mvm.ops import mvm_int
+    from repro_torch.kernels.photonic_mvm.ref import mvm_int_ref
+    gen = torch.Generator(device=device).manual_seed(SEED + 16)
+    errs = {"conv_strip": [], "photonic_mvm": []}
+
+    def compare(kernel, got, want, what):
+        need(got.shape == want.shape and bool(torch.isfinite(got).all()),
+             f"[vgg16] {kernel} {what}: shape {tuple(got.shape)} or not "
+             f"finite")
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        errs[kernel].append(err)
+        need(torch.equal(got, want), f"[vgg16] {kernel} {what}: differs "
+             f"from its plain version (max abs err {err})")
+
+    for kernel, shapes in VGG16_SHAPES.items():
+        for shape in shapes:
+            for b in buckets:
+                args = vgg16_case(kernel, shape, b, gen, device)
+                what = f"{shape[0]} batch {b}"
+                if kernel == "conv_strip":
+                    xp, w, stride, sh = args
+                    kw = dict(stride=stride, strip_h=sh)
+                    compare(kernel, strip.conv_strip(xp, w, **kw),
+                            strip.conv_strip_ref(xp, w, **kw), what)
+                    co = w.shape[-1]
+                    ws = torch.rand((co,), generator=gen, device=device) + .5
+                    bias = torch.randn((co,), generator=gen, device=device)
+                    kw.update(act_scale=0.37, act="relu", bias=bias)
+                    compare(kernel, strip.conv_strip(xp, w, ws, **kw),
+                            strip.conv_strip_ref(xp, w, ws, **kw),
+                            f"{what} with epilogue")
+                else:
+                    a, wq = args
+                    compare(kernel, mvm_int(a, wq), mvm_int_ref(a, wq), what)
+                    ws = torch.rand((wq.shape[1],), generator=gen,
+                                    device=device) + 0.5
+                    compare(kernel, mvm_int(a, wq, ws, 0.37),
+                            mvm_int_ref(a, wq, ws, 0.37),
+                            f"{what} with epilogue")
+    return ({k: max(v) for k, v in errs.items()},
+            {k: len(v) for k, v in errs.items()})
+
+
+def vgg16_expected(prog, frames, device, options):
+    """VGG16's answers to ``frames`` by the three oracles: batch-1
+    ``run_per_frame`` on the card, the reference backend on the card, and
+    the port's CPU run of the first ``VGG16_CPU_FRAMES`` frames."""
+    import dataclasses
+    import numpy as np
+    exe = prog.compile(options)
+    singles = np.concatenate([exe.run_per_frame(frames[i:i + 1]).cpu()
+                              .numpy() for i in range(len(frames))])
+    ref = prog.compile(dataclasses.replace(options, backend="reference"))
+    cpu = prog.compile(dataclasses.replace(options, device="cpu"))
+    return (singles, ref.run_per_frame(frames).cpu().numpy(),
+            cpu.run_per_frame(frames[:VGG16_CPU_FRAMES]).numpy())
+
+
+def vgg16_check(window, frames, served, expected):
+    import numpy as np
+    singles, ref, cpu = expected
+    need(served.shape == (frames.shape[0], 1000)
+         and bool(np.isfinite(served).all()),
+         f"[vgg16] {window}: answers {served.shape}, or not finite")
+    need(np.array_equal(served, singles), f"[vgg16] {window}: answers "
+         f"differ from batch-1 run_per_frame")
+    need(np.array_equal(served, ref), f"[vgg16] {window}: answers differ "
+         f"from the reference backend")
+    need(np.array_equal(served[:VGG16_CPU_FRAMES], cpu), f"[vgg16] "
+         f"{window}: answers differ from the port's CPU run")
+
+
+def vgg16_timing(device, exe, trace_path):
+    """Each conv and dense step of VGG16 at bucket 8 on random codes and
+    its own levels: the kernel, its route through dispatch (pads and
+    slicing included), its plain version and its library call, timed by
+    CUDA events over ``VGG16_ITERS`` calls (``<name>_ms``); the kernel, the
+    library call and the forced-resident route also by their device time
+    in one profiler session (``<name>_device_ms``: every kernel the call
+    launched); and the bound (the conv's own output, not the strip
+    padding's surplus rows; bytes over 3.35 TB/s or operations over the
+    int8 peak). Each strip step is also forced resident (im2col +
+    photonic_mvm: the route, and the GEMM alone)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.plan import ConvStep, DenseStep
+    from repro_torch.core.quant import quantize_weight
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.conv_bank import strip
+    from repro_torch.kernels.conv_bank.ref import float32_convs
+    from repro_torch.kernels.photonic_mvm.ops import mvm_config, mvm_int
+    from repro_torch.kernels.photonic_mvm.ref import mvm_int_ref
+    cuda = device.type == "cuda"
+    time_ms = timer(device)
+    iters = VGG16_ITERS if cuda else 1
+    gen = torch.Generator(device=device).manual_seed(SEED + 17)
+    plan, params = exe.plan, exe.params()
+    b, rows = BUCKET, []
+    resident = dispatch.ConvStrategy("resident")
+    for step in plan.steps:
+        if not isinstance(step, (ConvStep, DenseStep)):
+            continue
+        wq, _ = quantize_weight(params[step.name]["w"], step.wa)
+        if isinstance(step, DenseStep):
+            a = torch.randint(0, 16, (b, wq.shape[0]), generator=gen,
+                              device=device, dtype=torch.int8)
+            w2 = wq.to(torch.int8)
+            m, k, n = a.shape[0], wq.shape[0], wq.shape[1]
+            lib_fn, lib_name = mvm_library(a, w2)
+            kernel = lambda a=a, w2=w2: mvm_int(a, w2)
+            row = dict(layer=step.name, kernel="photonic_mvm",
+                       library=lib_name, fns=dict(
+                           kernel=kernel, route=kernel, library=lib_fn,
+                           plain=lambda a=a, w2=w2: mvm_int_ref(a, w2)))
+            nbytes, macs = m * k + k * n + 4 * m * n, m * n * k
+        else:
+            g = step.geom
+            codes = torch.randint(0, 16, (b, g.h_in, g.w_in, g.c_in),
+                                  generator=gen, device=device).float()
+            hc, wc = g.conv_hw()
+            macs = b * hc * wc * g.c_out * g.kernel * g.kernel * g.c_in
+            nbytes = (codes.numel() + wq.numel() + b * hc * wc * g.c_out) * 4
+            (plo, phi), (qlo, qhi) = g.pads
+            xp_real = F.pad(codes, (0, 0, qlo, qhi, plo, phi))
+            wf = wq.float()
+            a = dispatch._im2col(codes, g.kernel, g.stride, g.pads)[0] \
+                .to(torch.int8)
+            w2 = wq.reshape(-1, g.c_out).to(torch.int8)
+            m, k, n = a.shape[0], a.shape[1], g.c_out
+            fns = dict(
+                route=lambda codes=codes, wq=wq, g=g, st=step.strategy:
+                dispatch.conv_int(codes, wq, g.stride, g.pads, strategy=st),
+                library=strip_library(xp_real, wf, g.stride, False),
+                resident=lambda codes=codes, wq=wq, g=g: dispatch.conv_int(
+                    codes, wq, g.stride, g.pads, strategy=resident),
+                resident_gemm=lambda a=a, w2=w2: mvm_int(a, w2))
+            row = dict(layer=step.name, strategy=step.strategy.kind,
+                       x=[b, g.h_in, g.w_in, g.c_in], c_out=g.c_out,
+                       library="F.conv2d (TF32 off)", fns=fns)
+            if step.strategy.kind == "strip":
+                st = step.strategy
+                xp = strip.pad_rows_for_strips(xp_real, g.kernel, g.stride,
+                                               st.strip_rows, st.n_strips)
+                kw = dict(stride=g.stride, strip_h=st.strip_rows)
+                launch_rows = (xp.shape[1] - g.kernel) // g.stride + 1
+                cfg = strip.strip_config(b, launch_rows, wc, g.c_in, g.c_out,
+                                         g.kernel, g.stride)
+                fns.update(
+                    kernel=lambda xp=xp, wf=wf, kw=kw: strip.conv_strip(
+                        xp, wf, **kw),
+                    plain=lambda xp=xp, wf=wf, kw=kw: strip.conv_strip_ref(
+                        xp, wf, **kw))
+                row.update(kernel="conv_strip", launch_rows=launch_rows,
+                           ctas=cfg.ctas, tile=[cfg.tx, cfg.tyt * cfg.run],
+                           co_b=cfg.co_b, cc=cfg.cc)
+            else:
+                fns.update(kernel=fns["resident_gemm"],
+                           plain=lambda a=a, w2=w2: mvm_int_ref(a, w2))
+                row.update(kernel="photonic_mvm")
+            with float32_convs():
+                row["library_exact"] = torch.equal(
+                    fns["library"]().permute(0, 2, 3, 1), fns["route"]())
+        if row["kernel"] == "photonic_mvm":
+            cfg = mvm_config(m, k, n)
+            row.update(tile=[cfg.bm, cfg.bn], split=cfg.split)
+        row.update(M=m, K=k, N=n, macs=macs)
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 2 * macs, "int8")
+        with float32_convs():
+            for name, fn in row["fns"].items():
+                row[f"{name}_ms"] = time_ms(fn, iters)
+        rows.append(row)
+    for row in rows:
+        row["ms"] = row.pop("kernel_ms")
+    if cuda:
+        from torch.profiler import ProfilerActivity, profile, record_function
+        timed = ("kernel", "library", "resident")
+        with float32_convs(), profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            # a range nobody reads first: on the card this session lost
+            # the kernel records of its first ~10 launches (conv1's range
+            # had none with one warm launch before it)
+            with record_function(f"{DEVICE_RANGE}vgg16.warm"):
+                for _ in range(VGG16_WARM_LAUNCHES):
+                    torch.zeros(1, device=device)
+                rows[0]["fns"]["kernel"]()
+                torch.cuda.synchronize()
+            for row in rows:
+                for name in timed:
+                    if name in row["fns"]:
+                        with record_function(
+                                f"{DEVICE_RANGE}vgg16.{row['layer']}.{name}"):
+                            for _ in range(VGG16_DEVICE_ITERS):
+                                row["fns"][name]()
+                            torch.cuda.synchronize()
+        events = load_trace(prof, trace_path)
+        for row in rows:
+            for name in timed:
+                if name not in row["fns"]:
+                    continue
+                kernels, launches = device_work(
+                    events, f"{DEVICE_RANGE}vgg16.{row['layer']}.{name}",
+                    ("kernel",))
+                measured = kernels and len(kernels) >= launches
+                if not measured:
+                    log(f"[vgg16] {row['layer']} {name}: {len(kernels)} "
+                        f"kernel records for {launches} launches; not "
+                        f"measured")
+                row[f"{name}_device_ms"] = (
+                    sum(e["dur"] for e in kernels) / VGG16_DEVICE_ITERS / 1e3
+                    if measured else None)
+    for row in rows:
+        del row["fns"]
+    return rows
+
+
+def phase_vgg16(device, rehearse, out_dir):
+    """VGG16 end to end (the module docstring's phase 9). Returns its
+    detail, the launch counts of its eager and bound windows, and its
+    kernels' max abs errors and comparison counts."""
+    import numpy as np
+    hw = REHEARSAL_VGG16_HW if rehearse else VGG16_HW
+    budget = REHEARSAL_VGG16_BUDGET if rehearse else None
+    prog = vgg16_program(hw)
+    out = {"hw": hw}
+    out["compile"], exes = vgg16_compile(prog, device, budget)
+    for label, c in out["compile"].items():
+        log(f"[vgg16] {label} at {hw}x{hw}x3: verify=on clean, compile "
+            f"{c['compile_ms']:.2f} ms of which plan.verify "
+            f"{c['verify_span_ms']:.3f} ms; strategies {c['strategies']}")
+    log(f"[vgg16] accumulator headroom, bits (w4a4): "
+        f"{out['compile']['w4a4']['headroom_bits']}")
+    exe, opts = exes["w4a4"]
+    # MX_43 on two frames; W4A4 is served below
+    mx_exe, mx_opts = exes["mx43"]
+    f2 = frames_for(prog, 2, 1600)
+    vgg16_check("mx43 run_per_frame", f2,
+                mx_exe.run_per_frame(f2).cpu().numpy(),
+                vgg16_expected(prog, f2, device, mx_opts))
+
+    t0 = time.perf_counter()
+    err, n_cmp = vgg16_kernels(device, (1,) if rehearse
+                               else VGG16_SHAPE_BUCKETS)
+    log(f"[vgg16] kernels at VGG16_SHAPES, buckets "
+        f"{(1,) if rehearse else VGG16_SHAPE_BUCKETS}: bitwise equal to "
+        f"their plain versions ({n_cmp} comparisons, max abs err {err}) in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    reqs = imaging_requests({"vgg16": prog}, VGG16_REQUESTS)
+    frames = np.concatenate([f for _, f in reqs])
+    expected = vgg16_expected(prog, frames, device, opts)
+    counts = {}
+    for window, bound in (("vgg16", False), ("bound vgg16", True)):
+        t0 = time.perf_counter()
+        server, hosted = make_server(device, {"vgg16": prog}, bound,
+                                     options=opts)
+        start_s = time.perf_counter() - t0
+        try:
+            before = credited(hosted)
+            outs, c, wall = serve_window(server, reqs)
+            after = credited(hosted)
+        finally:
+            server.stop()
+        if bound:
+            need(c == {k: after[k] - before[k] for k in KERNELS},
+                 f"[vgg16] bound: launch counts {c} are not the replays' "
+                 f"credits")
+        vgg16_check(window, frames, np.concatenate(
+            [np.asarray(o) for o in outs]), expected)
+        counts[window] = c
+        out[window] = {"start_s": start_s, "wall_s": wall, "counts": c,
+                       "frames": len(frames)}
+        log(f"[vgg16] served {window}: {len(frames)} frames in {wall:.3f}s "
+            f"wall (start {start_s:.2f}s), bitwise equal to batch-1 "
+            f"run_per_frame, the reference backend and the CPU port "
+            f"({VGG16_CPU_FRAMES} frames); launches {c}")
+
+    out["layers"] = vgg16_timing(device, exe, os.path.join(
+        out_dir, VGG16_DEVICE_TRACE))
+    for r in out["layers"]:
+        extra = (f"; forced resident: route {r['resident_ms']:.4f} "
+                 f"(device {r.get('resident_device_ms')}) gemm "
+                 f"{r['resident_gemm_ms']:.4f}; library exact "
+                 f"{r['library_exact']}" if "strategy" in r else "")
+        log(f"[vgg16] {r['layer']} {r['kernel']}: {r['ms']:.4f} ms "
+            f"(device {r.get('kernel_device_ms')}; route "
+            f"{r['route_ms']:.4f}, plain {r['plain_ms']:.4f}, library "
+            f"{r['library']} {r['library_ms']:.4f} device "
+            f"{r.get('library_device_ms')}, bound {r['bound_ms']:.6f} by "
+            f"{r['bound_by']}){extra}")
+
+    def total(rows, key):
+        vals = [r.get(key) for r in rows]
+        return None if None in vals else sum(vals)
+
+    out["by_kernel"] = {}
+    for k in PATH_KERNELS["vgg16"]:
+        rows = [r for r in out["layers"] if r["kernel"] == k]
+        out["by_kernel"][k] = {
+            key: total(rows, key)
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        out["by_kernel"][k].update(
+            calls=len(rows), device_ms=total(rows, "kernel_device_ms"),
+            library_device_ms=total(rows, "library_device_ms"))
+    strips = [r for r in out["layers"] if r["kernel"] == "conv_strip"]
+    log(f"[vgg16] per bucket-8 batch: {out['by_kernel']}; strip layers "
+        f"strip {total(strips, 'ms'):.4f} ms (device "
+        f"{total(strips, 'kernel_device_ms')}) against forced resident "
+        f"{total(strips, 'resident_ms'):.4f} ms (device "
+        f"{total(strips, 'resident_device_ms')}; gemm "
+        f"{total(strips, 'resident_gemm_ms'):.4f})")
+
+    progs = {"vgg16": prog}
+    out["busy"] = None
+    if device.type == "cuda":
+        server, _ = make_server(device, progs, True, options=opts)
+        try:
+            import torch
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                serve_window(server, reqs)
+                torch.cuda.synchronize()
+        finally:
+            server.stop()
+        out["busy"] = busy_share(load_trace(
+            prof, os.path.join(out_dir, VGG16_TRACE)))
+    log(f"[vgg16] bound window, profiled: {out['busy']}")
+
+    server, _ = make_server(device, progs, True, options=opts)
+    try:
+        rep = saturate_for(server, "vgg16", frames_for(prog, 16, 1700),
+                           REHEARSAL_VGG16_SATURATE_S if rehearse
+                           else VGG16_SATURATE_S)
+    finally:
+        server.stop()
+    out["saturate"] = {"fps": rep.achieved_fps, "requests": rep.submitted,
+                       "seconds": rep.duration_s}
+    log(f"[vgg16] bound saturate: {rep.achieved_fps:.2f} frames/s "
+        f"({rep.submitted} single-frame requests in {rep.duration_s:.2f}s)")
+    return out, counts, err, n_cmp
 
 
 def reread(trace_dir):
@@ -1803,6 +2270,14 @@ def main(argv) -> int:
                     f"{recs[v]:.2f} records/request)" for v in "BCD")
                 + f"; runs {c['fps']}")
 
+        vgg16, vgg16_counts, vgg16_err, vgg16_cmp = phase_vgg16(
+            device, rehearse, out_dir)
+        served.update(vgg16_counts)
+        for k in vgg16_err:
+            max_err[k] = max(max_err[k], vgg16_err[k])
+            n_cmp[k] += vgg16_cmp[k]
+            rows[k]["by_path"]["vgg16"] = vgg16["by_kernel"][k]
+
         launches = {k: {path: served[path][k] for path in served}
                     for k in KERNELS}
         for k in KERNELS:
@@ -1833,7 +2308,7 @@ def main(argv) -> int:
                        "imaging_busy_share": busy,
                        "serve_bound": bound,
                        "imaging_bound_busy_share": bound_busy,
-                       "load": load, "obs": obs_out,
+                       "load": load, "obs": obs_out, "vgg16": vgg16,
                        "ca_pool_cold_device_ms": ca_cold,
                        "comparisons": n_cmp,
                        "conv_bank_float_err": bank_float_err,

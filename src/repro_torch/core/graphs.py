@@ -12,7 +12,9 @@ its answers are the eager ones, bit for bit.
     Binding(plan, params, device, backend, staging_slots)
         params on the device once; each conv and dense weight quantized once
         (``plan.quantized_weights``); the chain kernel's range check run once
-        over every fused segment (so no capture reads the device for it).
+        over every fused segment, unless the plan verifier has proven it
+        (``CompiledPlan.exact_proven``), so no capture reads the device for
+        it.
     Binding.run_padded(frames, bucket) -> HostResult
         per chunk of ``bucket`` frames: the chunk into a pinned staging
         slot, the slot into the bucket's static input (H2D), ``replay()``,
@@ -151,7 +153,7 @@ class Binding:
         with torch.cuda.device(device), torch.cuda.stream(self.stream):
             self.weights = plan_mod.quantized_weights(plan.steps, params,
                                                       plan.consts)
-            if backend == "kernel":
+            if backend == "kernel" and not plan.exact_proven:
                 self._check_segments()
         self.stream.synchronize()
         # the buckets replay one after another on one stream, so their
@@ -160,7 +162,8 @@ class Binding:
 
     def _check_segments(self) -> None:
         """The chain kernel's float32 range check, once per fused segment
-        over the view's fixed weights (it may read the device)."""
+        over the view's fixed weights (it may read the device), for a plan
+        the verifier has not proven."""
         from repro_torch.kernels.conv_bank.fused import check_exact
         steps = self.plan.steps
         for seg in self.plan.fused_segments:

@@ -14,6 +14,12 @@
       true IEEE division (``quant.true_div``): the numerics are the
       reference's jitted executor's, bit for bit.
 
+Verification (``repro_torch.analysis``): ``_compile_model(verify=)`` runs
+the plan verifier before a plan is cached (``plan.verify`` span,
+``plan.verify.run`` / ``plan.verify.error`` counters), as the reference's
+compile does. A plan it has proven clean (``CompiledPlan.exact_proven``)
+runs its fused chains without the chain kernel's per-launch range check.
+
 Observation (``repro_torch.obs``): ``plan.cache.hit`` / ``plan.cache.miss``
 counters and events and a ``plan.compile`` span per cache miss. The
 reference's jit-trace-time hooks (the ``dispatch.fused.fallback`` counter
@@ -132,6 +138,16 @@ class CompiledPlan:
     fused_segments: Tuple[dispatch.FusedSegmentSpec, ...] = ()
     # the trace families this plan has run (``_execute``)
     _families: set = dataclasses.field(default_factory=set, repr=False)
+    # set once the analysis verifier has run over this plan (its warning
+    # and error findings are then in ``report.verification``)
+    _verified: bool = dataclasses.field(default=False, repr=False)
+
+    @property
+    def exact_proven(self) -> bool:
+        """Has the verifier proven every accumulate below 2^24 (verified,
+        with no ``LTR001``)? Then the fused chains need no range check."""
+        return self._verified and not any(
+            d["code"] == "LTR001" for d in self.report.verification)
 
     def first_run(self, family: tuple) -> bool:
         """Record that ``family`` runs; True the first time."""
@@ -158,6 +174,11 @@ def plan_cache_stats() -> Dict[str, int]:
     return dict(_CACHE_STATS)
 
 
+def clear_plan_cache() -> None:
+    _PLAN_CACHE.clear()
+    _CACHE_STATS.update(hits=0, misses=0)
+
+
 def _compile_model(layers: Sequence, input_shape: Tuple[int, ...],
                    scheme: WASpec | MixedPrecisionScheme,
                    oc: ocore.OCConfig = ocore.DEFAULT_OC,
@@ -168,14 +189,28 @@ def _compile_model(layers: Sequence, input_shape: Tuple[int, ...],
                    fc_batch: int = 1,
                    conv_strategy: str = "auto",
                    conv_vmem_budget: int = dispatch.DEFAULT_CONV_VMEM_BUDGET,
-                   fuse: Optional[str] = None) -> CompiledPlan:
+                   fuse: Optional[str] = None,
+                   verify: str = "auto") -> CompiledPlan:
     """Resolve specs, shapes, OC schedules and the power report — once.
 
     ``input_shape`` is [B, H, W, C] or [H, W, C]; plans are cached on the
     per-frame dims. ``fc_batch`` schedules FC layers at the served batch
     size (the report stays per frame). ``fuse`` defaults to the mode the
     conv strategy implies (``dispatch.conv_fuse_mode``).
+
+    ``verify`` is the plan verifier's mode (``Options(verify=)``): "auto"
+    verifies every cache-miss compile and raises
+    :class:`~repro_torch.analysis.PlanVerificationError` at error severity
+    before the plan is cached, so a plan that fails is never published;
+    "on" also re-verifies cache hits (a stored error re-raises); "off"
+    skips. Warning and error findings land in ``report.verification``.
+    The mode stays out of the cache key: verification never changes what
+    is compiled.
     """
+    from repro_torch.analysis.verifier import VERIFY_MODES
+    if verify not in VERIFY_MODES:
+        raise ValueError(f"unknown verify mode {verify!r}; expected one "
+                         f"of {VERIFY_MODES}")
     if fc_batch < 1:
         raise ValueError(f"fc_batch must be >= 1, got {fc_batch}")
     layers = tuple(layers)
@@ -196,6 +231,9 @@ def _compile_model(layers: Sequence, input_shape: Tuple[int, ...],
             obs.event("plan.cache.hit",
                       attrs={"frame_shape": list(frame_shape),
                              "layers": len(layers)})
+        if verify == "on":
+            # a hit may predate verification (first compiled under "off")
+            _verify_plan(cached, conv_vmem_budget)
         return cached
     _CACHE_STATS["misses"] += 1
     obs.counter("plan.cache.miss").inc()
@@ -207,8 +245,39 @@ def _compile_model(layers: Sequence, input_shape: Tuple[int, ...],
             layers, frame_shape, scheme, oc, circuit, profile,
             weight_sram_kb, act_sram_kb, fc_batch, conv_strategy,
             conv_vmem_budget, fuse_mode)
+    if verify != "off":
+        # verify BEFORE caching: a plan that fails at error severity is
+        # never published, so a later verify="off" compile starts clean
+        _verify_plan(plan, conv_vmem_budget)
     _PLAN_CACHE[key] = plan
     return plan
+
+
+def _verify_plan(plan: CompiledPlan, budget: int) -> None:
+    """Run the analysis verifier over ``plan`` once (idempotent).
+
+    Warning and error findings are stored in ``plan.report.verification``
+    (the info-level headroom facts stay out); error severity raises
+    :class:`~repro_torch.analysis.PlanVerificationError`. A plan already
+    verified re-raises from its stored findings instead of re-walking.
+    """
+    from repro_torch import analysis
+    if plan._verified:
+        stored = plan.report.verification
+        if any(d["severity"] == "error" for d in stored):
+            raise analysis.PlanVerificationError(
+                [analysis.Diagnostic(**d) for d in stored])
+        return
+    with obs.span("plan.verify", attrs={"layers": len(plan.layers)}):
+        diags = analysis.verify_plan(plan, budget=budget,
+                                     include_info=False)
+    plan.report.verification = [d.asdict() for d in diags
+                                if d.severity != "info"]
+    plan._verified = True
+    obs.counter("plan.verify.run").inc()
+    if analysis.errors(diags):
+        obs.counter("plan.verify.error").inc()
+        raise analysis.PlanVerificationError(diags)
 
 
 def _compile_model_uncached(layers, frame_shape, scheme, oc, circuit,
@@ -352,8 +421,8 @@ def _execute_steps(steps: Tuple[PlanStep, ...], params: Dict[str, Dict],
                    per_frame: bool = False,
                    segments: Tuple[dispatch.FusedSegmentSpec, ...] = (),
                    backend: str = "kernel",
-                   weights: Optional[Dict[str, Tuple]] = None
-                   ) -> torch.Tensor:
+                   weights: Optional[Dict[str, Tuple]] = None,
+                   exact_checked: bool = False) -> torch.Tensor:
     """The device forward, batch-first, kernels via ``kernels.dispatch``.
 
     ``per_frame`` switches every CRC requant to per-frame calibration
@@ -368,9 +437,11 @@ def _execute_steps(steps: Tuple[PlanStep, ...], params: Dict[str, Dict],
     batch > 1 runs the unfused per-layer path (bitwise the same numbers).
 
     ``weights`` are the layers' quantized ``(wq, ws)`` from
-    :func:`quantized_weights`, made once by a bound view, which has also
-    run the chain kernel's range check (``fused.check_exact``) over every
-    fused segment; ``None`` quantizes each layer's weights on every call.
+    :func:`quantized_weights`, made once by a bound view; ``None``
+    quantizes each layer's weights on every call. ``exact_checked``: the
+    fused chains' float32 range is already known to hold (the verifier
+    proved the plan, or a bound view ran ``fused.check_exact`` over its
+    weights), so no chain launch checks it again.
     """
     def qweight(step):
         if weights is not None:
@@ -406,7 +477,7 @@ def _execute_steps(steps: Tuple[PlanStep, ...], params: Dict[str, Dict],
                     stages.append((s.geom, wq, ws, params[s.name].get("b")))
                 x, act_scale = dispatch.conv_chain(
                     x, act_scale, stages, a_qmax, per_frame, backend,
-                    exact_checked=weights is not None)
+                    exact_checked=exact_checked)
             i += seg.length
             continue
         if isinstance(step, CAStep):
@@ -467,6 +538,8 @@ def _execute(plan: CompiledPlan, params: Dict[str, Dict],
     for plans whose last step is spatial. The trace-time hooks fire only
     in the first run of the call's trace family (backend, device,
     calibration, batch shape); every later run of it is silenced.
+    ``weights`` come from a bound view, which has checked the chains'
+    range over them unless the plan is :attr:`CompiledPlan.exact_proven`.
     """
     if frames.ndim == 3:
         frames = frames[None]
@@ -480,4 +553,6 @@ def _execute(plan: CompiledPlan, params: Dict[str, Dict],
         return _execute_steps(plan.steps, params, frames.float(),
                               plan.consts, per_frame=per_frame,
                               segments=plan.fused_segments, backend=backend,
-                              weights=weights)
+                              weights=weights,
+                              exact_checked=(weights is not None
+                                             or plan.exact_proven))

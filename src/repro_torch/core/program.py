@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.analysis.verifier import VERIFY_MODES, verify_mode
 from repro_torch.core import graphs
 from repro_torch.core import optical_core as ocore
 from repro_torch.core import plan as plan_mod
@@ -82,6 +83,17 @@ class Options:
                         ``compile`` and every run, and stays out of the
                         plan cache key: tracing never changes the plan.
                         The flight recorder records whatever the mode.
+    ``verify``          the plan verifier (``repro_torch.analysis``):
+                        ``auto`` | ``on`` | ``off`` (``None``: ``auto``).
+                        ``auto`` proves every cache-miss compile (the
+                        ``|acc| < 2^24`` proof, the shape re-walk, the
+                        strip and fusion audit) and raises
+                        ``PlanVerificationError`` at error severity before
+                        the plan is cached; ``on`` also re-checks cache
+                        hits; ``off`` skips. Warnings land in
+                        ``Executable.report.verification``. Out of the
+                        plan cache key, like ``trace``. A proven plan's
+                        fused chains skip the chain kernel's range check.
     """
 
     scheme: WASpec | MixedPrecisionScheme = W4A4
@@ -97,6 +109,7 @@ class Options:
     conv_vmem_budget: Optional[int] = None
     fuse: Optional[str] = None
     trace: Optional[str] = None
+    verify: Optional[str] = None
 
     def __post_init__(self):
         if self.fc_batch < 1:
@@ -118,6 +131,9 @@ class Options:
         if self.trace is not None and self.trace not in obs.TRACE_MODES:
             raise ValueError(f"unknown trace mode {self.trace!r}; expected "
                              f"one of {obs.TRACE_MODES}")
+        if self.verify is not None and self.verify not in VERIFY_MODES:
+            raise ValueError(f"unknown verify mode {self.verify!r}; "
+                             f"expected one of {VERIFY_MODES}")
         resolve_device(self.device)
 
     def describe(self) -> str:
@@ -127,9 +143,10 @@ class Options:
         vmem = (f"{budget >> 20}MB" if budget >= (1 << 20)
                 else f"{budget >> 10}KB")
         trace = f" trace={r.trace}" if r.trace != "auto" else ""
+        verify = f" verify={r.verify}" if r.verify != "auto" else ""
         return (f"scheme={r.scheme.name} backend={r.backend} "
                 f"device={r.device} conv={r.conv_strategy}(vmem={vmem}) "
-                f"fuse={r.fuse} fc_batch={r.fc_batch}{trace}")
+                f"fuse={r.fuse} fc_batch={r.fc_batch}{trace}{verify}")
 
     def resolve(self) -> "Options":
         """Every ``None`` field filled with its default."""
@@ -139,7 +156,8 @@ class Options:
             conv_vmem_budget=(self.conv_vmem_budget
                               or dispatch.DEFAULT_CONV_VMEM_BUDGET),
             fuse=self.fuse or dispatch.conv_fuse_mode(strategy),
-            trace=self.trace or obs.trace_mode())
+            trace=self.trace or obs.trace_mode(),
+            verify=self.verify or verify_mode())
 
 
 def _pinned(options: Options):
@@ -285,7 +303,8 @@ class Program:
                 circuit=r.circuit, profile=r.profile,
                 weight_sram_kb=r.weight_sram_kb, act_sram_kb=r.act_sram_kb,
                 fc_batch=r.fc_batch, conv_strategy=r.conv_strategy,
-                conv_vmem_budget=r.conv_vmem_budget, fuse=r.fuse)
+                conv_vmem_budget=r.conv_vmem_budget, fuse=r.fuse,
+                verify=r.verify)
         return Executable(self, options, plan)
 
 

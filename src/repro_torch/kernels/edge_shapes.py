@@ -1,6 +1,7 @@
 """Edge shapes of the launch configurations of ``photonic_mvm``, the strip
-convs, the fused conv chain and ``ca_pool``, and an operand copy that
-defeats aligned loads.
+convs, the fused conv chain and ``ca_pool``, the distinct shapes of
+VGG16's kernel calls at 224x224x3, and an operand copy that defeats
+aligned loads.
 
 The ``gpu`` tests (``tests/test_torch_gpu.py``) and ``chip_smoke.py`` both
 hold each kernel bitwise against its plain version at these shapes, so the
@@ -124,6 +125,48 @@ CA_EDGES = [(8, 256, 256, 3, 1, True, False, "vector"),
             (3, 18, 18, 3, 3, True, False, "generic"),
             (1, 9, 15, 2, 3, False, True, "generic"),
             (2, 16, 16, 1, 1, True, False, "generic")]
+
+
+# VGG16 at 224x224x3 under the default 4 MiB conv budget: the distinct
+# per-frame shapes of its kernel calls, as its compiled plan gives them
+# (``tests/test_torch_vgg16.py`` holds them to the plan). conv1-conv10 run
+# the dense strip kernel: (layers, launch output rows = n_strips *
+# strip_rows, strip_rows, w_out, c_in, c_out, k, stride); conv11-13 (im2col)
+# and the three dense layers run photonic_mvm: (layers, M per frame, K, N).
+VGG16_SHAPES = {
+    "conv_strip": [("conv1", 224, 224, 224, 3, 64, 3, 1),
+                   ("conv2", 224, 32, 224, 64, 64, 3, 1),
+                   ("conv3", 128, 64, 112, 64, 128, 3, 1),
+                   ("conv4", 128, 32, 112, 128, 128, 3, 1),
+                   ("conv5", 56, 56, 56, 128, 256, 3, 1),
+                   ("conv6+conv7", 64, 32, 56, 256, 256, 3, 1),
+                   ("conv8", 48, 24, 28, 256, 512, 3, 1),
+                   ("conv9+conv10", 48, 24, 28, 512, 512, 3, 1)],
+    "photonic_mvm": [("conv11+conv12+conv13", 196, 4608, 512),
+                     ("fc1", 1, 25088, 4096), ("fc2", 1, 4096, 4096),
+                     ("fc3", 1, 4096, 1000)]}
+
+
+def vgg16_case(kernel, shape, batch, gen, device, levels=7):
+    """Inputs of one ``VGG16_SHAPES`` entry at ``batch`` frames, random from
+    ``gen`` (a generator on ``device``): conv_strip (x_padded [batch, rows
+    + k - 1, w_out + k - 1, c_in] codes 0..15, w [k, k, c_in, c_out],
+    stride, strip_h), photonic_mvm (a [M * batch, K] int8 codes 0..15, wq
+    [K, N] int8); levels in -``levels``..``levels`` (W4)."""
+    if kernel == "conv_strip":
+        _, rows, strip_h, w_out, ci, co, k, stride = shape
+        xp = torch.randint(0, 16, (batch, (rows - 1) * stride + k,
+                                   (w_out - 1) * stride + k, ci),
+                           generator=gen, device=device).float()
+        w = torch.randint(-levels, levels + 1, (k, k, ci, co), generator=gen,
+                          device=device).float()
+        return xp, w, stride, strip_h
+    _, m, k, n = shape
+    a = torch.randint(0, 16, (m * batch, k), generator=gen, device=device,
+                      dtype=torch.int8)
+    wq = torch.randint(-levels, levels + 1, (k, n), generator=gen,
+                       device=device, dtype=torch.int8)
+    return a, wq
 
 
 def chain_case(batch, h, w, c, specs, gen, device, levels=7):

@@ -4,6 +4,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve_vision \
         --model lenet --batch 8 --batches 50
 
+    # VGG16 at 224x224x3 (seeded weights; --device cpu runs, slowly)
+    PYTHONPATH=src python -m repro_torch.launch.serve_vision \
+        --model vgg16 --batch 8 --batches 10
+
     # an imaging pipeline (repro_torch.imaging)
     PYTHONPATH=src python -m repro_torch.launch.serve_vision \
         --pipeline edge_detect --size 256 --batch 8
@@ -50,11 +54,12 @@ from repro_torch import obs, serve
 from repro_torch.core.program import Options
 from repro_torch.core.quant import MX_42, MX_43, W2A4, W3A4, W4A4
 from repro_torch.kernels import dispatch
-from repro_torch.models.vision import vision_program
+from repro_torch.models.vision import MODEL_INPUT_HWC, vision_program
 
 SCHEMES = {"w4a4": W4A4, "w3a4": W3A4, "w2a4": W2A4,
            "mx43": MX_43, "mx42": MX_42}
-MODELS = ("lenet", "vgg9")
+# the IRs the executable path runs, as the reference's --model offers them
+MODELS = tuple(sorted(MODEL_INPUT_HWC))
 
 
 def frame_pool(prog, n: int, seed: int) -> np.ndarray:
@@ -75,13 +80,13 @@ def main(argv=None):
     ap.add_argument("--model", default="lenet", choices=MODELS)
     ap.add_argument("--pipeline", default=None,
                     help="serve a repro_torch.imaging pipeline instead")
-    ap.add_argument("--scheme", default="w4a4", choices=sorted(SCHEMES))
+    ap.add_argument("--scheme", default="mx43", choices=sorted(SCHEMES))
     ap.add_argument("--batch", type=int, default=8,
                     help="scheduler max_batch (largest micro-batch)")
     ap.add_argument("--batches", type=int, default=50,
                     help="device batches worth of frames to stream "
                          "(total frames = batch * batches)")
-    ap.add_argument("--size", type=int, default=256,
+    ap.add_argument("--size", type=int, default=64,
                     help="imaging frame height and width (pipeline mode)")
     ap.add_argument("--max-wait-ms", type=float, default=2.0,
                     help="micro-batch collection window")

@@ -6,6 +6,9 @@ On the card each kernel's wrapper must launch its kernel, count the launch,
 and be bitwise equal to its plain PyTorch version on the same inputs; the
 whole serving path on the card must equal the port's CPU run, and an
 imaging pipeline served through ``serve.Server`` must equal batch-1 runs.
+VGG16's kernel shapes at 224x224x3 (``VGG16_SHAPES``) are held bitwise at
+batch 1 and 8, its bound graph replays to its eager run, and a plan the
+verifier proved runs its fused chain with no range check.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ from repro_torch.kernels.conv_bank.ops import conv_bank, conv_bank_plain
 from repro_torch.kernels.conv_bank.ref import conv_chain_ref
 from repro_torch.kernels.edge_shapes import (CA_EDGES, CHAIN_EDGES, CHAINS,
                                              DW_EDGES, MVM_EDGES, STRIP_EDGES,
-                                             chain_case, odd_offset)
+                                             VGG16_SHAPES, chain_case,
+                                             odd_offset, vgg16_case)
 from repro_torch.kernels.photonic_mvm.ops import mvm_int
 from repro_torch.kernels.photonic_mvm.ref import mvm_int_ref
 
@@ -553,3 +557,90 @@ def test_flight_dump_after_graph_replays_passes_flight_check(cuda,
     (kept,) = server.flight_dumps()
     path.write_text(json.dumps(kept["dump"]))
     assert check_trace.flight_check(str(path), require_trigger=True) == []
+
+
+# -- VGG16 at 224x224x3 and the plan verifier ---------------------------------
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("kernel,shape", [
+    (k, s) for k in ("conv_strip", "photonic_mvm") for s in VGG16_SHAPES[k]],
+    ids=lambda v: v if isinstance(v, str) else v[0])
+def test_vgg16_shapes_bitwise_equal_to_plain(cuda, kernel, shape, batch):
+    gen = torch.Generator(device=cuda).manual_seed(batch + len(shape[0]))
+    args = vgg16_case(kernel, shape, batch, gen, cuda)
+    reset_launch_counts()
+    if kernel == "conv_strip":
+        xp, w, stride, sh = args
+        kw = dict(stride=stride, strip_h=sh)
+        got = strip.conv_strip(xp, w, **kw)
+        assert launch_counts()["conv_strip"] == 1
+        assert got.shape == (batch, shape[1], shape[3], shape[5])
+        assert torch.equal(got, strip.conv_strip_ref(xp, w, **kw))
+        ws = torch.rand((w.shape[-1],), generator=gen, device=cuda) + 0.5
+        bias = torch.randn((w.shape[-1],), generator=gen, device=cuda)
+        kw.update(act_scale=0.37, act="relu", bias=bias)
+        assert torch.equal(strip.conv_strip(xp, w, ws, **kw),
+                           strip.conv_strip_ref(xp, w, ws, **kw))
+    else:
+        a, wq = args
+        got = mvm_int(a, wq)
+        assert launch_counts()["photonic_mvm"] == 1
+        assert torch.equal(got, mvm_int_ref(a, wq))
+        ws = torch.rand((wq.shape[1],), generator=gen, device=cuda) + 0.5
+        assert torch.equal(mvm_int(a, wq, ws, 0.37),
+                           mvm_int_ref(a, wq, ws, 0.37))
+
+
+def _vgg16_program():
+    from repro_torch.models.vision import init_vision, vgg16_ir
+    layers = tuple(vgg16_ir())
+    return Program(layers, init_vision(torch.Generator().manual_seed(4),
+                                       layers), (224, 224, 3), name="vgg16")
+
+
+@pytest.mark.parametrize("bucket", [1, 8])
+def test_vgg16_bound_graph_replay_bitwise_equal_to_eager(cuda, bucket):
+    prog = _vgg16_program()
+    exe = prog.compile(Options(scheme=W4A4, verify="on"))
+    assert exe.report.verification == [] and exe.plan.exact_proven
+    bound = exe.bind("cuda", staging_slots=2)
+    f = _frames_for(prog, max(bucket - 1, 1), bucket)
+    reset_launch_counts()
+    got = np.asarray(bound.run_padded(f, bucket))       # eager + capture
+    counts = launch_counts()
+    assert counts["conv_strip"] > 0 and counts["photonic_mvm"] > 0
+    assert counts["conv_chain"] == counts["ca_pool"] == 0
+    replayed = np.asarray(bound.run_padded(f, bucket))
+    eager = exe.run_per_frame(f).cpu().numpy()
+    assert got.shape == (len(f), 1000) and np.isfinite(got).all()
+    np.testing.assert_array_equal(got, eager)
+    np.testing.assert_array_equal(replayed, eager)
+    assert bound._binding.graphs[bucket].replays == 2
+
+
+def test_verified_chain_plan_launches_with_no_range_check(cuda, monkeypatch):
+    """A plan the verifier proved runs LeNet's fused chain, eagerly and
+    bound, without ``fused.check_exact`` (which may read the device); an
+    unverified compile of it still checks every unbound launch."""
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.kernels.conv_bank import fused
+
+    def refuse(*a, **kw):
+        raise AssertionError("check_exact ran")
+
+    monkeypatch.setattr(fused, "check_exact", refuse)
+    prog = Program.from_model("lenet", torch.Generator().manual_seed(5))
+    f = _frames_for(prog, 3, 6)
+    plan_mod.clear_plan_cache()
+    exe = prog.compile(Options(scheme=W4A4))
+    assert exe.plan.exact_proven and exe.plan.fused_segments
+    reset_launch_counts()
+    eager = exe.run_per_frame(f).cpu().numpy()
+    assert launch_counts()["conv_chain"] == 1
+    bound = exe.bind("cuda")
+    np.testing.assert_array_equal(np.asarray(bound.run_padded(f, 4)), eager)
+    plan_mod.clear_plan_cache()
+    unproven = prog.compile(Options(scheme=W4A4, verify="off"))
+    with pytest.raises(AssertionError, match="check_exact ran"):
+        unproven.run_per_frame(f)
+    plan_mod.clear_plan_cache()

@@ -2,8 +2,8 @@
 
 * a fresh interpreter imports every module of the port, and no ``jax*`` or
   ``repro``/``repro.*`` module is loaded;
-* an AST scan of every source file of the port and of ``chip_smoke.py``
-  finds no import of either;
+* an AST scan of every source file of the port, of ``chip_smoke.py`` and
+  of ``scripts/verify_plan_torch.py`` finds no import of either;
 * with no GPU, the entry points raise unless the caller asks for the CPU.
 """
 
@@ -50,7 +50,8 @@ def test_importing_every_module_loads_no_jax_or_reference():
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
-                         + [ROOT / "chip_smoke.py"],
+                         + [ROOT / "chip_smoke.py",
+                            ROOT / "scripts" / "verify_plan_torch.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_nothing_of_jax_or_reference(path):
     tree = ast.parse(path.read_text(), filename=str(path))
