@@ -20,7 +20,11 @@ launch counts zeroed just before its requests and read just after:
            -> sharpen at 256x256x3 as one program (``Program.then``): 3
            requests of 1, 3 and 8 frames;
   vgg16    VGG16 at 224x224x3, full width, seeded random weights from
-           numpy, W4A4: 3 requests of 1, 3 and 8 frames, eager and bound.
+           numpy, W4A4: 3 requests of 1, 3 and 8 frames, eager and bound;
+  train    LeNet and VGG9-CA (full width) QAT-trained on the card under
+           W4A4, their weights evaluated with the dense layers on
+           photonic_mvm's float API and run per frame (eager), then served
+           bound: 3 requests of 1, 3 and 8 held-out frames each.
 
 Phases, each fatal on failure:
 
@@ -102,6 +106,26 @@ Phases, each fatal on failure:
      library call and its bound (each strip step also forced resident);
      the bound window's device busy share and a short saturation run's
      frames/s (``[vgg16]`` lines).
+ 10. train: photonic_mvm's float API on signed CRC codes held bitwise to
+     ``photonic_mvm_ref`` at ``edge_shapes.SIGNED_MVM_SHAPES`` (both
+     routes, split-K on and off); LeNet QAT-trained 40 steps at batch 64
+     under fp32, W4A4, W3A4, W2A4 and MX_43, and VGG9-CA at full width 10
+     steps under W4A4 (``launch/train_vision.py``), each fatal unless
+     every loss is finite and the last below the first, with the step
+     times (CUDA events) and the held-out accuracy of the QAT forward;
+     the main path (counts zeroed before, read after): both W4A4 models
+     evaluated with their dense layers on ``nn.layers.dense(mode=
+     "kernel")`` (the float API; each output then held bitwise to
+     ``photonic_mvm_ref`` on the same input) and run per frame, then
+     served bound (3 requests of 1, 3 and 8 frames each),
+     every answer bitwise equal to batch-1 ``run_per_frame``, the
+     reference backend and the port's CPU run, served accuracy beside the
+     QAT forward's; 5 more W4A4 steps of each model under the profiler
+     (the device's busy share of the window, kernels a step, the top
+     kernels by device time); the float API timed on the evaluation's
+     dense inputs;
+     ``fit_recon_head`` on the card at 32x32x3, PSNR before and after
+     (``[train]`` lines).
 
 ``--rehearse`` runs every phase on the CPU with the plain versions: no
 graphs, the bound phase on 2 emulated CPU workers, VGG16 at 32x32x3
@@ -194,6 +218,20 @@ VGG16_SATURATE_S = 2.0
 REHEARSAL_VGG16_SATURATE_S = 0.2
 VGG16_TRACE = "vgg16_bound_serve_trace.json"
 VGG16_DEVICE_TRACE = "vgg16_device_time_trace.json"
+# the [train] phase: the schemes LeNet trains under, (steps, batch) per
+# model (the rehearsal's on the CPU), held-out frames per model, the served
+# request sizes, fit_recon_head's frame size and frames, timing iterations
+TRAIN_SCHEMES = ("fp32", "w4a4", "w3a4", "w2a4", "mx43")
+TRAIN_RUNS = {"lenet": (40, 64), "vgg9": (10, 64)}
+REHEARSAL_TRAIN_RUNS = {"lenet": (10, 32), "vgg9": (3, 16)}
+TRAIN_TEST_FRAMES = 512
+REHEARSAL_TRAIN_TEST_FRAMES = 32
+TRAIN_REQUESTS = (1, 3, 8)
+RECON_HW, RECON_FRAMES, RECON_STEPS = 32, 4, 150
+TRAIN_ITERS = 20
+TRAIN_WINDOW = "chip_smoke.train_window"
+TRAIN_PROFILE_STEPS = 5
+TRAIN_TRACE = "train_{}_trace.json"
 # the port's kernels are top-level functions of an anonymous namespace
 PORT_KERNEL = r"^(void )?\(anonymous namespace\)::"
 KERNELS = ("photonic_mvm", "conv_chain", "ca_pool", "conv_strip",
@@ -203,7 +241,8 @@ PATH_KERNELS = {"vision": ("photonic_mvm", "conv_chain", "ca_pool"),
                 "imaging": ("photonic_mvm", "ca_pool", "conv_strip",
                             "conv_strip_depthwise"),
                 "chain": ("photonic_mvm", "ca_pool", "conv_strip_depthwise"),
-                "vgg16": ("photonic_mvm", "conv_strip")}
+                "vgg16": ("photonic_mvm", "conv_strip"),
+                "train": ("photonic_mvm", "conv_chain", "ca_pool")}
 SOURCES = {
     "photonic_mvm": ("src/repro_torch/csrc/photonic_mvm.cu",
                      "src/repro/kernels/photonic_mvm/kernel.py:81"),
@@ -1308,14 +1347,14 @@ def phase_busy_share(device, progs, trace_path, bound=False):
                 frames=sum(f.shape[0] for _, f in reqs))
 
 
-def busy_share(events):
-    """The serving window's length, the union of the device intervals its
-    host calls issued, their share of the window, and the device time by
-    kind of work (copies, memsets, the port's kernels, torch ops) and by
-    port kernel."""
-    lo, hi = host_range(events, SERVE_WINDOW)
+def busy_share(events, window=SERVE_WINDOW):
+    """The window's length, the union of the device intervals its host
+    calls issued, their share of the window, and the device time by kind
+    of work (copies, memsets, the port's kernels, torch ops) and by port
+    kernel."""
+    lo, hi = host_range(events, window)
     spans, by_kind, by_kernel = [], {}, {}
-    for e in device_work(events, SERVE_WINDOW)[0]:
+    for e in device_work(events, window)[0]:
         a, b = e["ts"], e["ts"] + e["dur"]
         spans.append((a, b))
         kind = e["cat"] if e["cat"] != "kernel" else (
@@ -1992,6 +2031,312 @@ def phase_vgg16(device, rehearse, out_dir):
     return out, counts, err, n_cmp
 
 
+# ---------------------------------------------------------------------------
+# the [train] phase
+# ---------------------------------------------------------------------------
+
+def train_signed_mvm(device):
+    """photonic_mvm's float API on signed CRC codes at every
+    ``SIGNED_MVM_SHAPES`` entry (both routes, split-K on and off), W4A4
+    and W2A4, against ``photonic_mvm_ref`` on the same tensors. Returns
+    (max abs err, comparisons)."""
+    import torch
+    from repro_torch.core.quant import W2A4, W4A4
+    from repro_torch.kernels.edge_shapes import SIGNED_MVM_SHAPES
+    from repro_torch.kernels.photonic_mvm.ops import mvm_config, photonic_mvm
+    from repro_torch.kernels.photonic_mvm.ref import (photonic_mvm_ref,
+                                                      signed_codes)
+    err, n_cmp = 0.0, 0
+    for m, k, n, route, split in SIGNED_MVM_SHAPES:
+        cfg = mvm_config(m, k, n)
+        need((cfg.route, cfg.split > 1) == (route, split),
+             f"[train] mvm_config{(m, k, n)} is {cfg}")
+        g = torch.Generator().manual_seed(m * 5 + k + n)
+        x = (torch.randn((m, k), generator=g) * 0.6).to(device)
+        w = torch.randn((k, n), generator=g).to(device)
+        codes = signed_codes(x, W4A4, 1.0 / 15.0)
+        need(int(codes.min()) < 0 < int(codes.max()) or m * k < 30,
+             f"[train] {(m, k, n)}: codes not signed")
+        for spec in (W4A4, W2A4):
+            got, want = photonic_mvm(x, w, spec), photonic_mvm_ref(x, w, spec)
+            need(got.shape == want.shape and torch.equal(got, want),
+                 f"[train] photonic_mvm float API {(m, k, n)} {spec.name} "
+                 f"differs from photonic_mvm_ref")
+            err = max(err, float((got - want).abs().max()))
+            n_cmp += 1
+    return err, n_cmp
+
+
+def train_summary(run, acc):
+    """One training run's numbers: losses, step times, accuracy."""
+    import numpy as np
+    ms = np.asarray(run.step_ms)
+    return {"losses": run.losses, "loss_first": run.losses[0],
+            "loss_last": run.losses[-1], "step_ms": run.step_ms,
+            "step_ms_first": float(ms[0]),
+            "step_ms_median": float(np.median(ms[1:] if len(ms) > 1 else ms)),
+            "clock": run.clock, "acc": acc}
+
+
+def train_checked(tv, model, key, steps, batch, device):
+    """``train_vision.train`` once; fatal unless every loss is finite and
+    the last is below the first."""
+    run = tv.train(model, tv.SCHEMES[key], steps, batch, seed=SEED,
+                   device=device)
+    need(all(math.isfinite(v) for v in run.losses),
+         f"[train] {model} {key}: a loss is not finite: {run.losses}")
+    need(run.losses[-1] < run.losses[0], f"[train] {model} {key}: the loss "
+         f"did not fall ({run.losses[0]:.4f} -> {run.losses[-1]:.4f})")
+    return run
+
+
+def kernel_head(run, frames):
+    """The kernel-mode evaluation of a trained run: its QAT forward up to
+    the first dense layer, then each dense layer through
+    ``nn.layers.dense(mode="kernel")`` (photonic_mvm's float API: signed
+    CRC codes of the layer's real activations). Returns the logits and,
+    per dense layer, (name, input, spec, output)."""
+    import torch
+    from repro_torch.core.accelerator import ConvSpec, DenseSpec
+    from repro_torch.core.quant import resolve_layer_specs
+    from repro_torch.models.vision import apply_vision
+    from repro_torch.nn import layers as L
+    compute = [l for l in run.layers if isinstance(l, (ConvSpec, DenseSpec))]
+    specs = dict(zip((l.name for l in compute),
+                     resolve_layer_specs(len(compute), run.scheme)))
+    first = next(i for i, l in enumerate(run.layers)
+                 if isinstance(l, DenseSpec))
+    dev = run.params[compute[0].name]["w"].device
+    with torch.no_grad():
+        h = apply_vision(run.params, run.layers[:first],
+                         torch.as_tensor(frames).to(dev, torch.float32),
+                         run.scheme)
+        cases = []
+        for layer in run.layers[first:]:
+            y = L.dense(run.params[layer.name], h, quant=specs[layer.name],
+                        mode="kernel")
+            cases.append((layer.name, h, specs[layer.name], y))
+            h = torch.relu(y) if layer.act == "relu" else y
+    return h, cases
+
+
+def check_kernel_head(model, run, cases):
+    """Each kernel-mode dense output bitwise equal to ``photonic_mvm_ref``
+    (plus the bias) on the same input. Returns (max abs err, cases)."""
+    import torch
+    from repro_torch.kernels.photonic_mvm.ref import photonic_mvm_ref
+    err = 0.0
+    for name, x, spec, got in cases:
+        p = run.params[name]
+        want = photonic_mvm_ref(x, p["w"], spec, 1.0 / 15.0) + p["b"]
+        need(got.shape == want.shape and torch.equal(got, want),
+             f"[train] {model} {name}: dense(mode='kernel') on "
+             f"{tuple(x.shape)} differs from photonic_mvm_ref")
+        err = max(err, float((got - want).abs().max()))
+    return err, len(cases)
+
+
+def train_float_api_timing(device, runs, heads):
+    """The float API at the kernel-mode evaluation's dense layers, on their
+    recorded inputs (M = the held-out frames): its time beside its plain
+    version, a float32 matmul of the same operands (the library yardstick:
+    not the same function) and the bound (f32 x and w read, f32 out
+    written; 2MKN int8 ops)."""
+    from repro_torch.kernels.photonic_mvm.ops import photonic_mvm
+    from repro_torch.kernels.photonic_mvm.ref import photonic_mvm_ref
+    time_ms = timer(device)
+    rows = []
+    for model, run in runs.items():
+        for name, x, spec, _ in heads[model]:
+            w = run.params[name]["w"]
+            (m, k), n = x.shape, w.shape[1]
+            nbytes, ops = 4 * (m * k + k * n + m * n), 2 * m * k * n
+            bound, by = bound_ms(nbytes, ops, "int8")
+            rows.append({
+                "model": model, "layer": name, "shape": (m, k, n),
+                "ms": time_ms(lambda: photonic_mvm(x, w, spec), TRAIN_ITERS),
+                "plain_ms": time_ms(lambda: photonic_mvm_ref(x, w, spec),
+                                    TRAIN_ITERS),
+                "library_ms": time_ms(lambda: x @ w, TRAIN_ITERS),
+                "bound_ms": bound, "bound_by": by})
+    return rows
+
+
+def train_profile(tv, run, batch, device, path):
+    """``TRAIN_PROFILE_STEPS`` more QAT steps of a trained run under the
+    profiler (one warm-up step first): the window's device busy share,
+    device ms by kind, and the kernels that took the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.optim.adamw import adamw_init
+    xs, ys = tv.dataset(run.model, batch, seed=11)
+    xb, yb = torch.from_numpy(xs).to(device), \
+        torch.from_numpy(ys).long().to(device)
+    params, opt = run.params, adamw_init(run.params, tv.OPT)
+    params, opt, _ = tv.qat_step(params, opt, run.layers, run.scheme, xb, yb)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function(TRAIN_WINDOW):
+            for _ in range(TRAIN_PROFILE_STEPS):
+                params, opt, _ = tv.qat_step(params, opt, run.layers,
+                                             run.scheme, xb, yb)
+        torch.cuda.synchronize()
+    events = load_trace(prof, path)
+    out = busy_share(events, TRAIN_WINDOW)
+    by_name = {}
+    for e in device_work(events, TRAIN_WINDOW)[0]:
+        if e["cat"] == "kernel":
+            name = e["name"][:60]
+            by_name[name] = by_name.get(name, 0.0) + e["dur"] / 1e3
+    out["launches_per_step"] = sum(
+        1 for e in device_work(events, TRAIN_WINDOW)[0]
+        if e["cat"] == "kernel") / TRAIN_PROFILE_STEPS
+    out["top_kernels_ms"] = dict(sorted(by_name.items(),
+                                        key=lambda kv: -kv[1])[:6])
+    return out
+
+
+def phase_train(device, rehearse, out_dir):
+    """QAT on the card, then the trained weights served (the module
+    docstring's phase 10). Returns its detail, the launch counts of its
+    two main-path windows, and photonic_mvm's max abs error and
+    comparisons on signed codes."""
+    import numpy as np
+    import torch
+    from repro_torch import Program
+    from repro_torch.imaging import (PIPELINES, apply_float, fit_recon_head,
+                                     gray_target, psnr)
+    from repro_torch.data.synthetic import synthetic_textures
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train_vision as tv
+    plan = REHEARSAL_TRAIN_RUNS if rehearse else TRAIN_RUNS
+    n_test = REHEARSAL_TRAIN_TEST_FRAMES if rehearse else TRAIN_TEST_FRAMES
+    out = {"runs": {}}
+    err, n_cmp = train_signed_mvm(device)
+    log(f"[train] photonic_mvm float API, signed codes: bitwise equal to "
+        f"photonic_mvm_ref at {n_cmp} shape x scheme cases (both routes, "
+        f"split-K on and off), max abs err {err}")
+
+    tests = {m: tv.dataset(m, n_test, seed=9) for m in plan}
+    runs = {}
+    for model, keys in (("lenet", TRAIN_SCHEMES), ("vgg9", ("w4a4",))):
+        steps, batch = plan[model]
+        for key in keys:
+            t0 = time.perf_counter()
+            run = train_checked(tv, model, key, steps, batch, device)
+            wall = time.perf_counter() - t0
+            r = train_summary(run, tv.evaluate(run, *tests[model]))
+            r["wall_s"] = wall
+            out["runs"][f"{model} {key}"] = r
+            if key == "w4a4":
+                runs[model] = run
+            log(f"[train] {model} {tv.SCHEME_LABELS[key]}: {steps} steps at "
+                f"batch {batch}, loss {r['loss_first']:.4f} -> "
+                f"{r['loss_last']:.4f}; step ms ({run.clock}) first "
+                f"{r['step_ms_first']:.3f} median {r['step_ms_median']:.3f}; "
+                f"QAT-forward accuracy {r['acc']:.3f} on {n_test} held-out "
+                f"frames; {wall:.2f}s wall")
+
+    out["profile"] = {}
+    if device.type == "cuda":
+        for model, run in runs.items():
+            p = train_profile(tv, run, plan[model][1], device, os.path.join(
+                out_dir, TRAIN_TRACE.format(model)))
+            out["profile"][model] = p
+            log(f"[train] {model} W4A4, {TRAIN_PROFILE_STEPS} steps "
+                f"profiled: window {p['window_ms']:.3f} ms, device busy "
+                f"{p['busy_ms']:.3f} ms ({p['busy_share']:.1%}), "
+                f"{p['launches_per_step']:.0f} kernels a step; by kind "
+                f"{p['device_ms_by_kind']}; top kernels "
+                f"{p['top_kernels_ms']}")
+
+    # the main path: the trained W4A4 weights through the kernels, eagerly
+    # (kernel-mode evaluation, run_per_frame) and then served bound
+    reset_launch_counts()
+    deployed, heads = {}, {}
+    for model, run in runs.items():
+        frames, y = tests[model]
+        logits, heads[model] = kernel_head(run, frames)
+        deployed[model] = {"kernel_acc": float(np.mean(
+            logits.argmax(-1).cpu().numpy() == y))}
+        deployed[model].update(tv.deploy(run, frames, y))
+    counts = {"train": launch_counts()}
+    for model, run in runs.items():
+        e, n = check_kernel_head(model, run, heads[model])
+        err, n_cmp = max(err, e), n_cmp + n
+    log(f"[train] kernel-mode evaluation: every dense layer's float-API "
+        f"output bitwise equal to photonic_mvm_ref on its real inputs "
+        f"({sum(len(h) for h in heads.values())} layers, M = {n_test})")
+    progs = {m: Program.from_model(m, params=run.params)
+             for m, run in runs.items()}
+    reqs, labels = [], {}
+    for model in progs:
+        frames, y = tests[model]
+        at = 0
+        for size in TRAIN_REQUESTS:
+            reqs.append((model, frames[at:at + size]))
+            at += size
+        labels[model] = y[:at]
+    server, hosted = make_server(device, progs, True)
+    try:
+        before = credited(hosted)
+        outs, c, wall = serve_window(server, reqs)
+        after = credited(hosted)
+    finally:
+        server.stop()
+    if device.type == "cuda":
+        need(c == {k: after[k] - before[k] for k in KERNELS},
+             f"[train] bound: launch counts {c} are not the replays' credits")
+    counts["bound train"] = c
+    for model, (frames, served) in by_program(reqs, outs).items():
+        check_served(model, progs[model], frames, served, str(device),
+                     out_shape(model, progs[model]))
+        d = deployed[model]
+        d["served_acc"] = float(np.mean(served.argmax(-1) == labels[model]))
+        d["served_frames"] = len(frames)
+        log(f"[train] {model} W4A4 deployed: QAT forward "
+            f"{out['runs'][model + ' w4a4']['acc']:.3f}, dense layers on "
+            f"photonic_mvm {d['kernel_acc']:.3f}, run_per_frame "
+            f"{d['acc']:.3f} on {n_test} frames; served bound "
+            f"{d['served_acc']:.3f} on {len(frames)} frames, bitwise equal to "
+            f"batch-1 run_per_frame, the reference backend and the CPU port; "
+            f"power model {d['avg_power_w']:.3f} W, "
+            f"{d['kfps_per_w']:.1f} kFPS/W")
+    out["deployed"] = deployed
+    out["counts"] = counts
+    log(f"[train] launches: eager (kernel-mode evaluation + run_per_frame) "
+        f"{counts['train']}; bound serve window {wall:.3f}s "
+        f"{counts['bound train']}")
+
+    out["float_api"] = train_float_api_timing(device, runs, heads)
+    for r in out["float_api"]:
+        log(f"[train] float API {r['model']} {r['layer']} {r['shape']}: "
+            f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, f32 matmul "
+            f"{r['library_ms']:.4f}, bound {r['bound_ms']:.6f} by "
+            f"{r['bound_by']})")
+
+    frames, _ = synthetic_textures(RECON_FRAMES, seed=3, hw=RECON_HW)
+    layers, params = PIPELINES["compress_recon_deconv"].build(
+        RECON_HW, RECON_HW, 3)
+    x = torch.from_numpy(frames).to(device)
+    target = gray_target(x)
+    t0 = time.perf_counter()
+    fitted = fit_recon_head(layers, params, x, steps=RECON_STEPS)
+    fit_s = time.perf_counter() - t0
+    before = float(psnr(target, apply_float(layers, params, x), 1.0))
+    after = float(psnr(target, apply_float(layers, fitted, x), 1.0))
+    need(math.isfinite(after) and after > before,
+         f"[train] fit_recon_head did not raise the PSNR: {before} -> {after}")
+    out["recon"] = {"psnr_before_db": before, "psnr_after_db": after,
+                    "fit_s": fit_s}
+    log(f"[train] fit_recon_head at {RECON_HW}x{RECON_HW}x3 "
+        f"({RECON_FRAMES} frames, {RECON_STEPS} SGD steps on "
+        f"{device.type}): PSNR "
+        f"{before:.3f} -> {after:.3f} dB in {fit_s:.2f}s wall")
+    return out, counts, err, n_cmp
+
+
 def reread(trace_dir):
     """Each device-time range of the run whose traces lie in ``trace_dir``:
     its launches, kernel records and device ms per batch by kernel
@@ -2278,6 +2623,17 @@ def main(argv) -> int:
             n_cmp[k] += vgg16_cmp[k]
             rows[k]["by_path"]["vgg16"] = vgg16["by_kernel"][k]
 
+        train, train_counts, train_err, train_cmp = phase_train(
+            device, rehearse, out_dir)
+        served.update(train_counts)
+        max_err["photonic_mvm"] = max(max_err["photonic_mvm"], train_err)
+        n_cmp["photonic_mvm"] += train_cmp
+        rows["photonic_mvm"]["by_path"]["train"] = {
+            key: sum(r[key] for r in train["float_api"])
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        rows["photonic_mvm"]["by_path"]["train"]["calls"] = \
+            len(train["float_api"])
+
         launches = {k: {path: served[path][k] for path in served}
                     for k in KERNELS}
         for k in KERNELS:
@@ -2309,6 +2665,7 @@ def main(argv) -> int:
                        "serve_bound": bound,
                        "imaging_bound_busy_share": bound_busy,
                        "load": load, "obs": obs_out, "vgg16": vgg16,
+                       "train": train,
                        "ca_pool_cold_device_ms": ca_cold,
                        "comparisons": n_cmp,
                        "conv_bank_float_err": bank_float_err,

@@ -10,6 +10,10 @@ The paper's compute model (Sec. 3), as the reference package states it:
 * Lightator-MX keeps the first layer at [4:4] and drops the rest to [3:4]
   or [2:4].
 
+QAT uses straight-through estimators (STE): the forward pass sees the exact
+quantized values the optical core computes with, the backward pass sees
+identity through the rounding.
+
 Divisions go through :func:`true_div`, which is the IEEE float32 quotient
 whatever device or operand shapes: PyTorch rewrites a division by a scalar
 operand into a multiply by its reciprocal, which is 1 ulp off for divisors
@@ -19,7 +23,7 @@ such as 15 and 7.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -35,8 +39,8 @@ class WASpec:
     w_bits: int = 4
     a_bits: int = ACT_BITS
     per_channel: bool = True        # per-output-channel weight scales
-    # photonic non-ideality (std of MR transmission noise, in quant steps);
-    # carried for field-for-field parity with the reference, unused here
+    # photonic non-ideality: std of Gaussian noise on the dequantized MR
+    # transmission, in quant steps (``fake_quant_weight``'s noise)
     mr_noise_std: float = 0.0
 
     def __post_init__(self):
@@ -97,6 +101,94 @@ def true_div(a: torch.Tensor, b) -> torch.Tensor:
     return (a.double() / b.double()).float()
 
 
+def _clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
+    """``jnp.clip``: ``minimum(maximum(x, lo), hi)``. A value on a bound
+    gets half the gradient, as JAX gives it (``torch.clamp`` gives all)."""
+    def bound(v):
+        return torch.full((), float(v), dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, bound(lo)), bound(hi))
+
+
+def _ste_round(x: torch.Tensor) -> torch.Tensor:
+    """round(x) in the forward pass (half to even), identity gradient in the
+    backward pass: the reference's ``x + stop_gradient(round(x) - x)``."""
+    return x + (torch.round(x) - x).detach()
+
+
+# ---------------------------------------------------------------------------
+# Activation quantization (CRC / VCSEL path)
+# ---------------------------------------------------------------------------
+
+def crc_quantize_act(x: torch.Tensor, scale, a_bits: int = ACT_BITS
+                     ) -> torch.Tensor:
+    """The CRC: compare against 15 reference levels -> integer code 0..15
+    (int8 carrier). ``scale`` maps one quant step to physical units."""
+    qmax = (1 << a_bits) - 1
+    return _clip(torch.round(true_div(x, scale)), 0, qmax).to(torch.int8)
+
+
+def fake_quant_act(x: torch.Tensor, scale, a_bits: int = ACT_BITS,
+                   train: bool = True) -> torch.Tensor:
+    """Fake-quantized activation: the value the optical core streams.
+    Unsigned (light intensity); STE when ``train``."""
+    qmax = (1 << a_bits) - 1
+    xs = _clip(true_div(x, scale), 0.0, float(qmax))
+    q = _ste_round(xs) if train else torch.round(xs)
+    return q * scale
+
+
+def act_scale_for_range(max_val, a_bits: int = ACT_BITS) -> torch.Tensor:
+    """Scale that maps [0, max_val] onto the CRC's levels."""
+    qmax = (1 << a_bits) - 1
+    return true_div(torch.as_tensor(max_val, dtype=torch.float32), qmax)
+
+
+# ---------------------------------------------------------------------------
+# Weight quantization (MR imprinting path)
+# ---------------------------------------------------------------------------
+
+def weight_scale(w: torch.Tensor, w_bits: int, per_channel: bool = True,
+                 axis: int = -1) -> torch.Tensor:
+    """Symmetric scale. Per-channel = per output feature (axis=-1 for
+    [in, out]), keeping dims."""
+    return true_div(_weight_amax(w, per_channel, axis),
+                    (1 << (w_bits - 1)) - 1)
+
+
+def _weight_amax(w: torch.Tensor, per_channel: bool, axis: int = -1
+                 ) -> torch.Tensor:
+    """|w|'s maximum per output channel (all axes but ``axis``, dims kept)
+    or over the tensor, floored at 1e-8: the MR scale's numerator."""
+    if per_channel:
+        keep = axis % w.ndim
+        amax = w.abs().amax(dim=tuple(i for i in range(w.ndim) if i != keep),
+                            keepdim=True)
+    else:
+        amax = w.abs().amax()
+    floor = torch.full((), 1e-8, dtype=amax.dtype, device=amax.device)
+    return torch.maximum(amax, floor)
+
+
+def fake_quant_weight(w: torch.Tensor, spec: WASpec, axis: int = -1,
+                      noise_generator: Optional[torch.Generator] = None
+                      ) -> torch.Tensor:
+    """Fake-quantized weight with STE; optional MR transmission noise.
+
+    The noise models thermal drift of the ring resonance: a Gaussian
+    perturbation of the level, std ``spec.mr_noise_std`` quant steps, drawn
+    from ``noise_generator`` (on ``w``'s device). The reference draws it
+    from ``jax.random``: the two agree in distribution only.
+    """
+    s = weight_scale(w, spec.w_bits, spec.per_channel, axis)
+    q = _ste_round(_clip(true_div(w, s), -float(spec.w_qmax),
+                         float(spec.w_qmax)))
+    if spec.mr_noise_std > 0.0 and noise_generator is not None:
+        q = q + spec.mr_noise_std * torch.randn(
+            q.shape, generator=noise_generator, dtype=q.dtype,
+            device=q.device)
+    return q * s
+
+
 def quantize_weight(w: torch.Tensor, spec: WASpec, w_qmax=None):
     """-> (q int8, scale f32). q in [-w_qmax, w_qmax]; dequant = q * scale.
 
@@ -104,14 +196,30 @@ def quantize_weight(w: torch.Tensor, spec: WASpec, w_qmax=None):
     channel of HWIO conv and [K, N] dense weights), keeping dims.
     """
     w = w.float()
-    if spec.per_channel:
-        amax = w.abs().amax(dim=tuple(range(w.ndim - 1)), keepdim=True)
-    else:
-        amax = w.abs().amax()
-    s = true_div(torch.clamp_min(amax, 1e-8),
-                 spec.w_qmax if w_qmax is None else w_qmax)
+    s = (weight_scale(w, spec.w_bits, spec.per_channel) if w_qmax is None
+         else true_div(_weight_amax(w, spec.per_channel), w_qmax))
     q = torch.clamp(torch.round(true_div(w, s)), -spec.w_qmax, spec.w_qmax)
     return q.to(torch.int8), s
+
+
+# ---------------------------------------------------------------------------
+# Quantized matmul semantics (the reference the kernels must match)
+# ---------------------------------------------------------------------------
+
+def qmatmul_reference(x: torch.Tensor, w: torch.Tensor, spec: WASpec,
+                      act_scale=1.0) -> torch.Tensor:
+    """Integer-exact photonic MVM semantics on float carriers.
+
+    x [..., K] non-negative activations, w [K, N]: CRC codes of x times the
+    per-output-channel MR levels of w, an exact accumulate, dequantized by
+    ``acc * (act_scale * w_scale)`` in the reference's association.
+    """
+    a_codes = _clip(torch.round(true_div(x.float(), act_scale)), 0,
+                    spec.a_qmax)
+    wq, ws = quantize_weight(w, spec)
+    acc = torch.matmul(a_codes.double(), wq.double()).float()
+    scale = torch.as_tensor(act_scale, dtype=torch.float32, device=acc.device)
+    return acc * (scale * ws.reshape(-1))
 
 
 def resolve_layer_specs(n_layers: int,

@@ -152,6 +152,57 @@ def gray_target(frames) -> torch.Tensor:
     return x
 
 
+def fit_recon_head(layers, params, frames, steps: int = 150,
+                   lr: float = 0.3, momentum: float = 0.9,
+                   device=None) -> Dict:
+    """Train the deconv head (rec1/rec2) to reconstruct ``frames``.
+
+    Minimizes the MSE against the grayscale original through the float
+    oracle ``apply_float`` (CA -> bilinear -> head) with autograd and plain
+    SGD with momentum. The CA and the upsample have no parameters and the
+    frames carry no gradient, so the backward stops at the head.
+
+    Args:
+        layers: the ``compress_recon_deconv`` layer IR (convs named
+            ``rec1`` / ``rec2``).
+        params: the pipeline params; only the head entries are updated.
+        frames: ``[B, H, W, C]`` training frames in [0, 1] (numpy or a
+            tensor).
+        steps / lr / momentum: the SGD schedule.
+        device: where to train; ``None`` is the frames' device for a
+            tensor and ``cuda`` for numpy frames (raises without a GPU).
+
+    Returns:
+        A new params dict with the fitted head on ``device`` (the inputs are
+        not mutated).
+    """
+    from repro_torch.core.program import resolve_device
+    from repro_torch.imaging.reference import apply_float
+    if device is None:
+        device = frames.device if isinstance(frames, torch.Tensor) else "cuda"
+    dev = resolve_device(device)
+    x = frames.to(dev, torch.float32) if isinstance(frames, torch.Tensor) \
+        else torch.from_numpy(np.ascontiguousarray(frames, np.float32)).to(dev)
+    target = gray_target(x)
+    head = {k: {kk: torch.as_tensor(v).to(dev, torch.float32).detach()
+                .clone().requires_grad_()
+                for kk, v in params[k].items()}
+            for k in ("rec1", "rec2")}
+    frozen = {k: v for k, v in params.items() if k not in head}
+    leaves = [t for p in head.values() for t in p.values()]
+    vel = [torch.zeros_like(t) for t in leaves]
+    for _ in range(steps):
+        out = apply_float(layers, {**frozen, **head}, x)
+        loss = torch.mean((out - target) ** 2)
+        grads = torch.autograd.grad(loss, leaves)
+        with torch.no_grad():
+            for i, (t, g) in enumerate(zip(leaves, grads)):
+                vel[i] = momentum * vel[i] - lr * g
+                t.add_(vel[i])
+    return {**frozen, **{k: {kk: t.detach() for kk, t in p.items()}
+                         for k, p in head.items()}}
+
+
 # -- registry ---------------------------------------------------------------
 
 #: Every fixed-function imaging program, keyed by name:

@@ -1,7 +1,7 @@
-"""Edge shapes of the launch configurations of ``photonic_mvm``, the strip
-convs, the fused conv chain and ``ca_pool``, the distinct shapes of
-VGG16's kernel calls at 224x224x3, and an operand copy that defeats
-aligned loads.
+"""Edge shapes of the launch configurations of ``photonic_mvm`` (its float
+API on signed codes too), the strip convs, the fused conv chain and
+``ca_pool``, the distinct shapes of VGG16's kernel calls at 224x224x3, and
+an operand copy that defeats aligned loads.
 
 The ``gpu`` tests (``tests/test_torch_gpu.py``) and ``chip_smoke.py`` both
 hold each kernel bitwise against its plain version at these shapes, so the
@@ -21,6 +21,19 @@ MVM_EDGES = [(129, 2, 1, "skinny", False), (8, 9, 4, "skinny", False),
              (2048, 9, 64, "gemm", False), (8, 31, 100, "gemm", False),
              (33, 100, 257, "gemm", True), (33, 300, 257, "gemm", True),
              (33, 777, 129, "gemm", True)]
+
+# (m, k, n, route, split-K) of photonic_mvm's float API on signed CRC codes
+# (``ops.photonic_mvm``, ``nn.layers.dense(mode="kernel")``): M 1/8/64,
+# ragged M/K/N, both routes, split-K on and off; LeNet's fc1 at M = 1 and
+# VGG9-CA's at batch 64 among them, and both fc1s at M = 512 (several M
+# tiles under split-K, as in the smoke's kernel-mode evaluation)
+SIGNED_MVM_SHAPES = [(1, 31, 8, "skinny", False), (8, 20, 5, "skinny", False),
+                     (64, 9, 3, "skinny", False), (8, 31, 100, "gemm", False),
+                     (1, 400, 120, "gemm", True), (8, 101, 53, "gemm", True),
+                     (64, 1024, 512, "gemm", True),
+                     (37, 777, 129, "gemm", True),
+                     (512, 400, 120, "gemm", True),
+                     (512, 1024, 512, "gemm", True)]
 
 # (b, h_out, w_out, c_in, c_out, k, stride) of conv_bank.strip.strip_config:
 # ragged tiles and runs (a 16-byte-aligned 1-channel row among them), k 7,

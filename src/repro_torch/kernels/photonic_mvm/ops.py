@@ -2,6 +2,9 @@
 
 A CUDA tensor launches the kernel; a CPU tensor takes the plain version
 (``ref.mvm_int_ref``). There is no fallback between the two.
+:func:`photonic_mvm` is the float API over it (the reference's
+``kernels/photonic_mvm/ops.py``): signed CRC codes in [-15, 15] and
+per-channel MR levels, then ``mvm_int``.
 
 :func:`mvm_config` picks the kernel's route and tile from the shape alone,
 so it is tested on the CPU: the ``skinny`` route for N <= 8 and K <= 32
@@ -20,8 +23,9 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.quant import WASpec, quantize_weight
 from repro_torch.kernels import _build
-from repro_torch.kernels.photonic_mvm.ref import mvm_int_ref
+from repro_torch.kernels.photonic_mvm.ref import mvm_int_ref, signed_codes
 
 LAUNCHES = _build.LaunchCounter("photonic_mvm")
 _SIGNATURES = {"mvm_int_launch": (
@@ -129,3 +133,31 @@ def mvm_int(a_codes: torch.Tensor, wq: torch.Tensor,
     _build.check(err, "photonic_mvm")
     LAUNCHES.inc()
     return out
+
+
+def photonic_mvm_prequant(a_signed_codes: torch.Tensor, wq: torch.Tensor,
+                          ws: torch.Tensor, act_scale: float = 1.0
+                          ) -> torch.Tensor:
+    """Already-quantized operands (int8 carriers) -> dequantized output.
+
+    a_signed_codes [..., K] int8 in [-15, 15]; wq [K, N] int8; ws [N].
+    """
+    *lead, kdim = a_signed_codes.shape
+    n = wq.shape[-1]
+    out = mvm_int(a_signed_codes.reshape(-1, kdim), wq, ws.reshape(-1),
+                  act_scale)
+    return out.reshape(*lead, n)
+
+
+def photonic_mvm(x: torch.Tensor, w: torch.Tensor, spec: WASpec,
+                 act_scale: float = 1.0 / 15.0) -> torch.Tensor:
+    """Float API: x [..., K] @ w [K, N] under [W:A] ``spec``.
+
+    Quantizes both operands as the sensor and the MRs would, then runs the
+    integer kernel: bitwise equal to ``ref.photonic_mvm_ref``.
+    """
+    *lead, kdim = x.shape
+    wq, ws = quantize_weight(w, spec)
+    y = photonic_mvm_prequant(signed_codes(x.reshape(-1, kdim), spec,
+                                           act_scale), wq, ws, act_scale)
+    return y.reshape(*lead, w.shape[-1]).to(x.dtype)

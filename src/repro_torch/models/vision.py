@@ -1,4 +1,5 @@
-"""The paper's own CNNs as Lightator layer IR, with seeded random weights.
+"""The paper's own CNNs as Lightator layer IR, with seeded random weights
+and their trainable QAT forward.
 
 LeNet (MNIST) and VGG9 (CIFAR10/100) are the paper's evaluation models;
 VGG16 and AlexNet appear in its execution-time comparison. The IRs are the
@@ -6,7 +7,9 @@ reference package's, layer for layer; ``init_vision`` draws weights with
 the same shapes and fan-in scaling as the reference's initializers, from a
 ``torch.Generator`` (the numbers differ from ``jax.random``'s: to drive
 both packages with one set of weights, make them with numpy and pass them
-through ``repro_torch.weights.params_from_numpy``).
+through ``repro_torch.weights.params_from_numpy``). ``apply_vision`` is the
+quantization-aware forward over the same IR (``nn.layers`` fake-quant
+convs and denses, STE), differentiable with autograd.
 """
 
 from __future__ import annotations
@@ -18,6 +21,11 @@ import torch
 
 from repro_torch.core.accelerator import (CASpec, ConvSpec, DenseSpec,
                                           FlattenSpec, LayerIR)
+from repro_torch.core.compressive import compressive_acquire
+from repro_torch.core.quant import (MixedPrecisionScheme, WASpec,
+                                    resolve_layer_specs)
+from repro_torch.kernels.conv_bank.ref import float32_convs
+from repro_torch.nn import layers as L
 
 
 def lenet_ir(in_hw: int = 28, n_classes: int = 10,
@@ -149,6 +157,39 @@ def init_vision(generator: torch.Generator,
             "w": w * (1.0 / math.sqrt(max(fan_in, 1))),
             "b": torch.zeros((n_out,), dtype=torch.float32)}
     return params
+
+
+def apply_vision(params, layers: List[LayerIR], x: torch.Tensor,
+                 scheme: WASpec | MixedPrecisionScheme | None = None
+                 ) -> torch.Tensor:
+    """QAT forward: fake-quantized convs and denses (STE), float pooling,
+    on NHWC frames ``x`` -> logits. TF32 is off for the call; run the
+    backward inside ``float32_convs()`` too."""
+    compute = [l for l in layers if isinstance(l, (ConvSpec, DenseSpec))]
+    specs = (resolve_layer_specs(len(compute), scheme)
+             if scheme is not None else [None] * len(compute))
+    it = iter(specs)
+    with float32_convs():
+        for layer in layers:
+            if isinstance(layer, CASpec):
+                x = compressive_acquire(x, layer.pool, layer.rgb_to_gray)
+                if x.ndim == 3:
+                    x = x[..., None]
+            elif isinstance(layer, ConvSpec):
+                x = L.conv2d(params[layer.name], x, layer.stride,
+                             layer.padding, quant=next(it))
+                x = torch.relu(x) if layer.act == "relu" else x
+                if layer.pool:
+                    kind, size = layer.pool
+                    x = (L.max_pool2d(x, size) if kind == "max"
+                         else L.avg_pool2d(x, size))
+            elif isinstance(layer, FlattenSpec):
+                x = x.reshape(x.shape[0], -1)
+            elif isinstance(layer, DenseSpec):
+                x = L.dense(params[layer.name], x, quant=next(it))
+                if layer.act == "relu":
+                    x = torch.relu(x)
+    return x
 
 
 def vision_program(name: str, generator: Optional[torch.Generator] = None,

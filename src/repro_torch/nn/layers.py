@@ -1,0 +1,179 @@
+"""Core layers: dense (photonic-quantizable), embedding, norms, conv.
+
+``dense`` is the projection primitive the models route through; its
+``quant`` argument turns on the Lightator path:
+
+  quant=None                    plain float matmul — the non-photonic
+                                baseline
+  quant=WASpec, mode="fake"     QAT fake-quant (STE) — training the paper's
+                                way
+  quant=WASpec, mode="qweights" weight-only quantized storage (int carriers
+                                dequantized on the fly)
+  quant=WASpec, mode="kernel"   the photonic_mvm kernel (integer MAC on
+                                signed CRC codes)
+
+Params are dicts of tensors in the reference's layouts: dense ->
+``{"w": [in, out](, "b": [out])}``, quantized storage ``{"wq": int8
+[in, out], "ws": [1, out]}``; conv -> ``{"w": HWIO, "b": [out]}`` on NHWC
+activations. The float products are ``torch.matmul`` and ``F.conv2d``;
+the caller runs them with TF32 off (``conv_bank.ref.float32_convs``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.accelerator import window_mean
+from repro_torch.core.plan import padtype_to_pads
+from repro_torch.core.quant import (WASpec, fake_quant_act, fake_quant_weight,
+                                    quantize_weight)
+from repro_torch.kernels.photonic_mvm.ops import photonic_mvm
+from repro_torch.nn.module import normal_init, scaled_init
+
+CONV_ACT_SCALE = 1.0 / 15.0     # conv2d's fixed CRC step, as the reference's
+
+
+# ---------------------------------------------------------------------------
+# Dense
+# ---------------------------------------------------------------------------
+
+def init_dense(generator: torch.Generator, d_in: int, d_out: int,
+               bias: bool = False, dtype=torch.float32,
+               stddev: Optional[float] = None):
+    init = normal_init(stddev) if stddev is not None else scaled_init(d_in)
+    p = {"w": init(generator, (d_in, d_out), dtype)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype)
+    return p
+
+
+def _signed_fake_act(x: torch.Tensor, scale, a_bits: int) -> torch.Tensor:
+    """The BPD trick for signed activations (two VCSEL rails): quantize
+    |x| and reapply the sign."""
+    return torch.sign(x) * fake_quant_act(x.float().abs(), scale=scale,
+                                          a_bits=a_bits)
+
+
+def dense(params, x: torch.Tensor, quant: Optional[WASpec] = None,
+          mode: str = "fake", act_scale: float = 1.0 / 15.0) -> torch.Tensor:
+    """x: [..., d_in] -> [..., d_out]."""
+    if "wq" in params or (quant is not None and mode == "qweights"):
+        # photonic serving storage: int-carrier weights + per-channel scales
+        w = params["wq"].to(x.dtype) * params["ws"].to(x.dtype)
+        y = x @ w
+    elif quant is None:
+        y = x @ params["w"]
+    elif mode == "fake":
+        w = fake_quant_weight(params["w"].float(), quant)
+        y = (_signed_fake_act(x, act_scale, quant.a_bits) @ w).to(x.dtype)
+    elif mode == "kernel":
+        y = photonic_mvm(x, params["w"], quant, act_scale=act_scale)
+    else:
+        raise ValueError(f"unknown quant mode {mode}")
+    if "b" in params:
+        y = y + params["b"].to(y.dtype)
+    return y
+
+
+def quantize_dense_params(params, spec: WASpec):
+    """Convert float dense params to photonic serving storage (wq int8 +
+    ws)."""
+    wq, ws = quantize_weight(params["w"], spec)
+    out = {"wq": wq, "ws": ws.float()}
+    if "b" in params:
+        out["b"] = params["b"]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Embedding
+# ---------------------------------------------------------------------------
+
+def init_embedding(generator: torch.Generator, vocab: int, d_model: int,
+                   dtype=torch.float32):
+    return {"table": normal_init(1.0)(generator, (vocab, d_model), dtype)}
+
+
+def embedding_lookup(params, ids: torch.Tensor) -> torch.Tensor:
+    return params["table"][ids]
+
+
+def embedding_logits(params, x: torch.Tensor) -> torch.Tensor:
+    """Tied output head: x [..., d] @ table.T -> [..., vocab]."""
+    return x @ params["table"].T
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def init_rmsnorm(generator: torch.Generator, dim: int, dtype=torch.float32):
+    return {"scale": torch.ones((dim,), dtype=dtype)}
+
+
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(x.dtype)
+
+
+def init_layernorm(generator: torch.Generator, dim: int, dtype=torch.float32):
+    return {"scale": torch.ones((dim,), dtype=dtype),
+            "bias": torch.zeros((dim,), dtype=dtype)}
+
+
+def layernorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, correction=0)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"].float() + params["bias"].float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Conv2D (vision models; NHWC activations, HWIO weights)
+# ---------------------------------------------------------------------------
+
+def init_conv2d(generator: torch.Generator, k: int, c_in: int, c_out: int,
+                bias: bool = True, dtype=torch.float32):
+    p = {"w": scaled_init(k * k * c_in)(generator, (k, k, c_in, c_out),
+                                        dtype)}
+    if bias:
+        p["b"] = torch.zeros((c_out,), dtype=dtype)
+    return p
+
+
+def conv2d(params, x: torch.Tensor, stride: int = 1, padding: str = "SAME",
+           quant: Optional[WASpec] = None) -> torch.Tensor:
+    """XLA's ``conv_general_dilated`` (NHWC x HWIO, ``padding`` SAME or
+    VALID) as ``F.conv2d``; with ``quant``, fake-quantized weights and
+    sign * |x| CRC activations at the fixed 1/15 step."""
+    w = params["w"]
+    if quant is not None:
+        w = fake_quant_weight(w.float(), quant).to(x.dtype)
+        x = _signed_fake_act(x, CONV_ACT_SCALE, quant.a_bits).to(x.dtype)
+    (plo, phi), (qlo, qhi) = padtype_to_pads(x.shape[1:3], w.shape[0],
+                                             stride, padding)
+    xp = F.pad(x, (0, 0, qlo, qhi, plo, phi)).permute(0, 3, 1, 2)
+    y = F.conv2d(xp, w.permute(3, 2, 0, 1), stride=stride).permute(0, 2, 3, 1)
+    if "b" in params:
+        y = y + params["b"].to(y.dtype)
+    return y
+
+
+def max_pool2d(x: torch.Tensor, size: int = 2) -> torch.Tensor:
+    """Max over each window, ties sharing the gradient evenly (``amax``, as
+    the reference's ``max``; ``F.max_pool2d`` gives it to one)."""
+    b, h, w, c = x.shape
+    return x.reshape(b, h // size, size, w // size, size, c).amax(dim=(2, 4))
+
+
+def avg_pool2d(x: torch.Tensor, size: int = 2) -> torch.Tensor:
+    """Mean over each window, summed in the reference's order
+    (``accelerator.window_mean``)."""
+    b, h, w, c = x.shape
+    return window_mean(x.reshape(b, h // size, size, w // size, size, c))

@@ -22,3 +22,14 @@ def params_from_numpy(params: Mapping[str, Mapping[str, object]],
                                     device=device)
                     for k, v in p.items()}
             for layer, p in params.items()}
+
+
+def params_to_numpy(params: Mapping[str, Mapping[str, torch.Tensor]]
+                    ) -> Dict[str, Dict[str, np.ndarray]]:
+    """The reverse of :func:`params_from_numpy`: ``{layer: {"w", "b"}}``
+    of tensors on any device -> float32 numpy arrays (copies, detached
+    from autograd), e.g. trained weights for the reference package."""
+    return {layer: {k: torch.as_tensor(v).detach().to("cpu", torch.float32)
+                    .numpy().copy()
+                    for k, v in p.items()}
+            for layer, p in params.items()}

@@ -8,7 +8,9 @@ whole serving path on the card must equal the port's CPU run, and an
 imaging pipeline served through ``serve.Server`` must equal batch-1 runs.
 VGG16's kernel shapes at 224x224x3 (``VGG16_SHAPES``) are held bitwise at
 batch 1 and 8, its bound graph replays to its eager run, and a plan the
-verifier proved runs its fused chain with no range check.
+verifier proved runs its fused chain with no range check. The training
+slice: photonic_mvm's float API on signed codes at both routes, and QAT
+steps on the card against the CPU port's.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ from repro_torch.kernels.conv_bank.fused import conv_chain
 from repro_torch.kernels.conv_bank.ops import conv_bank, conv_bank_plain
 from repro_torch.kernels.conv_bank.ref import conv_chain_ref
 from repro_torch.kernels.edge_shapes import (CA_EDGES, CHAIN_EDGES, CHAINS,
-                                             DW_EDGES, MVM_EDGES, STRIP_EDGES,
+                                             DW_EDGES, MVM_EDGES,
+                                             SIGNED_MVM_SHAPES, STRIP_EDGES,
                                              VGG16_SHAPES, chain_case,
                                              odd_offset, vgg16_case)
 from repro_torch.kernels.photonic_mvm.ops import mvm_int
@@ -644,3 +647,62 @@ def test_verified_chain_plan_launches_with_no_range_check(cuda, monkeypatch):
     with pytest.raises(AssertionError, match="check_exact ran"):
         unproven.run_per_frame(f)
     plan_mod.clear_plan_cache()
+
+
+# -- training (the QAT slice) --------------------------------------------------
+
+@pytest.mark.parametrize("m,k,n,route,split", SIGNED_MVM_SHAPES)
+def test_signed_photonic_mvm_float_api_bitwise_equal_to_plain(cuda, m, k, n,
+                                                              route, split):
+    """The float API on signed CRC codes in [-15, 15] (``dense``'s kernel
+    mode) launches the kernel once on the route ``mvm_config`` picks and
+    is bitwise equal to ``photonic_mvm_ref`` on the same card tensors."""
+    from repro_torch.core.quant import W2A4
+    from repro_torch.kernels.photonic_mvm.ops import mvm_config, photonic_mvm
+    from repro_torch.kernels.photonic_mvm.ref import (photonic_mvm_ref,
+                                                      signed_codes)
+    cfg = mvm_config(m, k, n)
+    assert (cfg.route, cfg.split > 1) == (route, split)
+    g = torch.Generator().manual_seed(m * 5 + k + n)
+    x = (torch.randn((m, k), generator=g) * 0.6).to(cuda)
+    w = torch.randn((k, n), generator=g).to(cuda)
+    codes = signed_codes(x, W4A4, 1.0 / 15.0)
+    assert int(codes.min()) < 0 < int(codes.max()) or m * k < 30
+    for spec in (W4A4, W2A4):
+        reset_launch_counts()
+        got = photonic_mvm(x, w, spec)
+        assert launch_counts()["photonic_mvm"] == 1
+        assert torch.equal(got, photonic_mvm_ref(x, w, spec))
+
+
+def test_qat_steps_on_the_card_match_the_cpu_port(cuda):
+    """A few LeNet W4A4 steps and two VGG9-CA ones from the same weights on
+    the card and on the CPU: the first step's loss within 1e-4 relative
+    (cuDNN's convs and cuBLAS's matmuls, TF32 off, sum in another order
+    than the CPU's, and a CRC code within an ulp of a tie may step), every
+    loss finite; the weights trained on the card then serve bitwise equal
+    on the card and, moved, on the CPU."""
+    from repro_torch.launch import train_vision as tv
+    from repro_torch.models.vision import init_vision, VISION_MODELS
+    for model, steps, batch in (("lenet", 3, 64), ("vgg9", 2, 64)):
+        p0 = init_vision(torch.Generator().manual_seed(1),
+                         VISION_MODELS[model]())
+        card = tv.train(model, W4A4, steps, batch, device="cuda", params=p0)
+        cpu = tv.train(model, W4A4, steps, batch, device="cpu", params=p0)
+        assert card.clock == "cuda events" and len(card.step_ms) == steps
+        assert all(np.isfinite(card.losses)) and all(np.isfinite(cpu.losses))
+        assert card.losses[0] == pytest.approx(cpu.losses[0], rel=1e-4)
+        frames, _ = tv.dataset(model, 3, seed=9)
+        prog = Program.from_model(model, params=card.params)
+        on_card = prog.compile(Options(scheme=W4A4)).run_per_frame(frames)
+        on_cpu = prog.compile(Options(scheme=W4A4, device="cpu")) \
+            .run_per_frame(frames)
+        np.testing.assert_array_equal(on_card.cpu().numpy(), on_cpu.numpy())
+
+
+def test_train_vision_without_a_device_raises_on_a_cpu_only_host():
+    if torch.cuda.is_available():
+        pytest.skip("needs a host without a CUDA device")
+    from repro_torch.launch import train_vision as tv
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tv.train("lenet", W4A4, 1, 8)

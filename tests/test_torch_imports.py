@@ -4,7 +4,8 @@
   ``repro``/``repro.*`` module is loaded;
 * an AST scan of every source file of the port, of ``chip_smoke.py`` and
   of ``scripts/verify_plan_torch.py`` finds no import of either;
-* with no GPU, the entry points raise unless the caller asks for the CPU.
+* with no GPU, the entry points (serving and training) raise unless the
+  caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -79,3 +80,20 @@ def test_entry_points_refuse_cuda_without_a_gpu():
         Program.from_model("lenet").compile()
     # the CPU, asked for explicitly, works
     assert Options(device="cpu").device == "cpu"
+
+
+def test_training_entry_points_refuse_cuda_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import numpy as np
+    from repro_torch.imaging import PIPELINES, fit_recon_head
+    from repro_torch.launch import train_vision
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_vision.main(["--steps", "1"])
+    layers, params = PIPELINES["compress_recon_deconv"].build(8, 8, 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fit_recon_head(layers, params, np.zeros((1, 8, 8, 1), np.float32),
+                       steps=1)
+    # the CPU, asked for explicitly, works
+    run = train_vision.train("lenet", None, 1, 4, device="cpu")
+    assert len(run.losses) == 1
