@@ -9,8 +9,8 @@
     python3 chip_smoke.py --reread DIR     # re-read the profiler traces a
                                            # run left in DIR; no card
 
-Three served paths, each driven through ``serve.Server`` with the kernel
-launch counts zeroed just before its requests and read just after:
+The main paths, each with the kernel launch counts zeroed just before it
+runs and read just after (all but the LM through ``serve.Server``):
 
   vision   LeNet (28x28x1) and VGG9-CA (32x32x3), full width, seeded random
            weights from numpy, W4A4: 32 mixed requests of 1-8 frames;
@@ -24,7 +24,9 @@ launch counts zeroed just before its requests and read just after:
   train    LeNet and VGG9-CA (full width) QAT-trained on the card under
            W4A4, their weights evaluated with the dense layers on
            photonic_mvm's float API and run per frame (eager), then served
-           bound: 3 requests of 1, 3 and 8 held-out frames each.
+           bound: 3 requests of 1, 3 and 8 held-out frames each;
+  lm       tinyllama-1.1b and mamba2-1.3b at full width and depth, greedy
+           decoding at batch 4 (``models/lm.py``; no port kernel on it).
 
 Phases, each fatal on failure:
 
@@ -126,11 +128,38 @@ Phases, each fatal on failure:
      dense inputs;
      ``fit_recon_head`` on the card at 32x32x3, PSNR before and after
      (``[train]`` lines).
+ 11. lm: the LM families served by ``models/lm.py::greedy_generate``
+     (batch 4, an 8-token prompt from numpy, 24 tokens generated; no port
+     kernel is on this path, as no Pallas kernel is in the reference's:
+     the launch counts of the main path must stay 0). tinyllama-1.1b
+     (22 layers) and mamba2-1.3b (48 layers) at their published width and
+     depth, bf16, seeded weights from ``init_lm`` on the card, under quant
+     none, W4A4 fake-quant and ``quantize_lm_params`` W4A4 storage: tokens
+     identical over two runs, every logit finite, the prefill's logits
+     against the stepped decode's, held to the reference test's rtol =
+     atol = 5e-2 on a float32 copy of the weights in every mode and in
+     bf16 under W4A4 (printed in bf16 under none and storage, where bf16
+     rounding over full depth exceeds it as the reference's does); under
+     W4A4 the decode replays the prefill's activation codes (``ActTape``),
+     and the codes it would have taken itself are counted, each
+     activation held within ``LM_TIE`` code steps of the prefill's,
+     ms a decode step (CUDA events, median of the generated steps),
+     tokens/s, kernels a step and the device busy share of a profiled
+     5-step window, peak memory. Then the card against the CPU port,
+     float32, TF32 off, weights made once and carried through numpy: both
+     configs at full width with 2 layers, and the smoke variants of
+     smollm, stablelm, hymba (ring cache), hubert (forward only) and
+     internvl2 (patch frontend): every step's logits within 1e-4 of their
+     largest, greedy tokens equal wherever the CPU's top-2 margin exceeds
+     that; the two full-width configs also under W4A4, the card replaying
+     the CPU's activation codes, each activation within ``LM_TIE``
+     (float32) code steps of the CPU's (``[lm]`` lines).
 
 ``--rehearse`` runs every phase on the CPU with the plain versions: no
 graphs, the bound phase on 2 emulated CPU workers, VGG16 at 32x32x3
 (``vgg16_ir(in_hw=32)``, full channel widths, a conv budget that splits
-its convs into strip and resident as 224x224x3 does).
+its convs into strip and resident as 224x224x3 does), the LM configs'
+smoke variants.
 
 The last three lines of standard output are the ``kernels`` JSON object,
 ``nvidia-smi``'s name and power limit, and the result object
@@ -148,6 +177,8 @@ one yardstick for runs of different commits.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -232,6 +263,29 @@ TRAIN_ITERS = 20
 TRAIN_WINDOW = "chip_smoke.train_window"
 TRAIN_PROFILE_STEPS = 5
 TRAIN_TRACE = "train_{}_trace.json"
+# the [lm] phase: the two configs served at full width and depth (the
+# rehearsal runs their smoke variants), the batch, prompt and generated
+# tokens, the modes, the families held card against CPU at smoke size,
+# the layers of the full-width card-vs-CPU run, its tolerance (of the
+# largest |logit|), the prefill-vs-decode tolerance of the reference's
+# test, and the profiled decode window
+LM_ARCHS = ("tinyllama-1.1b", "mamba2-1.3b")
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 8, 24
+LM_MODES = ("none", "w4a4", "storage")
+LM_FAMILIES = ("smollm-360m", "stablelm-3b", "hymba-1.5b", "hubert-xlarge",
+               "internvl2-26b")
+LM_CPU_LAYERS = 2
+LM_CARD_CPU_TOL = 1e-4
+LM_PREFILL_TOL = 5e-2
+# how far, in CRC code steps, an activation's x / step may lie from the
+# one it is replayed against (``ActTape``): two runs' float32 sums are
+# ulps apart; in bfloat16 the residual stream drifts by bf16 ulps between
+# prefill and decode (2^-8 of |x| <= 1 is 0.06 of a step), and the bound
+# is that a flipped code only ever moves to its neighbour
+LM_TIE = {"float32": 1e-3, "bfloat16": 1.0}
+LM_WINDOW = "chip_smoke.lm_window"
+LM_PROFILE_STEPS = 5
+LM_TRACE = "lm_trace.json"
 # the port's kernels are top-level functions of an anonymous namespace
 PORT_KERNEL = r"^(void )?\(anonymous namespace\)::"
 KERNELS = ("photonic_mvm", "conv_chain", "ca_pool", "conv_strip",
@@ -2337,6 +2391,454 @@ def phase_train(device, rehearse, out_dir):
     return out, counts, err, n_cmp
 
 
+# ---------------------------------------------------------------------------
+# the [lm] phase
+# ---------------------------------------------------------------------------
+
+def lm_decode(lm, params, cfg, prompt, steps, cache_dtype=None, forced=None):
+    """The greedy loop of ``lm.greedy_generate`` (decode_step, then the
+    argmax) with each step timed: CUDA events on the card, the host clock
+    on the CPU. ``forced`` [B, T0+steps] feeds its tokens instead of the
+    argmax (teacher forcing). Returns (tokens [B, T0+steps] int32, logits
+    [B, T0+steps, V] float32 of every step, step ms)."""
+    import torch
+    device = prompt.device
+    b, t0 = prompt.shape
+    kw = {} if cache_dtype is None else {"dtype": cache_dtype}
+    cache = lm.init_cache(cfg, b, t0 + steps + 1, device=device, **kw)
+    toks, outs, marks = prompt.to(torch.int32), [], []
+    logits = None
+    for i in range(t0 + steps):
+        if i >= t0:
+            nxt = (forced[:, i:i + 1] if forced is not None else
+                   torch.argmax(logits, -1)[:, None].to(torch.int32))
+            toks = torch.cat([toks, nxt], 1)
+        if device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits, cache = lm.decode_step(params, cache, toks[:, i:i + 1],
+                                           cfg)
+            end.record()
+            marks.append((start, end))
+        else:
+            t = time.perf_counter()
+            logits, cache = lm.decode_step(params, cache, toks[:, i:i + 1],
+                                           cfg)
+            marks.append((t, time.perf_counter()))
+        outs.append(logits.float())
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        ms = [a.elapsed_time(z) for a, z in marks]
+    else:
+        ms = [(z - a) * 1e3 for a, z in marks]
+    return toks, torch.stack(outs, 1), ms
+
+
+def lm_profile(lm, params, cfg, prompt, path):
+    """``LM_PROFILE_STEPS`` greedy decode steps (after one warm step on the
+    prompt's first token) under the profiler: the window's device busy
+    share, kernels a step, the kernels that took the most device time.
+    The trace is read and deleted (tens of MB)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    cache = lm.init_cache(cfg, prompt.shape[0], LM_PROFILE_STEPS + 2,
+                          device=prompt.device)
+    logits, cache = lm.decode_step(params, cache, prompt[:, :1], cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function(LM_WINDOW):
+            for _ in range(LM_PROFILE_STEPS):
+                tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+                logits, cache = lm.decode_step(params, cache, tok, cfg)
+        torch.cuda.synchronize()
+    events = load_trace(prof, path)
+    os.remove(path)
+    out = busy_share(events, LM_WINDOW)
+    kernels = [e for e in device_work(events, LM_WINDOW)[0]
+               if e["cat"] == "kernel"]
+    out["kernels_per_step"] = len(kernels) / LM_PROFILE_STEPS
+    by_name = {}
+    for e in kernels:
+        name = e["name"][:60]
+        by_name[name] = by_name.get(name, 0.0) + e["dur"] / 1e3
+    out["top_kernels_ms"] = dict(sorted(by_name.items(),
+                                        key=lambda kv: -kv[1])[:5])
+    return out
+
+
+class ActTape:
+    """The W4A4 fake-quant's activations of one run, taped, to replay in
+    another. ``record()`` keeps, call by call, what
+    ``nn.layers._signed_fake_act`` gives (the signed CRC level) and x /
+    step before rounding, clipped to the codes' range. ``replay()`` makes
+    a later run take the taped levels in place of its own, call by call,
+    and measures its own against the tape: ``flipped`` of ``codes``
+    differ, and ``gap`` is the largest |x / step - taped x / step| over
+    every activation, in code steps. A code can differ only where the two
+    runs' x / step straddle a rounding point, so every flip lies within
+    ``gap`` of a tie. ``per_step`` replays a prefill's [B, T, ...] tape
+    one position per round of calls, as ``decode_step`` meets the same
+    call sites once per token."""
+
+    def __init__(self):
+        self.tape, self.flipped, self.codes, self.gap = [], 0, 0, 0.0
+
+    @contextlib.contextmanager
+    def _patch(self, wrap):
+        from repro_torch.nn import layers
+        orig = layers._signed_fake_act
+        layers._signed_fake_act = wrap(orig)
+        try:
+            yield self
+        finally:
+            layers._signed_fake_act = orig
+
+    @staticmethod
+    def _scaled(x, scale, a_bits):
+        qmax = float((1 << a_bits) - 1)
+        return (x.float() / scale).clamp(-qmax, qmax)
+
+    def record(self):
+        def wrap(orig):
+            def taped(x, scale, a_bits):
+                out = orig(x, scale, a_bits)
+                self.tape.append((out, self._scaled(x, scale, a_bits)))
+                return out
+            return taped
+        return self._patch(wrap)
+
+    def replay(self, per_step=False):
+        import torch
+        calls = [0]
+        flipped, gap = [], []
+
+        def wrap(orig):
+            def replayed(x, scale, a_bits):
+                out = orig(x, scale, a_bits)
+                t, j = divmod(calls[0], len(self.tape)) if per_step else \
+                    (None, calls[0])
+                calls[0] += 1
+                ref, ref_xs = (a.to(out.device) if t is None else
+                               a[:, t:t + 1].to(out.device)
+                               for a in self.tape[j])
+                need(ref.shape == out.shape, f"the activation tape is out "
+                     f"of step: call {calls[0] - 1} has {tuple(out.shape)}, "
+                     f"the tape {tuple(ref.shape)}")
+                flipped.append((out != ref).sum())
+                gap.append((self._scaled(x, scale, a_bits) - ref_xs).abs()
+                           .max())
+                self.codes += out.numel()
+                return ref
+            return replayed
+
+        @contextlib.contextmanager
+        def replaying():
+            self.flipped, self.codes, self.gap = 0, 0, 0.0
+            with self._patch(wrap):
+                yield self
+            want = len(self.tape) * (self.tape[0][0].shape[1]
+                                     if per_step and self.tape else 1)
+            need(calls[0] == want, f"the run made {calls[0]} fake-quant "
+                 f"calls where the tape has {want}")
+            if flipped:
+                self.flipped = int(torch.stack(flipped).sum())
+                self.gap = float(torch.stack(gap).max())
+        return replaying()
+
+
+def lm_allclose_ratio(got, want, tol):
+    """max |got - want| / (tol + tol |want|): at most 1 where
+    ``torch.allclose(got, want, rtol=tol, atol=tol)`` holds."""
+    return float(((got - want).abs() / (tol + tol * want.abs())).max())
+
+
+def lm_prefill_check(lm, params, cfg, prompt, label, hold=True):
+    """lm_forward's logits over the prompt against the stepped decode_step
+    logits, held (with ``hold``) to the reference test's rtol = atol =
+    ``LM_PREFILL_TOL``. Under the W4A4 fake-quant the prompt's decode
+    steps replay the prefill's activation codes (``ActTape``), and the
+    codes they would have taken themselves are counted: the gap of its
+    own codes (unforced) is printed, the replayed one held, and every
+    activation's x / step must agree with the prefill's within the
+    ``LM_TIE`` of the dtype, so that each flipped code is a rounding tie
+    between the two paths' sums. Returns the detail."""
+    import torch
+    tape = ActTape()
+    with tape.record():
+        prefill = lm.lm_forward(params, {"tokens": prompt}, cfg)[0].float()
+    _, own, _ = lm_decode(lm, params, cfg, prompt, 0, cfg.torch_dtype)
+    out = {"max_abs": float((own - prefill).abs().max()),
+           "ratio": lm_allclose_ratio(own, prefill, LM_PREFILL_TOL),
+           "held": hold}
+    held = own
+    if tape.tape:
+        with tape.replay(per_step=True):
+            _, held, _ = lm_decode(lm, params, cfg, prompt, 0,
+                                   cfg.torch_dtype)
+        out.update(replayed_max_abs=float((held - prefill).abs().max()),
+                   replayed_ratio=lm_allclose_ratio(held, prefill,
+                                                    LM_PREFILL_TOL),
+                   flipped=tape.flipped, codes=tape.codes,
+                   gap_steps=tape.gap)
+        if hold:
+            need(tape.gap <= LM_TIE[cfg.dtype], f"{label}: a decode "
+                 f"activation lies {tape.gap:.3g} code steps from the "
+                 f"prefill's (bound {LM_TIE[cfg.dtype]} in {cfg.dtype})")
+    if hold:
+        need(bool(torch.allclose(held, prefill, rtol=LM_PREFILL_TOL,
+                                 atol=LM_PREFILL_TOL)),
+             f"{label}: lm_forward's logits over the prompt and the stepped "
+             f"decode_step's differ beyond rtol=atol={LM_PREFILL_TOL} in "
+             f"{cfg.dtype} ({out})")
+    return out
+
+
+def lm_mode(lm, params, cfg, mode, prompt, device, out_dir):
+    """One config under one mode on the main path: greedy_generate and the
+    timed greedy loop (identical tokens, every logit finite), prefill
+    against decode in the config's dtype and on a float32 copy of the
+    weights, and on the card the profiled window and the peak memory."""
+    import torch
+    from repro_torch.core.quant import W4A4
+    from repro_torch.nn.module import cast_tree
+    if mode == "w4a4":
+        cfg = dataclasses.replace(cfg, quant_scheme="w4a4")
+    elif mode == "storage":
+        params = lm.quantize_lm_params(params, cfg, W4A4)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = lm.greedy_generate(params, cfg, prompt, LM_GEN)
+    if cuda:
+        torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    toks, logits, ms = lm_decode(lm, params, cfg, prompt, LM_GEN)
+    label = f"[lm] {cfg.name} {mode}"
+    need(torch.equal(first, toks), f"{label}: the tokens differ between "
+         f"runs")
+    need(bool(torch.isfinite(logits).all()), f"{label}: a logit is not "
+         f"finite")
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    # the config's own dtype, with its cache dtype, then a float32 copy of
+    # the same weights with float32 caches. In bf16 the two paths' GEMMs
+    # (other shapes) round apart by bf16 ulps, which 22 and 48 layers carry
+    # past the reference test's bound (its 2-layer setting): the gap is
+    # printed, as the reference's own gap is that size
+    # (tests/test_torch_lm_generate.py); under W4A4 the replayed one is held
+    bf16 = cfg.dtype == "bfloat16"
+    prefill = {cfg.dtype: lm_prefill_check(
+        lm, params, cfg, prompt, f"{label} {cfg.dtype}",
+        hold=not bf16 or mode == "w4a4")}
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = cast_tree(params, torch.float32)
+    prefill["float32"] = lm_prefill_check(lm, p32, f32, prompt,
+                                          f"{label} float32")
+    del p32
+    gen_ms = sorted(ms[LM_PROMPT:])
+    med = gen_ms[len(gen_ms) // 2]
+    out = {"ms_per_step_median": med, "ms_first_generated": ms[LM_PROMPT],
+           "ms_prefill_steps": ms[:LM_PROMPT],
+           "tokens_per_s": LM_BATCH * 1e3 / med,
+           "first_call_s": first_s, "prefill_vs_decode": prefill,
+           "tokens": first[0, LM_PROMPT:].tolist()}
+    if cuda:
+        out["peak_memory_gb"] = peak
+        out.update(lm_profile(lm, params, cfg, prompt,
+                              os.path.join(out_dir, LM_TRACE)))
+    return out
+
+
+def lm_card_vs_cpu(lm, cfg, device, seed):
+    """Weights made once on the CPU, carried through numpy
+    (``lm_params_to_numpy`` / ``lm_params_from_numpy``) to both devices;
+    float32, TF32 off, float32 caches. The forward's logits (encoders:
+    the only check), then a greedy run on the CPU, the card teacher-forced
+    along the CPU's tokens (every step's logits within ``LM_CARD_CPU_TOL``
+    of the largest), and the card's own greedy tokens equal to the CPU's
+    up to the first step whose top-2 margin on the CPU is within that.
+    Under the W4A4 fake-quant the card replays the CPU's activation codes
+    (``ActTape``) in the forward and the teacher-forced run, where every
+    activation's x / step must agree with the CPU's within
+    ``LM_TIE["float32"]``; the codes that differ are counted, and the
+    forward's error with the card's own codes is printed."""
+    import numpy as np
+    import torch
+    from repro_torch.data.synthetic import modality_batch
+    from repro_torch.kernels.conv_bank.ref import float32_convs
+    from repro_torch.weights import lm_params_from_numpy, lm_params_to_numpy
+    cpu = torch.device("cpu")
+    tree = lm_params_to_numpy(lm.init_lm(torch.Generator().manual_seed(seed),
+                                         cfg, device="cpu"))
+    on = {d: lm_params_from_numpy(tree, d, cfg) for d in (cpu, device)}
+    label = (f"[lm] card vs CPU {cfg.name} {cfg.quant_scheme} "
+             f"({cfg.n_layers} layers)")
+    out = {}
+    fwd_tape, dec_tape = ActTape(), ActTape()
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    def held_tape(tape, what):
+        if not tape.tape:
+            return
+        out[what] = {"flipped": tape.flipped, "codes": tape.codes,
+                     "gap_steps": tape.gap}
+        need(tape.gap <= LM_TIE["float32"], f"{label}: a {what} activation "
+             f"on the card lies {tape.gap:.3g} code steps from the CPU's "
+             f"(bound {LM_TIE['float32']})")
+
+    with float32_convs():
+        batch = modality_batch(cfg, LM_BATCH, LM_PROMPT if cfg.frontend !=
+                               "vision" else cfg.n_patches + LM_PROMPT,
+                               seed=seed)
+        inputs = {d: {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+                  for d in (cpu, device)}
+        with fwd_tape.record():
+            want_fwd = lm.lm_forward(on[cpu], inputs[cpu], cfg)[0].float()
+        with fwd_tape.replay():
+            got_fwd = lm.lm_forward(on[device], inputs[device],
+                                    cfg)[0].float().cpu()
+        held_tape(fwd_tape, "forward")
+        out["forward_rel_err"] = rel(got_fwd, want_fwd)
+        if fwd_tape.tape:
+            own_fwd = lm.lm_forward(on[device], inputs[device],
+                                    cfg)[0].float().cpu()
+            out["forward_own_codes_rel_err"] = rel(own_fwd, want_fwd)
+        need(out["forward_rel_err"] <= LM_CARD_CPU_TOL, f"{label}: the "
+             f"forward's logits differ by {out['forward_rel_err']:.3g} of "
+             f"their largest")
+        if cfg.family == "encoder":
+            return out
+        prompt = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, cfg.vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32))
+        with dec_tape.record():
+            toks, want, _ = lm_decode(lm, on[cpu], cfg, prompt, LM_GEN,
+                                      torch.float32)
+        with dec_tape.replay():
+            _, got, _ = lm_decode(lm, on[device], cfg, prompt.to(device),
+                                  LM_GEN, torch.float32,
+                                  forced=toks.to(device))
+        held_tape(dec_tape, "decode")
+        # the card's own greedy run, on the CPU's codes while its tokens
+        # follow the CPU's (the only steps compared)
+        with dec_tape.replay():
+            own, _, _ = lm_decode(lm, on[device], cfg, prompt.to(device),
+                                  LM_GEN, torch.float32)
+    scale = want.abs().amax(-1)                          # [B, steps]
+    err = ((got.cpu() - want).abs().amax(-1) / scale).max()
+    out["decode_rel_err"] = float(err)
+    need(out["decode_rel_err"] <= LM_CARD_CPU_TOL, f"{label}: decode logits "
+         f"differ by {out['decode_rel_err']:.3g} of their largest")
+    top2 = want.topk(2, -1).values
+    margin = ((top2[..., 0] - top2[..., 1]) / scale).amin(0)   # [steps]
+    close = [i for i in range(LM_PROMPT - 1, LM_PROMPT + LM_GEN - 1)
+             if margin[i] <= LM_CARD_CPU_TOL]
+    n = (close[0] if close else LM_PROMPT + LM_GEN - 1) - (LM_PROMPT - 1)
+    need(torch.equal(own.cpu()[:, :LM_PROMPT + n], toks[:, :LM_PROMPT + n]),
+         f"{label}: the card's greedy tokens leave the CPU's within "
+         f"{n} steps, where the CPU's margins are above {LM_CARD_CPU_TOL}")
+    out["tokens_compared"] = n
+    return out
+
+
+def phase_lm(device, rehearse, out_dir, smi):
+    """The LM families served by greedy decoding (the module docstring's
+    phase 11). Returns its detail and the port's kernel launches of the
+    main path (none expected: no LM product runs through a port kernel,
+    as none runs through a Pallas kernel in the reference)."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import lm
+    out = {"device": smi, "runs": {}, "card_vs_cpu": {}}
+    t_phase = time.perf_counter()
+    log(f"[lm] on {smi}: batch {LM_BATCH}, prompt {LM_PROMPT} tokens "
+        f"(numpy seed {SEED}), {LM_GEN} generated, modes {LM_MODES}")
+    reset_launch_counts()
+    for arch in LM_ARCHS:
+        cfg = (configs.smoke_variant if rehearse else configs.get_config)(
+            arch)
+        params = lm.init_lm(torch.Generator(device=device).manual_seed(SEED),
+                            cfg, device=device)
+        prompt = torch.from_numpy(np.random.default_rng(SEED).integers(
+            0, cfg.vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)).to(device)
+        for mode in LM_MODES:
+            r = lm_mode(lm, params, cfg, mode, prompt, device, out_dir)
+            out["runs"][f"{arch} {mode}"] = r
+            prof = ("" if "busy_share" not in r else
+                    f"; {r['kernels_per_step']:.0f} kernels a step, device "
+                    f"busy {r['busy_ms']:.3f} of a {r['window_ms']:.3f} ms "
+                    f"{LM_PROFILE_STEPS}-step window "
+                    f"({r['busy_share']:.1%}); peak memory "
+                    f"{r['peak_memory_gb']:.3f} GB; top kernels "
+                    f"{r['top_kernels_ms']}")
+            pvd = "; ".join(
+                f"{dt} ({'held' if v['held'] else 'printed'}) "
+                f"{v['max_abs']:.4g} (x{v['ratio']:.3g} of the bound)"
+                + ("" if "flipped" not in v else
+                   f", on the prefill's codes {v['replayed_max_abs']:.4g} "
+                   f"(x{v['replayed_ratio']:.3g}), {v['flipped']} of "
+                   f"{v['codes']} codes flipped, activations within "
+                   f"{v['gap_steps']:.3g} code steps")
+                for dt, v in r["prefill_vs_decode"].items())
+            log(f"[lm] {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, "
+                f"{cfg.dtype}) {mode}: decode {r['ms_per_step_median']:.3f} "
+                f"ms a step median of {LM_GEN} (first generated "
+                f"{r['ms_first_generated']:.3f}), {r['tokens_per_s']:.1f} "
+                f"tokens/s at batch {LM_BATCH}; first greedy_generate "
+                f"{r['first_call_s']:.2f}s; tokens identical over 2 runs, "
+                f"logits finite; prefill vs decode max |diff| (bound "
+                f"rtol=atol={LM_PREFILL_TOL}): {pvd}{prof}; tokens "
+                f"{r['tokens']}")
+        del params
+    counts = {"lm": launch_counts()}
+    need(not any(counts["lm"].values()), f"[lm] a port kernel launched on "
+         f"the LM path: {counts['lm']}")
+    log(f"[lm] port kernel launches on the LM path: {counts['lm']} (none "
+        f"expected)")
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    cases = [(dataclasses.replace(
+        (configs.smoke_variant if rehearse else configs.get_config)(a),
+        n_layers=LM_CPU_LAYERS, dtype="float32", quant_scheme=q),
+        "smoke" if rehearse else "full width")
+        for a in LM_ARCHS for q in ("none", "w4a4")]
+    cases += [(dataclasses.replace(configs.smoke_variant(a),
+                                   dtype="float32"), "smoke")
+              for a in LM_FAMILIES]
+    for cfg, size in cases:
+        t0 = time.perf_counter()
+        r = lm_card_vs_cpu(lm, cfg, device, SEED)
+        r["wall_s"] = time.perf_counter() - t0
+        out["card_vs_cpu"][f"{cfg.name} {cfg.quant_scheme}"] = r
+        codes = "".join(
+            f"; {what}: {r[what]['flipped']} of {r[what]['codes']} codes "
+            f"flipped, activations within {r[what]['gap_steps']:.3g} code "
+            f"steps of the CPU's" for what in ("forward", "decode")
+            if what in r)
+        log(f"[lm] card vs CPU port, {cfg.name} {size} ({cfg.family}, "
+            f"{cfg.n_layers} layers, d {cfg.d_model}, float32, TF32 off, "
+            f"quant {cfg.quant_scheme}): forward logits within "
+            f"{r['forward_rel_err']:.3g} of their largest"
+            + ("" if "forward_own_codes_rel_err" not in r else
+               f" on the CPU's codes ({r['forward_own_codes_rel_err']:.3g} "
+               f"on the card's own)")
+            + codes + ("" if "decode_rel_err" not in r else
+                          f", {LM_PROMPT + LM_GEN} decode steps within "
+                          f"{r['decode_rel_err']:.3g} (bound "
+                          f"{LM_CARD_CPU_TOL}), greedy tokens equal over "
+                          f"{r['tokens_compared']} of {LM_GEN}")
+            + f"; {r['wall_s']:.2f}s")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[lm] phase {out['phase_s']:.1f}s")
+    return out, counts
+
+
 def reread(trace_dir):
     """Each device-time range of the run whose traces lie in ``trace_dir``:
     its launches, kernel records and device ms per batch by kernel
@@ -2634,6 +3136,9 @@ def main(argv) -> int:
         rows["photonic_mvm"]["by_path"]["train"]["calls"] = \
             len(train["float_api"])
 
+        lm_out, lm_counts = phase_lm(device, rehearse, out_dir, smi)
+        served.update(lm_counts)
+
         launches = {k: {path: served[path][k] for path in served}
                     for k in KERNELS}
         for k in KERNELS:
@@ -2665,7 +3170,7 @@ def main(argv) -> int:
                        "serve_bound": bound,
                        "imaging_bound_busy_share": bound_busy,
                        "load": load, "obs": obs_out, "vgg16": vgg16,
-                       "train": train,
+                       "train": train, "lm": lm_out,
                        "ca_pool_cold_device_ms": ca_cold,
                        "comparisons": n_cmp,
                        "conv_bank_float_err": bank_float_err,

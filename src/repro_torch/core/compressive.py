@@ -14,6 +14,9 @@ step is computed exactly by :func:`fma_f32`.
 
 ``upsample_reconstruct`` is the CA's inverse (bilinear or nearest), bitwise
 equal to the reference's ``jax.image.resize``, with the same FMA emulation.
+``strided_conv_acquire`` is the CA's strided-conv mode, and
+``sequence_ca`` its generalization to token/frame/patch embedding streams
+(the LM's audio and vision frontends).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.accelerator import window_mean
+from repro_torch.core.quant import true_div
 
 RGB_COEFFS = (0.299, 0.587, 0.114)
 
@@ -96,6 +100,25 @@ def compressive_acquire(img: torch.Tensor, pool: int = 2,
             for dj in range(pool):
                 acc = fma_f32(x[..., di, :, dj, ch], coeffs[di, dj, ch], acc)
     return acc
+
+
+def strided_conv_acquire(img: torch.Tensor, weights: torch.Tensor,
+                         stride: int) -> torch.Tensor:
+    """The CA's other mode: a configurable strided convolution at
+    acquisition. img: [..., H, W, C]; weights: [k, k, C]; returns
+    [..., H', W'] (VALID windows), as patch extraction + the same weighted
+    MAC. A float32 einsum: held to the reference within its summation
+    order, not bitwise."""
+    k = weights.shape[0]
+    h, w = img.shape[-3], img.shape[-2]
+    h_out = (h - k) // stride + 1
+    w_out = (w - k) // stride + 1
+    taps = torch.arange(k, device=img.device)[None, :]
+    rows = torch.arange(h_out, device=img.device)[:, None] * stride + taps
+    cols = torch.arange(w_out, device=img.device)[:, None] * stride + taps
+    patches = img[..., rows, :, :]                  # [..., h', k, W, C]
+    patches = patches[..., :, :, cols, :]           # [..., h', k, w', k, C]
+    return torch.einsum("...hpwqc,pqc->...hw", patches, weights)
 
 
 @functools.lru_cache(maxsize=None)
@@ -181,3 +204,19 @@ def upsample_reconstruct(img: torch.Tensor, factor: int = 2,
         else:
             x = _interp_axis(x, axis, n_out)
     return x
+
+
+def sequence_ca(embeds: torch.Tensor, factor: int) -> torch.Tensor:
+    """Compressive acquisition for token/frame/patch embedding streams.
+
+    embeds: [..., T, D]; returns [..., T/factor, D]. Mean-pools ``factor``
+    consecutive embeddings (the CA's mean pooling), summed in float32 and
+    divided once (IEEE, ``quant.true_div``). The LM's audio and vision
+    frontends call it when ``ca_factor`` > 1; they pass no per-feature
+    mix, so the reference's ``channel_mix`` option is not carried over.
+    """
+    *lead, t, d = embeds.shape
+    if t % factor:
+        raise ValueError(f"T({t}) must be divisible by factor={factor}")
+    x = embeds.reshape(*lead, t // factor, factor, d).float().sum(dim=-2)
+    return true_div(x, factor).to(embeds.dtype)

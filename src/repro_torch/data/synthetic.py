@@ -4,7 +4,9 @@ MNIST and CIFAR, which are not downloaded.
   * ``synthetic_digits``   — 28x28 seven-segment "digit" glyphs with jitter
     and noise, 10 classes (LeNet's input);
   * ``synthetic_textures`` — k-class oriented sinusoid textures in RGB
-    (VGG9's input, and the imaging pipelines' test frames).
+    (VGG9's input, and the imaging pipelines' test frames);
+  * ``modality_batch`` — a host batch of tokens, labels and frontend
+    embeddings for any LM ``ModelConfig``.
 
 A copy of the reference package's generators: the same seed gives the
 same arrays.
@@ -12,7 +14,7 @@ same arrays.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -75,3 +77,25 @@ def synthetic_textures(n: int, n_classes: int = 10, seed: int = 0,
         imgs[i] = base[..., None] * color[None, None, :]
     imgs += 0.08 * rng.standard_normal(imgs.shape).astype(np.float32)
     return np.clip(imgs, 0, 1), labels.astype(np.int32)
+
+
+def modality_batch(cfg, batch: int, seq: int, seed: int = 0
+                   ) -> Dict[str, np.ndarray]:
+    """A host batch for any ModelConfig: ``tokens`` and ``labels`` int32,
+    and ``frames`` (audio) or ``patches`` (vision) float32 embeddings."""
+    rng = np.random.default_rng(seed)
+    out: Dict[str, np.ndarray] = {}
+    if cfg.frontend == "audio":
+        out["frames"] = rng.standard_normal(
+            (batch, seq, cfg.frontend_dim)).astype(np.float32)
+        out["labels"] = rng.integers(0, cfg.vocab, (batch, seq)).astype(np.int32)
+    elif cfg.frontend == "vision":
+        t_text = seq - cfg.n_patches
+        out["patches"] = rng.standard_normal(
+            (batch, cfg.n_patches, cfg.frontend_dim)).astype(np.float32)
+        out["tokens"] = rng.integers(0, cfg.vocab, (batch, t_text)).astype(np.int32)
+        out["labels"] = rng.integers(0, cfg.vocab, (batch, t_text)).astype(np.int32)
+    else:
+        out["tokens"] = rng.integers(0, cfg.vocab, (batch, seq)).astype(np.int32)
+        out["labels"] = rng.integers(0, cfg.vocab, (batch, seq)).astype(np.int32)
+    return out

@@ -46,7 +46,7 @@ def init_dense(generator: torch.Generator, d_in: int, d_out: int,
     init = normal_init(stddev) if stddev is not None else scaled_init(d_in)
     p = {"w": init(generator, (d_in, d_out), dtype)}
     if bias:
-        p["b"] = torch.zeros((d_out,), dtype=dtype)
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=generator.device)
     return p
 
 
@@ -65,7 +65,9 @@ def dense(params, x: torch.Tensor, quant: Optional[WASpec] = None,
         w = params["wq"].to(x.dtype) * params["ws"].to(x.dtype)
         y = x @ w
     elif quant is None:
-        y = x @ params["w"]
+        # operands of two dtypes promote, as jnp.matmul's do
+        dt = torch.promote_types(x.dtype, params["w"].dtype)
+        y = x.to(dt) @ params["w"].to(dt)
     elif mode == "fake":
         w = fake_quant_weight(params["w"].float(), quant)
         y = (_signed_fake_act(x, act_scale, quant.a_bits) @ w).to(x.dtype)

@@ -2,24 +2,9 @@
 
 from __future__ import annotations
 
-from typing import Callable, List
-
 import torch
 
-
-def tree_leaves(tree) -> List[torch.Tensor]:
-    """The tensors of a nested dict, in insertion order."""
-    if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
-    return [tree]
-
-
-def tree_map(fn: Callable, tree, *rest):
-    """``fn`` over the leaves of nested dicts of one structure."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    return fn(tree, *rest)
+from repro_torch.nn.module import tree_leaves, tree_map
 
 
 def global_norm(tree) -> torch.Tensor:

@@ -16,6 +16,11 @@ Pinned here:
 * The avg pool sums its window row-major from 0 and divides once — what
   the reference's ``mean(axis=(2, 4))`` does on the pooled shapes of the
   serving path — while ``torch.mean`` does not.
+* ``sequence_ca`` (the LM frontends' CA) and ``strided_conv_acquire``
+  against the reference: the mean of 2 or 4 embeddings bitwise, in
+  float32 and bfloat16 (a sum of at most 4 terms, in float32, and one
+  division), the strided conv's
+  einsum within the float32 sum bound of its k*k*C taps.
 """
 
 from __future__ import annotations
@@ -30,10 +35,13 @@ import torch
 
 from repro.core.compressive import ca_coefficients as jax_coefficients
 from repro.core.compressive import compressive_acquire as jax_acquire
+from repro.core.compressive import sequence_ca as jax_sequence_ca
+from repro.core.compressive import strided_conv_acquire as jax_strided
 from repro.kernels.ca_pool.ops import ca_pool as pallas_ca_pool
 from repro_torch.core.accelerator import _pool
 from repro_torch.core.compressive import (ca_coefficients,
-                                          compressive_acquire, fma_f32)
+                                          compressive_acquire, fma_f32,
+                                          sequence_ca, strided_conv_acquire)
 from repro_torch.kernels import dispatch, launch_counts, reset_launch_counts
 from repro_torch.kernels.ca_pool.ops import ca_pool
 
@@ -168,3 +176,28 @@ def test_torch_mean_is_not_the_reference_pool_order():
         .mean(dim=(2, 4)).numpy()
     pooled = _pool(torch.from_numpy(y), "avg", 2).numpy()
     assert not np.array_equal(naive, pooled)
+
+
+@pytest.mark.parametrize("factor", [1, 2, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sequence_ca_bitwise_equal_to_reference(factor, dtype):
+    x = np.random.default_rng(factor).standard_normal(
+        (2, 16, 24)).astype(np.float32)
+    want = np.asarray(jax.jit(lambda v: jax_sequence_ca(
+        v.astype(dtype), factor))(x).astype(jnp.float32))
+    got = sequence_ca(torch.from_numpy(x).to(getattr(torch, dtype)), factor)
+    assert str(got.dtype) == f"torch.{dtype}"
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    with pytest.raises(ValueError, match="divisible"):
+        sequence_ca(torch.from_numpy(x), 3)
+
+
+@pytest.mark.parametrize("k,stride", [(2, 2), (3, 1), (3, 2), (5, 3)])
+def test_strided_conv_acquire_against_reference(k, stride):
+    img = _img((2, 17, 19, 3), seed=k)
+    w = np.random.default_rng(stride).random((k, k, 3)).astype(np.float32)
+    want = np.asarray(jax.jit(lambda a, b: jax_strided(a, b, stride))(img, w))
+    got = strided_conv_acquire(torch.from_numpy(img), torch.from_numpy(w),
+                               stride).numpy()
+    assert got.shape == want.shape
+    _within_sum_bound(got, want.astype(np.float64), k * k * 3)

@@ -10,7 +10,8 @@ VGG16's kernel shapes at 224x224x3 (``VGG16_SHAPES``) are held bitwise at
 batch 1 and 8, its bound graph replays to its eager run, and a plan the
 verifier proved runs its fused chain with no range check. The training
 slice: photonic_mvm's float API on signed codes at both routes, and QAT
-steps on the card against the CPU port's.
+steps on the card against the CPU port's. The LM families: every non-MoE
+smoke arch's forward and decode steps on the card against the CPU port.
 """
 
 from __future__ import annotations
@@ -706,3 +707,54 @@ def test_train_vision_without_a_device_raises_on_a_cpu_only_host():
     from repro_torch.launch import train_vision as tv
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tv.train("lenet", W4A4, 1, 8)
+
+
+# -- the LM families (models/lm.py) -------------------------------------------
+
+LM_ARCHS = ("hubert-xlarge", "hymba-1.5b", "internvl2-26b", "mamba2-1.3b",
+            "smollm-360m", "stablelm-3b", "tinyllama-1.1b", "yi-34b")
+
+
+@pytest.mark.parametrize("quant", ["none", "w4a4"])
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_on_the_card_matches_the_cpu_port(cuda, arch, quant):
+    """Every non-MoE smoke arch in float32 (TF32 off), the same weights
+    carried through numpy to both devices: the forward's logits and three
+    decode steps' logits (float32 caches) within 1e-4 of their largest
+    (cuBLAS sums in another order than the CPU; under W4A4 a CRC code
+    within an ulp of a tie may step, which the tolerance does not cover:
+    a failure here names such a case); the card's cache position stays a
+    device tensor."""
+    from repro_torch.configs import smoke_variant
+    from repro_torch.data.synthetic import modality_batch
+    from repro_torch.kernels.conv_bank.ref import float32_convs
+    from repro_torch.models import lm
+    from repro_torch.weights import lm_params_from_numpy, lm_params_to_numpy
+    cfg = dataclasses.replace(smoke_variant(arch), dtype="float32",
+                              quant_scheme=quant)
+    tree = lm_params_to_numpy(lm.init_lm(torch.Generator().manual_seed(2),
+                                         cfg, device="cpu"))
+    batch = modality_batch(cfg, 2, 16, seed=3)
+    out, fed = {}, None        # the card is fed the CPU's greedy tokens
+    with float32_convs():
+        for dev in ("cpu", "cuda"):
+            params = lm_params_from_numpy(tree, dev, cfg)
+            fwd, _ = lm.lm_forward(params, {k: torch.from_numpy(v).to(dev)
+                                            for k, v in batch.items()}, cfg)
+            out[dev] = [fwd.cpu()]
+            if cfg.family == "encoder":
+                continue
+            cache = lm.init_cache(cfg, 2, 8, dtype=torch.float32, device=dev)
+            toks = fed or [torch.from_numpy(batch["tokens"][:, :1])]
+            for i in range(3):
+                lg, cache = lm.decode_step(params, cache, toks[i].to(dev),
+                                           cfg)
+                assert cache["pos"].device.type == dev
+                out[dev].append(lg.cpu())
+                if fed is None:
+                    toks.append(lg.argmax(-1)[:, None].to(torch.int32))
+            fed = toks
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert torch.isfinite(got).all()
+        err = (got - want).abs().max() / want.abs().max()
+        assert float(err) <= 1e-4, float(err)

@@ -4,8 +4,8 @@
   ``repro``/``repro.*`` module is loaded;
 * an AST scan of every source file of the port, of ``chip_smoke.py`` and
   of ``scripts/verify_plan_torch.py`` finds no import of either;
-* with no GPU, the entry points (serving and training) raise unless the
-  caller asks for the CPU.
+* with no GPU, the entry points (serving, training and the LM's) raise
+  unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -97,3 +97,24 @@ def test_training_entry_points_refuse_cuda_without_a_gpu():
     # the CPU, asked for explicitly, works
     run = train_vision.train("lenet", None, 1, 4, device="cpu")
     assert len(run.losses) == 1
+
+
+def test_lm_entry_points_refuse_cuda_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.configs import smoke_variant
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import lm
+    cfg = smoke_variant("tinyllama-1.1b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_lm.main(["--smoke", "--gen", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.init_lm(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.init_cache(cfg, 1, 4)
+    # the CPU, asked for explicitly, works
+    toks, = serve_lm.main(["--smoke", "--gen", "2", "--batch", "1",
+                           "--quant", "w4a4", "--device", "cpu"])
+    assert toks.shape == (1, serve_lm.PROMPT_LEN + 2)
+    params = lm.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    assert params["embed"]["table"].device.type == "cpu"
