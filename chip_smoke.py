@@ -26,7 +26,10 @@ runs and read just after (all but the LM through ``serve.Server``):
            photonic_mvm's float API and run per frame (eager), then served
            bound: 3 requests of 1, 3 and 8 held-out frames each;
   lm       tinyllama-1.1b and mamba2-1.3b at full width and depth, greedy
-           decoding at batch 4 (``models/lm.py``; no port kernel on it).
+           decoding at batch 4 (``models/lm.py``; no port kernel on it);
+  moe      grok-1-314b and kimi-k2-1t-a32b at full width, cut in depth
+           (``MOE_RUNS``), greedy decoding at batch 4 (``models/lm.py``'s
+           moe family over ``nn/moe.py``; no port kernel on it).
 
 Phases, each fatal on failure:
 
@@ -41,7 +44,10 @@ Phases, each fatal on failure:
      edge_detect's fused segment at 64x64, the 512x512 multi-strip
      geometries, a stride-2 VALID and a grouped conv, a VGG16-like layer,
      the conv_bank op in both strategies at k = 3, 5, 7), and is held
-     bitwise equal to its plain PyTorch version on the same inputs. The
+     bitwise equal to its plain PyTorch version on the same inputs (the
+     served path's ``ca_pool.ops.acquire``, and the public ``ca_pool`` op
+     with a signed bank of its own on every weighted route's edges, in
+     float32 and bfloat16, against ``ca_pool_ref_generic``). The
      conv_bank op, which no served path reaches, is driven once on its own
      with the counts zeroed around it;
   4. timing: each kernel at its path shapes (the conv_bank op at its own),
@@ -154,12 +160,36 @@ Phases, each fatal on failure:
      that; the two full-width configs also under W4A4, the card replaying
      the CPU's activation codes, each activation within ``LM_TIE``
      (float32) code steps of the CPU's (``[lm]`` lines).
+ 12. moe: the MoE family served by ``greedy_generate`` (batch 4, an
+     8-token prompt, 24 generated; launch counts of the main path must
+     stay 0): grok-1-314b at full width (d 6144, 8 experts of d_ff 32768,
+     vocab 131072) with 4 of its 64 layers under quant none and W4A4
+     storage and 2 under the W4A4 fake-quant, and kimi-k2-1t-a32b at full
+     width (d 7168, 384 experts of d_ff 2048, top-8, vocab 163840) with 1
+     of its 61 layers under none and storage, bf16, seeded weights from
+     ``init_lm`` on the card, the FULL configs' grouped dispatch; storage
+     quantizes expert by expert and then drops the float tree. Each run:
+     tokens identical over two runs, logits finite, ms a decode step,
+     tokens/s, kernels a step and busy share of a profiled 5-step window,
+     peak memory, the prompt's forward's dropped fraction, and its logits
+     against the stepped decode's, held to 5e-2 only where the two paths
+     compute the same function (nothing dropped, every token routed to
+     the same experts, no W4A4 codes), printed otherwise. The combine
+     casts (float8_e4m3fn, bfloat16) bitwise on the card and the CPU.
+     Then the card against the CPU port, float32, TF32 off: the smoke
+     variants of both under the sorted and grouped dispatches and quant
+     none, W4A4 (the card replaying the CPU's codes) and storage, and
+     grok-1 at full width with 1 layer (batch 2, 4 prompt and 4 generated
+     tokens; the host RAM printed first): logits within 1e-4 of their
+     largest, the dropped fractions and the expert indices of every
+     routing equal, greedy tokens equal wherever the CPU's margin exceeds
+     1e-4 (``[moe]`` lines).
 
 ``--rehearse`` runs every phase on the CPU with the plain versions: no
 graphs, the bound phase on 2 emulated CPU workers, VGG16 at 32x32x3
 (``vgg16_ir(in_hw=32)``, full channel widths, a conv budget that splits
 its convs into strip and resident as 224x224x3 does), the LM configs'
-smoke variants.
+smoke variants (the MoE ones at ``MOE_RUNS``' depths).
 
 The last three lines of standard output are the ``kernels`` JSON object,
 ``nvidia-smi``'s name and power limit, and the result object
@@ -286,6 +316,22 @@ LM_TIE = {"float32": 1e-3, "bfloat16": 1.0}
 LM_WINDOW = "chip_smoke.lm_window"
 LM_PROFILE_STEPS = 5
 LM_TRACE = "lm_trace.json"
+# the [moe] phase: the MoE family at full width, each config cut in depth
+# to what one 80 GB card holds beside its mode's temporaries (PERF.md §4),
+# as (arch, layers, modes); "storage" runs last in its group and on the
+# int levels alone (the float experts are dropped once quantized). The
+# rehearsal runs the smoke variants at the same depths. Card against CPU:
+# the smoke variants under both dispatches and three modes, and one
+# config at full width (float32, ~26 GB a side) with its own depth, batch,
+# prompt and generated tokens
+MOE_ARCHS = ("grok-1-314b", "kimi-k2-1t-a32b")
+MOE_RUNS = (("grok-1-314b", 4, ("none", "storage")),
+            ("grok-1-314b", 2, ("w4a4",)),
+            ("kimi-k2-1t-a32b", 1, ("none", "storage")))
+MOE_DISPATCHES = ("sorted", "grouped")
+MOE_CPU_MODES = ("none", "w4a4", "storage")
+MOE_CPU_FULL = {"arch": "grok-1-314b", "layers": 1, "batch": 2, "prompt": 4,
+                "gen": 4}
 # the port's kernels are top-level functions of an anonymous namespace
 PORT_KERNEL = r"^(void )?\(anonymous namespace\)::"
 KERNELS = ("photonic_mvm", "conv_chain", "ca_pool", "conv_strip",
@@ -558,7 +604,8 @@ def phase_kernels(device, vision, imaging):
     from repro_torch.core.plan import padtype_to_pads
     from repro_torch.core.quant import W4A4
     from repro_torch.kernels import dispatch
-    from repro_torch.kernels.ca_pool.ops import ca_pool
+    from repro_torch.kernels.ca_pool.ops import acquire, ca_pool
+    from repro_torch.kernels.ca_pool.ref import ca_pool_ref_generic
     from repro_torch.kernels.conv_bank import strip
     from repro_torch.kernels.conv_bank.fused import conv_chain
     from repro_torch.kernels.conv_bank.ops import conv_bank, conv_bank_plain
@@ -641,9 +688,25 @@ def phase_kernels(device, vision, imaging):
         img = torch.rand((b, h, w, c), generator=gen).to(device)
         cases.append((odd_offset(img) if odd else img, p, gray))
     for img, p, gray in cases:
-        compare("ca_pool", ca_pool(img, p, gray),
+        compare("ca_pool", acquire(img, p, gray),
                 compressive_acquire(img, p, gray),
                 f"{tuple(img.shape)} p={p} gray={gray}")
+    # the public op with a bank of its own (signed, any [p, p, C]) on every
+    # weighted route's edges, in float32 and in bfloat16 (widened, summed
+    # in float32, rounded once), against its plain twin
+    for b, h, w, c, p, gray, odd, _ in CA_EDGES:
+        if not gray:
+            continue
+        img = torch.rand((b, h, w, c), generator=gen).to(device)
+        img = odd_offset(img) if odd else img
+        coeffs = (torch.rand((p, p, c), generator=gen) - 0.5).to(device)
+        compare("ca_pool", ca_pool(img, p, coeffs=coeffs),
+                ca_pool_ref_generic(img, coeffs, p),
+                f"{tuple(img.shape)} p={p} coeffs=")
+        half = img.to(torch.bfloat16)
+        compare("ca_pool", ca_pool(half, p, coeffs=coeffs),
+                ca_pool_ref_generic(half, coeffs, p).to(torch.bfloat16),
+                f"{tuple(img.shape)} p={p} coeffs= bfloat16")
 
     # the strip kernels: raw accumulate (the path's form) and the fused
     # epilogue with act_scale != 1, relu and bias
@@ -809,7 +872,7 @@ def phase_timing(device, vision, imaging):
     from repro_torch.core.compressive import ca_coefficients
     from repro_torch.core.compressive import compressive_acquire
     from repro_torch.core.quant import W4A4
-    from repro_torch.kernels.ca_pool.ops import ca_config, ca_pool
+    from repro_torch.kernels.ca_pool.ops import acquire, ca_config
     from repro_torch.kernels.conv_bank import strip
     from repro_torch.kernels.conv_bank.fused import conv_chain
     from repro_torch.kernels.conv_bank.ops import conv_bank, conv_bank_plain
@@ -898,7 +961,7 @@ def phase_timing(device, vision, imaging):
         cfg = ca_config(b, h, w, c, p, True, sms, img.data_ptr() % 16 == 0)
         with float32_convs():
             lib = time_ms(lambda: F.conv2d(nchw, bank, stride=p))
-        add("ca_pool", time_ms(lambda: ca_pool(img, p, True)),
+        add("ca_pool", time_ms(lambda: acquire(img, p, True)),
             time_ms(lambda: compressive_acquire(img, p, True)), lib,
             img.numel() * 4 + coef.numel() * 4 + out_n * 4,
             2 * out_n * p * p * c, "tf32", path, B=b, H=h, W=w, C=c,
@@ -1014,7 +1077,7 @@ def phase_device_time(device, vision, imaging, trace_path,
     import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.core.compressive import ca_coefficients
-    from repro_torch.kernels.ca_pool.ops import ca_pool
+    from repro_torch.kernels.ca_pool.ops import acquire
     from repro_torch.kernels.conv_bank import strip
     from repro_torch.kernels.conv_bank.fused import conv_chain
     from repro_torch.kernels.conv_bank.ref import float32_convs
@@ -1029,9 +1092,9 @@ def phase_device_time(device, vision, imaging, trace_path,
         "photonic_mvm.imaging": lambda: [mvm_int(a, w) for a, w in
                                          imaging["photonic_mvm"]],
         "conv_chain": lambda: [conv_chain(*c) for c in vision["conv_chain"]],
-        "ca_pool": lambda: [ca_pool(img, p, True)
+        "ca_pool": lambda: [acquire(img, p, True)
                             for img, p in vision["ca_pool"]],
-        "ca_pool.imaging": lambda: [ca_pool(img, p, True)
+        "ca_pool.imaging": lambda: [acquire(img, p, True)
                                     for img, p in imaging["ca_pool"]],
         "conv_strip": lambda: [strip.conv_strip(xp, w, stride=s, strip_h=sh)
                                for xp, w, s, sh, _ in imaging["conv_strip"]],
@@ -1056,14 +1119,14 @@ def phase_device_time(device, vision, imaging, trace_path,
     for i, (img, p) in enumerate(vision["ca_pool"] + imaging["ca_pool"]):
         coef = ca_coefficients(p, img.shape[-1], device=device)
         coef_bank = coef.permute(2, 0, 1)[None].contiguous()
-        batches[f"ca_pool.shape{i}"] = lambda img=img, p=p: ca_pool(img, p,
-                                                                   True)
+        batches[f"ca_pool.shape{i}"] = lambda img=img, p=p: acquire(img, p,
+                                                                  True)
         batches[f"library.ca_pool.shape{i}"] = \
             lambda nchw=img.permute(0, 3, 1, 2), cb=coef_bank, p=p: F.conv2d(
                 nchw, cb, stride=p)
     img1 = next(img for img, p in imaging["ca_pool"] if p == 1)
     flush = torch.empty(L2_FLUSH_BYTES // 4, device=device)
-    batches["ca_pool.cold"] = lambda: (flush.zero_(), ca_pool(img1, 1, True))
+    batches["ca_pool.cold"] = lambda: (flush.zero_(), acquire(img1, 1, True))
     with float32_convs():                # F.conv2d without TF32
         for batch in batches.values():
             batch()
@@ -2437,9 +2500,10 @@ def lm_decode(lm, params, cfg, prompt, steps, cache_dtype=None, forced=None):
 
 def lm_profile(lm, params, cfg, prompt, path):
     """``LM_PROFILE_STEPS`` greedy decode steps (after one warm step on the
-    prompt's first token) under the profiler: the window's device busy
-    share, kernels a step, the kernels that took the most device time.
-    The trace is read and deleted (tens of MB)."""
+    prompt's first token) under the profiler: the window (until the card
+    is done) and its device busy share, kernels a step, the kernels that
+    took the most device time. The trace is read and deleted (tens of
+    MB)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     cache = lm.init_cache(cfg, prompt.shape[0], LM_PROFILE_STEPS + 2,
@@ -2448,11 +2512,13 @@ def lm_profile(lm, params, cfg, prompt, path):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # the window ends when the card has finished the steps, so that a
+        # step the card bounds (the MoE's) counts whole in its length
         with record_function(LM_WINDOW):
             for _ in range(LM_PROFILE_STEPS):
                 tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
                 logits, cache = lm.decode_step(params, cache, tok, cfg)
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
     events = load_trace(prof, path)
     os.remove(path)
     out = busy_share(events, LM_WINDOW)
@@ -2652,32 +2718,68 @@ def lm_mode(lm, params, cfg, mode, prompt, device, out_dir):
     return out
 
 
-def lm_card_vs_cpu(lm, cfg, device, seed):
-    """Weights made once on the CPU, carried through numpy
-    (``lm_params_to_numpy`` / ``lm_params_from_numpy``) to both devices;
-    float32, TF32 off, float32 caches. The forward's logits (encoders:
-    the only check), then a greedy run on the CPU, the card teacher-forced
-    along the CPU's tokens (every step's logits within ``LM_CARD_CPU_TOL``
-    of the largest), and the card's own greedy tokens equal to the CPU's
-    up to the first step whose top-2 margin on the CPU is within that.
-    Under the W4A4 fake-quant the card replays the CPU's activation codes
-    (``ActTape``) in the forward and the teacher-forced run, where every
-    activation's x / step must agree with the CPU's within
-    ``LM_TIE["float32"]``; the codes that differ are counted, and the
-    forward's error with the card's own codes is printed."""
+@contextlib.contextmanager
+def moe_routes():
+    """Records the expert indices of every MoE routing made in the block
+    (``nn.moe._route``), as CPU tensors in call order."""
+    from repro_torch.nn import moe
+    route, seen = moe._route, []
+
+    def recorded(logits, k):
+        probs, top_w, top_i = route(logits, k)
+        seen.append(top_i.cpu())
+        return probs, top_w, top_i
+
+    moe._route = recorded
+    try:
+        yield seen
+    finally:
+        moe._route = route
+
+
+def lm_card_vs_cpu(lm, cfg, device, seed, batch=LM_BATCH,
+                   prompt_len=LM_PROMPT, gen=LM_GEN, made_on="cpu",
+                   storage=False):
+    """Weights made once (on ``made_on``; under ``storage`` then put in
+    ``quantize_lm_params`` W4A4 storage there), carried through numpy
+    (``lm_params_to_numpy`` / ``lm_params_from_numpy``) to the devices
+    that lack them; float32, TF32 off, float32 caches. The forward's
+    logits (encoders: the only check), then a greedy run on the CPU, the
+    card teacher-forced along the CPU's tokens (every step's logits within
+    ``LM_CARD_CPU_TOL`` of the largest), and the card's own greedy tokens
+    equal to the CPU's up to the first step whose top-2 margin on the CPU
+    is within that. Under the W4A4 fake-quant the card replays the CPU's
+    activation codes (``ActTape``) in the forward and the teacher-forced
+    run, where every activation's x / step must agree with the CPU's
+    within ``LM_TIE["float32"]``; the codes that differ are counted, and
+    the forward's error with the card's own codes is printed. For the MoE
+    family the expert indices of every routing of the forward and the
+    teacher-forced run must be equal, and the forward's dropped
+    fractions."""
     import numpy as np
     import torch
+    from repro_torch.core.quant import W4A4
     from repro_torch.data.synthetic import modality_batch
     from repro_torch.kernels.conv_bank.ref import float32_convs
     from repro_torch.weights import lm_params_from_numpy, lm_params_to_numpy
     cpu = torch.device("cpu")
-    tree = lm_params_to_numpy(lm.init_lm(torch.Generator().manual_seed(seed),
-                                         cfg, device="cpu"))
-    on = {d: lm_params_from_numpy(tree, d, cfg) for d in (cpu, device)}
-    label = (f"[lm] card vs CPU {cfg.name} {cfg.quant_scheme} "
-             f"({cfg.n_layers} layers)")
+    made = torch.device(made_on)
+    params = lm.init_lm(torch.Generator(device=made).manual_seed(seed), cfg,
+                        device=made)
+    if storage:
+        params = lm.quantize_lm_params(params, cfg, W4A4)
+    tree = lm_params_to_numpy(params)
+    on = {made: params}
+    del params
+    for d in (cpu, device):
+        if d not in on:
+            on[d] = lm_params_from_numpy(tree, d, cfg)
+    del tree
+    mode = "storage" if storage else cfg.quant_scheme
+    label = f"[lm] card vs CPU {cfg.name} {mode} ({cfg.n_layers} layers)"
     out = {}
     fwd_tape, dec_tape = ActTape(), ActTape()
+    moe = cfg.family == "moe"
 
     def rel(a, b):
         return float((a - b).abs().max() / b.abs().max())
@@ -2691,18 +2793,35 @@ def lm_card_vs_cpu(lm, cfg, device, seed):
              f"on the card lies {tape.gap:.3g} code steps from the CPU's "
              f"(bound {LM_TIE['float32']})")
 
+    def same_routes(cpu_routes, card_routes, what):
+        need(len(card_routes) == len(cpu_routes) > 0, f"{label}: {what} "
+             f"routed {len(card_routes)} times on the card, "
+             f"{len(cpu_routes)} on the CPU")
+        need(all(torch.equal(a, b) for a, b in zip(card_routes, cpu_routes)),
+             f"{label}: the {what}'s expert indices differ between the card "
+             f"and the CPU")
+        out[f"{what}_routings_equal"] = len(cpu_routes)
+
     with float32_convs():
-        batch = modality_batch(cfg, LM_BATCH, LM_PROMPT if cfg.frontend !=
-                               "vision" else cfg.n_patches + LM_PROMPT,
-                               seed=seed)
-        inputs = {d: {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+        arrays = modality_batch(cfg, batch, prompt_len if cfg.frontend !=
+                                "vision" else cfg.n_patches + prompt_len,
+                                seed=seed)
+        inputs = {d: {k: torch.from_numpy(v).to(d) for k, v in arrays.items()}
                   for d in (cpu, device)}
-        with fwd_tape.record():
-            want_fwd = lm.lm_forward(on[cpu], inputs[cpu], cfg)[0].float()
-        with fwd_tape.replay():
-            got_fwd = lm.lm_forward(on[device], inputs[device],
-                                    cfg)[0].float().cpu()
+        with fwd_tape.record(), moe_routes() as cpu_routes:
+            want_fwd, want_aux = lm.lm_forward(on[cpu], inputs[cpu], cfg)
+            want_fwd = want_fwd.float()
+        with fwd_tape.replay(), moe_routes() as card_routes:
+            got_fwd, got_aux = lm.lm_forward(on[device], inputs[device], cfg)
+            got_fwd = got_fwd.float().cpu()
         held_tape(fwd_tape, "forward")
+        if moe:
+            same_routes(cpu_routes, card_routes, "forward")
+            out["forward_dropped"] = float(want_aux["dropped"])
+            need(float(got_aux["dropped"]) == out["forward_dropped"],
+                 f"{label}: the forward's dropped fraction differs: "
+                 f"{float(got_aux['dropped'])} on the card, "
+                 f"{out['forward_dropped']} on the CPU")
         out["forward_rel_err"] = rel(got_fwd, want_fwd)
         if fwd_tape.tape:
             own_fwd = lm.lm_forward(on[device], inputs[device],
@@ -2714,20 +2833,21 @@ def lm_card_vs_cpu(lm, cfg, device, seed):
         if cfg.family == "encoder":
             return out
         prompt = torch.from_numpy(np.random.default_rng(seed).integers(
-            0, cfg.vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32))
-        with dec_tape.record():
-            toks, want, _ = lm_decode(lm, on[cpu], cfg, prompt, LM_GEN,
+            0, cfg.vocab, (batch, prompt_len)).astype(np.int32))
+        with dec_tape.record(), moe_routes() as cpu_routes:
+            toks, want, _ = lm_decode(lm, on[cpu], cfg, prompt, gen,
                                       torch.float32)
-        with dec_tape.replay():
+        with dec_tape.replay(), moe_routes() as card_routes:
             _, got, _ = lm_decode(lm, on[device], cfg, prompt.to(device),
-                                  LM_GEN, torch.float32,
-                                  forced=toks.to(device))
+                                  gen, torch.float32, forced=toks.to(device))
         held_tape(dec_tape, "decode")
+        if moe:
+            same_routes(cpu_routes, card_routes, "decode")
         # the card's own greedy run, on the CPU's codes while its tokens
         # follow the CPU's (the only steps compared)
         with dec_tape.replay():
             own, _, _ = lm_decode(lm, on[device], cfg, prompt.to(device),
-                                  LM_GEN, torch.float32)
+                                  gen, torch.float32)
     scale = want.abs().amax(-1)                          # [B, steps]
     err = ((got.cpu() - want).abs().amax(-1) / scale).max()
     out["decode_rel_err"] = float(err)
@@ -2735,10 +2855,11 @@ def lm_card_vs_cpu(lm, cfg, device, seed):
          f"differ by {out['decode_rel_err']:.3g} of their largest")
     top2 = want.topk(2, -1).values
     margin = ((top2[..., 0] - top2[..., 1]) / scale).amin(0)   # [steps]
-    close = [i for i in range(LM_PROMPT - 1, LM_PROMPT + LM_GEN - 1)
+    close = [i for i in range(prompt_len - 1, prompt_len + gen - 1)
              if margin[i] <= LM_CARD_CPU_TOL]
-    n = (close[0] if close else LM_PROMPT + LM_GEN - 1) - (LM_PROMPT - 1)
-    need(torch.equal(own.cpu()[:, :LM_PROMPT + n], toks[:, :LM_PROMPT + n]),
+    n = (close[0] if close else prompt_len + gen - 1) - (prompt_len - 1)
+    need(torch.equal(own.cpu()[:, :prompt_len + n],
+                     toks[:, :prompt_len + n]),
          f"{label}: the card's greedy tokens leave the CPU's within "
          f"{n} steps, where the CPU's margins are above {LM_CARD_CPU_TOL}")
     out["tokens_compared"] = n
@@ -2836,6 +2957,252 @@ def phase_lm(device, rehearse, out_dir, smi):
             + f"; {r['wall_s']:.2f}s")
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"[lm] phase {out['phase_s']:.1f}s")
+    return out, counts
+
+
+def host_memory_gb():
+    """(total, available) host RAM in GB, from /proc/meminfo."""
+    with open("/proc/meminfo") as f:
+        info = {line.split(":")[0]: int(line.split()[1]) for line in f}
+    return info["MemTotal"] / 1e6, info["MemAvailable"] / 1e6
+
+
+def moe_prefill_check(lm, params, cfg, prompt):
+    """The prompt's forward (S = 8) against its stepped decode (one token a
+    step), with the expert indices of every routing of both. Returns the
+    forward's aux and the gap: held to ``LM_PREFILL_TOL`` only where the
+    two paths compute the same function, i.e. the forward dropped no slot
+    (its capacity is per prompt, the decode's per token), every token went
+    to the same experts in both (a bf16 ulp between the paths' hidden
+    states can flip a near-tie of the router), and no W4A4 activation code
+    is in play (the [lm] phase shows those flip between the paths too)."""
+    import torch
+    with moe_routes() as fwd_routes:
+        fwd, aux = lm.lm_forward(params, {"tokens": prompt}, cfg)
+    with moe_routes() as dec_routes:
+        _, stepped, _ = lm_decode(lm, params, cfg, prompt, 0)
+    b, t = prompt.shape
+    layers = cfg.n_layers
+    moved = 0
+    for i, r in enumerate(fwd_routes):
+        want = r.reshape(b, t, -1).sort(-1).values
+        got = torch.stack([dec_routes[s * layers + i].reshape(b, -1)
+                           for s in range(t)], 1).sort(-1).values
+        moved += int((want != got).any(-1).sum())
+    prefill = fwd.float()
+    dropped = float(aux["dropped"])
+    why = [w for w, c in (("slots dropped", dropped > 0),
+                          (f"{moved} token-layers routed apart", moved > 0),
+                          ("w4a4 codes", cfg.quant_scheme == "w4a4")) if c]
+    gap = {"max_abs": float((stepped - prefill).abs().max()),
+           "ratio": lm_allclose_ratio(stepped, prefill, LM_PREFILL_TOL),
+           "routed_apart": moved, "held": not why,
+           "not_held_for": ", ".join(why)}
+    need(bool(torch.isfinite(prefill).all()), f"[moe] {cfg.name}: a logit of "
+         f"the prompt's forward is not finite")
+    if gap["held"]:
+        need(bool(torch.allclose(stepped, prefill, rtol=LM_PREFILL_TOL,
+                                 atol=LM_PREFILL_TOL)),
+             f"[moe] {cfg.name}: the prompt's forward and the stepped decode "
+             f"route alike, yet differ beyond rtol=atol={LM_PREFILL_TOL} "
+             f"({gap})")
+    return aux, gap
+
+
+def moe_mode(lm, params, cfg, mode, prompt, device, out_dir):
+    """One MoE config under one mode on the main path (``params`` already
+    in storage for "storage"): greedy_generate and the timed greedy loop
+    (identical tokens, every logit finite), the prompt's forward against
+    its stepped decode (``moe_prefill_check``), the port's launch counts
+    (none expected), and on the card the profiled window and the peak
+    memory."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.nn.module import tree_bytes
+    if mode == "w4a4":
+        cfg = dataclasses.replace(cfg, quant_scheme="w4a4")
+    cuda = device.type == "cuda"
+    label = f"[moe] {cfg.name} {mode}"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    first = lm.greedy_generate(params, cfg, prompt, LM_GEN)
+    if cuda:
+        torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    toks, logits, ms = lm_decode(lm, params, cfg, prompt, LM_GEN)
+    aux, gap = moe_prefill_check(lm, params, cfg, prompt)
+    counts = launch_counts()
+    need(torch.equal(first, toks), f"{label}: the tokens differ between "
+         f"runs")
+    need(bool(torch.isfinite(logits).all()), f"{label}: a logit is not "
+         f"finite")
+    need(not any(counts.values()), f"{label}: a port kernel launched on "
+         f"the MoE path: {counts}")
+    gen_ms = sorted(ms[LM_PROMPT:])
+    med = gen_ms[len(gen_ms) // 2]
+    out = {"ms_per_step_median": med, "ms_first_generated": ms[LM_PROMPT],
+           "ms_prefill_steps": ms[:LM_PROMPT],
+           "tokens_per_s": LM_BATCH * 1e3 / med, "first_call_s": first_s,
+           "prompt_dropped": float(aux["dropped"]),
+           "prompt_balance": float(aux["balance"]),
+           "prompt_z": float(aux["z"]), "prefill_vs_decode": gap,
+           "launches": counts, "tokens": first[0, LM_PROMPT:].tolist()}
+    # a decode step reads every weight but the embedding table (grouped
+    # at S = 1: capacity 1 a row, so every expert runs on every row)
+    out["weights_read_gb"] = (tree_bytes(params) -
+                              tree_bytes(params["embed"])) / 1e9
+    out["hbm_bound_ms"] = out["weights_read_gb"] * 1e9 / HBM_BYTES_PER_S * 1e3
+    if cuda:
+        out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out.update(lm_profile(lm, params, cfg, prompt,
+                              os.path.join(out_dir, LM_TRACE)))
+        out["device_ms_per_step"] = out["busy_ms"] / LM_PROFILE_STEPS
+    return out
+
+
+def moe_combine_cast(device):
+    """``nn.moe.to_combine_dtype`` to float8_e4m3fn and bfloat16 on the card
+    and on the CPU, from float32 and bfloat16, over every float8 value,
+    every midpoint of two (ties), values past +-448 and infinities: the
+    same bits (NaN where ml_dtypes gives NaN). Returns the values held."""
+    import torch
+    from repro_torch.nn import moe
+    f8 = torch.arange(256, dtype=torch.uint8).view(torch.float8_e4m3fn)
+    fin = f8.float()[torch.isfinite(f8.float())].unique()
+    mids = ((fin[1:].double() + fin[:-1].double()) / 2).float()
+    v = torch.cat([fin, mids, torch.tensor([449.0, 464.0, 464.5, 480.0,
+                                            1e4, float("inf")])])
+    v = torch.cat([v, -v])
+    for dtype in (torch.float8_e4m3fn, torch.bfloat16):
+        for src in (torch.float32, torch.bfloat16):
+            x = v.to(src)
+            want = moe.to_combine_dtype(x, dtype).float()
+            got = moe.to_combine_dtype(x.to(device), dtype).float().cpu()
+            need(torch.equal(got.isnan(), want.isnan()) and
+                 torch.equal(got[~got.isnan()], want[~want.isnan()]),
+                 f"[moe] the {src} -> {dtype} combine cast differs between "
+                 f"the card and the CPU")
+    return v.numel()
+
+
+def phase_moe(device, rehearse, out_dir, smi):
+    """The MoE family served by greedy decoding (the module docstring's
+    phase 12). Returns its detail and the port's kernel launches of the
+    main path (none expected: the reference's MoE reaches no Pallas
+    kernel, and the port's runs none)."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.quant import W4A4
+    from repro_torch.models import lm
+    out = {"device": smi, "runs": {}, "card_vs_cpu": {}}
+    t_phase = time.perf_counter()
+    log(f"[moe] on {smi}: batch {LM_BATCH}, prompt {LM_PROMPT} tokens "
+        f"(numpy seed {SEED}), {LM_GEN} generated; runs (arch, layers, "
+        f"modes) {MOE_RUNS}")
+    total = {}
+    for arch, layers, modes in MOE_RUNS:
+        base = (configs.smoke_variant if rehearse else configs.get_config)(
+            arch)
+        cfg = dataclasses.replace(base, n_layers=layers)
+        params = lm.init_lm(torch.Generator(device=device).manual_seed(SEED),
+                            cfg, device=device)
+        prompt = torch.from_numpy(np.random.default_rng(SEED).integers(
+            0, cfg.vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)).to(device)
+        for mode in modes:
+            if mode == "storage":
+                # the float tree goes: the storage run holds its levels only
+                params = lm.quantize_lm_params(params, cfg, W4A4)
+            r = moe_mode(lm, params, cfg, mode, prompt, device, out_dir)
+            out["runs"][f"{arch} {layers}L {mode}"] = r
+            for k, n in r["launches"].items():
+                total[k] = total.get(k, 0) + n
+            prof = ("" if "busy_share" not in r else
+                    f"; {r['kernels_per_step']:.0f} kernels a step, device "
+                    f"busy {r['busy_ms']:.3f} of a {r['window_ms']:.3f} ms "
+                    f"{LM_PROFILE_STEPS}-step window "
+                    f"({r['busy_share']:.1%}; "
+                    f"{r['device_ms_per_step']:.3f} ms a step); peak memory "
+                    f"{r['peak_memory_gb']:.3f} GB; top kernels "
+                    f"{r['top_kernels_ms']}")
+            g = r["prefill_vs_decode"]
+            log(f"[moe] {cfg.name} ({layers} of {base.n_layers} layers, d "
+                f"{cfg.d_model}, {cfg.n_experts} experts top-{cfg.top_k} of "
+                f"d_ff {cfg.d_ff}, {cfg.moe_dispatch}, {cfg.dtype}) {mode}: "
+                f"decode {r['ms_per_step_median']:.3f} ms a step median of "
+                f"{LM_GEN} (first generated {r['ms_first_generated']:.3f}), "
+                f"{r['tokens_per_s']:.1f} tokens/s at batch {LM_BATCH}; "
+                f"weights read a step {r['weights_read_gb']:.3f} GB, bound "
+                f"{r['hbm_bound_ms']:.3f} ms at "
+                f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; "
+                f"first greedy_generate {r['first_call_s']:.2f}s; tokens "
+                f"identical over 2 runs, logits finite; the prompt's forward "
+                f"dropped {r['prompt_dropped']:.4g} of its slots; prefill vs "
+                f"decode max |diff| {g['max_abs']:.4g} (x{g['ratio']:.3g} of "
+                f"rtol=atol={LM_PREFILL_TOL}, "
+                f"{'held' if g['held'] else 'printed: ' + g['not_held_for']})"
+                f"; port "
+                f"kernel launches {r['launches']}{prof}; tokens "
+                f"{r['tokens']}")
+        del params
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    counts = {"moe": total}
+    log(f"[moe] port kernel launches on the MoE path: {total} (none "
+        f"expected)")
+    out["combine_cast_values"] = moe_combine_cast(device)
+    log(f"[moe] combine casts (float8_e4m3fn, bfloat16) bitwise equal on the "
+        f"card and the CPU over {out['combine_cast_values']} values")
+    cases = [(dataclasses.replace(
+        configs.smoke_variant(arch), dtype="float32", moe_dispatch=disp,
+        quant_scheme="w4a4" if mode == "w4a4" else "none"), mode, {})
+        for arch in MOE_ARCHS for disp in MOE_DISPATCHES
+        for mode in MOE_CPU_MODES]
+    full = MOE_CPU_FULL
+    cases.append((dataclasses.replace(
+        (configs.smoke_variant if rehearse else configs.get_config)(
+            full["arch"]), n_layers=full["layers"], dtype="float32"), "none",
+        {"batch": full["batch"], "prompt_len": full["prompt"],
+         "gen": full["gen"], "made_on": device}))
+    for cfg, mode, kw in cases:
+        if kw:
+            total_gb, avail_gb = host_memory_gb()
+            log(f"[moe] host RAM before the full-width card vs CPU run: "
+                f"{avail_gb:.1f} of {total_gb:.1f} GB available")
+        t0 = time.perf_counter()
+        r = lm_card_vs_cpu(lm, cfg, device, SEED, storage=mode == "storage",
+                           **kw)
+        r["wall_s"] = time.perf_counter() - t0
+        out["card_vs_cpu"][f"{cfg.name} {cfg.n_layers}L {cfg.moe_dispatch} "
+                           f"{mode}"] = r
+        gen = kw.get("gen", LM_GEN)
+        steps = kw.get("prompt_len", LM_PROMPT) + gen
+        codes = "".join(
+            f"; {what}: {r[what]['flipped']} of {r[what]['codes']} codes "
+            f"flipped, activations within {r[what]['gap_steps']:.3g} code "
+            f"steps of the CPU's" for what in ("forward", "decode")
+            if what in r)
+        size = "full width" if kw and not rehearse else "smoke"
+        log(f"[moe] card vs CPU port, {cfg.name} {size} ({cfg.n_layers} "
+            f"layers, d "
+            f"{cfg.d_model}, {cfg.moe_dispatch}, float32, TF32 off, {mode}, "
+            f"batch {kw.get('batch', LM_BATCH)}): forward logits within "
+            f"{r['forward_rel_err']:.3g} of their largest, dropped "
+            f"{r['forward_dropped']:.4g} on both, expert indices equal over "
+            f"{r['forward_routings_equal']} routings"
+            + ("" if "forward_own_codes_rel_err" not in r else
+               f" (on the CPU's codes; {r['forward_own_codes_rel_err']:.3g} "
+               f"on the card's own)")
+            + codes + f"; {steps} decode steps within "
+            f"{r['decode_rel_err']:.3g} (bound {LM_CARD_CPU_TOL}), expert "
+            f"indices equal over {r['decode_routings_equal']} routings, "
+            f"greedy tokens equal over {r['tokens_compared']} of {gen}; "
+            f"{r['wall_s']:.2f}s")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[moe] phase {out['phase_s']:.1f}s")
     return out, counts
 
 
@@ -3138,6 +3505,8 @@ def main(argv) -> int:
 
         lm_out, lm_counts = phase_lm(device, rehearse, out_dir, smi)
         served.update(lm_counts)
+        moe_out, moe_counts = phase_moe(device, rehearse, out_dir, smi)
+        served.update(moe_counts)
 
         launches = {k: {path: served[path][k] for path in served}
                     for k in KERNELS}
@@ -3170,7 +3539,7 @@ def main(argv) -> int:
                        "serve_bound": bound,
                        "imaging_bound_busy_share": bound_busy,
                        "load": load, "obs": obs_out, "vgg16": vgg16,
-                       "train": train, "lm": lm_out,
+                       "train": train, "lm": lm_out, "moe": moe_out,
                        "ca_pool_cold_device_ms": ca_cold,
                        "comparisons": n_cmp,
                        "conv_bank_float_err": bank_float_err,

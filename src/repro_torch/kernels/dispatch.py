@@ -484,5 +484,5 @@ def ca_acquire(img: torch.Tensor, pool: int,
     if backend == "reference":
         from repro_torch.core.compressive import compressive_acquire
         return compressive_acquire(img, pool, rgb_to_gray)
-    from repro_torch.kernels.ca_pool.ops import ca_pool
-    return ca_pool(img, pool, rgb_to_gray)
+    from repro_torch.kernels.ca_pool.ops import acquire
+    return acquire(img, pool, rgb_to_gray)

@@ -1,4 +1,4 @@
-"""The unified LM of the reference package on PyTorch, every family but MoE.
+"""The unified LM of the reference package on PyTorch, every family.
 
 families:
   dense    — llama-style GQA decoder (yi-34b, smollm, tinyllama, stablelm)
@@ -6,8 +6,8 @@ families:
   hybrid   — parallel attention + SSM heads per layer (hymba-1.5b)
   encoder  — bidirectional encoder (hubert-xlarge; no decode path)
   vlm      — decoder with a patch-embedding prefix (internvl2-26b)
-  moe      — GQA decoder with an MoE FFN (grok-1, kimi-k2): not ported yet;
-             ``init_lm``, ``lm_forward`` and ``decode_step`` raise
+  moe      — GQA decoder with an MoE FFN (grok-1, kimi-k2; ``nn/moe.py``,
+             sorted or grouped dispatch by ``cfg.moe_dispatch``)
 
 Layer params are stacked on a leading [L] axis, as in the reference's tree;
 a Python loop over the layers takes the place of ``lax.scan`` (``remat`` is
@@ -29,8 +29,6 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
-import math
-
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -39,20 +37,15 @@ from repro_torch.core.program import resolve_device
 from repro_torch.core.quant import WASpec, _clip, true_div
 from repro_torch.nn import attention as attn_mod
 from repro_torch.nn import layers as L
+from repro_torch.nn import moe as moe_mod
 from repro_torch.nn import ssm as ssm_mod
 from repro_torch.nn.module import (KeyGen, normal_init, scaled_init,
                                    stack_layer_params, tree_map)
 
-MOE_NOT_PORTED = ("the moe family (nn/moe.py) is not ported yet: ROADMAP "
-                  "Queue 1 item 10")
 PROJECTIONS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
                "in_proj", "out_proj")
 ATTN_FAMILIES = ("dense", "moe", "encoder", "vlm", "hybrid")
-
-
-def _no_moe(cfg: ModelConfig) -> None:
-    if cfg.family == "moe":
-        raise NotImplementedError(f"{cfg.name}: {MOE_NOT_PORTED}")
+MOE_EXPERTS = ("w_gate", "w_up", "w_down")   # raw stacked tensors in "moe"
 
 
 def _layer_slice(tree, i: int):
@@ -109,13 +102,18 @@ def _init_norm(kg: KeyGen, cfg: ModelConfig, dtype):
     return {"scale": ones}
 
 
+def _moe_config(cfg: ModelConfig) -> moe_mod.MoEConfig:
+    return moe_mod.MoEConfig(cfg.n_experts, cfg.top_k, cfg.d_model,
+                             cfg.d_ff, cfg.capacity_factor)
+
+
 def _apply_norm(p, x, cfg: ModelConfig):
     return L.layernorm(p, x) if cfg.norm == "layer" else L.rmsnorm(p, x)
 
 
 def _layer_init(kg: KeyGen, cfg: ModelConfig, dtype) -> Dict:
     p: Dict[str, Any] = {"norm1": _init_norm(kg, cfg, dtype)}
-    if cfg.family in ("dense", "encoder", "vlm", "hybrid"):
+    if cfg.family in ATTN_FAMILIES:
         p["attn"] = _init_attn(kg, cfg, dtype)
     if cfg.family in ("ssm", "hybrid"):
         p["ssm"] = _init_ssm(kg, cfg, dtype)
@@ -126,7 +124,11 @@ def _layer_init(kg: KeyGen, cfg: ModelConfig, dtype) -> Dict:
                 (cfg.d_model,), dtype=dtype, device=kg.device)}
     if cfg.family != "ssm":
         p["norm2"] = _init_norm(kg, cfg, dtype)
-        p["mlp"] = _init_mlp(kg, cfg, dtype)
+        if cfg.family == "moe":
+            p["moe"] = moe_mod.init_moe(kg(), _moe_config(cfg), dtype,
+                                        kg.device)
+        else:
+            p["mlp"] = _init_mlp(kg, cfg, dtype)
     return p
 
 
@@ -135,7 +137,6 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig,
     """Random params in the reference's tree, drawn on ``device`` from
     generators split off ``generator`` (``KeyGen``): the same generator
     state gives the same weights. Layer params are stacked [L, ...]."""
-    _no_moe(cfg)
     dev = resolve_device(device)
     dtype = cfg.torch_dtype
     kg = KeyGen(generator, dev)
@@ -188,31 +189,13 @@ def _attn_block(p, x, cfg: ModelConfig, positions, quant,
     return L.dense(p["wo"], out, quant), new_cache
 
 
-def _silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu`` as XLA evaluates it: x * (1 / (1 + exp(-x))), each
-    op rounded to ``x``'s dtype (``F.silu`` rounds once, which in bf16
-    differs on a quarter of the values)."""
-    return x * (1.0 / (1.0 + torch.exp(-x)))
-
-
-def _gelu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.gelu`` (the tanh form, its default) op by op in ``x``'s
-    dtype, its constants rounded to that dtype first, as JAX rounds a
-    Python scalar to the array's dtype (``F.gelu`` rounds once)."""
-    c0 = torch.tensor(math.sqrt(2.0 / math.pi), dtype=x.dtype,
-                      device=x.device)
-    c1 = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
-    cdf = 0.5 * (1.0 + torch.tanh(c0 * (x + c1 * (x * (x * x)))))
-    return x * cdf
-
-
 def _mlp_block(p, x, cfg: ModelConfig, quant):
     up = L.dense(p["w_up"], x, quant)
     if cfg.ffn == "swiglu":
         gate = L.dense(p["w_gate"], x, quant)
-        h = _silu(gate) * up
+        h = L.silu(gate) * up
     else:
-        h = _gelu(up)
+        h = L.gelu(up)
     return L.dense(p["w_down"], h, quant)
 
 
@@ -234,7 +217,7 @@ def _ssm_block(p, x, cfg: ModelConfig, quant,
     dt = _softplus(dt_raw.float() + p["dt_bias"][None, None, :])  # [B,T,H]
     if cache is None:
         xbc = ssm_mod.causal_conv1d(xbc, p["conv_w"], p["conv_b"])
-        xbc = _silu(xbc)
+        xbc = L.silu(xbc)
         xs, bmat, cmat = torch.split(xbc, [di, gn, gn], dim=-1)
         xs = xs.reshape(b, t, h, pdim)
         y, _ = ssm_mod.ssd_chunked(xs, dt, a, bmat.reshape(b, t, g, n),
@@ -244,7 +227,7 @@ def _ssm_block(p, x, cfg: ModelConfig, quant,
     else:
         xbc_new, conv_state = ssm_mod.causal_conv1d_step(
             cache["conv"], xbc[:, 0], p["conv_w"], p["conv_b"])
-        xbc_new = _silu(xbc_new)
+        xbc_new = L.silu(xbc_new)
         xs, bvec, cvec = torch.split(xbc_new, [di, gn, gn], dim=-1)
         xs = xs.reshape(b, h, pdim)
         y1, ssm_state = ssm_mod.ssd_decode_step(
@@ -255,7 +238,7 @@ def _ssm_block(p, x, cfg: ModelConfig, quant,
         new_cache = {"conv": conv_state, "ssm": ssm_state}
     y = y + xs.reshape(y.shape) * p["d_skip"][None, None, :, None]
     y = y.reshape(b, t, di).to(x.dtype)
-    y = L.rmsnorm(p["norm"], y * _silu(z).to(x.dtype))
+    y = L.rmsnorm(p["norm"], y * L.silu(z).to(x.dtype))
     return L.dense(p["out_proj"], y, quant).to(x.dtype), new_cache
 
 
@@ -266,7 +249,7 @@ def _layer(p, x, cfg: ModelConfig, positions, quant,
     aux = {"balance": zero, "z": zero, "dropped": zero}
     new_cache: Dict[str, Any] = {}
     h = _apply_norm(p["norm1"], x, cfg)
-    if cfg.family in ("dense", "encoder", "vlm"):
+    if cfg.family in ("dense", "moe", "encoder", "vlm"):
         y, kvc = _attn_block(p["attn"], h, cfg, positions, quant,
                              cache.get("kv") if cache else None, pos_scalar)
         if kvc is not None:
@@ -290,10 +273,19 @@ def _layer(p, x, cfg: ModelConfig, positions, quant,
         y = 0.5 * (L.rmsnorm(p["mix_norm_a"], ya)
                    + L.rmsnorm(p["mix_norm_s"], ys))
         x = x + y
-    else:
-        _no_moe(cfg)
     h2 = _apply_norm(p["norm2"], x, cfg)
-    return x + _mlp_block(p["mlp"], h2, cfg, quant), aux, new_cache
+    if cfg.family != "moe":
+        return x + _mlp_block(p["mlp"], h2, cfg, quant), aux, new_cache
+    if cfg.moe_dispatch == "grouped":
+        cdt = (None if cfg.moe_combine_dtype == "none"
+               else getattr(torch, cfg.moe_combine_dtype))
+        out = moe_mod.moe_ffn_grouped(p["moe"], h2, _moe_config(cfg), quant,
+                                      combine_dtype=cdt)
+    else:
+        out = moe_mod.moe_ffn(p["moe"], h2, _moe_config(cfg), quant)
+    aux = {"balance": out.balance_loss, "z": out.z_loss,
+           "dropped": out.dropped_fraction}
+    return x + out.y, aux, new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -327,8 +319,9 @@ def embed_inputs(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
 
 def lm_forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                return_hidden: bool = False):
-    """-> (logits [B,T,V] | hidden, aux dict), a loop over stacked layers."""
-    _no_moe(cfg)
+    """-> (logits [B,T,V] | hidden, aux dict), a loop over stacked layers;
+    aux: the MoE balance and z losses and dropped fraction, each a mean
+    over the layers (0 for the other families)."""
     x = embed_inputs(params, batch, cfg)
     t = x.shape[1]
     positions = torch.arange(t, device=x.device)[None, :]
@@ -426,7 +419,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 def decode_step(params, cache: Dict, token: torch.Tensor, cfg: ModelConfig):
     """One serving step: token [B,1] int -> (logits [B,V], new cache). The
     cache passed in is left as it was."""
-    _no_moe(cfg)
     x = L.embedding_lookup(params["embed"], token).to(cfg.torch_dtype)
     pos = cache["pos"]
     quant = cfg.quant_spec()
@@ -473,9 +465,22 @@ def quantize_lm_params(params, cfg: ModelConfig, spec: WASpec) -> Dict:
     is int8: torch has no int4 arithmetic, so where the reference packs
     [4:*] weights in ``jnp.int4`` the port holds the same values in int8.
     Norms, embeddings and the SSM's conv/dt params stay float (they live in
-    the electronic part of the architecture).
+    the electronic part of the architecture); the MoE router too. The MoE's
+    stacked experts (raw [L, E, d, f] tensors named ``w_gate`` / ``w_up``
+    / ``w_down``) become {wq, ws} as well, one scale per (layer, expert,
+    out-channel). Each [d, f] matrix is quantized on its own (bitwise the
+    same, as the scale reduces axis -2 only), so the float32 and float64
+    temporaries stay one matrix large: kimi-k2's expert stack is 5.6 G
+    weights a layer.
     """
     def mr_quantize(w):
+        if w.ndim > 2:
+            q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+            s = torch.empty(w.shape[:-2] + (1, w.shape[-1]),
+                            dtype=torch.float32, device=w.device)
+            for i in range(w.shape[0]):
+                q[i], s[i] = mr_quantize(w[i])
+            return q, s
         w32 = w.float()
         amax = w32.abs().amax(dim=-2, keepdim=True)
         floor = torch.full((), 1e-8, dtype=torch.float32, device=w.device)
@@ -485,6 +490,9 @@ def quantize_lm_params(params, cfg: ModelConfig, spec: WASpec) -> Dict:
 
     def transform(node, path=()):
         if not isinstance(node, dict):
+            if path and path[-1] in MOE_EXPERTS and node.ndim >= 3:
+                q, s = mr_quantize(node)
+                return {"wq": q, "ws": s}
             return node
         out = {}
         for k, v in node.items():

@@ -10,6 +10,8 @@ both packages with one set of weights, make them with numpy and pass them
 through ``repro_torch.weights.params_from_numpy``). ``apply_vision`` is the
 quantization-aware forward over the same IR (``nn.layers`` fake-quant
 convs and denses, STE), differentiable with autograd.
+``vision_schedules`` maps an IR onto the optical core's schedules, what
+the power model's reports (the paper's FPS/W figures) are made of.
 """
 
 from __future__ import annotations
@@ -19,11 +21,13 @@ from typing import Dict, List, Optional
 
 import torch
 
+from repro_torch.core import optical_core as ocore
 from repro_torch.core.accelerator import (CASpec, ConvSpec, DenseSpec,
                                           FlattenSpec, LayerIR)
 from repro_torch.core.compressive import compressive_acquire
 from repro_torch.core.quant import (MixedPrecisionScheme, WASpec,
                                     resolve_layer_specs)
+from repro_torch.core.plan import conv_out_hw
 from repro_torch.kernels.conv_bank.ref import float32_convs
 from repro_torch.nn import layers as L
 
@@ -207,3 +211,29 @@ def vision_program(name: str, generator: Optional[torch.Generator] = None,
             generator = torch.Generator().manual_seed(0)
         params = init_vision(generator, layers)
     return Program(layers, params, MODEL_INPUT_HWC[name], name=name)
+
+
+def vision_schedules(layers: List[LayerIR], in_hw: int
+                     ) -> List[ocore.OCSchedule]:
+    """Layer IR -> OCSchedules (what the power model's reports take), in
+    the reference's order: the CA, each conv with its ``.pool`` avg CA
+    after it (an avg pool runs in a CA bank), each FC."""
+    scheds = []
+    hw = in_hw
+    for layer in layers:
+        if isinstance(layer, CASpec):
+            hw //= layer.pool
+            scheds.append(ocore.schedule_ca("CA", hw, hw, layer.pool, 3))
+        elif isinstance(layer, ConvSpec):
+            hw = conv_out_hw(hw, layer.kernel, layer.stride, layer.padding)
+            scheds.append(ocore.schedule_conv(layer.name, hw, hw, layer.c_in,
+                                              layer.c_out, layer.kernel))
+            if layer.pool:
+                hw //= layer.pool[1]
+                if layer.pool[0] == "avg":
+                    scheds.append(ocore.schedule_ca(
+                        f"{layer.name}.pool", hw, hw, layer.pool[1], 1))
+        elif isinstance(layer, DenseSpec):
+            scheds.append(ocore.schedule_fc(layer.name, layer.fan_in,
+                                            layer.fan_out))
+    return scheds

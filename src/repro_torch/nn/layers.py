@@ -21,6 +21,7 @@ the caller runs them with TF32 off (``conv_bank.ref.float32_convs``).
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -88,6 +89,28 @@ def quantize_dense_params(params, spec: WASpec):
     if "b" in params:
         out["b"] = params["b"]
     return out
+
+
+# ---------------------------------------------------------------------------
+# Activations (JAX's, op by op)
+# ---------------------------------------------------------------------------
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as XLA evaluates it: x * (1 / (1 + exp(-x))), each
+    op rounded to ``x``'s dtype (``F.silu`` rounds once, which in bf16
+    differs on a quarter of the values)."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (the tanh form, its default) op by op in ``x``'s
+    dtype, its constants rounded to that dtype first, as JAX rounds a
+    Python scalar to the array's dtype (``F.gelu`` rounds once)."""
+    c0 = torch.tensor(math.sqrt(2.0 / math.pi), dtype=x.dtype,
+                      device=x.device)
+    c1 = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
+    cdf = 0.5 * (1.0 + torch.tanh(c0 * (x + c1 * (x * (x * x)))))
+    return x * cdf
 
 
 # ---------------------------------------------------------------------------

@@ -14,8 +14,10 @@ import numpy as np
 import torch
 
 # leaves the reference keeps in float32 whatever cfg.dtype (the SSM's
-# electronic parameters, and the MR scales of quantize_lm_params)
-FLOAT32_LEAVES = ("conv_w", "conv_b", "dt_bias", "a_log", "d_skip", "ws")
+# electronic parameters, the MoE router, and the MR scales of
+# quantize_lm_params)
+FLOAT32_LEAVES = ("conv_w", "conv_b", "dt_bias", "a_log", "d_skip", "router",
+                  "ws")
 
 
 def params_from_numpy(params: Mapping[str, Mapping[str, object]],
@@ -45,7 +47,9 @@ def lm_params_from_numpy(tree, device, cfg):
     ``jax.tree.map(np.asarray, params)``) -> the same tree of tensors on
     ``device``, copied. Float leaves go to ``cfg.dtype``, except those the
     reference keeps in float32 whatever the dtype (``FLOAT32_LEAVES``:
-    the SSM's conv/dt/A/D params and the MR scales ``ws``); bfloat16
+    the SSM's conv/dt/A/D params, the MoE router and the MR scales
+    ``ws``); the MoE's stacked experts keep their [L, E, d, f] layout, raw
+    or as storage dicts; bfloat16
     arrays arrive exactly. Integer carriers go to int8, the reference's
     ``int4`` carriers included (the same values, a byte each)."""
     dtype = cfg.torch_dtype

@@ -43,7 +43,8 @@ from repro_torch.core.compressive import (ca_coefficients,
                                           compressive_acquire, fma_f32,
                                           sequence_ca, strided_conv_acquire)
 from repro_torch.kernels import dispatch, launch_counts, reset_launch_counts
-from repro_torch.kernels.ca_pool.ops import ca_pool
+from repro_torch.kernels.ca_pool.ops import acquire, ca_pool
+from repro_torch.kernels.ca_pool.ref import ca_pool_ref_generic
 
 
 def _img(shape, seed):
@@ -109,10 +110,17 @@ def test_per_channel_mean_bitwise_equal_to_jitted_reference(shape):
 @pytest.mark.parametrize("shape", [(4, 32, 32, 3), (2, 28, 28, 1)])
 @pytest.mark.parametrize("gray", [True, False])
 def test_wrapper_and_dispatch_on_cpu_are_the_plain_version(shape, gray):
+    """``acquire`` (the served path's op) is ``compressive_acquire``, the
+    per-channel mode included; the public ``ca_pool`` is its generic twin
+    on the preset bank or the uniform 1/(p*p*C) one, [B, H', W'] always."""
     img = torch.from_numpy(_img(shape, seed=9))
     want = compressive_acquire(img, 2, gray)
     reset_launch_counts()
-    assert torch.equal(ca_pool(img, 2, gray), want)
+    assert torch.equal(acquire(img, 2, gray), want)
+    coeffs = (ca_coefficients(2, shape[-1]) if gray else
+              torch.full((2, 2, shape[-1]), 1.0 / (4 * shape[-1])))
+    assert torch.equal(ca_pool(img, 2, gray),
+                       ca_pool_ref_generic(img, coeffs, 2))
     assert launch_counts()["ca_pool"] == 0
     for backend in dispatch.BACKENDS:
         assert torch.equal(dispatch.ca_acquire(img, 2, gray, backend), want)
@@ -201,3 +209,102 @@ def test_strided_conv_acquire_against_reference(k, stride):
                                stride).numpy()
     assert got.shape == want.shape
     _within_sum_bound(got, want.astype(np.float64), k * k * 3)
+
+
+# ---------------------------------------------------------------------------
+# the public ca_pool op: the reference's contract
+# ---------------------------------------------------------------------------
+
+CA_OP_SHAPES = [((4, 32, 32, 3), 2), ((5, 28, 28, 1), 4),
+                ((2, 12, 12, 4), 2), ((2, 16, 16, 3), 4)]
+
+
+@pytest.mark.parametrize("shape,pool", CA_OP_SHAPES)
+def test_ca_pool_coeffs_within_sum_bound_of_reference(shape, pool):
+    """``coeffs=`` (a positive bank, so the sum bound holds) against the
+    reference's einsum oracle ``ca_pool_ref_generic`` and its
+    interpret-mode Pallas op: XLA sums the taps in its own order."""
+    from repro.kernels.ca_pool.ref import ca_pool_ref_generic as jax_generic
+    img = _img(shape, seed=shape[0] + pool)
+    coeffs = np.random.default_rng(pool).random(
+        (pool, pool, shape[-1])).astype(np.float32)
+    got = ca_pool(torch.from_numpy(img), pool,
+                  coeffs=torch.from_numpy(coeffs))
+    assert got.shape == shape[:1] + (shape[1] // pool, shape[2] // pool)
+    assert got.dtype == torch.float32
+    n = pool * pool * shape[-1]
+    for want in (jax_generic(jnp.asarray(img), jnp.asarray(coeffs), pool),
+                 pallas_ca_pool(jnp.asarray(img), pool,
+                                coeffs=jnp.asarray(coeffs))):
+        _within_sum_bound(got.numpy(), np.asarray(want, np.float64), n)
+    assert torch.equal(got, ca_pool_ref_generic(torch.from_numpy(img),
+                                                torch.from_numpy(coeffs),
+                                                pool))
+
+
+@pytest.mark.parametrize("shape,pool", CA_OP_SHAPES[:2] + [
+    ((3, 16, 24, 3), 2), ((2, 32, 32, 1), 2)])
+def test_ca_pool_ref_generic_bitwise_equal_to_acquire_on_the_preset_bank(
+        shape, pool):
+    img = torch.from_numpy(_img(shape, seed=7))
+    coeffs = ca_coefficients(pool, shape[-1])
+    assert torch.equal(ca_pool_ref_generic(img, coeffs, pool),
+                       compressive_acquire(img, pool, True))
+
+
+@pytest.mark.parametrize("shape,pool", CA_OP_SHAPES)
+def test_ca_pool_uniform_mode_against_reference_op(shape, pool):
+    """``rgb_to_gray=False``: one mean over the window and the channels,
+    [B, H', W'] (not the per-channel mean), with the reference's float32
+    ``1 / (p*p*C)`` bank bitwise."""
+    img = _img(shape, seed=13)
+    got = ca_pool(torch.from_numpy(img), pool, False)
+    want = np.asarray(pallas_ca_pool(jnp.asarray(img), pool, False),
+                      np.float64)
+    assert got.shape == want.shape
+    _within_sum_bound(got.numpy(), want, pool * pool * shape[-1])
+    bank = np.array(jnp.ones((pool, pool, shape[-1]), jnp.float32)
+                      / (pool * pool * shape[-1]))
+    assert torch.equal(got, ca_pool_ref_generic(
+        torch.from_numpy(img), torch.from_numpy(bank), pool))
+
+
+@pytest.mark.parametrize("gray", [True, False])
+def test_ca_pool_takes_bfloat16_and_returns_it(gray):
+    """bfloat16 in, bfloat16 out: widened exactly, summed in float32,
+    rounded once; within a bf16 step of the reference op's (its sum order
+    can round to the other neighbour)."""
+    img = _img((2, 16, 16, 3), seed=21)
+    half = torch.from_numpy(img).to(torch.bfloat16)
+    got = ca_pool(half, 2, gray)
+    assert got.dtype == torch.bfloat16
+    coeffs = (ca_coefficients(2, 3) if gray else
+              torch.full((2, 2, 3), 1.0 / 12))
+    assert torch.equal(got, ca_pool_ref_generic(half, coeffs, 2)
+                       .to(torch.bfloat16))
+    want = pallas_ca_pool(jnp.asarray(img).astype(jnp.bfloat16), 2, gray)
+    assert want.dtype == jnp.bfloat16
+    want = np.asarray(want.astype(jnp.float32))
+    assert (np.abs(got.float().numpy() - want) <= 2.0 ** -8 * want).all()
+
+
+def test_ca_pool_ref_raises_on_the_per_channel_mode_as_the_reference():
+    from repro.kernels.ca_pool.ref import ca_pool_ref as jax_ca_pool_ref
+    from repro_torch.kernels.ca_pool.ref import ca_pool_ref
+    img = _img((2, 8, 8, 3), seed=1)
+    with pytest.raises(ValueError, match="fused gray path"):
+        jax_ca_pool_ref(jnp.asarray(img), 2, False)
+    with pytest.raises(ValueError, match="fused gray path"):
+        ca_pool_ref(torch.from_numpy(img), 2, False)
+    assert torch.equal(ca_pool_ref(torch.from_numpy(img), 2, True),
+                       compressive_acquire(torch.from_numpy(img), 2, True))
+
+
+def test_ca_pool_refuses_a_bank_of_the_wrong_shape_or_device():
+    img = torch.from_numpy(_img((1, 8, 8, 3), seed=2))
+    with pytest.raises(ValueError, match=r"coeffs must be \[2, 2, 3\]"):
+        ca_pool(img, 2, coeffs=torch.ones((2, 2, 1)))
+    with pytest.raises(ValueError, match="coeffs on meta"):
+        ca_pool(img, 2, coeffs=torch.ones((2, 2, 3), device="meta"))
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        ca_pool(img.double(), 2)

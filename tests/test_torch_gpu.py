@@ -10,8 +10,11 @@ VGG16's kernel shapes at 224x224x3 (``VGG16_SHAPES``) are held bitwise at
 batch 1 and 8, its bound graph replays to its eager run, and a plan the
 verifier proved runs its fused chain with no range check. The training
 slice: photonic_mvm's float API on signed codes at both routes, and QAT
-steps on the card against the CPU port's. The LM families: every non-MoE
-smoke arch's forward and decode steps on the card against the CPU port.
+steps on the card against the CPU port's. The LM families: every smoke
+arch's forward and decode steps on the card against the CPU port (the MoE
+archs under both dispatches and three quant modes, their expert indices
+equal). The public ``ca_pool`` op with a bank of its own, on every
+weighted route.
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ from repro_torch.core.compressive import compressive_acquire
 from repro_torch.core.plan import padtype_to_pads
 from repro_torch.core.quant import W4A4
 from repro_torch.kernels import dispatch, launch_counts, reset_launch_counts
-from repro_torch.kernels.ca_pool.ops import ca_config, ca_pool
+from repro_torch.kernels.ca_pool.ops import acquire, ca_config, ca_pool
+from repro_torch.kernels.ca_pool.ref import ca_pool_ref_generic
 from repro_torch.kernels.conv_bank import strip
 from repro_torch.kernels.conv_bank.fused import conv_chain
 from repro_torch.kernels.conv_bank.ops import conv_bank, conv_bank_plain
@@ -157,7 +161,7 @@ def test_ca_kernel_bitwise_equal_to_plain(cuda, shape, pool, gray):
     g = torch.Generator().manual_seed(5)
     img = torch.rand(shape, generator=g).to(cuda)
     reset_launch_counts()
-    got = ca_pool(img, pool, gray)
+    got = acquire(img, pool, gray)
     assert launch_counts()["ca_pool"] == 1
     assert torch.equal(got, compressive_acquire(img, pool, gray))
 
@@ -172,9 +176,30 @@ def test_ca_kernel_configs_bitwise_equal_to_plain(cuda, b, h, w, c, p, gray,
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     assert ca_config(b, h, w, c, p, gray, sms, not odd).route == route
     reset_launch_counts()
-    got = ca_pool(img, p, gray)
+    got = acquire(img, p, gray)
     assert launch_counts()["ca_pool"] == 1
     assert torch.equal(got, compressive_acquire(img, p, gray))
+
+
+@pytest.mark.parametrize("b,h,w,c,p,gray,odd,route",
+                         [e for e in CA_EDGES if e[5]])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ca_pool_custom_coefficients_bitwise_equal_to_plain(
+        cuda, b, h, w, c, p, gray, odd, route, dtype):
+    """The public op with a signed bank of its own on every weighted
+    route's edges, at ``odd_offset`` too; bfloat16 widened, summed in
+    float32 and rounded once."""
+    g = torch.Generator().manual_seed(b + h + w + c + p + 1)
+    img = torch.rand((b, h, w, c), generator=g).to(cuda, getattr(torch,
+                                                                dtype))
+    img = odd_offset(img) if odd else img
+    coeffs = (torch.rand((p, p, c), generator=g) - 0.5).to(cuda)
+    reset_launch_counts()
+    got = ca_pool(img, p, coeffs=coeffs)
+    assert launch_counts()["ca_pool"] == 1
+    assert got.dtype == img.dtype
+    want = ca_pool_ref_generic(img, coeffs, p).to(img.dtype)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("b,h,w,ci,co,k,stride,strip_h,n_strips", [
@@ -758,3 +783,97 @@ def test_lm_on_the_card_matches_the_cpu_port(cuda, arch, quant):
         assert torch.isfinite(got).all()
         err = (got - want).abs().max() / want.abs().max()
         assert float(err) <= 1e-4, float(err)
+
+
+# -- the MoE family (nn/moe.py, models/lm.py's moe) ---------------------------
+
+def _routed(fn):
+    """Runs ``fn()`` and returns (its result, the expert indices of every
+    MoE routing it made, in order)."""
+    from unittest import mock
+    from repro_torch.nn import moe
+    route, seen = moe._route, []
+
+    def spy(logits, k):
+        probs, top_w, top_i = route(logits, k)
+        seen.append(top_i.cpu())
+        return probs, top_w, top_i
+
+    with mock.patch.object(moe, "_route", spy):
+        out = fn()
+    return out, seen
+
+
+@pytest.mark.parametrize("mode", ["none", "w4a4", "storage"])
+@pytest.mark.parametrize("dispatch", ["sorted", "grouped"])
+@pytest.mark.parametrize("arch", ["grok-1-314b", "kimi-k2-1t-a32b"])
+def test_moe_on_the_card_matches_the_cpu_port(cuda, arch, dispatch, mode):
+    """The MoE smoke archs in float32 (TF32 off) under both dispatches and
+    quant none, W4A4 fake-quant and W4A4 storage, one set of weights
+    carried through numpy to both devices: the forward's logits, aux and
+    three decode steps' logits within 1e-4 of their largest, the dropped
+    fractions equal and the expert indices of every routing equal."""
+    from repro_torch.configs import smoke_variant
+    from repro_torch.core.quant import W4A4
+    from repro_torch.kernels.conv_bank.ref import float32_convs
+    from repro_torch.models import lm
+    from repro_torch.weights import lm_params_from_numpy, lm_params_to_numpy
+    cfg = dataclasses.replace(smoke_variant(arch), dtype="float32",
+                              moe_dispatch=dispatch,
+                              quant_scheme="w4a4" if mode == "w4a4"
+                              else "none")
+    params = lm.init_lm(torch.Generator().manual_seed(4), cfg, device="cpu")
+    if mode == "storage":
+        params = lm.quantize_lm_params(params, cfg, W4A4)
+    tree = lm_params_to_numpy(params)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (2, 8)).astype(np.int32))
+    out, routes = {}, {}
+
+    def run(dev):
+        p = lm_params_from_numpy(tree, dev, cfg)
+        fwd, aux = lm.lm_forward(p, {"tokens": toks.to(dev)}, cfg)
+        res = [fwd.cpu()]
+        cache = lm.init_cache(cfg, 2, 8, dtype=torch.float32, device=dev)
+        for i in range(3):
+            lg, cache = lm.decode_step(p, cache, toks[:, i:i + 1].to(dev),
+                                       cfg)
+            res.append(lg.cpu())
+        return res, {k: float(v) for k, v in aux.items()}
+
+    with float32_convs():
+        for dev in ("cpu", "cuda"):
+            out[dev], routes[dev] = _routed(lambda: run(dev))
+    (card, card_aux), (cpu, cpu_aux) = out["cuda"], out["cpu"]
+    assert card_aux["dropped"] == cpu_aux["dropped"]
+    for k in ("balance", "z"):
+        assert abs(card_aux[k] - cpu_aux[k]) <= 1e-4 * cpu_aux[k]
+    for got, want in zip(card, cpu):
+        assert torch.isfinite(got).all()
+        err = (got - want).abs().max() / want.abs().max()
+        assert float(err) <= 1e-4, float(err)
+    assert len(routes["cuda"]) == len(routes["cpu"]) > 0
+    for a, b in zip(routes["cuda"], routes["cpu"]):
+        assert torch.equal(a, b)
+
+
+def test_moe_combine_cast_on_the_card_equals_the_cpu(cuda):
+    """``to_combine_dtype`` to float8_e4m3fn and bfloat16 gives the same
+    bits on the card as on the CPU (where it equals ml_dtypes' cast), past
+    +-448, at ties and on infinities."""
+    from repro_torch.nn import moe
+    f8 = torch.arange(256, dtype=torch.uint8).view(torch.float8_e4m3fn)
+    fin = torch.unique(f8.float()[torch.isfinite(f8.float())])
+    mids = ((fin[1:].double() + fin[:-1].double()) / 2).float()
+    v = torch.cat([fin, mids, torch.tensor([449.0, 464.0, 464.5, 480.0,
+                                            1e4, float("inf")]),
+                   torch.randn(10000, generator=torch.Generator()
+                               .manual_seed(0)) * 100])
+    v = torch.cat([v, -v])
+    for dtype in (torch.float8_e4m3fn, torch.bfloat16):
+        for src in (torch.float32, torch.bfloat16):
+            x = v.to(src)
+            want = moe.to_combine_dtype(x, dtype).float()
+            got = moe.to_combine_dtype(x.to(cuda), dtype).float().cpu()
+            assert torch.equal(got.isnan(), want.isnan())
+            assert torch.equal(got[~got.isnan()], want[~want.isnan()])

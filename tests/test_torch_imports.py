@@ -4,8 +4,8 @@
   ``repro``/``repro.*`` module is loaded;
 * an AST scan of every source file of the port, of ``chip_smoke.py`` and
   of ``scripts/verify_plan_torch.py`` finds no import of either;
-* with no GPU, the entry points (serving, training and the LM's) raise
-  unless the caller asks for the CPU.
+* with no GPU, the entry points (serving, training, the LM's and the
+  MoE's) raise unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -118,3 +118,25 @@ def test_lm_entry_points_refuse_cuda_without_a_gpu():
     assert toks.shape == (1, serve_lm.PROMPT_LEN + 2)
     params = lm.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
     assert params["embed"]["table"].device.type == "cpu"
+
+
+def test_moe_entry_points_refuse_cuda_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.configs import smoke_variant
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import lm
+    from repro_torch.nn import moe
+    cfg = moe.MoEConfig(n_experts=4, top_k=2, d_model=8, d_ff=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        moe.init_moe(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.init_lm(torch.Generator().manual_seed(0),
+                   smoke_variant("grok-1-314b"))
+    # the CPU, asked for explicitly, works
+    p = moe.init_moe(torch.Generator().manual_seed(0), cfg, device="cpu")
+    assert p["router"].device.type == "cpu"
+    toks, = serve_lm.main(["--arch", "kimi-k2-1t-a32b", "--smoke", "--gen",
+                           "2", "--batch", "1", "--quant", "w4a4",
+                           "--device", "cpu"])
+    assert toks.shape == (1, serve_lm.PROMPT_LEN + 2)

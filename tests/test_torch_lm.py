@@ -1,20 +1,24 @@
 """repro_torch's LM (``models/lm.py``) against the JAX reference, on the
-CPU, for every non-MoE smoke architecture.
+CPU, for every smoke architecture.
 
 The reference's ``init_lm`` weights (its own PRNG) are carried to the port
 by ``lm_params_from_numpy``; the inputs come from ``modality_batch`` with
 a seed. Every arch in float32 under quant ``none`` and ``w4a4``
 (fake-quant), and one arch of each family (``FAMILY_ARCHS``) also in the
-configs' own bfloat16 under ``none``:
+configs' own bfloat16 under ``none``; the MoE archs' smoke variants
+dispatch ``sorted``, and run again under ``grouped`` (their FULL
+configs' dispatch) in float32:
 
-* ``lm_forward``'s logits and aux, and ``lm_loss`` (quant ``none``,
+* ``lm_forward``'s logits and aux (the MoE balance and z losses within
+  the run's tolerance of the reference's, relative; the dropped fraction
+  equal; 0 for the other families), and ``lm_loss`` (quant ``none``,
   compiled with the forward; with a loss mask and in vocab chunks on one
   arch);
 * three ``decode_step``s from an empty cache, logits and cache;
 * ``quantize_lm_params``: ``wq`` equal, ``ws`` bitwise, and the forward
   through that storage;
 * ``init_lm``'s shapes, dtypes and per-leaf spread against the
-  reference's; MoE archs raise ``NotImplementedError``.
+  reference's (the MoE router float32 under bfloat16).
 
 ``greedy_generate`` and the prefill-against-decode check are in
 ``test_torch_lm_generate.py``.
@@ -64,12 +68,12 @@ from repro_torch.weights import lm_params_from_numpy, lm_params_to_numpy
 OPTS = {"xla_disable_hlo_passes": "algsimp",
         "xla_allow_excess_precision": False}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
-ARCHS = [a for a in list_configs() if get_config(a).family != "moe"]
+ARCHS = list_configs()
 DECODERS = [a for a in ARCHS if get_config(a).family != "encoder"]
-MOE = [a for a in list_configs() if get_config(a).family == "moe"]
-# one arch of each non-MoE family: dense, ssm, hybrid, encoder, vlm
+MOE = [a for a in ARCHS if get_config(a).family == "moe"]
+# one arch of each family: dense, ssm, hybrid, encoder, vlm, moe
 FAMILY_ARCHS = ["tinyllama-1.1b", "mamba2-1.3b", "hymba-1.5b",
-                "hubert-xlarge", "internvl2-26b"]
+                "hubert-xlarge", "internvl2-26b", "grok-1-314b"]
 CASES = [(a, d, q) for a in ARCHS
          for d, q in (("float32", "none"), ("float32", "w4a4"),
                       ("bfloat16", "none"))
@@ -80,8 +84,10 @@ def compiled(fn, *args):
     return jax.jit(fn).lower(*args).compile(compiler_options=OPTS)
 
 
-def configs(arch, dtype="bfloat16", quant="none"):
+def configs(arch, dtype="bfloat16", quant="none", dispatch=None):
     kw = dict(dtype=dtype, quant_scheme=quant)
+    if dispatch is not None:
+        kw["moe_dispatch"] = dispatch
     return (dataclasses.replace(smoke_variant(arch), **kw),
             dataclasses.replace(tconfigs.smoke_variant(arch), **kw))
 
@@ -102,11 +108,11 @@ def rel_err(got: torch.Tensor, want) -> float:
 
 
 @functools.lru_cache(maxsize=None)
-def run(arch, dtype, quant):
+def run(arch, dtype, quant, dispatch=None):
     """Both packages on the same weights and inputs: forward and (quant
     none) loss from one compile, three decode steps with caches of the
     run's dtype."""
-    jcfg, tcfg = configs(arch, dtype, quant)
+    jcfg, tcfg = configs(arch, dtype, quant, dispatch)
     npw = weights(arch, dtype)
     jp = jax.tree.map(jnp.asarray, npw)
     tp = lm_params_from_numpy(npw, "cpu", tcfg)
@@ -141,13 +147,23 @@ def run(arch, dtype, quant):
     return out
 
 
-@pytest.mark.parametrize("arch,dtype,quant", CASES)
-def test_forward_against_reference(arch, dtype, quant):
-    (jlogits, jaux), (tlogits, taux) = run(arch, dtype, quant)["fwd"]
+def assert_forward_close(fwd, arch, dtype):
+    (jlogits, jaux), (tlogits, taux) = fwd
     assert tlogits.dtype == getattr(torch, dtype)
     assert rel_err(tlogits, jlogits) <= TOL[dtype]
-    for k in ("balance", "z", "dropped"):
-        assert float(taux[k]) == float(jaux[k]) == 0.0
+    assert float(taux["dropped"]) == float(jaux["dropped"])
+    for k in ("balance", "z"):
+        if arch in MOE:
+            assert float(jaux[k]) > 0
+            assert abs(float(taux[k]) - float(jaux[k])) <= \
+                TOL[dtype] * float(jaux[k])
+        else:
+            assert float(taux[k]) == float(jaux[k]) == 0.0
+
+
+@pytest.mark.parametrize("arch,dtype,quant", CASES)
+def test_forward_against_reference(arch, dtype, quant):
+    assert_forward_close(run(arch, dtype, quant)["fwd"], arch, dtype)
 
 
 def assert_loss_close(got, want, dtype):
@@ -189,10 +205,8 @@ def test_loss_masked_and_chunked_against_reference(mask, vocab_chunk):
     assert_loss_close(got, want, dtype)
 
 
-@pytest.mark.parametrize("arch,dtype,quant", [c for c in CASES
-                                              if c[0] in DECODERS])
-def test_decode_steps_against_reference(arch, dtype, quant):
-    steps, jc, tc = run(arch, dtype, quant)["decode"]
+def assert_decode_close(decode, dtype):
+    steps, jc, tc = decode
     for jl, tl in steps:
         assert rel_err(tl, jl) <= TOL[dtype]
     assert int(tc["pos"]) == int(jc["pos"]) == 3
@@ -205,13 +219,33 @@ def test_decode_steps_against_reference(arch, dtype, quant):
         assert rel_err(t, leaf) <= TOL[dtype], path
 
 
+@pytest.mark.parametrize("arch,dtype,quant", [c for c in CASES
+                                              if c[0] in DECODERS])
+def test_decode_steps_against_reference(arch, dtype, quant):
+    assert_decode_close(run(arch, dtype, quant)["decode"], dtype)
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_grouped_dispatch_against_reference(arch):
+    """The MoE archs under the grouped dispatch their FULL configs use
+    (each batch row its own capacity), float32, quant none: forward and
+    aux, loss, three decode steps (W4A4 under it: ``test_torch_moe.py``)."""
+    out = run(arch, "float32", "none", "grouped")
+    assert_forward_close(out["fwd"], arch, "float32")
+    jloss, tloss = out["loss"]
+    assert_loss_close(tloss, jloss, "float32")
+    assert_decode_close(out["decode"], "float32")
+
+
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-1.3b",
-                                  "hymba-1.5b", "internvl2-26b"])
+                                  "hymba-1.5b", "internvl2-26b"] + MOE)
 def test_quantize_lm_params_against_reference(arch):
     """W4A4 storage: the int levels equal (the reference's int4 carrier as
-    int8 values), the scales bitwise, every other leaf untouched; and the
-    forward through that storage (weights dequantized in the activations'
-    dtype) against the reference's, bf16 tolerance."""
+    int8 values), the scales bitwise, every other leaf untouched (the MoE
+    router float32); the MoE's stacked experts become {wq, ws} with one
+    scale per (layer, expert, out-channel); and the forward through that
+    storage (weights dequantized in the activations' dtype) against the
+    reference's, bf16 tolerance."""
     jcfg, tcfg = configs(arch)
     npw = weights(arch, "bfloat16")
     jq = jlm.quantize_lm_params(jax.tree.map(jnp.asarray, npw), jcfg, JW4A4)
@@ -260,18 +294,6 @@ def test_decode_leaves_the_cache_passed_in_and_clamps_past_the_end():
     k2, k3 = c2["layers"]["kv"]["k"], c3["layers"]["kv"]["k"]
     assert torch.equal(k3[:, :, 0], k2[:, :, 0])
     assert not torch.equal(k3[:, :, 1], k2[:, :, 1])
-
-
-@pytest.mark.parametrize("arch", MOE)
-def test_moe_archs_raise(arch):
-    tcfg = tconfigs.smoke_variant(arch)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tlm.init_lm(torch.Generator().manual_seed(0), tcfg, device="cpu")
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="moe"):
-        tlm.lm_forward({}, batch, tcfg)
-    with pytest.raises(NotImplementedError, match="moe"):
-        tlm.decode_step({}, {}, batch["tokens"][:, :1], tcfg)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -173,3 +173,41 @@ def test_keygen_is_deterministic_and_splits():
     assert not torch.equal(first(g), first(g))
     assert torch.equal(first(torch.Generator().manual_seed(3)),
                        first(torch.Generator().manual_seed(3)))
+
+
+@pytest.mark.parametrize("arch", ["grok-1-314b", "kimi-k2-1t-a32b"])
+def test_moe_weights_round_trip_bitwise(arch):
+    """The reference's bf16 MoE tree, float and in W4A4 storage, numpy ->
+    port -> numpy bitwise: the router float32 under bf16, the stacked
+    experts [L, E, d, f] as they were, the storage dicts {wq, ws} carried
+    (int4 levels as int8 values, scales float32)."""
+    jcfg = jconfigs.smoke_variant(arch)
+    tcfg = tconfigs.smoke_variant(arch)
+    jparams = jlm.init_lm(jax.random.PRNGKey(2), jcfg)
+    jq = jlm.quantize_lm_params(jparams, jcfg, JW4A4)
+    for tree in (jparams, jq):
+        npw = jax.tree.map(np.asarray, tree)
+        ttree = lm_params_from_numpy(npw, "cpu", tcfg)
+        moe = ttree["layers"]["moe"]
+        assert moe["router"].dtype == torch.float32
+        back = lm_params_to_numpy(ttree)
+        jflat = jax.tree_util.tree_flatten_with_path(npw)[0]
+        assert len(jflat) == len(list(tmodule.tree_flatten_with_paths(back)))
+        for path, want in jflat:
+            got = back
+            for p in path:
+                got = got[p.key]
+            if want.dtype.name.startswith("int"):
+                assert got.dtype == np.int8
+                assert np.array_equal(got, want.astype(np.int8)), path
+            else:
+                assert got.shape == want.shape, path
+                assert np.array_equal(got.view(np.uint32),
+                                      want.astype(np.float32).view(
+                                          np.uint32)), path
+    assert moe["w_gate"]["wq"].shape == (jcfg.n_layers, jcfg.n_experts,
+                                         jcfg.d_model, jcfg.d_ff)
+    assert moe["w_gate"]["ws"].shape == (jcfg.n_layers, jcfg.n_experts, 1,
+                                         jcfg.d_ff)
+    assert str(np.asarray(jq["layers"]["moe"]["w_down"]["wq"]).dtype) == \
+        "int4"

@@ -1,7 +1,7 @@
 """repro_torch's greedy decode (``models/lm.py::greedy_generate``) against
 the JAX reference, and the port's prefill against its decode, on the CPU.
 
-* ``greedy_generate`` for every non-MoE decoder smoke arch, float32,
+* ``greedy_generate`` for every decoder smoke arch, float32,
   under quant ``none`` and ``w4a4``: the reference's ``init_lm`` weights
   carried by ``lm_params_from_numpy``, a 6-token prompt from a seed, 5
   tokens generated. The reference's ``greedy_generate`` jits its step with
@@ -20,7 +20,8 @@ the JAX reference, and the port's prefill against its decode, on the CPU.
 * prefill against decode in the port: teacher-forced ``lm_forward``
   logits equal the stepped ``decode_step`` logits within the reference
   test's rtol = atol = 5e-2 (``test_models_smoke.py``), bf16 configs
-  (the archs whose forward takes tokens alone: the vlm's needs patches);
+  (the archs whose forward takes tokens alone: the vlm's needs patches;
+  the MoE archs where their forward drops no slot);
   and in bf16 the port's gap is the reference's own on the same weights.
 """
 
@@ -44,7 +45,7 @@ OPTS = {"xla_disable_hlo_passes": "algsimp",
         "xla_allow_excess_precision": False}
 TOL = 2e-2
 DECODERS = [a for a in list_configs()
-            if get_config(a).family not in ("moe", "encoder")]
+            if get_config(a).family != "encoder"]
 PROMPT, GEN = 6, 5
 
 
@@ -94,7 +95,7 @@ def test_greedy_generate_against_reference(arch, quant):
     want, ref_logits = reference_greedy(jp, jcfg, prompt, GEN)
     # the port's steps along the reference's tokens
     cache = tlm.init_cache(tcfg, 2, PROMPT + GEN + 1, device="cpu")
-    ids = torch.from_numpy(want)
+    ids = torch.from_numpy(want.copy())
     for i in range(PROMPT + GEN - 1):
         logits, cache = tlm.decode_step(tp, cache, ids[:, i:i + 1], tcfg)
         if i >= PROMPT - 1:
@@ -119,21 +120,44 @@ def test_argmax_ties_go_to_the_lowest_id_in_both():
         int(jnp.argmax(jnp.asarray(row), -1)[0]) == 1
 
 
-@pytest.mark.parametrize("arch", [a for a in DECODERS
-                                  if get_config(a).frontend == "none"])
-def test_prefill_matches_decode_in_the_port(arch):
-    _, tcfg = configs(arch, "bfloat16")
+def prefill_and_decode(tcfg):
+    """The port's teacher-forced forward over an 8-token prompt and its
+    stepped decode: (forward logits, its aux, decode logits)."""
     tp = tlm.init_lm(torch.Generator().manual_seed(1), tcfg, device="cpu")
     toks = torch.from_numpy(np.random.default_rng(3).integers(
         0, tcfg.vocab, (1, 8)).astype(np.int32))
-    logits, _ = tlm.lm_forward(tp, {"tokens": toks}, tcfg)
+    logits, aux = tlm.lm_forward(tp, {"tokens": toks}, tcfg)
     cache = tlm.init_cache(tcfg, 1, 16, device="cpu")
     outs = []
     for i in range(8):
         lg, cache = tlm.decode_step(tp, cache, toks[:, i:i + 1], tcfg)
         outs.append(lg)
-    assert torch.allclose(torch.stack(outs, 1).float(), logits.float(),
-                          rtol=5e-2, atol=5e-2)
+    return logits.float(), aux, torch.stack(outs, 1).float()
+
+
+@pytest.mark.parametrize("arch", [a for a in DECODERS
+                                  if get_config(a).frontend == "none"
+                                  and get_config(a).family != "moe"])
+def test_prefill_matches_decode_in_the_port(arch):
+    logits, _, decoded = prefill_and_decode(configs(arch, "bfloat16")[1])
+    assert torch.allclose(decoded, logits, rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.parametrize("arch", [a for a in DECODERS
+                                  if get_config(a).family == "moe"])
+def test_moe_prefill_matches_decode_where_nothing_drops(arch):
+    """The MoE forward routes the 8 prompt tokens through capacity-bounded
+    experts at once, the decode one token at a time. With a capacity
+    factor of E nothing drops, and the two agree as the other families'
+    do; at the smoke config's own factor kimi-k2's forward drops slots, so
+    the two paths route differently by design (not held)."""
+    cfg = configs(arch, "bfloat16")[1]
+    roomy = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
+    logits, aux, decoded = prefill_and_decode(roomy)
+    assert float(aux["dropped"]) == 0.0
+    assert torch.allclose(decoded, logits, rtol=5e-2, atol=5e-2)
+    if arch.startswith("kimi"):
+        assert float(prefill_and_decode(cfg)[1]["dropped"]) > 0.0
 
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-1.3b"])

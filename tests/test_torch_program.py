@@ -194,3 +194,29 @@ def test_strategy_selection_matches_reference():
                 *args, mode=mode)) == dataclasses.asdict(
                 jdispatch.select_conv_strategy(
                     *args, mode=mode, budget=jdispatch.DEFAULT_CONV_VMEM_BUDGET))
+
+
+SCHEDULE_MODELS = [("lenet", lambda m: m.lenet_ir(), 28),
+                   ("vgg9", lambda m: m.vgg9_ir(use_ca=False), 32),
+                   ("vgg9_ca", lambda m: m.vgg9_ir(use_ca=True,
+                                                   n_classes=100), 32),
+                   ("vgg16", lambda m: m.vgg16_ir(), 224)]
+
+
+@pytest.mark.parametrize("name,ir,in_hw", SCHEDULE_MODELS,
+                         ids=[m[0] for m in SCHEDULE_MODELS])
+def test_vision_schedules_equal_reference(name, ir, in_hw):
+    """IR -> OC schedules field by field (the CA, each conv's ``.pool``
+    avg CA, the FCs, in the reference's order), and the power model's
+    report over them equal under every scheme."""
+    from repro.core.power_model import PowerModel as JPowerModel
+    from repro_torch.core.power_model import PowerModel
+    mine = tvision.vision_schedules(ir(tvision), in_hw)
+    theirs = jvision.vision_schedules(ir(jvision), in_hw)
+    assert [dataclasses.asdict(s) for s in mine] == \
+        [dataclasses.asdict(s) for s in theirs]
+    if name == "vgg9_ca":
+        assert [s.name for s in mine][:1] == ["CA"]
+    for key, (js, ts) in SCHEMES.items():
+        assert dataclasses.asdict(PowerModel().model_report(mine, ts)) == \
+            dataclasses.asdict(JPowerModel().model_report(theirs, js)), key
