@@ -29,7 +29,10 @@ runs and read just after (all but the LM through ``serve.Server``):
            decoding at batch 4 (``models/lm.py``; no port kernel on it);
   moe      grok-1-314b and kimi-k2-1t-a32b at full width, cut in depth
            (``MOE_RUNS``), greedy decoding at batch 4 (``models/lm.py``'s
-           moe family over ``nn/moe.py``; no port kernel on it).
+           moe family over ``nn/moe.py``; no port kernel on it);
+  lm_train smollm-360m at full width and depth trained through
+           ``launch/train.py`` (quant none and W4A4, the restart drill) and
+           the 100M example (no port kernel on it).
 
 Phases, each fatal on failure:
 
@@ -185,6 +188,36 @@ Phases, each fatal on failure:
      routing equal, greedy tokens equal wherever the CPU's margin exceeds
      1e-4 (``[moe]`` lines).
 
+ 13. lm_train: the LM trained through ``launch/train.py`` (its wiring:
+     ``init_lm`` seeded, AdamW, ``steps.make_train_step``, the
+     planted-bigram stream, ``CheckpointManager(keep=2)``,
+     ``RestartableLoop``, ``StragglerMonitor``, ``FailureInjector``; no port
+     kernel is on this path, as no Pallas kernel is in the reference's:
+     the launch counts of the main path must stay 0): smollm-360m at full
+     width and depth (32 layers, d 960, vocab 49152, remat full), bf16
+     params with a float32 master, batch 8, seq 128, seed 0; quant none 30
+     steps and the W4A4 fake-quant 10 steps: every loss finite, the none
+     run's CE falling; ms a step (CUDA events, median after 2 warm-up
+     steps), tokens/s, peak memory, loss and CE first -> last, grad norm,
+     and kernels a step and the busy share of 3 more steps under the
+     profiler (the window ends when the card is done). The restart drill:
+     20 steps with ``--ckpt-every 10 --fail-at 12``, then the restart,
+     which resumes from step 10; its losses at steps 10-19 and every leaf
+     of its state at step 20 bitwise equal to the none run's (the
+     uninterrupted run, its step-20 checkpoint restored: the continuation
+     and the round trip at once; both runs under
+     ``torch.use_deterministic_algorithms``, set around them and restored
+     after; an op with no deterministic CUDA path is named and fails the
+     phase). ``examples/train_lm_100m`` (82M params) 100 steps:
+     the last-10 mean CE below the first-10. Then the card against the
+     CPU port, float32, TF32 off, 3 train steps from one set of weights:
+     the smoke variants of smollm, mamba2, hymba, grok-1 (sorted and
+     grouped), hubert and internvl2, and smollm-360m at full width cut to
+     2 layers: losses and grad norms within 1e-4 relative, every leaf of
+     the params and AdamW state within 1e-4 of its largest, or (named)
+     within 0.5 lr with at most 1% of its entries past 1e-4
+     (``[lm_train]`` lines).
+
 ``--rehearse`` runs every phase on the CPU with the plain versions: no
 graphs, the bound phase on 2 emulated CPU workers, VGG16 at 32x32x3
 (``vgg16_ir(in_hw=32)``, full channel widths, a conv budget that splits
@@ -332,6 +365,31 @@ MOE_DISPATCHES = ("sorted", "grouped")
 MOE_CPU_MODES = ("none", "w4a4", "storage")
 MOE_CPU_FULL = {"arch": "grok-1-314b", "layers": 1, "batch": 2, "prompt": 4,
                 "gen": 4}
+# the [lm_train] phase: smollm-360m (the reference trainer's default) at
+# full width and depth through launch/train.py (the rehearsal: its smoke
+# variant), the batch, sequence and lr, the steps a quant mode runs, the
+# warm-up steps left out of the median,
+# the restart drill, the 100M example's steps, the profiled window, and the
+# card against the CPU port: each family's smoke variant and smollm-360m
+# cut to LM_CPU_LAYERS layers, LM_TRAIN_CPU_STEPS steps, the params held to
+# LM_CARD_CPU_TOL of their largest, or to LM_TRAIN_ADAM_TOL * lr absolute
+# with at most LM_TRAIN_ADAM_SHARE of their entries past the first bound
+LM_TRAIN_ARCH = "smollm-360m"
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_LR = 8, 128, 3e-4
+LM_TRAIN_STEPS = {"none": 30, "w4a4": 10}
+LM_TRAIN_WARMUP = 2
+LM_TRAIN_DRILL = {"steps": 20, "every": 10, "fail_at": 12}
+LM_TRAIN_100M_STEPS = 100
+LM_TRAIN_PROFILE_STEPS = 3
+LM_TRAIN_WINDOW = "chip_smoke.lm_train_window"
+LM_TRAIN_TRACE = "lm_train_trace.json"
+LM_TRAIN_FAMILIES = (("smollm-360m", {}), ("mamba2-1.3b", {}),
+                     ("hymba-1.5b", {}),
+                     ("grok-1-314b", {"moe_dispatch": "sorted"}),
+                     ("grok-1-314b", {"moe_dispatch": "grouped"}),
+                     ("hubert-xlarge", {}), ("internvl2-26b", {}))
+LM_TRAIN_CPU_STEPS = 3
+LM_TRAIN_ADAM_TOL, LM_TRAIN_ADAM_SHARE = 0.5, 1e-2
 # the port's kernels are top-level functions of an anonymous namespace
 PORT_KERNEL = r"^(void )?\(anonymous namespace\)::"
 KERNELS = ("photonic_mvm", "conv_chain", "ca_pool", "conv_strip",
@@ -3206,6 +3264,436 @@ def phase_moe(device, rehearse, out_dir, smi):
     return out, counts
 
 
+# ---------------------------------------------------------------------------
+# the [lm_train] phase
+# ---------------------------------------------------------------------------
+
+def lm_train_args(steps, ckpt_dir, rehearse, quant="none", every=None,
+                  fail_at=None):
+    """``launch/train.py``'s command line for one run of the phase."""
+    args = ["--arch", LM_TRAIN_ARCH, "--steps", str(steps), "--batch",
+            str(LM_TRAIN_BATCH), "--seq", str(LM_TRAIN_SEQ), "--quant", quant,
+            "--ckpt-dir", ckpt_dir, "--seed", str(SEED),
+            "--ckpt-every", str(every or 10 * steps),
+            "--device", "cpu" if rehearse else "cuda"]
+    if rehearse:
+        args.append("--smoke")
+    if fail_at is not None:
+        args += ["--fail-at", str(fail_at)]
+    return args
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """``torch.use_deterministic_algorithms(True)`` for the block, restored
+    after. ``warn_only``: cuBLAS asks for ``CUBLAS_WORKSPACE_CONFIG`` to
+    be deterministic across streams, and the drill runs on one stream,
+    where cuBLAS is bitwise reproducible; that warning is dropped, every
+    other one (an op with no deterministic CUDA path) is collected and
+    named."""
+    import warnings
+    import torch
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            seen = []
+            yield seen
+        seen.extend(sorted({str(w.message).split("\n")[0][:160]
+                            for w in caught
+                            if "CuBLAS" not in str(w.message)
+                            and "deterministic" in str(w.message)}))
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+
+
+def lm_train_run(train, args, device):
+    """One training run through the driver: its ``TrainRun``, with the
+    peak memory and the losses' CE and grad norms read back."""
+    import torch
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    run = train.train(args)
+    run.peak_gb = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    run.ce = [float(m["ce"]) for m in run.history]
+    run.grad_norms = [float(m["grad_norm"]) for m in run.history]
+    return run
+
+
+def lm_train_summary(run, label):
+    """Fatal unless every loss is finite; the step-time figures (median
+    after the warm-up steps)."""
+    need(all(math.isfinite(x) for x in run.losses + run.grad_norms),
+         f"{label}: a loss or grad norm is not finite")
+    timed = sorted(run.step_ms[LM_TRAIN_WARMUP:])
+    med = timed[len(timed) // 2]
+    return {"steps": len(run.losses), "first_step": run.first_step,
+            "ms_per_step_median": med, "ms_first_steps":
+            run.step_ms[:LM_TRAIN_WARMUP],
+            "tokens_per_s": LM_TRAIN_BATCH * LM_TRAIN_SEQ * 1e3 / med,
+            "loss_first": run.losses[0], "loss_last": run.losses[-1],
+            "ce_first": run.ce[0], "ce_last": run.ce[-1],
+            "grad_norm_first": run.grad_norms[0],
+            "grad_norm_last": run.grad_norms[-1], "peak_memory_gb":
+            run.peak_gb, "losses": run.losses}
+
+
+def lm_train_profile(run, path):
+    """``LM_TRAIN_PROFILE_STEPS`` more steps of the run's train step from
+    its final state under the profiler, the window ending when the card is
+    done: its device busy share, kernels a step, the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    state = run.state
+    batches = [run.batch_fn(run.last_step + i)
+               for i in range(LM_TRAIN_PROFILE_STEPS)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function(LM_TRAIN_WINDOW):
+            for b in batches:
+                params, opt, _ = run.train_step(state["params"],
+                                                state["opt"], b)
+                state = {"params": params, "opt": opt}
+            torch.cuda.synchronize()
+    del state
+    events = load_trace(prof, path)
+    os.remove(path)
+    out = busy_share(events, LM_TRAIN_WINDOW)
+    kernels = [e for e in device_work(events, LM_TRAIN_WINDOW)[0]
+               if e["cat"] == "kernel"]
+    out["kernels_per_step"] = len(kernels) / LM_TRAIN_PROFILE_STEPS
+    by_name = {}
+    for e in kernels:
+        name = e["name"][:60]
+        by_name[name] = by_name.get(name, 0.0) + e["dur"] / 1e3
+    out["top_kernels_ms"] = dict(sorted(by_name.items(),
+                                        key=lambda kv: -kv[1])[:5])
+    return out
+
+
+def same_state(got, want):
+    """The leaves of two training states that differ (none: bitwise)."""
+    import torch
+    from repro_torch.nn.module import tree_flatten_with_paths
+    want = dict(tree_flatten_with_paths(want))
+    return [p for p, leaf in tree_flatten_with_paths(got)
+            if not torch.equal(leaf, want[p])]
+
+
+def lm_train_card_vs_cpu(cfg, device, seed):
+    """``LM_TRAIN_CPU_STEPS`` train steps (``steps.make_train_step``) on
+    the card and on the CPU from one set of weights made on the CPU and
+    carried through numpy, over the driver's batches (the text stream, or
+    ``modality_batch`` for a frontend), float32, TF32 off. Losses and grad
+    norms within ``LM_CARD_CPU_TOL`` relative; each leaf of the params and
+    the AdamW state within ``LM_CARD_CPU_TOL`` of its largest |entry|, or
+    for params and master within ``LM_TRAIN_ADAM_TOL`` * lr absolute with
+    at most ``LM_TRAIN_ADAM_SHARE`` of its entries past the first bound
+    (the leaves that need it are named: where |g| is within a few of
+    AdamW's eps, 1e-8, its normalized update m / (sqrt(v) + eps) follows
+    the gradient's float32 error; the tied embedding's rows of tokens
+    absent from the batch get gradients of that size)."""
+    import torch
+    from repro_torch.data.synthetic import (SyntheticTextConfig,
+                                            modality_batch,
+                                            synthetic_lm_batch)
+    from repro_torch.kernels.conv_bank.ref import float32_convs
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.nn.module import tree_flatten_with_paths
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.weights import lm_params_from_numpy, lm_params_to_numpy
+    cpu = torch.device("cpu")
+    opt_cfg = AdamWConfig(lr=LM_TRAIN_LR)
+    tree = lm_params_to_numpy(lm.init_lm(
+        torch.Generator().manual_seed(seed), cfg, device="cpu"))
+    text = SyntheticTextConfig(vocab=cfg.vocab, seq=LM_TRAIN_SEQ,
+                               batch=LM_TRAIN_BATCH, seed=seed)
+
+    def batch(step):
+        if cfg.frontend == "none":
+            return synthetic_lm_batch(text, step)
+        return modality_batch(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                              seed=seed * 1_000_003 + step)
+
+    runs = {}
+    with float32_convs():
+        for d in (cpu, device):
+            params = lm_params_from_numpy(tree, d, cfg)
+            state = {"params": params, "opt": adamw_init(params, opt_cfg)}
+            step = make_train_step(cfg, opt_cfg, LM_TRAIN_SEQ)
+            metrics = []
+            for i in range(LM_TRAIN_CPU_STEPS):
+                b = {k: torch.from_numpy(v).to(d)
+                     for k, v in batch(i).items()}
+                p, o, m = step(state["params"], state["opt"], b)
+                state = {"params": p, "opt": o}
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            runs[d.type] = (metrics, state)
+    label = f"[lm_train] card vs CPU {cfg.name} ({cfg.n_layers} layers)"
+    out = {"losses": [], "grad_norms": [], "needs_adam_bound": {}}
+    for (gl, gn), (wl, wn) in zip(runs[device.type][0], runs["cpu"][0]):
+        out["losses"].append((gl, wl))
+        out["grad_norms"].append((gn, wn))
+        for g, w, what in ((gl, wl, "loss"), (gn, wn, "grad norm")):
+            need(math.isfinite(g) and abs(g - w) <= LM_CARD_CPU_TOL * abs(w),
+                 f"{label}: the {what} differs: {g} on the card, {w} on the "
+                 f"CPU")
+    want = dict(tree_flatten_with_paths(runs["cpu"][1]))
+    worst = 0.0
+    for path, leaf in tree_flatten_with_paths(runs[device.type][1]):
+        w = want[path].double()
+        err = float((leaf.cpu().double() - w).abs().max())
+        scale = float(w.abs().max())
+        ratio = err / scale if scale else (0.0 if err == 0 else math.inf)
+        if ratio > LM_CARD_CPU_TOL:
+            adam = path.startswith(("params/", "opt/master/"))
+            over = float(((leaf.cpu().double() - w).abs()
+                          > LM_CARD_CPU_TOL * scale).double().mean())
+            need(adam and err <= LM_TRAIN_ADAM_TOL * LM_TRAIN_LR
+                 and over <= LM_TRAIN_ADAM_SHARE,
+                 f"{label}: {path} differs by {err:.3g} ({ratio:.3g} of its "
+                 f"largest, {over:.3g} of its entries past "
+                 f"{LM_CARD_CPU_TOL})")
+            out["needs_adam_bound"][path] = {"abs": err, "rel": ratio,
+                                             "of_lr": err / LM_TRAIN_LR,
+                                             "share_over": over}
+        else:
+            worst = max(worst, ratio)
+    out["worst_leaf_rel_err"] = worst
+    out["leaves"] = len(want)
+    return out
+
+
+def phase_lm_train(device, rehearse, out_dir, smi):
+    """The LM families trained (the module docstring's phase 13). Returns
+    its detail and the port's kernel launches of the main path (none
+    expected: no training product runs through a port kernel, as none
+    runs through a Pallas kernel in the reference)."""
+    import shutil
+    import torch
+    from repro_torch import configs
+    from repro_torch.checkpoint.ckpt import restore_checkpoint
+    from repro_torch.examples import train_lm_100m
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    out = {"device": smi, "runs": {}, "card_vs_cpu": {}}
+    t_phase = time.perf_counter()
+    cuda = device.type == "cuda"
+    ckpt_root = os.path.join(HERE, "build", "lm_train_ckpt")
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    os.makedirs(ckpt_root)
+    free_gb = shutil.disk_usage(ckpt_root).free / 1e9
+    base = (configs.smoke_variant if rehearse else configs.get_config)(
+        LM_TRAIN_ARCH)
+    log(f"[lm_train] on {smi}: {base.name} ({base.n_layers} layers, d "
+        f"{base.d_model}, {base.n_heads}/{base.n_kv_heads} heads, d_ff "
+        f"{base.d_ff}, vocab {base.vocab}, remat {base.remat}, "
+        f"{base.dtype}), batch {LM_TRAIN_BATCH}, seq {LM_TRAIN_SEQ}, lr "
+        f"{LM_TRAIN_LR}, seed {SEED}, the planted-bigram stream; "
+        f"{free_gb:.1f} GB free for checkpoints")
+    steps = LM_TRAIN_STEPS
+    try:
+        reset_launch_counts()
+        # quant none: the drill's uninterrupted run, so under deterministic
+        # algorithms; it keeps its step-20 checkpoint (keep=2: 20 and 30)
+        dirs = {k: os.path.join(ckpt_root, k)
+                for k in ("none", "drill", "w4a4", "lm100m")}
+        parts = out["parts_s"] = {}
+        t0 = time.perf_counter()
+        with deterministic_algorithms() as nondet:
+            run = lm_train_run(train, lm_train_args(
+                steps["none"], dirs["none"], rehearse,
+                every=LM_TRAIN_DRILL["steps"]), device)
+            r = lm_train_summary(run, "[lm_train] none")
+            need(r["ce_last"] < r["ce_first"], f"[lm_train] none: the CE did "
+                 f"not fall ({r['ce_first']:.4f} -> {r['ce_last']:.4f})")
+            parts["none"] = time.perf_counter() - t0
+            if cuda:
+                t0 = time.perf_counter()
+                r.update(lm_train_profile(run, os.path.join(
+                    out_dir, LM_TRAIN_TRACE)))
+                parts["none_profile"] = time.perf_counter() - t0
+            out["runs"]["none"] = r
+            uninterrupted = run.losses
+            del run
+            # the failure drill: a crash, then the restart
+            drill = LM_TRAIN_DRILL
+            t0 = time.perf_counter()
+            try:
+                train.train(lm_train_args(drill["steps"], dirs["drill"],
+                                          rehearse, every=drill["every"],
+                                          fail_at=drill["fail_at"]))
+            except RuntimeError as e:
+                need("injected failure" in str(e), f"[lm_train] drill: {e}")
+            else:
+                need(False, "[lm_train] drill: the injected failure did not "
+                     "fire")
+            resumed = lm_train_run(train, lm_train_args(
+                drill["steps"], dirs["drill"], rehearse,
+                every=drill["every"]), device)
+            drill_s = time.perf_counter() - t0
+        need(resumed.first_step == drill["every"], f"[lm_train] drill: the "
+             f"restart resumed from step {resumed.first_step}, not "
+             f"{drill['every']}")
+        losses_equal = resumed.losses == uninterrupted[drill["every"]:
+                                                       drill["steps"]]
+        # the uninterrupted run's state at the drill's last step, saved and
+        # restored: equal to the resumed run's in memory, it shows both the
+        # continuation and the checkpoint round trip bitwise
+        want = restore_checkpoint(dirs["none"], resumed.state,
+                                  step=drill["steps"])
+        differ = same_state(resumed.state, want)
+        del want, resumed
+        out["drill"] = {"losses_equal": losses_equal, "leaves_differ": differ,
+                        "nondeterministic_ops": nondet, "wall_s": drill_s}
+        need(not nondet, f"[lm_train] drill: ops with no deterministic CUDA "
+             f"path: {nondet}")
+        need(losses_equal and not differ, f"[lm_train] drill: the resumed "
+             f"run differs from the uninterrupted one's restored checkpoint "
+             f"(losses equal {losses_equal}; leaves {differ[:5]})")
+        shutil.rmtree(dirs["drill"])
+        shutil.rmtree(dirs["none"])
+        log(f"[lm_train] {base.name} none (deterministic algorithms; the "
+            f"drill's uninterrupted run): {r['ms_per_step_median']:.3f} ms a "
+            f"step median of {r['steps'] - LM_TRAIN_WARMUP} after "
+            f"{LM_TRAIN_WARMUP} warm-up ({r['ms_first_steps']}), "
+            f"{r['tokens_per_s']:.0f} tokens/s; loss {r['loss_first']:.4f} "
+            f"-> {r['loss_last']:.4f}, CE {r['ce_first']:.4f} -> "
+            f"{r['ce_last']:.4f}, grad norm {r['grad_norm_first']:.4f} -> "
+            f"{r['grad_norm_last']:.4f}"
+            + ("" if not cuda else
+               f"; peak memory {r['peak_memory_gb']:.3f} GB; "
+               f"{r['kernels_per_step']:.0f} kernels a step, device busy "
+               f"{r['busy_ms']:.3f} of a {r['window_ms']:.3f} ms "
+               f"{LM_TRAIN_PROFILE_STEPS}-step window "
+               f"({r['busy_share']:.1%}); top kernels "
+               f"{r['top_kernels_ms']}"))
+        log(f"[lm_train] restart drill ({drill['steps']} steps, "
+            f"--ckpt-every {drill['every']}, --fail-at {drill['fail_at']}, "
+            f"deterministic algorithms): resumed from step "
+            f"{drill['every']}; losses of steps {drill['every']}-"
+            f"{drill['steps'] - 1} bitwise equal to the uninterrupted run's, "
+            f"and every leaf of the state at step {drill['steps']} to its "
+            f"checkpoint restored (continuation and round trip bitwise); "
+            f"ops without a deterministic path: {nondet or 'none'}; "
+            f"{drill_s:.1f}s")
+        parts["drill"] = drill_s
+        # quant w4a4: the fake-quant with its STE gradients
+        t0 = time.perf_counter()
+        run = lm_train_run(train, lm_train_args(
+            steps["w4a4"], dirs["w4a4"], rehearse, quant="w4a4"), device)
+        r = lm_train_summary(run, "[lm_train] w4a4")
+        parts["w4a4"] = time.perf_counter() - t0
+        if cuda:
+            t0 = time.perf_counter()
+            r.update(lm_train_profile(run, os.path.join(out_dir,
+                                                        LM_TRAIN_TRACE)))
+            parts["w4a4_profile"] = time.perf_counter() - t0
+        out["runs"]["w4a4"] = r
+        del run
+        shutil.rmtree(dirs["w4a4"])
+        log(f"[lm_train] {base.name} W4A4 fake-quant: "
+            f"{r['ms_per_step_median']:.3f} ms a step median of "
+            f"{r['steps'] - LM_TRAIN_WARMUP} after {LM_TRAIN_WARMUP} warm-up "
+            f"({r['ms_first_steps']}), {r['tokens_per_s']:.0f} tokens/s; "
+            f"loss {r['loss_first']:.4f} -> {r['loss_last']:.4f}, CE "
+            f"{r['ce_first']:.4f} -> {r['ce_last']:.4f}, grad norm "
+            f"{r['grad_norm_first']:.4f} -> {r['grad_norm_last']:.4f}"
+            + ("" if not cuda else
+               f"; peak memory {r['peak_memory_gb']:.3f} GB; "
+               f"{r['kernels_per_step']:.0f} kernels a step, device busy "
+               f"{r['busy_ms']:.3f} of a {r['window_ms']:.3f} ms "
+               f"{LM_TRAIN_PROFILE_STEPS}-step window "
+               f"({r['busy_share']:.1%}); top kernels "
+               f"{r['top_kernels_ms']}"))
+        # the 100M example
+        t0 = time.perf_counter()
+        if rehearse:
+            cfg100, _ = train_lm_100m.config_100m()
+            narrow = dataclasses.replace(cfg100, n_layers=2, d_model=64,
+                                         n_heads=4, n_kv_heads=2,
+                                         head_dim=16, d_ff=128, vocab=256)
+            made = train_lm_100m.config_100m
+            train_lm_100m.config_100m = lambda: (narrow, narrow)
+        try:
+            run = train_lm_100m.run(["--steps", str(LM_TRAIN_100M_STEPS),
+                                     "--ckpt-dir", dirs["lm100m"],
+                                     "--device", device.type])
+        finally:
+            if rehearse:
+                train_lm_100m.config_100m = made
+        head, tail = run.losses[:10], run.losses[-10:]
+        r = {"first10_mean_ce": sum(head) / len(head),
+             "last10_mean_ce": sum(tail) / len(tail),
+             "params": lm.count_params(run.cfg), "steps": len(run.losses),
+             "ms_per_step_median": sorted(run.step_ms[LM_TRAIN_WARMUP:])[
+                 (len(run.step_ms) - LM_TRAIN_WARMUP) // 2]}
+        need(all(math.isfinite(x) for x in run.losses), "[lm_train] "
+             "train_lm_100m: a loss is not finite")
+        need(r["last10_mean_ce"] < r["first10_mean_ce"], f"[lm_train] "
+             f"train_lm_100m: the CE did not fall ({r['first10_mean_ce']:.4f}"
+             f" -> {r['last10_mean_ce']:.4f})")
+        out["runs"]["train_lm_100m"] = r
+        del run
+        shutil.rmtree(dirs["lm100m"])
+        parts["train_lm_100m"] = time.perf_counter() - t0
+        log(f"[lm_train] train_lm_100m ({r['params'] / 1e6:.1f}M params, "
+            f"{r['steps']} steps, batch 4, seq 128, lr 1e-3): first-10 mean "
+            f"CE {r['first10_mean_ce']:.4f} -> last-10 mean CE "
+            f"{r['last10_mean_ce']:.4f}; {r['ms_per_step_median']:.3f} ms a "
+            f"step median")
+        counts = {"lm_train": launch_counts()}
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    need(not any(counts["lm_train"].values()), f"[lm_train] a port kernel "
+         f"launched on the LM training path: {counts['lm_train']}")
+    log(f"[lm_train] port kernel launches on the LM training path: "
+        f"{counts['lm_train']} (none expected)")
+    if cuda:
+        torch.cuda.empty_cache()
+    cases = [dataclasses.replace(configs.smoke_variant(a), dtype="float32",
+                                 **kw) for a, kw in LM_TRAIN_FAMILIES]
+    cases.append(dataclasses.replace(
+        base, n_layers=LM_CPU_LAYERS, dtype="float32"))
+    t_cases = time.perf_counter()
+    for cfg in cases:
+        t0 = time.perf_counter()
+        r = lm_train_card_vs_cpu(cfg, device, SEED)
+        r["wall_s"] = time.perf_counter() - t0
+        out["card_vs_cpu"][f"{cfg.name} {cfg.moe_dispatch}"] = r
+        size = ("full width" if cfg.d_model == base.d_model and not rehearse
+                else "smoke")
+        named = "; ".join(f"{p} {v['abs']:.3g} ({v['of_lr']:.3g} lr, "
+                          f"{v['share_over']:.3g} of its entries)"
+                          for p, v in r["needs_adam_bound"].items())
+        log(f"[lm_train] card vs CPU port, {cfg.name} {size} ({cfg.family}"
+            + (f", {cfg.moe_dispatch}" if cfg.family == "moe" else "")
+            + f", {cfg.n_layers} layers, d {cfg.d_model}, float32, TF32 "
+            f"off), {LM_TRAIN_CPU_STEPS} steps: losses "
+            f"{[round(g, 6) for g, _ in r['losses']]} within "
+            f"{LM_CARD_CPU_TOL} of the CPU's, grad norms too; "
+            f"{r['leaves'] - len(r['needs_adam_bound'])} of {r['leaves']} "
+            f"leaves within {r['worst_leaf_rel_err']:.3g} of their largest"
+            + (f"; within {LM_TRAIN_ADAM_TOL} lr (AdamW's eps-sensitive "
+               f"update; at most {LM_TRAIN_ADAM_SHARE} of the entries past "
+               f"{LM_CARD_CPU_TOL}): {named}" if named else "")
+            + f"; {r['wall_s']:.2f}s")
+    out["parts_s"]["card_vs_cpu"] = time.perf_counter() - t_cases
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[lm_train] phase {out['phase_s']:.1f}s ("
+        + ", ".join(f"{k} {v:.1f}s" for k, v in out["parts_s"].items())
+        + ")")
+    return out, counts
+
+
 def reread(trace_dir):
     """Each device-time range of the run whose traces lie in ``trace_dir``:
     its launches, kernel records and device ms per batch by kernel
@@ -3507,6 +3995,9 @@ def main(argv) -> int:
         served.update(lm_counts)
         moe_out, moe_counts = phase_moe(device, rehearse, out_dir, smi)
         served.update(moe_counts)
+        lm_train_out, lm_train_counts = phase_lm_train(device, rehearse,
+                                                       out_dir, smi)
+        served.update(lm_train_counts)
 
         launches = {k: {path: served[path][k] for path in served}
                     for k in KERNELS}
@@ -3540,6 +4031,7 @@ def main(argv) -> int:
                        "imaging_bound_busy_share": bound_busy,
                        "load": load, "obs": obs_out, "vgg16": vgg16,
                        "train": train, "lm": lm_out, "moe": moe_out,
+                       "lm_train": lm_train_out,
                        "ca_pool_cold_device_ms": ca_cold,
                        "comparisons": n_cmp,
                        "conv_bank_float_err": bank_float_err,

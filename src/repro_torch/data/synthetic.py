@@ -1,6 +1,9 @@
-"""Deterministic procedural images, with numpy from a seed: stand-ins for
-MNIST and CIFAR, which are not downloaded.
+"""Deterministic procedural data, with numpy from a seed: a token stream
+and stand-ins for MNIST and CIFAR, which are not downloaded.
 
+  * ``synthetic_lm_batch(es)`` — Zipf-ish token streams with a planted
+    bigram, so an LM's CE falls within tens of steps; a batch is a pure
+    function of (seed, step), which is what a restart replays;
   * ``synthetic_digits``   — 28x28 seven-segment "digit" glyphs with jitter
     and noise, 10 classes (LeNet's input);
   * ``synthetic_textures`` — k-class oriented sinusoid textures in RGB
@@ -14,9 +17,52 @@ same arrays.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import dataclasses
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class SyntheticTextConfig:
+    vocab: int
+    seq: int
+    batch: int
+    seed: int = 0
+    ngram: int = 3          # planted structure order
+
+
+def _zipf_probs(vocab: int, alpha: float = 1.2) -> np.ndarray:
+    r = np.arange(1, vocab + 1, dtype=np.float64)
+    p = r ** -alpha
+    return p / p.sum()
+
+
+def synthetic_lm_batch(cfg: SyntheticTextConfig, step: int
+                       ) -> Dict[str, np.ndarray]:
+    """One batch as a pure function of (cfg.seed, step): ``tokens`` and
+    the next-token ``labels``, [batch, seq] int32."""
+    probs = _zipf_probs(cfg.vocab)
+    rng = np.random.default_rng((cfg.seed, step))
+    toks = rng.choice(cfg.vocab, size=(cfg.batch, cfg.seq + 1), p=probs)
+    # planted bigram: token t suggests (t*7+3) % vocab, applied left to
+    # right so that chains stay coherent
+    use_follow = rng.random((cfg.batch, cfg.seq + 1)) < 0.7
+    for j in range(1, cfg.seq + 1):
+        nxt = (toks[:, j - 1] * 7 + 3) % cfg.vocab
+        toks[:, j] = np.where(use_follow[:, j], nxt, toks[:, j])
+    return {"tokens": toks[:, :-1].astype(np.int32),
+            "labels": toks[:, 1:].astype(np.int32)}
+
+
+def synthetic_lm_batches(cfg: SyntheticTextConfig
+                         ) -> Iterator[Dict[str, np.ndarray]]:
+    """The infinite stream of :func:`synthetic_lm_batch` from step 0."""
+    step = 0
+    while True:
+        yield synthetic_lm_batch(cfg, step)
+        step += 1
+
 
 _SEGS = {  # 7-segment truth table
     0: "abcdef", 1: "bc", 2: "abged", 3: "abgcd", 4: "fgbc",

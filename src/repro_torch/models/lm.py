@@ -10,9 +10,11 @@ families:
              sorted or grouped dispatch by ``cfg.moe_dispatch``)
 
 Layer params are stacked on a leading [L] axis, as in the reference's tree;
-a Python loop over the layers takes the place of ``lax.scan`` (``remat`` is
-a training matter and does nothing here). The reference's ``shard``
-sharding constraints are the identity on one device and are left out.
+a Python loop over the layers takes the place of ``lax.scan``, each layer
+under ``cfg.remat`` (``nn/remat.py``: ``"full"`` recomputes the layer in
+the backward pass, ``"dots"`` keeps its matmul outputs; the reference's
+``jax.checkpoint``). The reference's ``shard`` sharding constraints are
+the identity on one device and are left out.
 
 The Lightator photonic quantization threads through every projection via
 ``nn.layers.dense(quant=...)``: [W{2,3,4}:A4] fake-quant under
@@ -27,6 +29,7 @@ the caller asks for the CPU.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
@@ -41,6 +44,7 @@ from repro_torch.nn import moe as moe_mod
 from repro_torch.nn import ssm as ssm_mod
 from repro_torch.nn.module import (KeyGen, normal_init, scaled_init,
                                    stack_layer_params, tree_map)
+from repro_torch.nn.remat import remat
 
 PROJECTIONS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
                "in_proj", "out_proj")
@@ -319,19 +323,25 @@ def embed_inputs(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
 
 def lm_forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                return_hidden: bool = False):
-    """-> (logits [B,T,V] | hidden, aux dict), a loop over stacked layers;
-    aux: the MoE balance and z losses and dropped fraction, each a mean
-    over the layers (0 for the other families)."""
+    """-> (logits [B,T,V] | hidden, aux dict), a loop over stacked layers,
+    each under ``cfg.remat`` when autograd records; aux: the MoE balance
+    and z losses and dropped fraction, each a mean over the layers (0 for
+    the other families)."""
     x = embed_inputs(params, batch, cfg)
     t = x.shape[1]
     positions = torch.arange(t, device=x.device)[None, :]
     quant = cfg.quant_spec()
+
+    def body(i, h):
+        h, aux, _ = _layer(_layer_slice(params["layers"], i), h, cfg,
+                           positions, quant)
+        return h, aux["balance"], aux["z"], aux["dropped"]
+
     bal = z = drp = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
-        x, aux, _ = _layer(_layer_slice(params["layers"], i), x, cfg,
-                           positions, quant)
-        bal, z, drp = (bal + aux["balance"], z + aux["z"],
-                       drp + aux["dropped"])
+        x, b_i, z_i, d_i = remat(functools.partial(body, i), x,
+                                 policy=cfg.remat)
+        bal, z, drp = bal + b_i, z + z_i, drp + d_i
     x = _apply_norm(params["final_norm"], x, cfg)
     aux = {"balance": bal / cfg.n_layers, "z": z / cfg.n_layers,
            "dropped": drp / cfg.n_layers}
@@ -348,10 +358,12 @@ def _lm_logits(params, x, cfg: ModelConfig):
 
 def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             vocab_chunk: int = 0):
-    """Mean CE over labeled positions (the value; no backward here).
-    batch["labels"] [B,T_l], batch["loss_mask"] optional. ``vocab_chunk``
-    > 0 computes CE from hidden states in sequence chunks so [B,T,V]
-    logits are never materialized at once."""
+    """-> (total, metrics): the mean CE over labeled positions plus the
+    MoE's balance and z losses, and {"ce", "balance", "z", "dropped"}.
+    Differentiable (``launch/steps.py`` takes its gradients with
+    ``torch.autograd.grad``). batch["labels"] [B,T_l], batch["loss_mask"]
+    optional. ``vocab_chunk`` > 0 computes CE from hidden states in
+    sequence chunks so [B,T,V] logits are never materialized at once."""
     labels = batch["labels"]
     mask = batch.get("loss_mask")
     hidden, aux = lm_forward(params, batch, cfg, return_hidden=True)

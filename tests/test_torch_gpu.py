@@ -877,3 +877,149 @@ def test_moe_combine_cast_on_the_card_equals_the_cpu(cuda):
             got = moe.to_combine_dtype(x.to(cuda), dtype).float().cpu()
             assert torch.equal(got.isnan(), want.isnan())
             assert torch.equal(got[~got.isnan()], want[~want.isnan()])
+
+
+# -- training the LM families (launch/steps.py, launch/train.py) -------------
+
+TRAIN_LM_CASES = [("smollm-360m", None), ("mamba2-1.3b", None),
+                  ("hymba-1.5b", None), ("hubert-xlarge", None),
+                  ("internvl2-26b", None), ("grok-1-314b", "sorted"),
+                  ("grok-1-314b", "grouped")]
+
+
+def _train_lm_steps(cfg, tree, device, steps, lr=2e-3):
+    """``steps`` AdamW steps of ``steps.make_train_step`` on ``device``
+    from the numpy weights ``tree``, over the seeded modality batches:
+    (losses, grad norms, final state)."""
+    from repro_torch.data.synthetic import modality_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.weights import lm_params_from_numpy
+    params = lm_params_from_numpy(tree, device, cfg)
+    opt = adamw_init(params, AdamWConfig(lr=lr))
+    step = make_train_step(cfg, AdamWConfig(lr=lr), 16)
+    losses, norms = [], []
+    for i in range(steps):
+        batch = {k: torch.from_numpy(v).to(device) for k, v in
+                 modality_batch(cfg, 2, 16, seed=10 + i).items()}
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return losses, norms, {"params": params, "opt": opt}
+
+
+@pytest.mark.parametrize("arch,dispatch", TRAIN_LM_CASES)
+def test_lm_train_steps_on_the_card_match_the_cpu_port(cuda, arch, dispatch):
+    """Three train steps of every family's smoke arch in float32 (TF32
+    off) from one set of weights: losses and grad norms within 1e-4
+    relative, every leaf of the params and the AdamW state within 1e-4 of
+    its largest |entry|, or params and master within 0.1 * lr absolute
+    (where |g| is a few eps, AdamW's normalized update is sensitive to the
+    gradient's float32 error: tests/test_torch_train_lm.py)."""
+    from repro_torch.configs import smoke_variant
+    from repro_torch.kernels.conv_bank.ref import float32_convs
+    from repro_torch.models import lm
+    from repro_torch.nn.module import tree_flatten_with_paths
+    from repro_torch.weights import lm_params_to_numpy
+    kw = {"dtype": "float32"}
+    if dispatch is not None:
+        kw["moe_dispatch"] = dispatch
+    cfg = dataclasses.replace(smoke_variant(arch), **kw)
+    tree = lm_params_to_numpy(lm.init_lm(torch.Generator().manual_seed(6),
+                                         cfg, device="cpu"))
+    with float32_convs():
+        want = _train_lm_steps(cfg, tree, "cpu", 3)
+        got = _train_lm_steps(cfg, tree, "cuda", 3)
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        assert np.isfinite(g) and g == pytest.approx(w, rel=1e-4)
+    cpu = dict(tree_flatten_with_paths(want[2]))
+    for path, leaf in tree_flatten_with_paths(got[2]):
+        w = cpu[path]
+        assert leaf.device.type == "cuda" and leaf.dtype == w.dtype
+        err = float((leaf.cpu().double() - w.double()).abs().max())
+        bound = 1e-4 * float(w.double().abs().max())
+        if path.startswith(("params/", "opt/master/")):
+            bound = max(bound, 0.1 * 2e-3)
+        assert err <= bound, (path, err, bound)
+
+
+def test_lm_checkpoint_from_the_card_restores_bitwise_on_the_cpu(cuda,
+                                                                   tmp_path):
+    """A bf16 training state saved from the card (params, AdamW step,
+    master and moments after two steps) restores on the CPU bit for bit,
+    and back onto the card."""
+    from repro_torch.checkpoint.ckpt import restore_checkpoint, \
+        save_checkpoint
+    from repro_torch.configs import smoke_variant
+    from repro_torch.models import lm
+    from repro_torch.nn.module import tree_flatten_with_paths
+    from repro_torch.weights import lm_params_to_numpy
+    cfg = smoke_variant("tinyllama-1.1b")
+    assert cfg.dtype == "bfloat16"
+    tree = lm_params_to_numpy(lm.init_lm(torch.Generator().manual_seed(7),
+                                         cfg, device="cpu"))
+    _, _, state = _train_lm_steps(cfg, tree, "cuda", 2)
+    save_checkpoint(tmp_path, 2, state)
+    on_cpu = restore_checkpoint(tmp_path, state, device="cpu")
+    back = restore_checkpoint(tmp_path, state)
+    want = dict(tree_flatten_with_paths(state))
+    for path, leaf in tree_flatten_with_paths(on_cpu):
+        assert leaf.device.type == "cpu" and leaf.dtype == want[path].dtype
+        assert torch.equal(leaf, want[path].cpu()), path
+    for path, leaf in tree_flatten_with_paths(back):
+        assert leaf.device.type == "cuda"
+        assert torch.equal(leaf, want[path]), path
+    assert int(on_cpu["opt"]["step"]) == 2
+
+
+def test_data_pipeline_uploads_on_its_own_stream(cuda):
+    """Batches copied to the card by the pipeline's worker (pinned memory,
+    its own stream, an event the consumer's stream waits on) equal the
+    host batches, in step order, while the consumer's stream is busy."""
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.data.synthetic import SyntheticTextConfig, \
+        synthetic_lm_batch
+    cfg = SyntheticTextConfig(vocab=49152, seq=128, batch=8, seed=0)
+    pipe = DataPipeline(lambda s: synthetic_lm_batch(cfg, s), device=cuda,
+                        prefetch=2, start_step=5)
+    busy = torch.randn((4096, 4096), device=cuda)
+    try:
+        for want_step in range(5, 13):
+            for _ in range(4):                     # keep the card busy
+                busy = busy @ busy / 64.0
+            step, batch = pipe.next()
+            assert step == want_step
+            host = synthetic_lm_batch(cfg, step)
+            for k, v in batch.items():
+                assert v.device.type == "cuda"
+                assert torch.equal((v + 0).cpu(), torch.from_numpy(host[k]))
+    finally:
+        pipe.stop()
+
+
+def test_lm_restart_on_the_card_is_bitwise_under_deterministic_algorithms(
+        cuda, tmp_path):
+    """The driver's failure drill on the card (smollm-360m smoke): a crash
+    at step 5, then the restart from the step-4 checkpoint, equal to the
+    uninterrupted run bit for bit under
+    ``torch.use_deterministic_algorithms(True)`` (the embedding's
+    backward accumulates with atomics otherwise); the setting is
+    restored after."""
+    from repro_torch.launch import train
+    from repro_torch.nn.module import tree_flatten_with_paths
+    args = ["--arch", "smollm-360m", "--smoke", "--steps", "8", "--batch",
+            "4", "--seq", "32", "--ckpt-every", "4"]
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ref = train.train(args + ["--ckpt-dir", str(tmp_path / "ref")])
+        with pytest.raises(RuntimeError, match="injected failure"):
+            train.train(args + ["--ckpt-dir", str(tmp_path / "run"),
+                                "--fail-at", "5"])
+        resumed = train.train(args + ["--ckpt-dir", str(tmp_path / "run")])
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert resumed.first_step == 4 and resumed.losses == ref.losses[4:]
+    want = dict(tree_flatten_with_paths(ref.state))
+    for path, leaf in tree_flatten_with_paths(resumed.state):
+        assert torch.equal(leaf, want[path]), path

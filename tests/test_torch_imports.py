@@ -140,3 +140,23 @@ def test_moe_entry_points_refuse_cuda_without_a_gpu():
                            "2", "--batch", "1", "--quant", "w4a4",
                            "--device", "cpu"])
     assert toks.shape == (1, serve_lm.PROMPT_LEN + 2)
+
+
+def test_lm_training_entry_points_refuse_cuda_without_a_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.examples import imaging_demo, quickstart, train_lm_100m
+    from repro_torch.launch import train
+    args = ["--smoke", "--steps", "1", "--batch", "1", "--seq", "8",
+            "--ckpt-dir", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--device", "cuda"] + args)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(args)                     # the default is the card
+    for example in (quickstart, imaging_demo):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            example.main([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_lm_100m.main(["--steps", "1", "--ckpt-dir", str(tmp_path)])
+    # the CPU, asked for explicitly, works
+    assert len(train.main(["--device", "cpu"] + args)) == 1
