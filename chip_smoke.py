@@ -217,6 +217,40 @@ Phases, each fatal on failure:
      the params and AdamW state within 1e-4 of its largest, or (named)
      within 0.5 lr with at most 1% of its entries past 1e-4
      (``[lm_train]`` lines).
+ 14. dist: the distributed path (``[dist]`` lines). a. [lm_train]'s
+     configuration, 5 steps through ``launch/train.py`` on an ``nccl``
+     process group of one rank and a (1, 1) DeviceMesh, every param a
+     DTensor, under deterministic algorithms: the losses against
+     [lm_train]'s first five (bitwise, else within 1e-6 relative, printed
+     which), ms a step, kernels a step and busy share as [lm_train]'s;
+     the layers recomputed a step (``remat.recompute``, fatal unless
+     [lm_train]'s), peak memory and the kernels a step by name against
+     [lm_train]'s, both profiled under deterministic algorithms.
+     b. The multi-rank checks of ``distributed/checks.py`` in spawned gloo
+     worlds of 2, 4 and 1 ranks (one card: NCCL refuses two ranks on
+     it), each check's tensors on cuda:0 where gloo moves CUDA tensors
+     for all its collectives (all_reduce: the compressed all-reduce), on
+     the CPU elsewhere, decided per check and printed: TP+DP and FSDP+TP
+     train steps (2x2) against the unsharded step, the MoE's
+     expert-parallel block (1x2; 2x1 under FSDP) against its fallback,
+     the compressed all-reduce bitwise, GPipe (S = 4, M = 4 and 8)
+     against the sequential loop, a checkpoint saved at world 2 restored
+     bitwise at worlds 4 and 1, and the data pipeline's rank slices.
+     c. ``Options(shard_batch=True, mesh=("cuda:0", "cuda:0"))``:
+     LeNet, VGG9-CA, compress_recon_deconv and denoise_gauss at 256x256
+     through ``Executable.run`` at 8 frames, the launch counts zeroed
+     before and read after (this path's counts in the ``kernels`` line),
+     each program bitwise the unsharded run and the reference backend
+     (no kernel) on the same frames, and launching each kernel as two
+     unsharded runs of a shard's frames do. d. ``launch/dryrun.py``
+     on tinyllama-1.1b train_4k and prefill_32k and kimi-k2 decode_32k at
+     the 32x8 production mesh (full configs, a fake process group of 256
+     ranks, one process each, run alongside a-c): per-rank bytes against
+     the card's memory, collective counts and bytes by kind, FLOPs (no
+     peak: ``MemTracker`` under fake mode misses frees).
+     e. The card's constants: a bf16 8192^3 matmul's TFLOP/s and a 1 GiB
+     device copy's GB/s (CUDA events over 20 launches), total_memory,
+     beside ``nvidia-smi``'s name and power limit.
 
 ``--rehearse`` runs every phase on the CPU with the plain versions: no
 graphs, the bound phase on 2 emulated CPU workers, VGG16 at 32x32x3
@@ -390,6 +424,46 @@ LM_TRAIN_FAMILIES = (("smollm-360m", {}), ("mamba2-1.3b", {}),
                      ("hubert-xlarge", {}), ("internvl2-26b", {}))
 LM_TRAIN_CPU_STEPS = 3
 LM_TRAIN_ADAM_TOL, LM_TRAIN_ADAM_SHARE = 0.5, 1e-2
+# the [dist] phase: the world-1 train steps (the [lm_train] configuration,
+# held against that phase's first steps), the multi-rank worlds (checks
+# of distributed/checks.py, and where each one's tensors live: gloo moves
+# CUDA tensors for all_reduce and broadcast only, so a check whose
+# collectives are all of those runs on cuda:0, every other on the CPU),
+# the shard_batch programs at DIST_SHARD_BATCH frames over two shards of
+# cuda:0, the dry-run cells (full configs at the 32x8 production mesh, one
+# process each, run while the rest of the phase runs), and the card's
+# constants (a DIST_GEMM^3 bf16 matmul, a DIST_COPY_BYTES device copy)
+DIST_TRAIN_STEPS = 5
+DIST_LOSS_REL = 1e-6
+DIST_SHARD_BATCH = 8
+DIST_SHARD_PROGRAMS = ("lenet", "vgg9", "compress_recon_deconv",
+                       "denoise_gauss")
+DIST_DRYRUN = (("tinyllama-1.1b", "train_4k"),
+               ("tinyllama-1.1b", "prefill_32k"),
+               ("kimi-k2-1t-a32b", "decode_32k"))
+DIST_WORLD_TIMEOUT = 240.0
+DIST_GEMM, DIST_COPY_BYTES, DIST_REPS = 8192, 1 << 30, 20
+# check -> (its world, the check function, args, where its tensors live)
+DIST_CHECKS = {
+    "tp_dp_train": (4, "train_check", ("smollm-360m", (2, 2)), {}, "cpu"),
+    "fsdp_tp_train": (4, "train_check", ("smollm-360m", (2, 2)),
+                      {"fsdp": True}, "cpu"),
+    "gpipe": (4, "pipeline_check", (), {}, "cpu"),
+    "moe_ep": (2, "moe_check", ("kimi-k2-1t-a32b", (1, 2)), {}, "cpu"),
+    "moe_ep_fsdp": (2, "moe_check", ("grok-1-314b", (2, 1)),
+                    {"fsdp": True}, "cpu"),
+    "compressed_allreduce": (2, "compression_check", (), {}, "cuda"),
+    "elastic_save_w2": (2, "elastic_save", ("smollm-360m", (1, 2)), {},
+                        "cpu"),
+    "elastic_restore_w4": (4, "elastic_restore", ("smollm-360m", (2, 2)),
+                           {}, "cpu"),
+    "elastic_restore_w1": (1, "elastic_restore", ("smollm-360m", (1, 1)),
+                           {}, "cpu"),
+}
+DIST_TRANSPORT = {
+    "cuda": "gloo, every rank's tensors on cuda:0 (all_reduce only)",
+    "cpu": "gloo, tensors on the CPU (gloo has no CUDA all_gather, "
+           "reduce_scatter, send or recv)"}
 # the port's kernels are top-level functions of an anonymous namespace
 PORT_KERNEL = r"^(void )?\(anonymous namespace\)::"
 KERNELS = ("photonic_mvm", "conv_chain", "ca_pool", "conv_strip",
@@ -401,6 +475,10 @@ PATH_KERNELS = {"vision": ("photonic_mvm", "conv_chain", "ca_pool"),
                 "chain": ("photonic_mvm", "ca_pool", "conv_strip_depthwise"),
                 "vgg16": ("photonic_mvm", "conv_strip"),
                 "train": ("photonic_mvm", "conv_chain", "ca_pool")}
+# the kernels the [dist] phase's shard_batch path must launch (per-tensor
+# calibration at batch > 1 runs the per-layer path: no fused chain)
+SHARD_BATCH_KERNELS = ("photonic_mvm", "ca_pool", "conv_strip",
+                       "conv_strip_depthwise")
 SOURCES = {
     "photonic_mvm": ("src/repro_torch/csrc/photonic_mvm.cu",
                      "src/repro/kernels/photonic_mvm/kernel.py:81"),
@@ -3346,13 +3424,18 @@ def lm_train_summary(run, label):
 def lm_train_profile(run, path):
     """``LM_TRAIN_PROFILE_STEPS`` more steps of the run's train step from
     its final state under the profiler, the window ending when the card is
-    done: its device busy share, kernels a step, the top kernels."""
+    done: its device busy share, kernels a step, the top kernels, the
+    kernels a step by name and the layers recomputed a step (the ``obs``
+    counter ``remat.recompute``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch import obs
+    recomputes = obs.counter("remat.recompute")
     state = run.state
     batches = [run.batch_fn(run.last_step + i)
                for i in range(LM_TRAIN_PROFILE_STEPS)]
     torch.cuda.synchronize()
+    before = recomputes.get()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         with record_function(LM_TRAIN_WINDOW):
@@ -3362,18 +3445,23 @@ def lm_train_profile(run, path):
                 state = {"params": params, "opt": opt}
             torch.cuda.synchronize()
     del state
+    out_recomputes = (recomputes.get() - before) / LM_TRAIN_PROFILE_STEPS
     events = load_trace(prof, path)
     os.remove(path)
     out = busy_share(events, LM_TRAIN_WINDOW)
     kernels = [e for e in device_work(events, LM_TRAIN_WINDOW)[0]
                if e["cat"] == "kernel"]
     out["kernels_per_step"] = len(kernels) / LM_TRAIN_PROFILE_STEPS
-    by_name = {}
+    out["remat_recomputes_per_step"] = out_recomputes
+    by_name, count = {}, {}
     for e in kernels:
         name = e["name"][:60]
         by_name[name] = by_name.get(name, 0.0) + e["dur"] / 1e3
+        count[name] = count.get(name, 0) + 1
     out["top_kernels_ms"] = dict(sorted(by_name.items(),
                                         key=lambda kv: -kv[1])[:5])
+    out["kernels_by_name"] = {k: v / LM_TRAIN_PROFILE_STEPS
+                              for k, v in count.items()}
     return out
 
 
@@ -3694,6 +3782,377 @@ def phase_lm_train(device, rehearse, out_dir, smi):
     return out, counts
 
 
+# ---------------------------------------------------------------------------
+# the [dist] phase
+# ---------------------------------------------------------------------------
+
+def dist_worlds(store, ckpt_dir, rehearse):
+    """The multi-rank checks, grouped into one world a size (the save of
+    the world-2 checkpoint before its restores). -> {check: result of
+    rank 0, plus every rank's agreement} and the worlds' wall seconds."""
+    from repro_torch.distributed import checks, world
+    out, walls = {}, {}
+    for size in (2, 4, 1):
+        items = []
+        for name, (w, fn, args, kw, where) in DIST_CHECKS.items():
+            if w != size:
+                continue
+            if fn.startswith("elastic"):
+                args = (ckpt_dir,) + args
+            items.append((name, fn, args, dict(kw, device_type=(
+                "cpu" if rehearse else where))))
+        t0 = time.perf_counter()
+        ranks = world.run_world(checks.suite, size, store, args=(items,),
+                                timeout=DIST_WORLD_TIMEOUT)
+        walls[size] = time.perf_counter() - t0
+        for name, *_ in items:
+            out[name] = {"rank0": ranks[0][name],
+                         "ranks": [r[name] for r in ranks]}
+    return out, walls
+
+
+def dist_hold(results):
+    """Fatal unless every multi-rank check held on every rank."""
+    for r in results["tp_dp_train"]["ranks"] + \
+            results["fsdp_tp_train"]["ranks"]:
+        need(r["grad_loss_rel"] <= DIST_LOSS_REL and r["loss_rel"]
+             <= DIST_LOSS_REL and r["grad_err"] <= 1e-4
+             and r["placements_kept"] and r["param_err"] <= 1e-4,
+             f"[dist] a sharded train step left the unsharded one: {r}")
+    for name in ("moe_ep", "moe_ep_fsdp"):
+        for r in results[name]["ranks"]:
+            need(r["expert_parallel"] and r["indices_equal"]
+                 and r["slots_equal"] and r["dropped"][0] == r["dropped"][1]
+                 and r["y_err"] <= 1e-5 * max(1.0, r["y_max"])
+                 and r["x_grad_err"] <= 1e-5 and r["w_grad_err"] <= 1e-5,
+                 f"[dist] {name}: the expert-parallel block left the "
+                 f"fallback: {r}")
+    for r in results["compressed_allreduce"]["ranks"]:
+        need(r["bitwise"] and r["error_bitwise"], f"[dist] compressed "
+             f"all-reduce not bitwise: {r}")
+    for r in results["gpipe"]["ranks"]:
+        need(r["err_4"] <= 1e-5 and r["err_8"] <= 1e-5, f"[dist] GPipe "
+             f"left the sequential loop: {r['err_4']}, {r['err_8']}")
+    for name in ("elastic_restore_w4", "elastic_restore_w1"):
+        for r in results[name]["ranks"]:
+            need(r["bitwise"] and r["placements"] and r["data"]["equal"],
+                 f"[dist] {name}: {r['bitwise']}, {r['placements']}, "
+                 f"{r['data']}")
+
+
+def dist_world1_train(train, device, rehearse, store, ckpt_dir, want,
+                      out_dir):
+    """[lm_train]'s configuration for ``DIST_TRAIN_STEPS`` steps through
+    ``launch/train.py`` on a process group of one rank (``nccl`` on the
+    card) and a (1, 1) DeviceMesh, under deterministic algorithms as
+    [lm_train]'s run; held against that run's first losses ``want``."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.nn.module import tree_flatten_with_paths
+    backend = "gloo" if rehearse else "nccl"
+    dist.init_process_group(backend, init_method=f"file://{store}/w1",
+                            rank=0, world_size=1)
+    try:
+        # the profile too, as [lm_train]'s: deterministic algorithms
+        # change the kernels a step
+        with deterministic_algorithms() as nondet:
+            run = lm_train_run(train, lm_train_args(
+                DIST_TRAIN_STEPS, ckpt_dir, rehearse) + ["--mesh", "1x1"],
+                device)
+            leaves = list(tree_flatten_with_paths(run.state["params"]))
+            need(run.mesh is not None and all(isinstance(x, DTensor)
+                                              for _, x in leaves),
+                 "[dist] world 1: the params are not DTensors")
+            r = lm_train_summary(run, "[dist] world-1 train")
+            r["backend"] = backend
+            r["bitwise"] = run.losses == want
+            r["loss_rel"] = max(abs(a - b) / abs(b)
+                                for a, b in zip(run.losses, want))
+            need(r["loss_rel"] <= DIST_LOSS_REL, f"[dist] world-1 losses "
+                 f"{run.losses} left [lm_train]'s {want}")
+            if device.type == "cuda":
+                r.update(lm_train_profile(run, os.path.join(
+                    out_dir, LM_TRAIN_TRACE)))
+        r["nondeterministic_ops"] = nondet
+        del run
+        return r
+    finally:
+        dist.destroy_process_group()
+
+
+def kernel_gap(got, want, top=8):
+    """The ``top`` largest differences of two kernels-a-step-by-name
+    tables, ``got`` - ``want``."""
+    gap = {k: got.get(k, 0) - want.get(k, 0) for k in {*got, *want}}
+    return dict(sorted(((k, v) for k, v in gap.items() if v),
+                       key=lambda kv: -abs(kv[1]))[:top])
+
+
+def dist_shard_batch(device, rehearse):
+    """``Executable.run`` at ``DIST_SHARD_BATCH`` frames with
+    ``Options(shard_batch=True, mesh=(dev, dev))``: the main path's launch
+    counts (zeroed before, read after), then each program held bitwise to
+    the unsharded run and to the reference backend (the plain PyTorch
+    oracles, no kernel) on the same frames, so every kernel call at the
+    shards' shapes is held against a plain version, and its launches equal
+    to two unsharded runs of a shard's frames (each kernel once a shard)."""
+    import numpy as np
+    import torch
+    from repro_torch import Options, Program
+    from repro_torch.core.quant import W4A4
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    dev = str(device) if device.type == "cpu" else "cuda:0"
+    plain = Options(scheme=W4A4, device=dev)
+    sharded = dataclasses.replace(plain, shard_batch=True, mesh=(dev, dev))
+    progs = {**vision_programs(), **{n: Program.from_pipeline(
+        n, IMAGING_HW, IMAGING_HW, 3) for n in DIST_SHARD_PROGRAMS[2:]}}
+    oracle = dataclasses.replace(plain, backend="reference")
+    exes = {n: (progs[n].compile(sharded), progs[n].compile(plain))
+            for n in DIST_SHARD_PROGRAMS}
+    frames = {n: frames_for(progs[n], DIST_SHARD_BATCH, SEED + 7)
+              for n in DIST_SHARD_PROGRAMS}
+    for n, (exe, _) in exes.items():           # build and warm
+        exe.run(frames[n])
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    reset_launch_counts()
+    got = {n: exes[n][0].run(frames[n]) for n in DIST_SHARD_PROGRAMS}
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    out = {"counts": counts, "programs": {}}
+    half = DIST_SHARD_BATCH // 2
+    for n in DIST_SHARD_PROGRAMS:
+        exe, base = exes[n]
+        want = base.run(frames[n])
+        ref = progs[n].compile(oracle).run(frames[n])
+        reset_launch_counts()
+        exe.run(frames[n])
+        shard_counts = launch_counts()
+        reset_launch_counts()
+        base.run(frames[n][:half])
+        base.run(frames[n][half:])
+        two_halves = launch_counts()
+        equal = torch.equal(got[n], want)
+        equal_ref = torch.equal(got[n], ref)
+        out["programs"][n] = {"bitwise": equal, "bitwise_reference": equal_ref,
+                              "launches": shard_counts,
+                              "two_unsharded_halves": two_halves}
+        need(equal, f"[dist] shard_batch {n}: not bitwise the unsharded run"
+             f" (max abs {(got[n] - want).abs().max().item()})")
+        need(equal_ref, f"[dist] shard_batch {n}: not bitwise the reference "
+             f"backend (max abs {(got[n] - ref).abs().max().item()})")
+        need(shard_counts == two_halves, f"[dist] shard_batch {n}: "
+             f"launches {shard_counts} against {two_halves} for its two "
+             f"shards run unsharded")
+    return out
+
+
+def dist_constants(device):
+    """bf16 GEMM TFLOP/s and HBM GB/s, by CUDA events over ``DIST_REPS``
+    launches after a warm-up, and the card's total memory."""
+    import torch
+    n = DIST_GEMM
+    a = torch.randn(n, n, device=device, dtype=torch.bfloat16)
+    b = torch.randn(n, n, device=device, dtype=torch.bfloat16)
+    src = torch.empty(DIST_COPY_BYTES, dtype=torch.uint8, device=device)
+    dst = torch.empty_like(src)
+    out = {}
+    for name, fn, work in (
+            ("gemm", lambda: torch.matmul(a, b), 2 * n ** 3),
+            ("copy", lambda: dst.copy_(src), 2 * DIST_COPY_BYTES)):
+        for _ in range(3):
+            fn()
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        for _ in range(DIST_REPS):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        s = start.elapsed_time(end) / 1e3 / DIST_REPS
+        out[name] = {"s": s, "rate": work / s}
+    props = torch.cuda.get_device_properties(device)
+    return {"peak_flops_bf16": out["gemm"]["rate"],
+            "hbm_bw": out["copy"]["rate"],
+            "gemm_ms": out["gemm"]["s"] * 1e3,
+            "copy_ms": out["copy"]["s"] * 1e3,
+            "hbm_per_chip": props.total_memory}
+
+
+def dist_dryrun_start(out_dir, rehearse):
+    """The dry-run cells, one process each (no card: CUDA hidden)."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join(
+                   [os.path.join(HERE, "src")]
+                   + os.environ.get("PYTHONPATH", "").split(os.pathsep)))
+    procs = []
+    for arch, shape in DIST_DRYRUN:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--out", out_dir]
+        if rehearse:
+            cmd.append("--smoke")
+        procs.append(((arch, shape), subprocess.Popen(
+            cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    return procs
+
+
+def dist_dryrun_wait(procs, out_dir, timeout):
+    """The cells' records; a cell's process is killed at ``timeout``."""
+    from repro_torch.launch import mesh as mesh_mod
+    recs = {}
+    mesh = "x".join(map(str, mesh_mod.production_shape(False)[0]))
+    deadline = time.monotonic() + timeout
+    for (arch, shape), p in procs:
+        try:
+            text, _ = p.communicate(timeout=max(1.0, deadline
+                                                - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.communicate()
+            need(False, f"[dist] dry run {arch} x {shape} did not finish "
+                 f"in {timeout:.0f}s")
+        path = os.path.join(out_dir, f"{arch}__{shape}__{mesh}.json")
+        need(os.path.exists(path), f"[dist] dry run {arch} x {shape} wrote "
+             f"no record (exit {p.returncode}): {text[-2000:]}")
+        with open(path) as f:
+            rec = recs[f"{arch} x {shape}"] = json.load(f)
+        need(p.returncode == 0 and rec["status"] == "ok", f"[dist] dry run "
+             f"{arch} x {shape}: {rec['status']}\n"
+             f"{rec.get('traceback', '')[-3000:]}")
+    return recs
+
+
+def phase_dist(device, rehearse, out_dir, smi, lm_train_ref):
+    """The distributed path (the module docstring's phase 14). Returns its
+    detail and the port's kernel launches of the shard_batch path."""
+    import shutil
+    import tempfile
+    import threading
+    import torch
+    from repro_torch.launch import train
+    out = {"device": smi}
+    t_phase = time.perf_counter()
+    cuda = device.type == "cuda"
+    root = os.path.join(HERE, "build", "dist")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    store = tempfile.mkdtemp(dir=root)
+    dry_dir = os.path.join(out_dir, "dryrun")    # kept beside the details
+    dry = dist_dryrun_start(dry_dir, rehearse)
+    worlds = {}
+
+    def run_worlds():
+        try:
+            worlds["out"] = dist_worlds(store, os.path.join(root, "elastic"),
+                                        rehearse)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            worlds["error"] = e
+
+    thread = threading.Thread(target=run_worlds, name="dist-worlds")
+    thread.start()
+    try:
+        parts = out["parts_s"] = {}
+        t0 = time.perf_counter()
+        want = lm_train_ref["losses"][:DIST_TRAIN_STEPS]
+        r = out["world1_train"] = dist_world1_train(
+            train, device, rehearse, store, os.path.join(root, "w1_ckpt"),
+            want, out_dir)
+        parts["world1_train"] = time.perf_counter() - t0
+        width = "smoke" if rehearse else "full width and depth"
+        log(f"[dist] a. {LM_TRAIN_ARCH} ({width}) "
+            f"{DIST_TRAIN_STEPS} steps through launch/train.py on a "
+            f"{r['backend']} process group of 1 and a (1, 1) DeviceMesh, "
+            f"every param a DTensor: losses {r['losses']} against "
+            f"[lm_train]'s {want}: "
+            + ("bitwise" if r["bitwise"] else
+               f"within {r['loss_rel']:.3g} relative (<= {DIST_LOSS_REL})")
+            + f"; {r['ms_per_step_median']:.3f} ms a step median of "
+            f"{r['steps'] - LM_TRAIN_WARMUP} after {LM_TRAIN_WARMUP} "
+            f"warm-up ({r['ms_first_steps']})"
+            + ("" if not cuda else
+               f"; {r['kernels_per_step']:.0f} kernels a step, device busy "
+               f"{r['busy_ms']:.3f} of a {r['window_ms']:.3f} ms "
+               f"{LM_TRAIN_PROFILE_STEPS}-step window "
+               f"({r['busy_share']:.1%}); nondeterministic ops "
+               f"{r['nondeterministic_ops'] or 'none'}"))
+        if cuda:
+            gap = kernel_gap(r["kernels_by_name"],
+                             lm_train_ref["kernels_by_name"])
+            r["kernels_by_name_gap"] = gap
+            log(f"[dist] a. world 1 against [lm_train]: layers recomputed "
+                f"a step {r['remat_recomputes_per_step']:g} against "
+                f"{lm_train_ref['remat_recomputes_per_step']:g}; peak memory "
+                f"{r['peak_memory_gb']:.3f} GB against "
+                f"{lm_train_ref['peak_memory_gb']:.3f} GB; kernels a step "
+                f"{r['kernels_per_step']:.0f} against "
+                f"{lm_train_ref['kernels_per_step']:.0f}, the largest gaps "
+                f"by name (world 1 - [lm_train]): {gap}")
+            need(r["remat_recomputes_per_step"]
+                 == lm_train_ref["remat_recomputes_per_step"],
+                 "[dist] world 1: the layers recomputed a step differ from "
+                 "[lm_train]'s")
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        sb = out["shard_batch"] = dist_shard_batch(device, rehearse)
+        parts["shard_batch"] = time.perf_counter() - t0
+        for n, p in sb["programs"].items():
+            log(f"[dist] c. shard_batch {n}, {DIST_SHARD_BATCH} frames over "
+                f"two shards of {device}: bitwise the unsharded run "
+                f"{p['bitwise']}, bitwise the reference backend (no kernel) "
+                f"{p['bitwise_reference']}; launches {p['launches']} = two unsharded "
+                f"runs of a shard's frames {p['two_unsharded_halves']}")
+        log(f"[dist] c. shard_batch main path launches {sb['counts']}")
+        if cuda:
+            t0 = time.perf_counter()
+            c = out["constants"] = dist_constants(device)
+            parts["constants"] = time.perf_counter() - t0
+            log(f"[dist] e. constants on {smi}: bf16 GEMM {DIST_GEMM}^3 "
+                f"{c['peak_flops_bf16'] / 1e12:.1f} TFLOP/s "
+                f"({c['gemm_ms']:.3f} ms), device copy of {DIST_COPY_BYTES >> 20} MiB "
+                f"{c['hbm_bw'] / 1e9:.1f} GB/s read+write "
+                f"({c['copy_ms']:.3f} ms), total_memory "
+                f"{c['hbm_per_chip']} bytes; NVLink 900 GB/s is the data "
+                f"sheet's, not measured (one card)")
+    finally:
+        thread.join()
+        recs = dist_dryrun_wait(dry, dry_dir, DIST_WORLD_TIMEOUT)
+    if "error" in worlds:
+        raise worlds["error"]
+    results, walls = worlds["out"]
+    dist_hold(results)
+    out["checks"] = {k: v["rank0"] for k, v in results.items()}
+    out["worlds_s"] = walls
+    for name, (w, fn, *_rest, where) in DIST_CHECKS.items():
+        r = results[name]["rank0"]
+        shown = {k: v for k, v in r.items()
+                 if k not in ("sequential", 4, 8, "losses",
+                              "sharded_losses")}
+        log(f"[dist] b. {name} (world {w}, {fn}; "
+            f"{DIST_TRANSPORT['cpu' if rehearse else where]}): {shown}")
+    log(f"[dist] b. worlds' wall seconds {walls}")
+    for cell, rec in recs.items():
+        bpr = rec["bytes_per_rank"]
+        per_rank = sum(bpr.values())
+        coll = rec["collectives"]
+        log(f"[dist] d. dry run {cell} at {rec['mesh']} ({rec['wall_s']}s): "
+            f"per-rank bytes {bpr} = {per_rank / 1e9:.3f} GB against the "
+            f"card's {(c['hbm_per_chip'] if cuda else 80e9) / 1e9:.1f} GB; "
+            f"peak not recorded ({rec['peak_bytes_absent']}); "
+            f"{rec['flops']:.4g} FLOPs "
+            f"({rec['flops_scope']}); collectives per rank: counts "
+            f"{coll['counts']}, bytes {coll['bytes']}")
+    out["dryrun"] = recs
+    shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[dist] phase {out['phase_s']:.1f}s ("
+        + ", ".join(f"{k} {v:.1f}s" for k, v in out["parts_s"].items())
+        + ")")
+    return out, {"shard_batch": sb["counts"]}
+
+
 def reread(trace_dir):
     """Each device-time range of the run whose traces lie in ``trace_dir``:
     its launches, kernel records and device ms per batch by kernel
@@ -3998,6 +4457,10 @@ def main(argv) -> int:
         lm_train_out, lm_train_counts = phase_lm_train(device, rehearse,
                                                        out_dir, smi)
         served.update(lm_train_counts)
+        dist_out, dist_counts = phase_dist(
+            device, rehearse, out_dir, smi,
+            lm_train_out["runs"]["none"])
+        served.update(dist_counts)
 
         launches = {k: {path: served[path][k] for path in served}
                     for k in KERNELS}
@@ -4031,7 +4494,7 @@ def main(argv) -> int:
                        "imaging_bound_busy_share": bound_busy,
                        "load": load, "obs": obs_out, "vgg16": vgg16,
                        "train": train, "lm": lm_out, "moe": moe_out,
-                       "lm_train": lm_train_out,
+                       "lm_train": lm_train_out, "dist": dist_out,
                        "ca_pool_cold_device_ms": ca_cold,
                        "comparisons": n_cmp,
                        "conv_bank_float_err": bank_float_err,
@@ -4049,6 +4512,9 @@ def main(argv) -> int:
                 need(f"bound {path}" in served, f"no bound {path} window")
             need(bank_counts["conv_bank"] > 0,
                  "conv_bank never launched by the conv_bank op")
+            for k in SHARD_BATCH_KERNELS:
+                need(served["shard_batch"][k] > 0, f"{k} never launched on "
+                     f"the shard_batch path")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

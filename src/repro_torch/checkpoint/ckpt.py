@@ -15,8 +15,15 @@ restores in the other.
   so a restore is lossless.
 * **restore** — into the structure and dtypes of a target tree (tensors,
   or ``device="meta"`` tensors for shape and dtype alone), onto ``device``
-  (else each target leaf's own; the CPU for a meta leaf): the
-  counterpart of the reference's ``shardings=``.
+  (else each target leaf's own; the CPU for a meta leaf), or, given
+  ``mesh=`` and a ``placements=`` tree (``launch.shardings.
+  tree_shardings``), as DTensors on that mesh, each rank keeping its
+  slice: the counterpart of the reference's ``shardings=`` (the elastic
+  restart onto another mesh, ``distributed/elastic.py``).
+* **under a mesh** — a tree holding DTensors is gathered whole on every
+  rank (a collective: every rank saves) and rank 0 writes it; the layout
+  on disk is the one-process layout, so a checkpoint of any mesh
+  restores onto any other, and in either package.
 * **keep-k GC** — old steps are pruned after a save, and stale ``tmp.*``
   directories of crashed writers removed.
 """
@@ -36,19 +43,29 @@ import torch
 Tree = Any
 
 
-def _flatten(tree: Tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+def _flatten(tree: Tree, prefix: str = "", is_leaf=None
+             ) -> Iterator[Tuple[str, Any]]:
     """``("a/b/0", leaf)`` for every leaf: dict keys sorted, sequences by
-    index."""
+    index (``is_leaf`` stops the walk at a node of its own)."""
     def join(k):
         return f"{prefix}/{k}" if prefix else str(k)
-    if isinstance(tree, Mapping):
+    if is_leaf is not None and is_leaf(tree):
+        yield prefix, tree
+    elif isinstance(tree, Mapping):
         for k in sorted(tree):
-            yield from _flatten(tree[k], join(k))
+            yield from _flatten(tree[k], join(k), is_leaf)
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            yield from _flatten(v, join(i))
+            yield from _flatten(v, join(i), is_leaf)
     else:
         yield prefix, tree
+
+
+def _is_placements(node) -> bool:
+    """A leaf of a placements tree: a list or tuple of placements."""
+    from torch.distributed.tensor import Placement
+    return isinstance(node, (list, tuple)) and all(
+        isinstance(p, Placement) for p in node)
 
 
 def _unflatten(target: Tree, leaves: Dict[str, Any], prefix: str = "") -> Tree:
@@ -64,6 +81,25 @@ def _unflatten(target: Tree, leaves: Dict[str, Any], prefix: str = "") -> Tree:
 
 def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
+
+
+def _rank() -> int:
+    dist = torch.distributed
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() \
+        else 0
+
+
+def _barrier() -> None:
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        dist.barrier()
+
+
+def _whole(leaf):
+    """A DTensor gathered whole (a collective), else the leaf."""
+    from torch.distributed.tensor import DTensor
+    return leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
 
 
 def _to_host(leaf) -> Tuple[np.ndarray, str]:
@@ -85,11 +121,17 @@ def _to_host(leaf) -> Tuple[np.ndarray, str]:
 
 def save_checkpoint(directory: str | Path, step: int, tree: Tree,
                     extra: Optional[Dict] = None) -> Path:
-    """Atomic save of a tree. Returns the final checkpoint path."""
+    """Atomic save of a tree. Returns the final checkpoint path. Under a
+    process group every rank calls it: DTensor leaves are gathered, rank
+    0 writes, and the ranks meet at a barrier after the rename."""
     directory = Path(directory)
+    final = directory / f"step_{step:08d}"
+    leaves = [(name, _whole(leaf)) for name, leaf in _flatten(tree)]
+    if _rank() != 0:
+        _barrier()
+        return final
     directory.mkdir(parents=True, exist_ok=True)
     tmp = directory / f"tmp.{step}.{os.getpid()}"
-    final = directory / f"step_{step:08d}"
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir(parents=True)
@@ -97,7 +139,7 @@ def save_checkpoint(directory: str | Path, step: int, tree: Tree,
     arrays = {}
     manifest = {"step": step, "time": time.time(), "extra": extra or {},
                 "leaves": {}}
-    for name, leaf in _flatten(tree):
+    for name, leaf in leaves:
         arr, stored_dtype = _to_host(leaf)
         arrays[name.replace("/", "__")] = arr
         manifest["leaves"][name] = {"shape": list(arr.shape),
@@ -111,6 +153,7 @@ def save_checkpoint(directory: str | Path, step: int, tree: Tree,
     if final.exists():
         shutil.rmtree(final)
     tmp.rename(final)                      # atomic on POSIX
+    _barrier()
     return final
 
 
@@ -128,10 +171,23 @@ def latest_step(directory: str | Path) -> Optional[int]:
 
 def restore_checkpoint(directory: str | Path, target: Tree,
                        step: Optional[int] = None,
-                       device=None) -> Tree:
+                       device=None, mesh=None,
+                       placements: Optional[Tree] = None) -> Tree:
     """Restore into the structure and dtypes of ``target`` (a tree of
     tensors, meta tensors allowed), onto ``device`` or else each target
-    leaf's device (the CPU for a meta tensor)."""
+    leaf's device (the CPU for a meta tensor; a DTensor target leaf's
+    mesh and placements). With ``mesh`` and
+    ``placements`` (a tree of DTensor placements matching ``target``)
+    each leaf lands as a DTensor on ``mesh``, this rank keeping its
+    slice (on the mesh's device type when ``device`` is None)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.sharding import distribute
+    place = dict(_flatten(placements, is_leaf=_is_placements)) \
+        if placements is not None else None
+    if place is not None and device is None:
+        device = mesh.device_type if mesh.device_type != "cuda" else \
+            torch.device("cuda", torch.cuda.current_device())
     directory = Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -152,8 +208,13 @@ def restore_checkpoint(directory: str | Path, target: Tree,
                 "cpu" if ref.device.type == "meta" else ref.device)
             # float32 -> bfloat16 rounds to nearest even: exact for a
             # value that was bfloat16
-            leaves[name] = torch.from_numpy(np.asarray(arr, order="C")).to(
+            leaf = torch.from_numpy(np.asarray(arr, order="C")).to(
                 dtype=ref.dtype).to(dev)
+            if place is not None:
+                leaf = distribute(leaf, mesh, place[name])
+            elif isinstance(ref, DTensor):       # onto the target's layout
+                leaf = distribute(leaf, ref.device_mesh, ref.placements)
+            leaves[name] = leaf
     return _unflatten(target, leaves)
 
 
@@ -174,16 +235,19 @@ class CheckpointManager:
         if not force and not self.should_save(step):
             return None
         path = save_checkpoint(self.directory, step, tree, extra)
-        self._gc()
+        if _rank() == 0:
+            self._gc()
         return path
 
-    def restore_latest(self, target: Tree, device=None):
+    def restore_latest(self, target: Tree, device=None, mesh=None,
+                       placements: Optional[Tree] = None):
         """-> (step, tree) of the latest complete checkpoint, or (None,
         None) when there is none."""
         step = latest_step(self.directory)
         if step is None:
             return None, None
-        return step, restore_checkpoint(self.directory, target, step, device)
+        return step, restore_checkpoint(self.directory, target, step, device,
+                                        mesh, placements)
 
     def _gc(self):
         steps = sorted(

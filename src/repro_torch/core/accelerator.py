@@ -100,7 +100,8 @@ def _pool(y: torch.Tensor, kind: str, size: int) -> torch.Tensor:
     return window_mean(yr)
 
 
-def _crc_requant(x: torch.Tensor, a_qmax=None, per_frame: bool = False):
+def _crc_requant(x: torch.Tensor, a_qmax=None, per_frame: bool = False,
+                 reduce_max=None):
     """Electronic output -> CRC codes for the next layer's DMVA.
 
     Returns ``(codes, scale)``; codes are float-carried 0..15. Per-tensor
@@ -109,6 +110,9 @@ def _crc_requant(x: torch.Tensor, a_qmax=None, per_frame: bool = False):
     frame's own axes instead (scale shape [B, 1, ...]), so a frame's codes
     never depend on its batch neighbours. ``a_qmax`` is the divisor,
     ideally a tensor on ``x``'s device (default: the 4-bit CRC's 15).
+    ``reduce_max`` (per-tensor only): where ``x`` is one shard of a
+    batch, the 0-d max of every shard's 0-d max (``Options.shard_batch``),
+    so the scale is the whole batch's.
     """
     if a_qmax is None:
         a_qmax = float((1 << ACT_BITS) - 1)
@@ -117,6 +121,8 @@ def _crc_requant(x: torch.Tensor, a_qmax=None, per_frame: bool = False):
         amax = x.amax(dim=tuple(range(1, x.ndim)), keepdim=True)
     else:
         amax = x.amax()
+        if reduce_max is not None:
+            amax = reduce_max(amax)
     scale = true_div(torch.clamp_min(amax, 1e-8), a_qmax)
     codes = torch.clamp(torch.round(true_div(x, scale)), 0,
                         (1 << ACT_BITS) - 1)

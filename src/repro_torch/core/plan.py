@@ -422,7 +422,8 @@ def _execute_steps(steps: Tuple[PlanStep, ...], params: Dict[str, Dict],
                    segments: Tuple[dispatch.FusedSegmentSpec, ...] = (),
                    backend: str = "kernel",
                    weights: Optional[Dict[str, Tuple]] = None,
-                   exact_checked: bool = False) -> torch.Tensor:
+                   exact_checked: bool = False,
+                   reduce_max=None) -> torch.Tensor:
     """The device forward, batch-first, kernels via ``kernels.dispatch``.
 
     ``per_frame`` switches every CRC requant to per-frame calibration
@@ -441,7 +442,10 @@ def _execute_steps(steps: Tuple[PlanStep, ...], params: Dict[str, Dict],
     quantizes each layer's weights on every call. ``exact_checked``: the
     fused chains' float32 range is already known to hold (the verifier
     proved the plan, or a bound view ran ``fused.check_exact`` over its
-    weights), so no chain launch checks it again.
+    weights), so no chain launch checks it again. ``reduce_max``: ``frames``
+    are one shard of a batch (``Options.shard_batch``), and each per-tensor
+    requant's max is taken across the shards through it; the fused chains
+    then do not run (their inter-stage max is the shard's own).
     """
     def qweight(step):
         if weights is not None:
@@ -450,8 +454,11 @@ def _execute_steps(steps: Tuple[PlanStep, ...], params: Dict[str, Dict],
                                consts["w_qmax"][step.name])
 
     a_qmax = consts["a_qmax"]
-    x, act_scale = _crc_requant(frames, a_qmax, per_frame)
-    fuse_ok = per_frame or frames.shape[0] == 1
+    def requant(t):
+        return _crc_requant(t, a_qmax, per_frame, reduce_max)
+
+    x, act_scale = requant(frames)
+    fuse_ok = per_frame or (frames.shape[0] == 1 and reduce_max is None)
     hooks = dispatch.trace_hooks()
     if segments and not fuse_ok and hooks:
         # per-tensor calibration at batch > 1 couples frames through the
@@ -486,7 +493,7 @@ def _execute_steps(steps: Tuple[PlanStep, ...], params: Dict[str, Dict],
                                     backend)
             if g.ndim == 3:
                 g = g[..., None]
-            x, act_scale = _crc_requant(g, a_qmax, per_frame)
+            x, act_scale = requant(g)
         elif isinstance(step, ConvStep):
             p = params[step.name]
             wq, ws = qweight(step)
@@ -499,15 +506,15 @@ def _execute_steps(steps: Tuple[PlanStep, ...], params: Dict[str, Dict],
             y = _activation(out, step.act)
             if step.pool is not None:
                 y = _pool(y, *step.pool)
-            x, act_scale = _crc_requant(y, a_qmax, per_frame)
+            x, act_scale = requant(y)
         elif isinstance(step, UpsampleStep):
             intens = x * act_scale
             up = upsample_reconstruct(intens, step.factor, step.method)
-            x, act_scale = _crc_requant(up, a_qmax, per_frame)
+            x, act_scale = requant(up)
         elif isinstance(step, FlattenStep):
             intens = x * act_scale
             flat = intens.reshape(intens.shape[0], -1)
-            x, act_scale = _crc_requant(flat, a_qmax, per_frame)
+            x, act_scale = requant(flat)
         elif isinstance(step, DenseStep):
             p = params[step.name]
             wq, ws = qweight(step)
@@ -517,7 +524,7 @@ def _execute_steps(steps: Tuple[PlanStep, ...], params: Dict[str, Dict],
                 out = out + p["b"]
             if step.act != "none":
                 y = _activation(out, step.act)
-                x, act_scale = _crc_requant(y, a_qmax, per_frame)
+                x, act_scale = requant(y)
             else:
                 x, act_scale = out, None
         else:
@@ -531,7 +538,8 @@ def _execute_steps(steps: Tuple[PlanStep, ...], params: Dict[str, Dict],
 def _execute(plan: CompiledPlan, params: Dict[str, Dict],
              frames: torch.Tensor, per_frame: bool = False,
              backend: str = "kernel",
-             weights: Optional[Dict[str, Tuple]] = None) -> torch.Tensor:
+             weights: Optional[Dict[str, Tuple]] = None,
+             reduce_max=None) -> torch.Tensor:
     """Run ``frames`` [B, H, W, C] (or one [H, W, C]) through a plan.
 
     Returns logits [B, n] for classifier plans, or an image [B, H', W', C']
@@ -555,4 +563,5 @@ def _execute(plan: CompiledPlan, params: Dict[str, Dict],
                               segments=plan.fused_segments, backend=backend,
                               weights=weights,
                               exact_checked=(weights is not None
-                                             or plan.exact_proven))
+                                             or plan.exact_proven),
+                              reduce_max=reduce_max)

@@ -31,6 +31,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import threading
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -94,6 +95,21 @@ class Options:
                         ``Executable.report.verification``. Out of the
                         plan cache key, like ``trace``. A proven plan's
                         fused chains skip the chain kernel's range check.
+    ``shard_batch``     split ``Executable.run``'s batch (per-tensor
+                        calibration) over ``mesh``: a sequence of torch
+                        devices (``None``: every local CUDA device when
+                        ``device`` is one, else none). Frames are split on
+                        axis 0, the params copied to each device, and the
+                        shards run in lockstep, one thread each: every
+                        CRC requant's max is the ``torch.maximum`` of the
+                        shards' 0-d maxima gathered to the first device
+                        (no host read), so the result is bitwise the
+                        unsharded run's. A no-op on fewer than two devices
+                        or a batch the devices do not divide; ignored by
+                        ``run_per_frame`` / ``run_padded`` (no cross-frame
+                        reduction) and bound views. ``mesh=("cpu",
+                        "cpu")`` emulates two shards on the CPU, as
+                        ``ServeConfig(devices=N)`` emulates workers.
     """
 
     scheme: WASpec | MixedPrecisionScheme = W4A4
@@ -110,6 +126,8 @@ class Options:
     fuse: Optional[str] = None
     trace: Optional[str] = None
     verify: Optional[str] = None
+    shard_batch: bool = False
+    mesh: Optional[Tuple[str, ...]] = None
 
     def __post_init__(self):
         if self.fc_batch < 1:
@@ -135,6 +153,9 @@ class Options:
             raise ValueError(f"unknown verify mode {self.verify!r}; "
                              f"expected one of {VERIFY_MODES}")
         resolve_device(self.device)
+        if self.mesh is not None:
+            object.__setattr__(self, "mesh", tuple(
+                str(resolve_device(d)) for d in self.mesh))
 
     def describe(self) -> str:
         """One-line summary of the resolved options (serving headers)."""
@@ -144,9 +165,23 @@ class Options:
                 else f"{budget >> 10}KB")
         trace = f" trace={r.trace}" if r.trace != "auto" else ""
         verify = f" verify={r.verify}" if r.verify != "auto" else ""
+        shard = (f" shard_batch={len(r.shard_devices())}dev"
+                 if r.shard_batch else "")
         return (f"scheme={r.scheme.name} backend={r.backend} "
                 f"device={r.device} conv={r.conv_strategy}(vmem={vmem}) "
-                f"fuse={r.fuse} fc_batch={r.fc_batch}{trace}{verify}")
+                f"fuse={r.fuse} fc_batch={r.fc_batch}{trace}{verify}{shard}")
+
+    def shard_devices(self) -> Tuple[torch.device, ...]:
+        """The devices ``shard_batch`` splits a batch over (empty when it
+        is off)."""
+        if not self.shard_batch:
+            return ()
+        if self.mesh is not None:
+            return tuple(torch.device(d) for d in self.mesh)
+        if torch.device(self.device).type == "cuda":
+            return tuple(torch.device("cuda", i)
+                         for i in range(torch.cuda.device_count()))
+        return ()
 
     def resolve(self) -> "Options":
         """Every ``None`` field filled with its default."""
@@ -166,6 +201,14 @@ def _pinned(options: Options):
     if options.trace is None:
         return contextlib.nullcontext()
     return obs.use_mode(options.trace)
+
+
+def _on_device(device: torch.device):
+    """``device`` made the calling thread's current CUDA device, or nothing
+    off CUDA."""
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 # ---------------------------------------------------------------------------
@@ -312,6 +355,34 @@ class Program:
 # Executable
 # ---------------------------------------------------------------------------
 
+class _MaxHub:
+    """Where the shards of one ``Executable.run`` meet at each per-tensor
+    requant: every shard deposits its 0-d max, the first shard's thread
+    reduces them with ``torch.maximum`` on the first device, and each shard
+    takes the result back to its own device (device ops only: no host
+    read). Max is exact in any order, so the scale is the unsharded one."""
+
+    def __init__(self, devices: Sequence[torch.device]):
+        self.devices = tuple(devices)
+        self.slots: list = [None] * len(devices)
+        self.total: Optional[torch.Tensor] = None
+        self._barrier = threading.Barrier(len(devices))
+
+    def reduce(self, i: int, amax: torch.Tensor) -> torch.Tensor:
+        self.slots[i] = amax
+        self._barrier.wait()              # every shard's max is in
+        if i == 0:
+            total = self.slots[0].to(self.devices[0])
+            for m in self.slots[1:]:
+                total = torch.maximum(total, m.to(self.devices[0]))
+            self.total = total
+        self._barrier.wait()              # the total is in
+        return self.total.to(amax.device)
+
+    def abort(self) -> None:
+        self._barrier.abort()
+
+
 @dataclasses.dataclass(eq=False)
 class Executable:
     """A compiled program: ``CompiledPlan`` + the options it runs under.
@@ -329,6 +400,8 @@ class Executable:
         default=None, repr=False)
     _binding: Optional[graphs.Binding] = dataclasses.field(
         default=None, repr=False)
+    _shard_params: Dict = dataclasses.field(default_factory=dict,
+                                            repr=False)
 
     @property
     def plan(self) -> plan_mod.CompiledPlan:
@@ -407,12 +480,65 @@ class Executable:
     def run(self, frames) -> torch.Tensor:
         """Execute ``frames`` [B, H, W, C] (or one [H, W, C] frame) with the
         seed's per-tensor calibration. Returns logits [B, n] or an image
-        [B, H', W', C'], on the executable's device."""
+        [B, H', W', C'], on the executable's device. Under
+        ``options.shard_batch`` the batch is split over its devices."""
         with _pinned(self.options):
-            return plan_mod._execute(self._plan, self.params(),
-                                     self._frames(frames),
+            x = self._frames(frames)
+            devices = self.options.shard_devices()
+            if (self._binding is None and len(devices) >= 2
+                    and x.ndim == 4 and x.shape[0] % len(devices) == 0):
+                return self._run_sharded(x, devices)
+            return plan_mod._execute(self._plan, self.params(), x,
                                      backend=self.options.backend,
                                      weights=self._weights())
+
+    def _params_on(self, device: torch.device) -> Dict[str, Dict]:
+        """The params copied to ``device`` (once a device)."""
+        if device == self.device:
+            return self.params()
+        if device not in self._shard_params:
+            self._shard_params[device] = {
+                layer: {k: v.to(device) for k, v in p.items()}
+                for layer, p in self.params().items()}
+        return self._shard_params[device]
+
+    def _run_sharded(self, x: torch.Tensor,
+                     devices: Tuple[torch.device, ...]) -> torch.Tensor:
+        """``run`` over ``len(devices)`` shards of the batch, one thread a
+        shard, the per-tensor maxima met in a ``_MaxHub``; -> the shards'
+        results concatenated on the executable's device."""
+        n = len(devices)
+        shards = [s.to(d) for s, d in zip(x.chunk(n), devices)]
+        params = [self._params_on(d) for d in devices]
+        hub = _MaxHub(devices)
+        results: list = [None] * n
+        errors: list = [None] * n
+
+        def work(i):
+            try:
+                # A new thread's current CUDA device is device 0: enter the
+                # shard's own, as graphs.Binding does, so its kernels go to
+                # that device's stream.
+                with _on_device(devices[i]), _pinned(self.options):
+                    results[i] = plan_mod._execute(
+                        self._plan, params[i], shards[i],
+                        backend=self.options.backend,
+                        reduce_max=lambda m: hub.reduce(i, m))
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                errors[i] = e
+                hub.abort()
+
+        threads = [threading.Thread(target=work, args=(i,),
+                                    name=f"shard-{i}") for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        for e in errors:
+            if e is not None and not isinstance(
+                    e, threading.BrokenBarrierError):
+                raise e
+        return torch.cat([r.to(self.device) for r in results], dim=0)
 
     def run_per_frame(self, frames) -> torch.Tensor:
         """Execute with per-frame CRC calibration (serving semantics): every

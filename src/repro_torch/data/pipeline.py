@@ -4,7 +4,10 @@
     the checkpoint stores only the step counter;
   * per-process slicing: each process materializes only its rows of the
     global batch (``process_slice``: the rank and world size of
-    ``torch.distributed`` when it is initialized, else 0 and 1);
+    ``torch.distributed`` when it is initialized, else 0 and 1); with
+    ``mesh=`` and ``placements=`` (``launch.shardings.batch_shardings``,
+    the counterpart of the reference's ``shardings=``) each batch becomes
+    DTensors, every rank uploading only its slice;
   * prefetch: a worker thread makes ``batch_fn(step)`` ahead of the
     consumer, ``prefetch`` batches deep.
 
@@ -22,17 +25,21 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import distribute, local_tensor
+
 
 class DataPipeline:
     def __init__(self, batch_fn: Callable[[int], Dict[str, np.ndarray]],
-                 device=None, prefetch: int = 2, start_step: int = 0):
+                 device=None, prefetch: int = 2, start_step: int = 0,
+                 mesh=None, placements: Optional[Dict] = None):
         self.batch_fn = batch_fn
         self.device = None if device is None else torch.device(device)
+        self.mesh, self.placements = mesh, placements
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device is not None
                         and self.device.type == "cuda" else None)
@@ -47,15 +54,25 @@ class DataPipeline:
         if self.device is None:
             return host_batch, None
         if self._stream is None:
-            return {k: torch.as_tensor(v, device=self.device)
-                    for k, v in host_batch.items()}, None
+            return {k: self._put(k, v) for k, v in host_batch.items()}, None
         with torch.cuda.stream(self._stream):
-            out = {k: torch.as_tensor(v).pin_memory().to(
-                self.device, non_blocking=True)
-                for k, v in host_batch.items()}
+            out = {k: self._put(k, v, non_blocking=True)
+                   for k, v in host_batch.items()}
             event = torch.cuda.Event()
             event.record(self._stream)
         return out, event
+
+    def _put(self, key: str, v: np.ndarray, non_blocking: bool = False):
+        """``v`` on the device: this rank's slice as a DTensor under
+        ``placements``, else the whole array (through pinned memory when
+        ``non_blocking``)."""
+        if self.placements is not None:
+            return distribute(v, self.mesh, self.placements[key],
+                              self.device, non_blocking=non_blocking)
+        t = torch.as_tensor(v)
+        if non_blocking:
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=non_blocking)
 
     def _worker(self):
         step = self._step
@@ -76,7 +93,7 @@ class DataPipeline:
             consumer = torch.cuda.current_stream(self.device)
             consumer.wait_event(event)
             for t in batch.values():
-                t.record_stream(consumer)
+                local_tensor(t).record_stream(consumer)
         return step, batch
 
     def stop(self):

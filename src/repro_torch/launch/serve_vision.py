@@ -104,6 +104,10 @@ def main(argv=None):
                     help="pool width: one bound view per device")
     ap.add_argument("--placement", default="least_loaded",
                     choices=sorted(serve.PLACEMENTS))
+    ap.add_argument("--shard-batch", action="store_true",
+                    help="shard Executable.run's batch over the local "
+                         "CUDA devices (no-op on 1 device; the served "
+                         "per-frame path has no cross-frame reduction)")
     ap.add_argument("--max-inflight", type=int, default=2,
                     help="per-device pipeline depth")
     ap.add_argument("--device", default="cuda",
@@ -135,7 +139,8 @@ def main(argv=None):
     trace = obs.enable() if args.trace is not None else None
     options = Options(scheme=SCHEMES[args.scheme], fc_batch=args.batch,
                       backend=args.backend, device=args.device,
-                      conv_strategy=args.conv_strategy)
+                      conv_strategy=args.conv_strategy,
+                      shard_batch=args.shard_batch)
     if args.pipeline is not None:
         from repro_torch.imaging import PIPELINES
         if args.pipeline not in PIPELINES:

@@ -7,8 +7,15 @@ then ``optim.adamw.adamw_update``. Nothing is updated in place, and the
 metrics stay on the device (``{"loss", "ce", "balance", "z", "dropped",
 "grad_norm", "lr"}``), so a step reads nothing back to the host.
 
-The reference's ``grad_shardings`` (a layout pin for the gradients
-under a mesh) has no meaning on one device and is left out.
+Under a mesh (params placed by ``launch.shardings.distribute_tree``, the
+rules active through ``distributed.sharding.use_rules``) the same steps run
+on DTensors: the plain tensors the model makes are taken as replicated
+(``sharding.plain_operands``), ``grad_shardings`` (the params'
+placements, ``shardings.tree_shardings``) redistributes the gradients to
+the params' layout before the global-norm clip, as the reference's
+``with_sharding_constraint`` pins them (without it the moments would
+follow the gradients' partial sums), and the metrics come back whole on
+every rank.
 """
 
 from __future__ import annotations
@@ -18,6 +25,8 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (full_tensor, plain_operands,
+                                              redistribute)
 from repro_torch.models import lm as lm_mod
 from repro_torch.nn.module import tree_leaves, tree_map
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
@@ -53,21 +62,33 @@ def loss_and_grads(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             grads)
 
 
-def make_train_step(cfg: ModelConfig, opt: AdamWConfig, seq: int):
+def make_train_step(cfg: ModelConfig, opt: AdamWConfig, seq: int,
+                    grad_shardings=None):
+    """``grad_shardings``: a tree of DTensor placements mirroring the
+    params; each gradient is redistributed to its param's placements
+    before the global-norm reduction (a reduce-scatter where the
+    gradient is a partial sum over a dim its param shards)."""
     vc = vocab_chunk_for(cfg, seq)
 
     def train_step(params, opt_state, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[dict, dict, Dict[str, torch.Tensor]]:
-        loss, metrics, grads = loss_and_grads(params, batch, cfg, vc)
-        new_params, new_opt, om = adamw_update(params, grads, opt_state, opt)
-        return new_params, new_opt, {"loss": loss, **metrics, **om}
+        with plain_operands():
+            loss, metrics, grads = loss_and_grads(params, batch, cfg, vc)
+            if grad_shardings is not None:
+                grads = tree_map(redistribute, grads, grad_shardings)
+            new_params, new_opt, om = adamw_update(params, grads,
+                                                   opt_state, opt)
+        metrics = {"loss": loss, **metrics, **om}
+        return new_params, new_opt, {k: full_tensor(v)
+                                     for k, v in metrics.items()}
 
     return train_step
 
 
 def make_prefill_step(cfg: ModelConfig):
     def prefill_step(params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        logits, _ = lm_mod.lm_forward(params, batch, cfg)
+        with plain_operands():
+            logits, _ = lm_mod.lm_forward(params, batch, cfg)
         # serving returns the last-position logits (next-token distribution)
         return logits[:, -1, :]
 
@@ -76,6 +97,7 @@ def make_prefill_step(cfg: ModelConfig):
 
 def make_serve_step(cfg: ModelConfig):
     def serve_step(params, cache, token: torch.Tensor):
-        return lm_mod.decode_step(params, cache, token, cfg)
+        with plain_operands():
+            return lm_mod.decode_step(params, cache, token, cfg)
 
     return serve_step

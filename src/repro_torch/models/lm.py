@@ -13,8 +13,14 @@ Layer params are stacked on a leading [L] axis, as in the reference's tree;
 a Python loop over the layers takes the place of ``lax.scan``, each layer
 under ``cfg.remat`` (``nn/remat.py``: ``"full"`` recomputes the layer in
 the backward pass, ``"dots"`` keeps its matmul outputs; the reference's
-``jax.checkpoint``). The reference's ``shard`` sharding constraints are
-the identity on one device and are left out.
+``jax.checkpoint``). The reference's ``shard(...)`` sharding constraints
+stand at its call sites (``distributed/sharding.py``): the identity on one
+device, a DTensor redistribution under ``use_rules`` when the params are
+DTensors (``launch/shardings.distribute_tree``). Under a mesh the plain
+tensors the code makes (positions, masks, zeros) are taken as replicated
+(``sharding.plain_operands``), and the CE's gather runs on logits whose
+vocab dim is gathered first (DTensor's masked gather over a sharded vocab
+fails on a 2-D mesh; GSPMD gathers there too).
 
 The Lightator photonic quantization threads through every projection via
 ``nn.layers.dense(quant=...)``: [W{2,3,4}:A4] fake-quant under
@@ -38,6 +44,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.compressive import sequence_ca
 from repro_torch.core.program import resolve_device
 from repro_torch.core.quant import WASpec, _clip, true_div
+from repro_torch.distributed.sharding import (is_dtensor, shard, splittable,
+                                              unshard_dim)
 from repro_torch.nn import attention as attn_mod
 from repro_torch.nn import layers as L
 from repro_torch.nn import moe as moe_mod
@@ -166,14 +174,47 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig,
 # Blocks
 # ---------------------------------------------------------------------------
 
+def split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
+    """[B, T, n*hd] -> [B, T, n, hd]. On a DTensor whose last dim a mesh
+    dim shards that does not divide ``n``, that dim is gathered first:
+    DTensor cannot split an unevenly sharded dim (GSPMD pads it)."""
+    x = splittable(x, -1, n)
+    return x.reshape(*x.shape[:-1], n, x.shape[-1] // n)
+
+
+class _MergeHeads(torch.autograd.Function):
+    """[B, T, n, hd] -> [B, T, n*hd], whose gradient splits the heads
+    through ``split_heads`` (a plain view's backward cannot take a
+    gradient DTensor shards unevenly over the merged dim)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.n = x.shape[-2]
+        return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        return split_heads(g, ctx.n)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """[B, T, n, hd] -> [B, T, n*hd]; on a DTensor the head dim is made
+    whole first (a split head dim merges into a strided shard)."""
+    if not is_dtensor(x):
+        return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+    return _MergeHeads.apply(unshard_dim(x, -1))
+
+
 def _attn_block(p, x, cfg: ModelConfig, positions, quant,
                 cache: Optional[Dict] = None, pos_scalar=None):
     """x: [B,T,D] -> [B,T,D]; with a cache, T == 1 (a decode step)."""
     b, t, _ = x.shape
     hd = cfg.head_dim
-    q = L.dense(p["wq"], x, quant).reshape(b, t, cfg.n_heads, hd)
-    k = L.dense(p["wk"], x, quant).reshape(b, t, cfg.n_kv_heads, hd)
-    v = L.dense(p["wv"], x, quant).reshape(b, t, cfg.n_kv_heads, hd)
+    q = split_heads(L.dense(p["wq"], x, quant), cfg.n_heads)
+    k = split_heads(L.dense(p["wk"], x, quant), cfg.n_kv_heads)
+    v = split_heads(L.dense(p["wv"], x, quant), cfg.n_kv_heads)
+    q = shard(q, "batch", None, "heads", None)
+    k = shard(k, "batch", None, "kv", None)
     if cache is None:
         q = attn_mod.apply_rope(q, positions, cfg.rope_theta)
         k = attn_mod.apply_rope(k, positions, cfg.rope_theta)
@@ -189,8 +230,8 @@ def _attn_block(p, x, cfg: ModelConfig, positions, quant,
         kv = attn_mod.cache_update(kv, k, v, ring=ring)
         out = attn_mod.decode_attention(q, kv, window=cfg.sliding_window)
         new_cache = {"k": kv.k, "v": kv.v}
-    out = out.reshape(b, t, cfg.n_heads * hd)
-    return L.dense(p["wo"], out, quant), new_cache
+    y = L.dense(p["wo"], merge_heads(out), quant)
+    return shard(y, "batch", None, "act_embed"), new_cache
 
 
 def _mlp_block(p, x, cfg: ModelConfig, quant):
@@ -200,6 +241,7 @@ def _mlp_block(p, x, cfg: ModelConfig, quant):
         h = L.silu(gate) * up
     else:
         h = L.gelu(up)
+    h = shard(h, "batch", None, "ffn")
     return L.dense(p["w_down"], h, quant)
 
 
@@ -223,7 +265,8 @@ def _ssm_block(p, x, cfg: ModelConfig, quant,
         xbc = ssm_mod.causal_conv1d(xbc, p["conv_w"], p["conv_b"])
         xbc = L.silu(xbc)
         xs, bmat, cmat = torch.split(xbc, [di, gn, gn], dim=-1)
-        xs = xs.reshape(b, t, h, pdim)
+        xs = shard(xs.reshape(b, t, h, pdim), "batch", None, "ssm_heads",
+                   None)
         y, _ = ssm_mod.ssd_chunked(xs, dt, a, bmat.reshape(b, t, g, n),
                                    cmat.reshape(b, t, g, n),
                                    chunk=min(cfg.ssd_chunk, t))
@@ -241,7 +284,9 @@ def _ssm_block(p, x, cfg: ModelConfig, quant,
         xs = xs[:, None]
         new_cache = {"conv": conv_state, "ssm": ssm_state}
     y = y + xs.reshape(y.shape) * p["d_skip"][None, None, :, None]
-    y = y.reshape(b, t, di).to(x.dtype)
+    # under a mesh the head dim is whole before the heads merge (DTensor
+    # may have split it, which the merge cannot take)
+    y = unshard_dim(y, 3).reshape(b, t, di).to(x.dtype)
     y = L.rmsnorm(p["norm"], y * L.silu(z).to(x.dtype))
     return L.dense(p["out_proj"], y, quant).to(x.dtype), new_cache
 
@@ -314,7 +359,7 @@ def embed_inputs(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
     if batch.get("tokens") is not None:
         parts.append(L.embedding_lookup(params["embed"], batch["tokens"]))
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
-    return x.to(cfg.torch_dtype)
+    return shard(x.to(cfg.torch_dtype), "batch", None, "act_embed")
 
 
 # ---------------------------------------------------------------------------
@@ -352,8 +397,10 @@ def lm_forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 
 def _lm_logits(params, x, cfg: ModelConfig):
     if cfg.tie_embeddings:
-        return L.embedding_logits(params["embed"], x)
-    return L.dense(params["lm_head"], x)
+        logits = L.embedding_logits(params["embed"], x)
+    else:
+        logits = L.dense(params["lm_head"], x)
+    return shard(logits, "batch", None, "vocab")
 
 
 def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
@@ -392,6 +439,7 @@ def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 
 
 def _ce(logits, labels):
+    logits = unshard_dim(logits, -1)
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels[..., None].long())[..., 0]
     return logz - gold
@@ -432,6 +480,7 @@ def decode_step(params, cache: Dict, token: torch.Tensor, cfg: ModelConfig):
     """One serving step: token [B,1] int -> (logits [B,V], new cache). The
     cache passed in is left as it was."""
     x = L.embedding_lookup(params["embed"], token).to(cfg.torch_dtype)
+    x = shard(x, "batch", None, "act_embed")
     pos = cache["pos"]
     quant = cfg.quant_spec()
     new_layers = []

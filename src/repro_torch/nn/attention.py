@@ -26,6 +26,9 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.core.quant import true_div
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import (is_dtensor,
+                                              unshard_dim)
 
 NEG_INF = -1e30
 
@@ -96,6 +99,27 @@ def attention_naive(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # Blockwise online-softmax attention
 # ---------------------------------------------------------------------------
 
+def _attention_local(q, k, v, causal, window, kv_block, q_offset):
+    """``attention`` of DTensors as one local region a rank
+    (``sharding.local_region``), the way the reference's GSPMD partitions
+    it: every row and (kv) head is independent, so each rank runs the
+    plain function on its batch rows ("batch") and, where the rules shard
+    "kv" and the mesh dim divides the kv heads, on its heads; elsewhere
+    the heads are whole on every rank. (Op by op, DTensor picks layouts
+    for the block loop's einsums that its own views then cannot take.)"""
+    rules = sharding.current_rules() or {}
+    b0 = sharding.batch_entry(q.device_mesh, q.shape[0])
+    heads = sharding.spec_for("kv", rules=rules)[0] if rules else None
+    if heads is not None and k.shape[2] % sharding.spec_shards(
+            heads, q.device_mesh):
+        heads = None
+    spec = (b0, None, heads, None)
+    return sharding.local_region(
+        lambda q_, k_, v_: attention(q_, k_, v_, causal, window, kv_block,
+                                     q_offset),
+        [(q, spec), (k, spec), (v, spec)], [spec])
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, window: Optional[int] = None,
               kv_block: int = 512, q_offset: int = 0) -> torch.Tensor:
@@ -104,7 +128,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     GQA-aware: computes in grouped layout [B, T, K, G, D] so kv heads are
     never materialized H/K times. S is zero-padded to a multiple of
     ``kv_block`` and the padding masked, as in the reference.
+
+    On DTensors (under ``sharding.use_rules``) it runs as one local region
+    a rank (``_attention_local``).
     """
+    if is_dtensor(q):
+        return _attention_local(q, k, v, causal, window, kv_block, q_offset)
     b, t, h, d = q.shape
     s = k.shape[1]
     kv_heads = k.shape[2]
@@ -181,6 +210,17 @@ def cache_update(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
     s_cache = cache.k.shape[1]
     idx = (torch.remainder(cache.pos, s_cache) if ring
            else torch.clamp(cache.pos, 0, s_cache - 1)).reshape(1).long()
+    if is_dtensor(cache.k):
+        # a sequence-sharded cache: the same values by a select over the
+        # sequence, each rank writing only its own slots (index_copy along
+        # a sharded dim would gather the whole cache)
+        sel = (torch.arange(s_cache, device=idx.device) == idx)[
+            None, :, None, None]
+        k = torch.where(sel, unshard_dim(k_new, 2).to(cache.k.dtype),
+                        cache.k)
+        v = torch.where(sel, unshard_dim(v_new, 2).to(cache.v.dtype),
+                        cache.v)
+        return KVCache(k, v, cache.pos + 1)
     k = cache.k.index_copy(1, idx, k_new.to(cache.k.dtype))
     v = cache.v.index_copy(1, idx, v_new.to(cache.v.dtype))
     return KVCache(k, v, cache.pos + 1)
@@ -198,7 +238,11 @@ def decode_attention(q: torch.Tensor, cache: KVCache,
     kv_heads = cache.k.shape[2]
     g = h // kv_heads
     scale = d ** -0.5
-    qg = q.reshape(b, kv_heads, g, d)
+    # under a mesh the query's heads are gathered first (one token: cheap):
+    # the cache is sharded on its sequence, and DTensor cannot contract a
+    # heads-sharded query against it (the grouped reshape makes a strided
+    # shard its bmm strategy rejects)
+    qg = unshard_dim(q, 2).reshape(b, kv_heads, g, d)
     # a cache may live in a narrower dtype; upcast at use
     k_cache = cache.k.to(q.dtype)
     v_cache = cache.v.to(q.dtype)

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.accelerator import window_mean
 from repro_torch.core.plan import padtype_to_pads
+from repro_torch.distributed import sharding
 from repro_torch.core.quant import (WASpec, fake_quant_act, fake_quant_weight,
                                     quantize_weight)
 from repro_torch.kernels.photonic_mvm.ops import photonic_mvm
@@ -123,7 +124,50 @@ def init_embedding(generator: torch.Generator, vocab: int, d_model: int,
 
 
 def embedding_lookup(params, ids: torch.Tensor) -> torch.Tensor:
-    return params["table"][ids]
+    table = params["table"]
+    if sharding.is_dtensor(table):
+        return _embedding_lookup_sharded(table, ids)
+    return table[ids]
+
+
+def _embedding_lookup_sharded(table, ids):
+    """``table[ids]`` of a DTensor table as GSPMD partitions a gather from
+    a vocab-sharded table: each rank looks its batch rows' ids up in its
+    own vocab rows (the table whole on its other dims first, an all-gather
+    over "data" under FSDP), zero where an id lies outside them, and one
+    all-reduce over the vocab's mesh dims sums the parts (a value plus
+    zeros: exact). Each rank's backward scatters into its own rows only
+    (DTensor's own strategy for the indexing backward fails on some
+    versions, and this keeps the single-device op on the local
+    tensors)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = table.device_mesh
+    t_place = [Shard(0) if p.is_shard(0) else Replicate()
+               for p in table.placements]
+    b0 = sharding.batch_entry(mesh, ids.shape[0])
+    ids_place = sharding.placements((b0,) + (None,) * (ids.ndim - 1), mesh)
+    splitting = {i for i, p in enumerate(ids_place) if p.is_shard()}
+    grad = [Partial() if p.is_replicate() and i in splitting else p
+            for i, p in enumerate(t_place)]
+    local_t = sharding.redistribute(table, t_place).to_local(
+        grad_placements=grad)
+    if sharding.is_dtensor(ids):
+        local_ids = sharding.redistribute(ids, ids_place).to_local()
+    else:
+        local_ids = ids[sharding.local_slices(ids.shape, mesh, ids_place)]
+    lo = sharding.local_slices(table.shape, mesh, t_place)[0].start
+    n = local_t.shape[0]
+    rows = local_t[(local_ids - lo).clamp(0, n - 1)]
+    mine = ((local_ids >= lo) & (local_ids < lo + n))[..., None]
+    part = torch.where(mine, rows, torch.zeros_like(rows))
+    out_place = [Partial() if t.is_shard() else q
+                 for t, q in zip(t_place, ids_place)]
+    shape = tuple(ids.shape) + (table.shape[1],)
+    out = DTensor.from_local(part, mesh, out_place, run_check=False,
+                             shape=shape,
+                             stride=sharding.contiguous_stride(shape))
+    return out.redistribute(mesh, [Replicate() if t.is_shard() else q
+                                   for t, q in zip(t_place, ids_place)])
 
 
 def embedding_logits(params, x: torch.Tensor) -> torch.Tensor:

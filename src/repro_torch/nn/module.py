@@ -60,12 +60,16 @@ class KeyGen:
     is drawn (a generator on the card costs one host read, here only). The
     children's seeds come from ``numpy.random.SeedSequence(seed)``, so a
     seed gives the same sequence of generators on every run and device.
+    The draw is a real tensor even under ``FakeTensorMode`` (the dry run
+    and ``launch.specs.params_shape`` build fake params with it).
     """
 
     def __init__(self, seed, device="cpu"):
         if isinstance(seed, torch.Generator):
-            seed = int(torch.randint(0, 1 << 62, (1,), generator=seed,
-                                     device=seed.device).item())
+            from torch._subclasses.fake_tensor import unset_fake_temporarily
+            with unset_fake_temporarily():
+                seed = int(torch.randint(0, 1 << 62, (1,), generator=seed,
+                                         device=seed.device).item())
         self._seq = np.random.SeedSequence(int(seed))
         self.device = torch.device(device)
 

@@ -17,6 +17,9 @@ passed in ``generators``, has its state taken before the first call; the
 recompute sets it back to that state (so it draws the same numbers as the
 forward did) and afterwards returns it to the state it had before the
 recompute, so the draws of later layers and steps are not disturbed.
+
+Every recompute adds one to the ``obs`` counter ``remat.recompute``: a
+full-remat train step of an L-layer model adds L.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from typing import Callable, Sequence
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
+
+from repro_torch import obs
 
 POLICIES = ("none", "full", "dots")
 DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
@@ -50,6 +55,8 @@ def remat(fn: Callable, *args, policy: str = "full",
 
     def run(*a):
         calls[0] += 1
+        if calls[0] > 1:
+            obs.counter("remat.recompute").inc()
         if calls[0] == 1 or not generators:
             return fn(*a)
         now = [g.get_state() for g in generators]

@@ -12,6 +12,12 @@ product in the input dtype, the states and the output sum in float32.
 
 Shapes: x [B, T, H, P]; A [H]; B, C [B, T, G, N] (G groups, GQA-style);
 dt [B, T, H]. chunk = Q. Decode carries state [B, H, P, N]: O(1) a token.
+
+On DTensors (under ``sharding.use_rules``) the scan and the decode step
+each run as one local region a rank (``sharding.local_region``): the
+recurrence is independent across batch rows, and across heads where the
+groups are one (each head then reads the same B and C); the rows split
+over "batch" and, where "ssm_heads" divides the heads, the heads over it.
 """
 
 from __future__ import annotations
@@ -19,6 +25,20 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from repro_torch.distributed import sharding
+
+
+def _region_axes(mesh, batch: int, heads: int, groups: int):
+    """(the batch's mesh dims, the heads' or None) of the SSD's local
+    region under the active rules."""
+    rules = sharding.current_rules() or {}
+    b0 = sharding.batch_entry(mesh, batch)
+    hx = sharding.spec_for("ssm_heads", rules=rules)[0] if rules else None
+    if hx is not None and (groups != 1 or heads % sharding.spec_shards(
+            hx, mesh)):
+        hx = None
+    return b0, hx
 
 
 def segsum(a: torch.Tensor) -> torch.Tensor:
@@ -39,6 +59,15 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                 initial_state: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """SSD scan. Returns (y [B,T,H,P], final_state [B,H,P,N])."""
+    if sharding.is_dtensor(x):
+        b0, hx = _region_axes(x.device_mesh, x.shape[0], x.shape[2],
+                              b.shape[2])
+        return sharding.local_region(
+            lambda *t: ssd_chunked(*t[:5], chunk=chunk, initial_state=t[5]),
+            [(x, (b0, None, hx, None)), (dt, (b0, None, hx)), (a, (hx,)),
+             (b, (b0, None, None, None)), (c, (b0, None, None, None)),
+             (initial_state, (b0, hx, None, None))],
+            [(b0, None, hx, None), (b0, hx, None, None)])
     bsz, t, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     if t % chunk:
@@ -137,6 +166,15 @@ def ssd_decode_step(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
 
     Returns (y [B,H,P], new_state). O(H*P*N) — independent of context length.
     """
+    if sharding.is_dtensor(x):
+        b0, hx = _region_axes(x.device_mesh, x.shape[0], x.shape[1],
+                              b.shape[1])
+        return sharding.local_region(
+            ssd_decode_step,
+            [(state, (b0, hx, None, None)), (x, (b0, hx, None)),
+             (dt, (b0, hx)), (a, (hx,)), (b, (b0, None, None)),
+             (c, (b0, None, None))],
+            [(b0, hx, None), (b0, hx, None, None)])
     h = x.shape[1]
     hg = h // b.shape[1]
     da = torch.exp(dt * a[None, :])                       # [B,H]

@@ -1023,3 +1023,32 @@ def test_lm_restart_on_the_card_is_bitwise_under_deterministic_algorithms(
     want = dict(tree_flatten_with_paths(ref.state))
     for path, leaf in tree_flatten_with_paths(resumed.state):
         assert torch.equal(leaf, want[path]), path
+
+
+@pytest.mark.parametrize("mesh", [("cuda:0", "cuda:0"), ("cuda:0", "cuda:1")])
+def test_shard_batch_runs_each_shard_on_its_device(cuda, mesh, monkeypatch):
+    """``Options(shard_batch=True, mesh=)``: each shard's kernels run with
+    the shard's device current, and the result is bitwise the unsharded
+    run. Two distinct devices need two cards; a one-card host runs both
+    shards on ``cuda:0``."""
+    from repro_torch.core import plan as plan_mod
+    if torch.cuda.device_count() < len(set(mesh)):
+        pytest.skip(f"needs {len(set(mesh))} CUDA devices")
+    current = []
+    real = plan_mod._execute
+
+    def spy(plan, params, frames, *a, **k):
+        current.append((frames.device.index, torch.cuda.current_device()))
+        return real(plan, params, frames, *a, **k)
+    prog = Program.from_model("lenet", torch.Generator().manual_seed(5))
+    f = np.random.default_rng(1).random((8, *prog.input_hwc)).astype(
+        np.float32)
+    f[1] *= 0.05
+    plain = Options(scheme=W4A4)
+    want = prog.compile(plain).run(f).cpu()
+    monkeypatch.setattr(plan_mod, "_execute", spy)
+    got = prog.compile(dataclasses.replace(
+        plain, shard_batch=True, mesh=mesh)).run(f).cpu()
+    assert torch.equal(got, want)
+    assert sorted(current) == sorted((torch.device(d).index,) * 2
+                                     for d in mesh)

@@ -160,3 +160,31 @@ def test_lm_training_entry_points_refuse_cuda_without_a_gpu(tmp_path):
         train_lm_100m.main(["--steps", "1", "--ckpt-dir", str(tmp_path)])
     # the CPU, asked for explicitly, works
     assert len(train.main(["--device", "cpu"] + args)) == 1
+
+
+def test_importing_the_port_starts_no_process_group():
+    """The distributed modules (rules, meshes, the dry run, the checks)
+    touch no process group and no device when imported."""
+    code = (
+        "import importlib, torch.distributed as dist\n"
+        f"for m in {list(_modules())!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print('PG', dist.is_initialized())\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert "PG False" in out.stdout, out.stdout
+
+
+def test_distributed_entry_points_refuse_what_they_cannot_run():
+    from repro_torch.launch import train
+    with pytest.raises(ValueError, match="needs a process group"):
+        train.train(["--smoke", "--device", "cpu", "--mesh", "1x2",
+                     "--steps", "1"])
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch import Options
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Options(device="cpu", shard_batch=True, mesh=("cuda:0", "cuda:0"))
