@@ -33,6 +33,11 @@ runs and read just after (all but the LM through ``serve.Server``):
   lm_train smollm-360m at full width and depth trained through
            ``launch/train.py`` (quant none and W4A4, the restart drill) and
            the 100M example (no port kernel on it).
+  roofline smollm-360m's [lm_train] step dry-run on a fake group of one
+           rank, the roofline over [dist]'s dry-run records and the
+           hillclimb's yi-decode variants at 32x8 (``launch/dryrun.py``,
+           ``roofline.py``, ``hillclimb.py``; host processes, no port
+           kernel and no card on it).
 
 Phases, each fatal on failure:
 
@@ -246,11 +251,27 @@ Phases, each fatal on failure:
      on tinyllama-1.1b train_4k and prefill_32k and kimi-k2 decode_32k at
      the 32x8 production mesh (full configs, a fake process group of 256
      ranks, one process each, run alongside a-c): per-rank bytes against
-     the card's memory, collective counts and bytes by kind, FLOPs (no
-     peak: ``MemTracker`` under fake mode misses frees).
+     the card's memory, the memory record a rank (arguments, outputs,
+     temp, peak), collective counts and bytes by kind, FLOPs.
      e. The card's constants: a bf16 8192^3 matmul's TFLOP/s and a 1 GiB
      device copy's GB/s (CUDA events over 20 launches), total_memory,
      beside ``nvidia-smi``'s name and power limit.
+ 15. roofline (``[roofline]`` lines; two host processes with CUDA hidden,
+     started with phase 13 and read after phase 14). a. [lm_train]'s
+     configuration (smollm-360m, full width and depth, remat full, batch
+     8, seq 128) through ``dryrun.run_step`` on a fake group of one rank
+     and a (1, 1) mesh: its memory record, the peak held within 10% of
+     [lm_train]'s ``max_memory_allocated`` (the gap printed either way),
+     the counted FLOPs against ``model_flops``, and the roofline terms on
+     ``launch/mesh.py``'s constants (and on phase 14 e.'s) against
+     [lm_train]'s measured ms a step: the step's share of its bound.
+     b. ``roofline.build_table`` over phase 14 d.'s records: each of the
+     three rows has its record, its terms and dominant term printed.
+     c. ``launch/hillclimb.py --cell yi-decode --all-variants`` (yi-34b
+     full, decode_32k, a fake group of 256 as 32x8): every variant
+     completes; its three terms, serve_tp's collective term against
+     base's, and the memory terms of the narrow carriers against
+     serve_tp's (printed, not asserted).
 
 ``--rehearse`` runs every phase on the CPU with the plain versions: no
 graphs, the bound phase on 2 emulated CPU workers, VGG16 at 32x32x3
@@ -464,6 +485,35 @@ DIST_TRANSPORT = {
     "cuda": "gloo, every rank's tensors on cuda:0 (all_reduce only)",
     "cpu": "gloo, tensors on the CPU (gloo has no CUDA all_gather, "
            "reduce_scatter, send or recv)"}
+# the [roofline] phase: [lm_train]'s step dry-run on a fake group of one
+# rank (its peak held to ROOFLINE_PEAK_TOL of [lm_train]'s measured peak),
+# the roofline over [dist] d.'s records, and the hillclimb's
+# ROOFLINE_CELL with all its variants at 32x8; the two processes start
+# with [lm_train] and are read after [dist], each killed at
+# ROOFLINE_TIMEOUT seconds from its start
+ROOFLINE_PEAK_TOL = 0.10
+ROOFLINE_CELL = "yi-decode"
+ROOFLINE_TIMEOUT = 900.0
+ROOFLINE_STEP = """
+import dataclasses, json, sys, time
+from torch._subclasses.fake_tensor import FakeTensorMode
+from repro_torch.configs import get_config, smoke_variant
+from repro_torch.launch import dryrun, shardings, specs
+from repro_torch.launch import mesh as mesh_mod
+arch, batch, seq, smoke, out = sys.argv[1:]
+cfg = (smoke_variant if smoke == "1" else get_config)(arch)
+cfg = dataclasses.replace(cfg, quant_scheme="none",
+                          max_seq=max(cfg.max_seq, int(seq)))
+t0 = time.time()
+dryrun.fake_world(1)
+mesh = mesh_mod.make_mesh((1, 1), ("data", "model"), device_type="cpu")
+cell = specs.ShapeCell("lm_train", int(seq), int(batch), "train")
+with FakeTensorMode(allow_non_fake_inputs=True):
+    rec = dryrun.run_step(cfg, cell, mesh, shardings.build_rules(cfg, mesh))
+rec["wall_s"] = round(time.time() - t0, 3)
+with open(out, "w") as f:
+    json.dump(rec, f)
+"""
 # the port's kernels are top-level functions of an anonymous namespace
 PORT_KERNEL = r"^(void )?\(anonymous namespace\)::"
 KERNELS = ("photonic_mvm", "conv_chain", "ca_pool", "conv_strip",
@@ -3981,12 +4031,18 @@ def dist_constants(device):
             "hbm_per_chip": props.total_memory}
 
 
+def host_env():
+    """The environment of a host process of the port: CUDA hidden, the
+    package on its path."""
+    return dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                PYTHONPATH=os.pathsep.join(
+                    [os.path.join(HERE, "src")]
+                    + os.environ.get("PYTHONPATH", "").split(os.pathsep)))
+
+
 def dist_dryrun_start(out_dir, rehearse):
     """The dry-run cells, one process each (no card: CUDA hidden)."""
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
-               PYTHONPATH=os.pathsep.join(
-                   [os.path.join(HERE, "src")]
-                   + os.environ.get("PYTHONPATH", "").split(os.pathsep)))
+    env = host_env()
     procs = []
     for arch, shape in DIST_DRYRUN:
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
@@ -4137,10 +4193,15 @@ def phase_dist(device, rehearse, out_dir, smi, lm_train_ref):
         bpr = rec["bytes_per_rank"]
         per_rank = sum(bpr.values())
         coll = rec["collectives"]
+        mem = rec["memory"]
         log(f"[dist] d. dry run {cell} at {rec['mesh']} ({rec['wall_s']}s): "
             f"per-rank bytes {bpr} = {per_rank / 1e9:.3f} GB against the "
             f"card's {(c['hbm_per_chip'] if cuda else 80e9) / 1e9:.1f} GB; "
-            f"peak not recorded ({rec['peak_bytes_absent']}); "
+            f"memory a rank: arguments "
+            f"{mem['argument_size_bytes'] / 1e9:.3f} GB, outputs "
+            f"{mem['output_size_bytes'] / 1e9:.3f}, temp "
+            f"{mem['temp_size_bytes'] / 1e9:.3f}, peak "
+            f"{mem['peak_bytes'] / 1e9:.3f}; "
             f"{rec['flops']:.4g} FLOPs "
             f"({rec['flops_scope']}); collectives per rank: counts "
             f"{coll['counts']}, bytes {coll['bytes']}")
@@ -4151,6 +4212,173 @@ def phase_dist(device, rehearse, out_dir, smi, lm_train_ref):
         + ", ".join(f"{k} {v:.1f}s" for k, v in out["parts_s"].items())
         + ")")
     return out, {"shard_batch": sb["counts"]}
+
+
+def roofline_start(out_dir, rehearse):
+    """The [roofline] phase's two host processes (CUDA hidden): a.'s dry
+    run of [lm_train]'s step and c.'s hillclimb. -> {name: (process,
+    its output path, its start)}."""
+    root = os.path.join(out_dir, "roofline")
+    os.makedirs(root, exist_ok=True)
+    step = os.path.join(root, "lm_train_step.json")
+    cmds = {"step": ([sys.executable, "-c", ROOFLINE_STEP, LM_TRAIN_ARCH,
+                      str(LM_TRAIN_BATCH), str(LM_TRAIN_SEQ),
+                      "1" if rehearse else "0", step], step),
+            "hillclimb": ([sys.executable, "-m",
+                           "repro_torch.launch.hillclimb", "--cell",
+                           ROOFLINE_CELL, "--all-variants", "--out", root],
+                          os.path.join(root, f"{ROOFLINE_CELL}.json"))}
+    procs = {}
+    for name, (cmd, path) in cmds.items():
+        if os.path.exists(path):
+            os.remove(path)
+        with open(os.path.join(root, f"{name}.log"), "w") as log_file:
+            procs[name] = (subprocess.Popen(
+                cmd, env=host_env(), stdout=log_file,
+                stderr=subprocess.STDOUT), path, time.monotonic())
+    return procs
+
+
+def roofline_stop(procs):
+    """Kill whichever of the phase's processes still runs."""
+    for p, _, _ in procs.values():
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+
+
+def roofline_wait(name, procs):
+    """The JSON one of the phase's processes wrote, and its wall seconds;
+    the process is killed ``ROOFLINE_TIMEOUT`` s after its start."""
+    p, path, t0 = procs[name]
+    try:
+        p.wait(timeout=max(1.0, t0 + ROOFLINE_TIMEOUT - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        p.kill()
+        p.wait()
+        need(False, f"[roofline] {name} did not finish in "
+             f"{ROOFLINE_TIMEOUT:.0f}s")
+    wall = time.monotonic() - t0
+    if p.returncode != 0 or not os.path.exists(path):
+        with open(os.path.join(os.path.dirname(path), f"{name}.log")) as f:
+            need(False, f"[roofline] {name} failed (exit {p.returncode}): "
+                 f"{f.read()[-3000:]}")
+    with open(path) as f:
+        return json.load(f), wall
+
+
+def phase_roofline(procs, rehearse, out_dir, smi, lm_train_ref, dist_out):
+    """The roofline and the hillclimb over the dry run (the module
+    docstring's phase 15)."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import roofline
+    from repro_torch.launch.specs import ShapeCell
+    out = {"device": smi}
+    t_phase = time.perf_counter()
+    # a. [lm_train]'s step, dry-run
+    rec, wall = roofline_wait("step", procs)
+    out["step"] = rec
+    mem = rec["memory"]
+    cfg = (smoke_variant if rehearse else get_config)(LM_TRAIN_ARCH)
+    cell = ShapeCell("lm_train", LM_TRAIN_SEQ, LM_TRAIN_BATCH, "train")
+    flops = roofline.cell_flops(cfg, cell)
+    hbm = roofline.cell_hbm_bytes(cfg, cell)
+    real = lm_train_ref["peak_memory_gb"]
+    gap = None if real is None else mem["peak_bytes"] / (real * 1e9) - 1
+    out["peak_gap"] = gap
+    log(f"[roofline] a. {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model},"
+        f" remat {cfg.remat}), batch {LM_TRAIN_BATCH}, seq {LM_TRAIN_SEQ}: "
+        f"dryrun.run_step on a fake group of 1 and a (1, 1) mesh "
+        f"({rec['wall_s']}s in the process, {wall:.1f}s from its start): "
+        f"arguments {mem['argument_size_bytes'] / 1e9:.4f} GB, outputs "
+        f"{mem['output_size_bytes'] / 1e9:.4f}, temp "
+        f"{mem['temp_size_bytes'] / 1e9:.4f}, peak "
+        f"{mem['peak_bytes'] / 1e9:.4f} GB against [lm_train]'s "
+        + ("max_memory_allocated: not measured (no card)" if gap is None
+           else f"max_memory_allocated {real:.4f} GB on {smi}: "
+           f"{gap:+.2%} (within {ROOFLINE_PEAK_TOL:.0%})")
+        + f"; counted FLOPs {rec['flops']:.6g} ({rec['flops_scope']}) "
+        f"against model_flops {flops:.6g} ({rec['flops'] / flops:.4f}x)")
+    if gap is not None:
+        need(abs(gap) <= ROOFLINE_PEAK_TOL, f"[roofline] a. the dry run's "
+             f"peak {mem['peak_bytes']} bytes is {gap:+.2%} off [lm_train]'s"
+             f" measured {real} GB")
+    step_ms = lm_train_ref["ms_per_step_median"]
+    consts = {"launch/mesh.py": (mesh_mod.PEAK_FLOPS_BF16, mesh_mod.HBM_BW)}
+    if "constants" in dist_out:
+        c = dist_out["constants"]
+        consts["[dist] e."] = (c["peak_flops_bf16"], c["hbm_bw"])
+    out["terms"] = {}
+    for name, (peak, bw) in consts.items():
+        t = {"compute_ms": flops / peak * 1e3, "memory_ms": hbm / bw * 1e3}
+        t["bound_ms"] = max(t.values())
+        t["share_of_step"] = t["bound_ms"] / step_ms
+        out["terms"][name] = t
+        log(f"[roofline] a. roofline on {name}'s constants "
+            f"({peak / 1e12:.1f} TFLOP/s, {bw / 1e9:.1f} GB/s): compute "
+            f"{t['compute_ms']:.4f} ms ({flops:.6g} FLOPs), memory "
+            f"{t['memory_ms']:.4f} ms ({hbm:.6g} bytes), bound "
+            f"{t['bound_ms']:.4f} ms against [lm_train]'s "
+            f"{step_ms:.3f} ms a step: the step at {t['share_of_step']:.2%}"
+            f" of its roofline")
+    # b. the roofline table over [dist] d.'s records
+    dry_dir = os.path.join(out_dir, "dryrun")      # [dist] d.'s records
+    mesh = "x".join(map(str, mesh_mod.production_shape(False)[0]))
+    table = roofline.build_table(dry_dir, meshes=(mesh,))
+    out["table"] = table
+    out["cells"] = {}
+    for arch, shape in DIST_DRYRUN:
+        r = roofline.roofline_terms(arch, shape, mesh, dry_dir)
+        need(r["status"] == "ok" and r["dryrun"] == "ok",
+             f"[roofline] b. {arch} x {shape}: no usable record "
+             f"({r['status']}, {r.get('dryrun')})")
+        need(any(line.startswith(f"| {arch} | {shape} | {mesh} |")
+                 for line in table.splitlines()),
+             f"[roofline] b. {arch} x {shape} is not in the table")
+        out["cells"][f"{arch} x {shape}"] = r
+        log(f"[roofline] b. {arch} x {shape} at {mesh} ({r['chips']} "
+            f"chips): compute {r['t_compute_s']:.6g} s, memory "
+            f"{r['t_memory_s']:.6g} s, collective {r['t_collective_s']:.6g}"
+            f" s ({r['collective_bytes_per_dev'] / 1e9:.3f} GB a rank over "
+            f"NVLink's 900 GB/s), dominant {r['dominant']}, roofline "
+            f"fraction {r['roofline_fraction']:.4f}; memory a rank temp "
+            f"{r['memory_per_dev_gib']:.3f} GiB, arguments "
+            f"{r['args_per_dev_gib']:.3f} GiB; counted FLOPs "
+            f"{r['counted_flops_global']:.4g} against analytic "
+            f"{r['flops_global']:.4g}")
+    # c. the hillclimb's cell, every variant
+    log_recs, wall = roofline_wait("hillclimb", procs)
+    out["hillclimb"] = log_recs
+    by = {r["variant"]: r for r in log_recs}
+    from repro_torch.launch.hillclimb import CELLS, VARIANTS
+    names = [v.name for v in VARIANTS[ROOFLINE_CELL]]
+    need(sorted(by) == sorted(names), f"[roofline] c. {ROOFLINE_CELL}: "
+         f"variants {sorted(by)}, expected {names}")
+    arch, shape = CELLS[ROOFLINE_CELL]
+    for name in names:
+        r = by[name]
+        log(f"[roofline] c. {ROOFLINE_CELL}/{name} ({arch} {shape}, 32x8, "
+            f"{r['step_wall_s']}s): compute {r['t_compute_s']:.6g} s, "
+            f"memory {r['t_memory_s']:.6g} s, collective "
+            f"{r['t_collective_s']:.6g} s, dominant {r['dominant']}, "
+            f"fraction {r['roofline_fraction']:.4f}; temp "
+            f"{r['temp_gib_per_dev']:.3f} GiB, arguments "
+            f"{r['args_gib_per_dev']:.3f} GiB a rank; collectives "
+            f"{r['collectives']}")
+    tp = by["serve_tp"]
+    log(f"[roofline] c. serve_tp's collective term "
+        f"{tp['t_collective_s']:.6g} s against base's "
+        f"{by['base']['t_collective_s']:.6g} s "
+        f"({tp['t_collective_s'] / by['base']['t_collective_s']:.4f}x); "
+        "memory terms against serve_tp's " + ", ".join(
+            f"{n} {by[n]['t_memory_s'] / tp['t_memory_s']:.4f}x"
+            for n in names if n.startswith("serve_tp_"))
+        + f" (the hillclimb {wall:.1f}s from its start)")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[roofline] phase {out['phase_s']:.1f}s after [dist] (its two "
+        f"processes ran from [lm_train]'s start)")
+    return out
 
 
 def reread(trace_dir):
@@ -4241,6 +4469,7 @@ def main(argv) -> int:
         return 1
     device = torch.device("cpu" if rehearse else "cuda")
     os.makedirs(os.path.dirname(os.path.abspath(args.details)), exist_ok=True)
+    roofline_procs = {}
     t_start = time.perf_counter()
     try:
         ptxas = {}
@@ -4454,6 +4683,7 @@ def main(argv) -> int:
         served.update(lm_counts)
         moe_out, moe_counts = phase_moe(device, rehearse, out_dir, smi)
         served.update(moe_counts)
+        roofline_procs = roofline_start(out_dir, rehearse)
         lm_train_out, lm_train_counts = phase_lm_train(device, rehearse,
                                                        out_dir, smi)
         served.update(lm_train_counts)
@@ -4461,6 +4691,9 @@ def main(argv) -> int:
             device, rehearse, out_dir, smi,
             lm_train_out["runs"]["none"])
         served.update(dist_counts)
+        roofline_out = phase_roofline(roofline_procs, rehearse, out_dir, smi,
+                                      lm_train_out["runs"]["none"],
+                                      dist_out)
 
         launches = {k: {path: served[path][k] for path in served}
                     for k in KERNELS}
@@ -4495,6 +4728,7 @@ def main(argv) -> int:
                        "load": load, "obs": obs_out, "vgg16": vgg16,
                        "train": train, "lm": lm_out, "moe": moe_out,
                        "lm_train": lm_train_out, "dist": dist_out,
+                       "roofline": roofline_out,
                        "ca_pool_cold_device_ms": ca_cold,
                        "comparisons": n_cmp,
                        "conv_bank_float_err": bank_float_err,
@@ -4518,6 +4752,8 @@ def main(argv) -> int:
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
+    finally:
+        roofline_stop(roofline_procs)
     if rehearse:
         log(f"[rehearsal] all phases ran on the CPU in "
             f"{time.perf_counter() - t_start:.1f}s; no card, no result")

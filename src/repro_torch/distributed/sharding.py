@@ -278,7 +278,10 @@ def local_region(fn, inputs, out_specs):
         for p, q in enumerate(pl):
             if q.is_shard():
                 shape[q.dim] *= mesh.size(p)
-        wrapped.append(DTensor.from_local(y, mesh, pl, run_check=False,
+        # the stride below says contiguous: a strided local result
+        # (a CPU kernel's layout) would break a later view of it
+        wrapped.append(DTensor.from_local(y.contiguous(), mesh, pl,
+                                          run_check=False,
                                           shape=tuple(shape),
                                           stride=contiguous_stride(shape)))
     return wrapped[0] if single else tuple(wrapped)

@@ -15,9 +15,14 @@ Each cell records:
     params' placements; the KV cache for decode), counted from the specs,
     and ``state_fits``: their sum within one H100's memory
     (``launch.mesh.HBM_PER_CHIP``);
-  * ``peak_bytes``: ``None``, with the reason in ``peak_bytes_absent``.
-    ``torch.distributed._tools.mem_tracker.MemTracker`` over the fake
-    tensors misses their frees, so no usable peak exists yet;
+  * ``memory``: the counterpart of the reference's
+    ``compiled.memory_analysis()``, per rank (``StorageTracker``):
+    ``argument_size_bytes`` (the local shards of the step's inputs),
+    ``output_size_bytes`` (of its outputs), ``temp_size_bytes`` (the peak
+    of the storage the step allocates while it runs) and ``peak_bytes``
+    (arguments plus temp). Eager PyTorch donates no buffer and generates
+    no code: the reference's ``alias_size_bytes`` and
+    ``generated_code_size_bytes`` have no counterpart and are left out;
   * ``flops``: ``FlopCounterMode``'s count over the step. It sees the ops
     DTensor dispatches with their global shapes, so the count is the
     global step's (``flops_scope: "global"``; divide by the ranks for a
@@ -40,12 +45,18 @@ from __future__ import annotations
 
 import argparse
 import json
+import sys
 import time
 import traceback
+import weakref
 from pathlib import Path
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+from torch._guards import active_fake_mode
+from torch.distributed.tensor import DTensor
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from repro_torch.configs import get_config, list_configs, smoke_variant
 from repro_torch.configs.base import ModelConfig
@@ -61,8 +72,11 @@ from repro_torch.nn.module import tree_map
 from repro_torch.optim.adamw import AdamWConfig, adamw_init
 
 DEFAULT_OUT = Path(__file__).resolve().parents[3] / "build" / "dryrun"
-PEAK_ABSENT = ("MemTracker under FakeTensorMode misses the fake tensors' "
-               "frees; no usable peak")
+# DTensor's sharding propagation runs each op once more on fake tensors of
+# the op's global shapes, under the fake mode that is active: the dry
+# run's own. Those tensors are no rank's storage.
+_PROPAGATION = "torch.distributed.tensor._sharding_prop"
+_WAIT = torch.ops._c10d_functional.wait_tensor.default
 
 
 def fake_world(world_size: int) -> None:
@@ -86,29 +100,117 @@ def _fake_like(meta_tree):
     return tree_map(lambda m: torch.zeros(m.shape, dtype=m.dtype), meta_tree)
 
 
+def _storages(tree) -> Dict[int, int]:
+    """The storages of ``tree``'s tensors (a DTensor's local shard) -> the
+    bytes those tensors take of them: a shard may be a view of the whole
+    tensor's storage, and holds only its own bytes of it."""
+    views = {}
+    for x in tree_leaves(tree):
+        if isinstance(x, torch.Tensor):
+            x = x._local_tensor if isinstance(x, DTensor) else x
+            views[(x.untyped_storage()._cdata, x.storage_offset(),
+                   x.numel())] = x.numel() * x.element_size()
+    out: Dict[int, int] = {}
+    for (key, _, _), n in views.items():
+        out[key] = out.get(key, 0) + n
+    return out
+
+
+def _in_propagation(frame) -> bool:
+    """Whether ``frame`` or a caller of it runs DTensor's propagator."""
+    while frame is not None:
+        if frame.f_globals.get("__name__") == _PROPAGATION:
+            return True
+        frame = frame.f_back
+    return False
+
+
+class StorageTracker(TorchDispatchMode):
+    """The bytes one rank holds while a step runs, on real tensors or on
+    the dry run's fake ones alike.
+
+    It sits below DTensor's dispatch (it declines DTensor ops, so it sees
+    the local ops DTensor runs on the shards) and adds each new storage an
+    op returns once, dropping it when the storage is freed (a
+    ``weakref.finalize`` on the storage, whose Python object lives as long
+    as the storage does). ``peak`` is the most storage live at once
+    beyond the arguments' (``args``, registered first: a view of an
+    argument allocates nothing). Ops of DTensor's sharding propagation,
+    which run at the global shapes, and tensors of any other fake mode are
+    not counted. Under a fake mode ``wait_tensor`` returns its input, as
+    it does eagerly (its meta kernel makes a new tensor).
+    """
+
+    def __init__(self, args):
+        super().__init__()
+        self._mode = active_fake_mode()
+        self._args = _storages(args)
+        self._live: Dict[int, int] = {}
+        self.live = self.peak = 0
+
+    def _free(self, key: int) -> None:
+        self.live -= self._live.pop(key)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        if func is _WAIT and self._mode is not None:
+            return args[0]
+        out = func(*args, **(kwargs or {}))
+        if (active_fake_mode() is self._mode
+                and not _in_propagation(sys._getframe(1))):
+            for x in tree_leaves(out):
+                if isinstance(x, torch.Tensor):
+                    st = x.untyped_storage()
+                    key = st._cdata
+                    if key not in self._live and key not in self._args:
+                        self._live[key] = st.nbytes()
+                        self.live += self._live[key]
+                        self.peak = max(self.peak, self.live)
+                        weakref.finalize(st, self._free, key)
+        return out
+
+    def record(self, outputs) -> Dict[str, int]:
+        """The reference's ``memory`` record of the step that returned
+        ``outputs``."""
+        args = sum(self._args.values())
+        return {"argument_size_bytes": args,
+                "output_size_bytes": sum(_storages(outputs).values()),
+                "temp_size_bytes": self.peak,
+                "peak_bytes": args + self.peak}
+
+
 def _mesh_name(shape: Sequence[int]) -> str:
     return "x".join(str(s) for s in shape)
 
 
 def run_step(cfg: ModelConfig, cell: specs_mod.ShapeCell, mesh,
-             rules: Dict) -> Dict:
-    """Place the fake state on ``mesh`` and run ``cell``'s step once under
-    the collective and FLOP counters. -> the cell's numbers."""
+             rules: Dict, params=None, cache_dtype=None) -> Dict:
+    """Place the state on ``mesh`` and run ``cell``'s step once under the
+    collective, FLOP and storage counters. -> the cell's numbers.
+
+    ``params``: the param tree to place (default ``init_lm(0, cfg)``; a
+    ``quantize_lm_params`` tree places its ``wq`` / ``ws`` leaves by their
+    rules); ``cache_dtype``: the decode cache's bfloat16 leaves cast to it.
+    Fake under ``FakeTensorMode`` (the dry run), real otherwise. The
+    optimizer state is made from the whole params and placed by its rules,
+    as ``launch/train.py`` does."""
     from torch.utils.flop_counter import FlopCounterMode
-    params = lm_mod.init_lm(0, cfg, device="cpu")
+    if params is None:
+        params = lm_mod.init_lm(0, cfg, device="cpu")
     p_place = sh.tree_shardings(params, cfg, mesh, rules)
     p_specs = sh.tree_specs(params, cfg, mesh, rules)
     inputs = _fake_like(specs_mod.input_specs(cfg, cell))
     rec: Dict = {"bytes_per_rank": {
         "params": sh.per_rank_bytes(params, p_specs, mesh)}}
     dparams = sh.place_tree(params, mesh, p_place)
-    del params
     if cell.kind == "train":
         opt_cfg = AdamWConfig()
-        opt = adamw_init(dparams, opt_cfg)
+        opt = adamw_init(params, opt_cfg)
         rec["bytes_per_rank"]["optimizer"] = sh.per_rank_bytes(
             opt, sh.tree_specs(opt, cfg, mesh, rules), mesh)
         rec["bytes_per_rank"]["gradients"] = rec["bytes_per_rank"]["params"]
+        opt = sh.distribute_tree(opt, cfg, mesh, rules)
         batch = sh.place_tree(inputs, mesh, sh.batch_shardings(
             inputs, cfg, mesh, rules))
         step = make_train_step(cfg, opt_cfg, cell.seq, grad_shardings=p_place)
@@ -119,21 +221,26 @@ def run_step(cfg: ModelConfig, cell: specs_mod.ShapeCell, mesh,
         step = make_prefill_step(cfg)
         args = (dparams, batch)
     else:
-        cache = sh.place_tree(inputs["cache"], mesh, sh.cache_shardings(
-            inputs["cache"], cfg, mesh, rules))
+        cache = inputs["cache"]
+        if cache_dtype is not None:
+            cache = tree_map(lambda x: x.to(cache_dtype)
+                             if x.dtype == torch.bfloat16 else x, cache)
         rec["bytes_per_rank"]["cache"] = sh.per_rank_bytes(
-            inputs["cache"], sh.cache_specs(inputs["cache"], mesh, rules),
-            mesh)
+            cache, sh.cache_specs(cache, mesh, rules), mesh)
+        cache = sh.place_tree(cache, mesh, sh.cache_shardings(
+            cache, cfg, mesh, rules))
         token = sh.place_tree({"token": inputs["token"]}, mesh,
                               sh.batch_shardings({"token": inputs["token"]},
                                                  cfg, mesh, rules))["token"]
         step = make_serve_step(cfg)
         args = (dparams, cache, token)
+    del params, inputs
     counter, flops = CollectiveCounter(), FlopCounterMode(display=False)
-    with use_rules(mesh, rules), counter, flops:
-        step(*args)
-    rec["peak_bytes"] = None
-    rec["peak_bytes_absent"] = PEAK_ABSENT
+    memory = StorageTracker(args)
+    with use_rules(mesh, rules), memory, counter, flops:
+        out = step(*args)
+    rec["memory"] = memory.record(out)
+    del out
     rec["hbm_per_chip"] = mesh_mod.HBM_PER_CHIP
     rec["state_fits"] = sum(rec["bytes_per_rank"].values()) \
         <= mesh_mod.HBM_PER_CHIP

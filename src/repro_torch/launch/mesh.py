@@ -17,9 +17,9 @@ group and no device. ``init_device_mesh`` needs an initialised process
 group of the mesh's size (``torch.distributed.init_process_group``; the
 dry run's is a ``fake`` group of 256 or 512 ranks).
 
-The roofline constants of one H100 (the reference's v5e ones are
-``PEAK_FLOPS_BF16`` 197e12, ``HBM_BW`` 819e9, ``ICI_BW`` 50e9,
-``HBM_PER_CHIP`` 16 GiB): ``PEAK_FLOPS_BF16`` and ``HBM_BW`` are what
+The roofline constants of one H100 (the reference's are a TPU's, with
+``ICI_BW`` where this module has ``NVLINK_BW``): ``PEAK_FLOPS_BF16`` and
+``HBM_BW`` are what
 ``chip_smoke.py``'s ``[dist]`` phase measured on the card (an 8192^3
 bf16 ``torch.matmul`` and a 1 GiB device-to-device copy, CUDA events over
 20 launches), ``HBM_PER_CHIP`` is

@@ -218,10 +218,14 @@ def train(argv=None) -> TrainRun:
                            injector=FailureInjector(args.fail_at),
                            monitor=monitor)
 
-    state = {"params": params, "opt": opt_state}
+    init = [{"params": params, "opt": opt_state}]
     del params, opt_state
     t0 = time.time()
-    state, last_step, history = loop.run(state, 0, args.steps)
+    # the loop holds the only reference to the state, so each step's
+    # inputs are freed once its outputs replace them (the reference
+    # donates them); a reference kept here would hold the initial state
+    # for the whole run
+    state, last_step, history = loop.run(init.pop(), 0, args.steps)
     losses = [float(m["loss"]) for m in history]     # waits for the card
     dt = time.time() - t0
     step_ms = ([a.elapsed_time(z) for a, z in marks] if cuda else marks)

@@ -44,7 +44,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.compressive import sequence_ca
 from repro_torch.core.program import resolve_device
 from repro_torch.core.quant import WASpec, _clip, true_div
-from repro_torch.distributed.sharding import (is_dtensor, shard, splittable,
+from repro_torch.distributed.sharding import (batch_entry, is_dtensor,
+                                              local_region, shard, splittable,
                                               unshard_dim)
 from repro_torch.nn import attention as attn_mod
 from repro_torch.nn import layers as L
@@ -439,10 +440,20 @@ def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 
 
 def _ce(logits, labels):
-    logits = unshard_dim(logits, -1)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels[..., None].long())[..., 0]
-    return logz - gold
+    """Per-token CE. On DTensors a local region over the batch rows, the
+    vocab whole: the gather's backward then zeros a rank's own rows, where
+    DTensor's makes a replicated tensor of the global shape on every rank
+    (kimi-k2 train_4k: 80 GiB a rank)."""
+    def ce(lg, lb):
+        logz = torch.logsumexp(lg, dim=-1)
+        gold = lg.gather(-1, lb[..., None].long())[..., 0]
+        return logz - gold
+
+    if not is_dtensor(logits):
+        return ce(logits, labels)
+    b0 = batch_entry(logits.device_mesh, logits.shape[0])
+    return local_region(ce, [(logits, (b0, None, None)),
+                             (labels, (b0, None))], [(b0, None)])
 
 
 # ---------------------------------------------------------------------------

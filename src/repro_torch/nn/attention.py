@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.core.program import resolve_device
 from repro_torch.core.quant import true_div
 from repro_torch.distributed import sharding
 from repro_torch.distributed.sharding import (is_dtensor,
@@ -192,7 +193,8 @@ class KVCache(NamedTuple):
 
     @classmethod
     def init(cls, batch: int, max_len: int, kv_heads: int, head_dim: int,
-             dtype=torch.bfloat16, device="cpu"):
+             dtype=torch.bfloat16, device="cuda"):
+        device = resolve_device(device)
         z = torch.zeros((batch, max_len, kv_heads, head_dim), dtype=dtype,
                         device=device)
         return cls(z, torch.zeros_like(z),

@@ -26,6 +26,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.core.program import resolve_device
 from repro_torch.distributed import sharding
 
 
@@ -152,7 +153,8 @@ class SSMState(NamedTuple):
 
     @classmethod
     def init(cls, batch: int, conv_k: int, conv_dim: int, heads: int,
-             head_dim: int, state: int, dtype=torch.bfloat16, device="cpu"):
+             head_dim: int, state: int, dtype=torch.bfloat16, device="cuda"):
+        device = resolve_device(device)
         return cls(torch.zeros((batch, conv_k - 1, conv_dim), dtype=dtype,
                                device=device),
                    torch.zeros((batch, heads, head_dim, state),

@@ -166,8 +166,24 @@ def test_decode_steps_match_full_attention_in_the_port():
     (_, q), (_, k), (_, v) = arrays(11, (1, 12, 4, 16), (1, 12, 2, 16),
                                     (1, 12, 2, 16))
     want = TA.attention_naive(q, k, v, causal=True)
-    c = TA.KVCache.init(1, 12, 2, 16, dtype=torch.float32)
+    c = TA.KVCache.init(1, 12, 2, 16, dtype=torch.float32, device="cpu")
     for i in range(12):
         c = TA.cache_update(c, k[:, i:i + 1], v[:, i:i + 1])
         got = TA.decode_attention(q[:, i:i + 1], c)
         assert torch.allclose(got[:, 0], want[:, i], rtol=2e-5, atol=2e-5)
+
+
+def test_cache_inits_default_to_the_card():
+    """``KVCache.init`` and ``SSMState.init`` default to CUDA, as every
+    entry point of the port does: with no GPU a call without a device
+    raises, and ``device="cpu"`` is the caller's to ask for."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.nn import ssm as TS
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TA.KVCache.init(1, 4, 2, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TS.SSMState.init(1, 4, 8, 2, 4, 8)
+    assert TA.KVCache.init(1, 4, 2, 8, device="cpu").k.device.type == "cpu"
+    assert TS.SSMState.init(1, 4, 8, 2, 4, 8,
+                            device="cpu").ssm.device.type == "cpu"
