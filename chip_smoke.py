@@ -20,7 +20,8 @@ runs and read just after (all but the LM through ``serve.Server``):
            -> sharpen at 256x256x3 as one program (``Program.then``): 3
            requests of 1, 3 and 8 frames;
   vgg16    VGG16 at 224x224x3, full width, seeded random weights from
-           numpy, W4A4: 3 requests of 1, 3 and 8 frames, eager and bound;
+           numpy, W4A4: 3 requests of 1, 3 and 8 frames, eager and bound
+           (conv1-conv10 on the int8 strip kernel, ``conv_strip_int``);
   train    LeNet and VGG9-CA (full width) QAT-trained on the card under
            W4A4, their weights evaluated with the dense layers on
            photonic_mvm's float API and run per frame (eager), then served
@@ -51,13 +52,18 @@ Phases, each fatal on failure:
      tiles, fused chains and every ca_pool route; random chains,
      edge_detect's fused segment at 64x64, the 512x512 multi-strip
      geometries, a stride-2 VALID and a grouped conv, a VGG16-like layer,
-     the conv_bank op in both strategies at k = 3, 5, 7), and is held
+     the conv_bank op in both strategies at k = 3, 5, 7; the int8 strip
+     kernel at every strip edge on codes 0..255 and levels +-127 at every
+     activation, at its extremes with |acc| past 2^24, and through
+     dispatch on a conv1-like, a stride-2 and a grouped conv), and is held
      bitwise equal to its plain PyTorch version on the same inputs (the
      served path's ``ca_pool.ops.acquire``, and the public ``ca_pool`` op
      with a signed bank of its own on every weighted route's edges, in
      float32 and bfloat16, against ``ca_pool_ref_generic``). The
      conv_bank op, which no served path reaches, is driven once on its own
-     with the counts zeroed around it;
+     with the counts zeroed around it: quantized (the int8 kernel, where
+     ``strip.dense_route`` sends its shapes) and in float mode (the
+     float64 kernel over the whole frame, its ``conv_bank`` count);
   4. timing: each kernel at its path shapes (the conv_bank op at its own),
      beside its plain version, one library call as a yardstick where
      PyTorch has one (with TF32 off, and whether its answer was exact), the
@@ -71,7 +77,11 @@ Phases, each fatal on failure:
      TF32 for ca_pool's float MACs); the device times come from one
      profiler session, written as a Chrome trace beside the details file,
      with a range per path shape of photonic_mvm, the strip convs and
-     ca_pool (kernel and library call);
+     ca_pool (kernel and library call). Then the route rule's numbers
+     (``[route]`` lines): at each dense strip conv of the imaging path and
+     each quantized call of the conv_bank op, the device time of the
+     float64 route and of the int8 one from the same codes (each held
+     equal to the other), beside what ``strip.dense_route`` picks;
   5. serve, eager: vision and imaging through each program's unbound
      executable (the ``Hooks.execute`` seam: eager ``run_padded``,
      pageable copies), every answer finite, of the right shape and bitwise
@@ -119,7 +129,11 @@ Phases, each fatal on failure:
      backend on the card and the port's CPU run on the first 2 frames, the
      bound window's launch counts equal to the replays' credits; each conv
      and dense step timed at bucket 8 beside its plain version, its
-     library call and its bound (each strip step also forced resident);
+     library call and its bound (each strip step also forced resident,
+     and on the float64 strip kernel: per layer the int8 route's device
+     ms -- cast, pad, weight layout and kernel -- beside the kernel's, the
+     float64 kernel's, ``F.conv2d``'s, forced resident's and the bound,
+     with the instantiation's ptxas registers, shared memory and spills);
      the bound window's device busy share and a short saturation run's
      frames/s (``[vgg16]`` lines).
  10. train: photonic_mvm's float API on signed CRC codes held bitwise to
@@ -311,7 +325,8 @@ BUCKET = 8
 IMAGING_HW = 256
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"int8": 1979e12,       # dense tensor-core int8
-            "tf32": 495e12}        # dense tensor-core TF32
+            "tf32": 495e12,        # dense tensor-core TF32
+            "fp32": 67e12}         # float32 FMAs outside the tensor cores
 RAGGED_MVM = [(1, 1, 1), (37, 101, 53), (130, 777, 129), (300, 2304, 257)]
 # the conv_bank op's own calls: x [B, H, W, Cin] -> Cout, k x k, W4A4 with
 # relu and bias, in both strategies
@@ -320,13 +335,26 @@ CONV_BANK = [(BUCKET, 32, 32, 16, 32, k) for k in (3, 5, 7)]
 # stride, padding, groups)
 STRIP_CONVS = [("stride2_valid", (2, 65, 63, 8), (3, 3, 8, 16), 2, "VALID", 1),
                ("groups2", (2, 40, 40, 8), (3, 3, 4, 12), 1, "SAME", 2),
-               ("vgg16_like", (2, 56, 56, 64), (3, 3, 64, 128), 1, "SAME", 1)]
+               ("vgg16_like", (2, 56, 56, 64), (3, 3, 64, 128), 1, "SAME", 1),
+               ("conv1_like", (2, 40, 40, 3), (3, 3, 3, 64), 1, "SAME", 1),
+               ("stride2_int", (2, 65, 63, 32), (3, 3, 32, 16), 2, "VALID",
+                1),
+               ("groups2_int", (2, 40, 40, 32), (3, 3, 16, 24), 1, "SAME",
+                2)]
+# the int8 kernel at its extremes: (x shape, w shape, level): codes 255,
+# levels +-127 (one tap's odd channels negated), |acc| past 2^24
+STRIP_INT_EXTREMES = [((2, 30, 30, 512), (3, 3, 512, 64), 127),
+                      ((2, 30, 30, 512), (3, 3, 512, 64), -127),
+                      ((2, 30, 30, 3), (3, 3, 3, 64), 127),
+                      ((2, 18, 20, 496), (3, 3, 496, 33), -127)]
 SERVE_WINDOW = "chip_smoke.serve_window"
 DEVICE_RANGE = "chip_smoke.device_time."
 DEVICE_ITERS = 20                   # batches in each device-time range
 L2_FLUSH_BYTES = 128 << 20          # written before each cold launch (the
                                     # H100's L2 holds 50 MB)
 DEVICE_TRACE = "device_time_trace.json"
+ROUTE_TRACE = "route_device_time_trace.json"
+ROUTE_ITERS = 10                    # calls in each route's device-time range
 SERVE_TRACE = "imaging_serve_trace.json"
 BOUND_SERVE_TRACE = "imaging_bound_serve_trace.json"
 BUCKETS = (1, 2, 4, 8)
@@ -517,13 +545,13 @@ with open(out, "w") as f:
 # the port's kernels are top-level functions of an anonymous namespace
 PORT_KERNEL = r"^(void )?\(anonymous namespace\)::"
 KERNELS = ("photonic_mvm", "conv_chain", "ca_pool", "conv_strip",
-           "conv_strip_depthwise", "conv_bank")
+           "conv_strip_depthwise", "conv_bank", "conv_strip_int")
 # the kernels each served path must launch
 PATH_KERNELS = {"vision": ("photonic_mvm", "conv_chain", "ca_pool"),
                 "imaging": ("photonic_mvm", "ca_pool", "conv_strip",
                             "conv_strip_depthwise"),
                 "chain": ("photonic_mvm", "ca_pool", "conv_strip_depthwise"),
-                "vgg16": ("photonic_mvm", "conv_strip"),
+                "vgg16": ("photonic_mvm", "conv_strip_int"),
                 "train": ("photonic_mvm", "conv_chain", "ca_pool")}
 # the kernels the [dist] phase's shard_batch path must launch (per-tensor
 # calibration at batch > 1 runs the per-layer path: no fused chain)
@@ -541,14 +569,17 @@ SOURCES = {
     "conv_strip_depthwise": ("src/repro_torch/csrc/conv_strip.cu",
                              "src/repro/kernels/conv_bank/strip_kernel.py:289"),
     "conv_bank": ("src/repro_torch/csrc/conv_strip.cu",
-                  "src/repro/kernels/conv_bank/kernel.py:85")}
+                  "src/repro/kernels/conv_bank/kernel.py:85"),
+    "conv_strip_int": ("src/repro_torch/csrc/conv_strip.cu",
+                       "src/repro/kernels/conv_bank/strip_kernel.py:206")}
 # device-time symbols (space-free regexes over the profiler's kernel names)
 KERNEL_SYMBOLS = {"photonic_mvm": r"mvm_(gemm|reduce|skinny)_kernel",
                   "conv_chain": r"conv_chain_kernel",
                   "ca_pool": r"ca_(gray|mean|generic)_kernel",
                   "conv_strip": r"conv_dense_kernel",
                   "conv_strip_depthwise": r"conv_dw_kernel",
-                  "conv_bank": r"conv_dense_kernel"}
+                  "conv_bank": r"conv_dense_kernel",
+                  "conv_strip_int": r"conv_igemm_(fold_)?kernel"}
 
 
 class SmokeFailure(RuntimeError):
@@ -602,6 +633,21 @@ def ptxas_report(log_text):
             m = re.search(r"(\d+) bytes smem", line)
             cur["smem_bytes"] = int(m.group(1)) if m else 0
     return out
+
+
+def igemm_ptxas(by_function, cfg):
+    """The ptxas line of the int8 strip kernel instantiation that
+    ``cfg`` (a ``strip.IgemmConfig``) launches, from the .cu's own form
+    ``conv_igemm[_fold]_kernel<KT, MT, NT, WM, WN>`` with ``BN = WN * NT *
+    8`` output channels: None where the build's log has no such line."""
+    want = "conv_igemm_fold_kernel" if cfg.kf else "conv_igemm_kernel"
+    for name, rep in by_function.items():
+        m = re.fullmatch(r"(\w+)<(\d+),(\d+),(\d+),(\d+),(\d+)>", name)
+        if m and m.group(1) == want:
+            kt, _, nt, _, wn = map(int, m.groups()[1:])
+            if kt == cfg.k_inst and wn * nt * 8 == cfg.bn:
+                return rep
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -682,15 +728,17 @@ def frames_for(prog, n, seed):
 def path_calls(exes, device, batch=BUCKET):
     """The inputs each kernel gets for one batch of each program, by kernel:
     photonic_mvm (a, wq), conv_chain (codes, scale, stages, aq), ca_pool
-    (img, pool), conv_strip (x_padded, w, stride, strip_h, conv) and
-    conv_strip_depthwise (x_padded, w_taps, stride, strip_h, conv). Codes
-    are random 0..15, weights the programs' own quantized levels, and a
-    strip conv's input is padded as dispatch pads it."""
+    (img, pool), conv_strip (x_padded, w, stride, strip_h, conv),
+    conv_strip_depthwise (x_padded, w_taps, stride, strip_h, conv) and
+    conv_strip_int (x_padded uint8, w int8, stride, None, conv). Codes are
+    random 0..15, weights the programs' own quantized levels, and a strip
+    conv's input is padded as dispatch pads it on the plan's route."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.plan import CAStep, ConvStep, DenseStep
     from repro_torch.core.quant import quantize_weight
-    from repro_torch.kernels.conv_bank.strip import pad_rows_for_strips
+    from repro_torch.kernels.conv_bank.strip import (int_operands,
+                                                     pad_rows_for_strips)
     gen = torch.Generator().manual_seed(SEED + batch)
     calls = {k: [] for k in KERNELS if k != "conv_bank"}
     for name, exe in exes.items():
@@ -724,7 +772,14 @@ def path_calls(exes, device, batch=BUCKET):
                 wq, _ = quantize_weight(params[step.name]["w"], step.wa)
                 need(g.groups == 1 or g.depthwise,
                      f"{name}.{step.name}: a grouped conv on the path")
-                if step.strategy.kind == "strip":
+                if plan.strip_routes.get(step.name) == "int":
+                    codes = torch.randint(0, 16, (batch, g.h_in, g.w_in,
+                                                  g.c_in), generator=gen)
+                    x8, w8 = int_operands(codes, wq, g.pads)
+                    calls["conv_strip_int"].append((
+                        x8.to(device), w8.to(device), g.stride, None,
+                        f"{name}.{step.name}"))
+                elif step.strategy.kind == "strip":
                     codes = torch.randint(0, 16, (batch, g.h_in, g.w_in,
                                                   g.c_in), generator=gen)
                     (plo, phi), (qlo, qhi) = g.pads
@@ -771,9 +826,15 @@ def conv_bank_calls(device):
     return out
 
 
-def run_conv_bank_op(calls, strategies=("resident", "strip")):
+def run_conv_bank_op(calls, strategies=("resident", "strip"),
+                     quantized=True):
+    """The conv_bank op on its own calls: W4A4 with relu and bias, or
+    without a spec (its float mode)."""
     from repro_torch.core.quant import W4A4
     from repro_torch.kernels.conv_bank.ops import conv_bank
+    if not quantized:
+        return [conv_bank(x, w, strategy=s) for x, w, _ in calls
+                for s in strategies]
     return [conv_bank(x, w, spec=W4A4, strategy=s, act="relu", bias=b)
             for x, w, b in calls for s in strategies]
 
@@ -899,9 +960,12 @@ def phase_kernels(device, vision, imaging):
     for kernel, run, plain in (
             ("conv_strip", strip.conv_strip, strip.conv_strip_ref),
             ("conv_strip_depthwise", strip.conv_strip_depthwise,
-             strip.conv_strip_depthwise_ref)):
+             strip.conv_strip_depthwise_ref),
+            ("conv_strip_int", strip.conv_strip_int,
+             strip.conv_strip_int_ref)):
         for xp, wf, stride, sh, conv in calls[kernel]:
-            kw = dict(stride=stride, strip_h=sh)
+            kw = (dict(stride=stride) if kernel == "conv_strip_int"
+                  else dict(stride=stride, strip_h=sh))
             compare(kernel, run(xp, wf, **kw), plain(xp, wf, **kw), conv)
             co = wf.shape[-1]
             ws = (torch.rand((co,), generator=gen) + 0.5).to(device)
@@ -925,6 +989,38 @@ def phase_kernels(device, vision, imaging):
             kw.update(act_scale=0.37, act=act, bias=bias)
             compare("conv_strip", strip.conv_strip(xp, wq, ws, **kw),
                     strip.conv_strip_ref(xp, wq, ws, **kw), f"{what} {act}")
+        # the int8 kernel on u8 codes over the whole byte range and s8
+        # levels: raw, every act with ws and bias, ws alone
+        x8 = torch.randint(0, 256, xp.shape, generator=gen).to(
+            torch.uint8).to(device)
+        w8 = wq.to(torch.int8)
+        compare("conv_strip_int", strip.conv_strip_int(x8, w8, stride=stride),
+                strip.conv_strip_int_ref(x8, w8, stride=stride), what)
+        for act in ("none", "relu", "abs", "sign"):
+            kw = dict(stride=stride, act_scale=0.37, act=act, bias=bias)
+            compare("conv_strip_int", strip.conv_strip_int(x8, w8, ws, **kw),
+                    strip.conv_strip_int_ref(x8, w8, ws, **kw),
+                    f"{what} {act}")
+        kw = dict(stride=stride, act_scale=0.37)
+        compare("conv_strip_int", strip.conv_strip_int(x8, w8, ws, **kw),
+                strip.conv_strip_int_ref(x8, w8, ws, **kw), f"{what} ws")
+    for xs, wshape, level in STRIP_INT_EXTREMES:
+        x8 = torch.full(xs, 255, dtype=torch.uint8, device=device)
+        w8 = torch.full(wshape, level, dtype=torch.int8, device=device)
+        w8[1, 1, :, ::2] = -level
+        co = wshape[-1]
+        ws = (torch.rand((co,), generator=gen) + 0.5).to(device)
+        bias = torch.randn((co,), generator=gen).to(device)
+        what = f"extreme {xs} {wshape} {level}"
+        got = strip.conv_strip_int(x8, w8)
+        need(float(got.abs().max()) > 2 ** 24 or xs[-1] < 64,
+             f"{what}: |acc| stays below 2^24")
+        compare("conv_strip_int", got, strip.conv_strip_int_ref(x8, w8),
+                what)
+        kw = dict(act_scale=0.37, act="relu", bias=bias)
+        compare("conv_strip_int", strip.conv_strip_int(x8, w8, ws, **kw),
+                strip.conv_strip_int_ref(x8, w8, ws, **kw),
+                f"{what} with epilogue")
     for b, h_out, w_out, c, k, stride in DW_EDGES:
         xp = torch.randint(0, 16, (b, (h_out - 1) * stride + k,
                                    (w_out - 1) * stride + k, c),
@@ -953,8 +1049,10 @@ def phase_kernels(device, vision, imaging):
         strat = dispatch.select_conv_strategy(
             h_out, w_out, xs[3], wshape[3], wshape[0], stride, groups,
             mode="strip")
-        compare("conv_strip", dispatch.conv_int(x, wq, stride, pads, groups,
-                                                strat),
+        route = dispatch.select_strip_route(xs[3], wshape[3], wshape[0],
+                                            stride, groups)
+        compare("conv_strip_int" if route == "int" else "conv_strip",
+                dispatch.conv_int(x, wq, stride, pads, groups, strat),
                 conv_int_ref(x, wq, stride, pads, groups),
                 f"{name} {xs}x{wshape}")
 
@@ -963,9 +1061,31 @@ def phase_kernels(device, vision, imaging):
     for x, w, b in bank_calls:
         for strategy in ("resident", "strip"):
             kw = dict(spec=W4A4, strategy=strategy, act="relu", bias=b)
-            kernel = "conv_bank" if strategy == "resident" else "conv_strip"
+            kernel = ("conv_strip_int" if strip.dense_route(
+                x.shape[-1], w.shape[-1], w.shape[0], 1) == "int"
+                else "conv_bank" if strategy == "resident" else "conv_strip")
             compare(kernel, conv_bank(x, w, **kw), conv_bank_plain(x, w, **kw),
                     f"conv_bank {strategy} k={w.shape[0]}")
+            if strategy == "resident":
+                # the op's whole-frame launch of the float64 kernel on the
+                # same quantized operands, bitwise its plain version
+                from repro_torch.core.quant import quantize_weight, true_div
+                from repro_torch.kernels.conv_bank import ops as bank_ops
+                k = w.shape[0]
+                codes = torch.clamp(torch.round(true_div(x, 1 / 15.0)), 0,
+                                    15)
+                wq, ws = quantize_weight(w, W4A4)
+                xq = torch.nn.functional.pad(
+                    codes, (0, 0, k // 2, k // 2, k // 2, k // 2))
+                kw = dict(act_scale=1 / 15.0, act="relu", bias=b)
+                compare("conv_bank", strip.launch(
+                    xq, wq.float(), ws.reshape(-1), b, 1 / 15.0, "relu", 1,
+                    False, bank_ops.LAUNCHES) if x.is_cuda else
+                    strip.conv_strip_ref(xq, wq.float(), ws.reshape(-1), 1,
+                                         x.shape[1], **kw),
+                    strip.conv_strip_ref(xq, wq.float(), ws.reshape(-1), 1,
+                                         x.shape[1], **kw),
+                    f"conv_bank whole frame, float64 kernel k={k}")
             got = conv_bank(x, w, strategy=strategy)
             want = conv_bank_plain(x, w, strategy=strategy)
             float_err = max(float_err, float((got - want).abs().max()))
@@ -978,16 +1098,21 @@ def phase_kernels(device, vision, imaging):
 
 def phase_conv_bank_op(device):
     """The conv_bank op's entry point on its own calls, counts zeroed
-    around it (no served path reaches it)."""
+    around it (no served path reaches it): quantized (the int8 kernel
+    where ``strip.dense_route`` sends the shape) and in float mode (the
+    float64 kernel over the whole frame, and over strips), both
+    strategies."""
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     calls = conv_bank_calls(device)
     reset_launch_counts()
-    outs = run_conv_bank_op(calls)
+    outs = run_conv_bank_op(calls) + run_conv_bank_op(calls,
+                                                      quantized=False)
     if device.type == "cuda":
         torch.cuda.synchronize()
     counts = launch_counts()
-    for out, (x, w, _) in zip(outs, [c for c in calls for _ in range(2)]):
+    for out, (x, w, _) in zip(outs, [c for c in calls for _ in range(2)]
+                              * 2):
         need(out.shape == (*x.shape[:3], w.shape[-1])
              and bool(torch.isfinite(out).all()),
              f"conv_bank op: bad answer {tuple(out.shape)}")
@@ -1189,6 +1314,9 @@ def phase_timing(device, vision, imaging):
                     f" groups={co}" if dw else ""), library_exact=exact,
                 **launch)
 
+    # the conv_bank op: its quantized calls (on the kernel
+    # ``strip.dense_route`` picks) and its float mode, whose whole-frame
+    # launch is the float64 kernel's "conv_bank" count
     for x, w, bias in conv_bank_calls(device):
         b, h, ww, ci = x.shape
         k, co = w.shape[0], w.shape[-1]
@@ -1198,15 +1326,31 @@ def phase_timing(device, vision, imaging):
 
         def lib_fn(nchw=nchw, w_oihw=w_oihw, k=k, bias=bias):
             return torch.relu(F.conv2d(nchw, w_oihw, bias, padding=k // 2))
+
+        def float_lib(nchw=nchw, w_oihw=w_oihw, k=k):
+            return F.conv2d(nchw, w_oihw, padding=k // 2)
         with float32_convs():
             lib = time_ms(lib_fn)
+            flib = time_ms(float_lib)
         n_out = b * h * ww * co
-        add("conv_bank", time_ms(lambda: conv_bank(x, w, **kw)),
+        route = strip.dense_route(ci, co, k, 1)
+        launch = (dict(ctas=strip.igemm_config(b, h, ww, ci, co, k, 1).ctas)
+                  if route == "int" else
+                  dict(ctas=strip_config(b, h, ww, ci, co, k, 1).ctas))
+        add("conv_strip_int" if route == "int" else "conv_bank",
+            time_ms(lambda: conv_bank(x, w, **kw)),
             time_ms(lambda: conv_bank_plain(x, w, **kw)), lib,
             (x.numel() + w.numel() + 2 * co + n_out) * 4,
             2 * n_out * k * k * ci, "int8", "conv_bank_op", x=list(x.shape),
-            w=list(w.shape), strategy="resident",
-            library="F.conv2d + bias + relu (float)",
+            w=list(w.shape), strategy="resident", quantized=True,
+            library="F.conv2d + bias + relu (float)", **launch)
+        add("conv_bank", time_ms(lambda: conv_bank(x, w,
+                                                   strategy="resident")),
+            time_ms(lambda: conv_bank_plain(x, w, strategy="resident")),
+            flib, (x.numel() + w.numel() + n_out) * 4,
+            2 * n_out * k * k * ci, "fp32", "conv_bank_op_float",
+            x=list(x.shape), w=list(w.shape), strategy="resident",
+            quantized=False, library="F.conv2d (float, TF32 off)",
             ctas=strip_config(b, h, ww, ci, co, k, 1).ctas)
     return rows, detail
 
@@ -1287,7 +1431,10 @@ def phase_device_time(device, vision, imaging, trace_path,
         "conv_strip_depthwise": lambda: [
             strip.conv_strip_depthwise(xp, w, stride=s, strip_h=sh)
             for xp, w, s, sh, _ in imaging["conv_strip_depthwise"]],
-        "conv_bank": lambda: run_conv_bank_op(bank, ("resident",))}
+        "conv_bank": lambda: run_conv_bank_op(bank, ("resident",),
+                                              quantized=False),
+        "conv_strip_int.conv_bank_op": lambda: run_conv_bank_op(
+            bank, ("resident",))}
     # per path shape of the two redesigned kernels: the kernel, and the
     # library call on the same inputs (all of its kernels)
     mvm_calls = vision["photonic_mvm"] + imaging["photonic_mvm"]
@@ -1340,6 +1487,117 @@ def phase_device_time(device, vision, imaging, trace_path,
         # microseconds over `iters` batches -> ms per batch
         out[name] = total / iters / 1e3 if total > 0 else None
     return out
+
+
+def profile_ranges(device, fns, trace_path, iters):
+    """Device ms per call of each of ``fns`` (every kernel it launched),
+    from one profiler session: each runs ``iters`` times in its own host
+    range ending in a synchronize. None where the profiler lost a
+    record."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.kernels.conv_bank.ref import float32_convs
+    with float32_convs():
+        for fn in fns.values():
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            # a range nobody reads first (a session can lose the records
+            # of its first launches)
+            with record_function(f"{DEVICE_RANGE}warm"):
+                for _ in range(VGG16_WARM_LAUNCHES):
+                    torch.zeros(1, device=device)
+                torch.cuda.synchronize()
+            for name, fn in fns.items():
+                with record_function(DEVICE_RANGE + name):
+                    for _ in range(iters):
+                        fn()
+                    torch.cuda.synchronize()
+    events = load_trace(prof, trace_path)
+    out = {}
+    for name in fns:
+        kernels, launches = device_work(events, DEVICE_RANGE + name,
+                                        ("kernel",))
+        measured = kernels and len(kernels) >= launches
+        if not measured:
+            log(f"[route] {name}: {len(kernels)} kernel records for "
+                f"{launches} launches; not measured")
+        out[name] = (sum(e["dur"] for e in kernels) / iters / 1e3
+                     if measured else None)
+    return out
+
+
+def phase_routes(device, imaging_exes, trace_path):
+    """The route rule's numbers: at each dense strip conv of the imaging
+    path (bucket 8) and each of the conv_bank op's quantized calls, the
+    device time of the float64 route and of the int8 one, from the same
+    codes and levels (float: the f32 border pad and the float64 kernel,
+    or the op's strip; int: the uint8 cast, the pad and the int8 kernel
+    with its weight layout), beside what ``strip.dense_route`` picks.
+    VGG16's conv1-conv10 are timed both ways in [vgg16]."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.plan import ConvStep
+    from repro_torch.core.quant import W4A4, quantize_weight, true_div
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.conv_bank import strip
+    gen = torch.Generator().manual_seed(SEED + 25)
+    cases = []
+    for name, exe in imaging_exes.items():
+        plan, params = exe.plan, exe.params()
+        for step in plan.steps:
+            if not isinstance(step, ConvStep) or \
+                    step.strategy.kind != "strip" or step.geom.depthwise:
+                continue
+            g = step.geom
+            wq, _ = quantize_weight(params[step.name]["w"], step.wa)
+            codes = torch.randint(0, 16, (BUCKET, g.h_in, g.w_in, g.c_in),
+                                  generator=gen).float().to(device)
+            args = (codes, wq.to(device), g.stride, g.pads, g.groups,
+                    step.strategy)
+            cases.append(dict(
+                shape=f"{name}.{step.name} {BUCKET}x{g.h_in}x{g.w_in} "
+                      f"{g.c_in}->{g.c_out} k{g.kernel}",
+                c_in=g.c_in, c_out=g.c_out, k=g.kernel, stride=g.stride,
+                float=lambda a=args: dispatch.conv_int(*a, route="float"),
+                int=lambda a=args: dispatch.conv_int(*a, route="int")))
+    for x, w, bias in conv_bank_calls(device):
+        k, ci, co = w.shape[0], w.shape[2], w.shape[3]
+        p = k // 2
+        codes = torch.clamp(torch.round(true_div(x, 1.0 / 15.0)), 0, 15)
+        wq, ws = quantize_weight(w, W4A4)
+        kw = dict(act_scale=1.0 / 15.0, act="relu", bias=bias)
+        h = x.shape[1]
+        cases.append(dict(
+            shape=f"conv_bank op {tuple(x.shape)} {ci}->{co} k{k}",
+            c_in=ci, c_out=co, k=k, stride=1,
+            float=lambda c=codes, wf=wq.float(), ws=ws.reshape(-1), p=p,
+            h=h, kw=kw: strip.conv_strip(F.pad(c, (0, 0, p, p, p, p)), wf,
+                                         ws, strip_h=h, **kw),
+            int=lambda c=codes, wq=wq, ws=ws.reshape(-1), p=p, kw=kw:
+            strip.conv_strip_int(*strip.int_operands(c, wq, ((p, p), (p, p))),
+                                 ws, **kw)))
+    for c in cases:
+        need(torch.equal(c["float"](), c["int"]()),
+             f"[route] {c['shape']}: the two routes differ")
+    if device.type != "cuda":
+        times = {}
+    else:
+        times = profile_ranges(device, {
+            f"route.{i}.{r}": c[r] for i, c in enumerate(cases)
+            for r in ("float", "int")}, trace_path, ROUTE_ITERS)
+    rows = []
+    for i, c in enumerate(cases):
+        f_ms, i_ms = (times.get(f"route.{i}.{r}") for r in ("float", "int"))
+        rows.append(dict(
+            shape=c["shape"], c_in=c["c_in"], c_out=c["c_out"], k=c["k"],
+            float_device_ms=f_ms, int_device_ms=i_ms,
+            rule=strip.dense_route(c["c_in"], c["c_out"], c["k"],
+                                   c["stride"]),
+            faster=None if None in (f_ms, i_ms) else
+            ("int" if i_ms < f_ms else "float")))
+    return rows
 
 
 def check_served(name, prog, frames, served, dev, out_shape):
@@ -1666,8 +1924,9 @@ def busy_share(events, window=SERVE_WINDOW):
         by_kind[kind] = by_kind.get(kind, 0.0) + (b - a) / 1e3
         if kind == "port kernels":
             name = e["name"].replace(" ", "")
-            k = next((k for k in KERNELS[:-1]
-                      if re.search(KERNEL_SYMBOLS[k], name)), "other")
+            # conv_bank shares conv_strip's kernel: named by conv_strip
+            k = next((k for k in KERNELS if k != "conv_bank"
+                      and re.search(KERNEL_SYMBOLS[k], name)), "other")
             by_kernel[k] = by_kernel.get(k, 0.0) + (b - a) / 1e3
     busy, end = 0.0, None
     for a, b in sorted(spans):
@@ -1939,6 +2198,8 @@ def plan_kernels(plan):
             out.add("ca_pool")
         elif isinstance(step, ConvStep) and step.strategy.kind == "strip":
             out.add("conv_strip_depthwise" if step.geom.depthwise
+                    else "conv_strip_int"
+                    if plan.strip_routes.get(step.name) == "int"
                     else "conv_strip")
         elif isinstance(step, (ConvStep, DenseStep)):
             out.add("photonic_mvm")
@@ -1988,14 +2249,16 @@ def vgg16_compile(prog, device, budget):
 def vgg16_kernels(device, buckets):
     """The strip and photonic_mvm kernels at every ``VGG16_SHAPES`` entry
     and bucket, raw and with the epilogue, bitwise against their plain
-    versions. Returns ({kernel: max abs err}, {kernel: comparisons})."""
+    versions: conv1-conv10 on the float64 strip kernel (the strips' rows)
+    and on the int8 one (the conv's own rows, as the int route launches
+    it). Returns ({kernel: max abs err}, {kernel: comparisons})."""
     import torch
     from repro_torch.kernels.conv_bank import strip
     from repro_torch.kernels.edge_shapes import VGG16_SHAPES, vgg16_case
     from repro_torch.kernels.photonic_mvm.ops import mvm_int
     from repro_torch.kernels.photonic_mvm.ref import mvm_int_ref
     gen = torch.Generator(device=device).manual_seed(SEED + 16)
-    errs = {"conv_strip": [], "photonic_mvm": []}
+    errs = {"conv_strip": [], "photonic_mvm": [], "conv_strip_int": []}
 
     def compare(kernel, got, want, what):
         need(got.shape == want.shape and bool(torch.isfinite(got).all()),
@@ -2022,6 +2285,16 @@ def vgg16_kernels(device, buckets):
                     kw.update(act_scale=0.37, act="relu", bias=bias)
                     compare(kernel, strip.conv_strip(xp, w, ws, **kw),
                             strip.conv_strip_ref(xp, w, ws, **kw),
+                            f"{what} with epilogue")
+                    own = shape[3] + w.shape[0] - 1       # square frames
+                    x8 = xp[:, :own].to(torch.uint8)
+                    w8 = w.to(torch.int8)
+                    compare("conv_strip_int", strip.conv_strip_int(x8, w8),
+                            strip.conv_strip_int_ref(x8, w8), what)
+                    kw = dict(act_scale=0.37, act="relu", bias=bias)
+                    compare("conv_strip_int",
+                            strip.conv_strip_int(x8, w8, ws, **kw),
+                            strip.conv_strip_int_ref(x8, w8, ws, **kw),
                             f"{what} with epilogue")
                 else:
                     a, wq = args
@@ -2064,17 +2337,24 @@ def vgg16_check(window, frames, served, expected):
          f"{window}: answers differ from the port's CPU run")
 
 
-def vgg16_timing(device, exe, trace_path):
+def vgg16_timing(device, exe, trace_path, ptxas=None):
     """Each conv and dense step of VGG16 at bucket 8 on random codes and
-    its own levels: the kernel, its route through dispatch (pads and
-    slicing included), its plain version and its library call, timed by
-    CUDA events over ``VGG16_ITERS`` calls (``<name>_ms``); the kernel, the
-    library call and the forced-resident route also by their device time
-    in one profiler session (``<name>_device_ms``: every kernel the call
-    launched); and the bound (the conv's own output, not the strip
+    its own levels: the kernel, its route through dispatch (the plan's:
+    pads, casts and slicing included), its plain version and its library
+    call, timed by CUDA events over ``VGG16_ITERS`` calls (``<name>_ms``);
+    the kernel, its route, the library call, the forced-resident route
+    and, for a strip step, the float64 strip kernel also by their device
+    time in one profiler session (``<name>_device_ms``: every kernel the
+    call launched, the kernel's own symbol alone for ``kernel`` and
+    ``float_kernel``); and the bound (the conv's own output, not the strip
     padding's surplus rows; bytes over 3.35 TB/s or operations over the
-    int8 peak). Each strip step is also forced resident (im2col +
-    photonic_mvm: the route, and the GEMM alone)."""
+    int8 peak; an int8 strip row's from the kernel's own operands, u8
+    codes, s8 levels and f32 output, its f32 carriers' in
+    ``carrier_bound_ms``).
+    Each strip step is also forced resident (im2col + photonic_mvm: the
+    route, and the GEMM alone), and each resident conv forced onto the
+    int8 strip route (``strip_int``). ``ptxas``: the build's report, whose
+    line for each int8 instantiation is attached to its rows."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.plan import ConvStep, DenseStep
@@ -2087,6 +2367,8 @@ def vgg16_timing(device, exe, trace_path):
     cuda = device.type == "cuda"
     time_ms = timer(device)
     iters = VGG16_ITERS if cuda else 1
+    by_function = {f["function"]: f for f in (ptxas or {}).get(
+        "conv_strip", [])}
     gen = torch.Generator(device=device).manual_seed(SEED + 17)
     plan, params = exe.plan, exe.params()
     b, rows = BUCKET, []
@@ -2121,9 +2403,11 @@ def vgg16_timing(device, exe, trace_path):
                 .to(torch.int8)
             w2 = wq.reshape(-1, g.c_out).to(torch.int8)
             m, k, n = a.shape[0], a.shape[1], g.c_out
+            route = plan.strip_routes.get(step.name)
             fns = dict(
-                route=lambda codes=codes, wq=wq, g=g, st=step.strategy:
-                dispatch.conv_int(codes, wq, g.stride, g.pads, strategy=st),
+                route=lambda codes=codes, wq=wq, g=g, st=step.strategy,
+                route=route: dispatch.conv_int(codes, wq, g.stride, g.pads,
+                                               strategy=st, route=route),
                 library=strip_library(xp_real, wf, g.stride, False),
                 resident=lambda codes=codes, wq=wq, g=g: dispatch.conv_int(
                     codes, wq, g.stride, g.pads, strategy=resident),
@@ -2139,18 +2423,46 @@ def vgg16_timing(device, exe, trace_path):
                 launch_rows = (xp.shape[1] - g.kernel) // g.stride + 1
                 cfg = strip.strip_config(b, launch_rows, wc, g.c_in, g.c_out,
                                          g.kernel, g.stride)
+                float_kernel = lambda xp=xp, wf=wf, kw=kw: strip.conv_strip(
+                    xp, wf, **kw)
                 fns.update(
-                    kernel=lambda xp=xp, wf=wf, kw=kw: strip.conv_strip(
-                        xp, wf, **kw),
+                    kernel=float_kernel,
                     plain=lambda xp=xp, wf=wf, kw=kw: strip.conv_strip_ref(
                         xp, wf, **kw))
                 row.update(kernel="conv_strip", launch_rows=launch_rows,
                            ctas=cfg.ctas, tile=[cfg.tx, cfg.tyt * cfg.run],
                            co_b=cfg.co_b, cc=cfg.cc)
+                if route == "int":
+                    x8, w8 = strip.int_operands(codes, wq, g.pads)
+                    icfg = strip.igemm_config(b, hc, wc, g.c_in, g.c_out,
+                                              g.kernel, g.stride)
+                    fns.update(
+                        kernel=lambda x8=x8, w8=w8, s=g.stride:
+                        strip.conv_strip_int(x8, w8, stride=s),
+                        plain=lambda x8=x8, w8=w8, s=g.stride:
+                        strip.conv_strip_int_ref(x8, w8, stride=s),
+                        float_kernel=float_kernel)
+                    row.update(
+                        kernel="conv_strip_int", launch_rows=hc,
+                        float_launch_rows=launch_rows, ctas=icfg.ctas,
+                        tile=[icfg.tw, icfg.th], bn=icfg.bn,
+                        stages=icfg.stages, smem=icfg.smem,
+                        float_ctas=cfg.ctas,
+                        ptxas=igemm_ptxas(by_function, icfg),
+                        carrier_bound_ms=bound_ms(nbytes, 2 * macs,
+                                                  "int8")[0])
+                    nbytes = x8.numel() + w8.numel() + \
+                        b * hc * wc * g.c_out * 4
             else:
                 fns.update(kernel=fns["resident_gemm"],
                            plain=lambda a=a, w2=w2: mvm_int_ref(a, w2))
                 row.update(kernel="photonic_mvm")
+                if g.groups == 1:
+                    # the same conv forced onto the int8 strip kernel
+                    fns["strip_int"] = lambda codes=codes, wq=wq, g=g, \
+                        st=dispatch.ConvStrategy("strip", hc, 1): \
+                        dispatch.conv_int(codes, wq, g.stride, g.pads,
+                                          strategy=st, route="int")
             with float32_convs():
                 row["library_exact"] = torch.equal(
                     fns["library"]().permute(0, 2, 3, 1), fns["route"]())
@@ -2167,7 +2479,8 @@ def vgg16_timing(device, exe, trace_path):
         row["ms"] = row.pop("kernel_ms")
     if cuda:
         from torch.profiler import ProfilerActivity, profile, record_function
-        timed = ("kernel", "library", "resident")
+        timed = ("kernel", "route", "float_kernel", "library", "resident",
+                 "strip_int")
         with float32_convs(), profile(activities=[
                 ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             # a range nobody reads first: on the card this session lost
@@ -2199,15 +2512,19 @@ def vgg16_timing(device, exe, trace_path):
                     log(f"[vgg16] {row['layer']} {name}: {len(kernels)} "
                         f"kernel records for {launches} launches; not "
                         f"measured")
+                symbol = {"kernel": KERNEL_SYMBOLS[row["kernel"]],
+                          "float_kernel": KERNEL_SYMBOLS["conv_strip"]}.get(
+                              name, ".*")
                 row[f"{name}_device_ms"] = (
-                    sum(e["dur"] for e in kernels) / VGG16_DEVICE_ITERS / 1e3
-                    if measured else None)
+                    sum(e["dur"] for e in kernels
+                        if re.search(symbol, e["name"].replace(" ", "")))
+                    / VGG16_DEVICE_ITERS / 1e3 if measured else None)
     for row in rows:
         del row["fns"]
     return rows
 
 
-def phase_vgg16(device, rehearse, out_dir):
+def phase_vgg16(device, rehearse, out_dir, ptxas=None):
     """VGG16 end to end (the module docstring's phase 9). Returns its
     detail, the launch counts of its eager and bound windows, and its
     kernels' max abs errors and comparison counts."""
@@ -2269,12 +2586,28 @@ def phase_vgg16(device, rehearse, out_dir):
             f"({VGG16_CPU_FRAMES} frames); launches {c}")
 
     out["layers"] = vgg16_timing(device, exe, os.path.join(
-        out_dir, VGG16_DEVICE_TRACE))
+        out_dir, VGG16_DEVICE_TRACE), ptxas)
     for r in out["layers"]:
         extra = (f"; forced resident: route {r['resident_ms']:.4f} "
                  f"(device {r.get('resident_device_ms')}) gemm "
                  f"{r['resident_gemm_ms']:.4f}; library exact "
                  f"{r['library_exact']}" if "strategy" in r else "")
+        if "strip_int_ms" in r:
+            extra += (f"; forced onto the int8 strip route "
+                      f"{r['strip_int_ms']:.4f} (device "
+                      f"{r.get('strip_int_device_ms')})")
+        if r["kernel"] == "conv_strip_int":
+            px = r["ptxas"] or {}
+            extra += (f"; route device {r.get('route_device_ms')}, float64 "
+                      f"kernel {r['float_kernel_ms']:.4f} (device "
+                      f"{r.get('float_kernel_device_ms')}, "
+                      f"{r['float_ctas']} CTAs over "
+                      f"{r['float_launch_rows']} rows); int8 tile "
+                      f"{r['tile']} x {r['bn']} channels, {r['stages']} "
+                      f"stages, {r['smem']} B smem, {r['ctas']} CTAs, ptxas "
+                      f"{px.get('registers')} regs, spills "
+                      f"{px.get('spill_stores')}/{px.get('spill_loads')} B; "
+                      f"f32 carriers' bound {r['carrier_bound_ms']:.6f}")
         log(f"[vgg16] {r['layer']} {r['kernel']}: {r['ms']:.4f} ms "
             f"(device {r.get('kernel_device_ms')}; route "
             f"{r['route_ms']:.4f}, plain {r['plain_ms']:.4f}, library "
@@ -2294,14 +2627,26 @@ def phase_vgg16(device, rehearse, out_dir):
             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
         out["by_kernel"][k].update(
             calls=len(rows), device_ms=total(rows, "kernel_device_ms"),
-            library_device_ms=total(rows, "library_device_ms"))
-    strips = [r for r in out["layers"] if r["kernel"] == "conv_strip"]
+            library_device_ms=total(rows, "library_device_ms"),
+            route_device_ms=total(rows, "route_device_ms"),
+            library_exact=all(r.get("library_exact", True) for r in rows),
+            bound_by=("bytes" if sum(r["bound_ms"] for r in rows
+                                     if r["bound_by"] == "bytes") * 2 >
+                      sum(r["bound_ms"] for r in rows) else "operations"))
+    strips = [r for r in out["layers"] if r.get("strategy") == "strip"]
     log(f"[vgg16] per bucket-8 batch: {out['by_kernel']}; strip layers "
-        f"strip {total(strips, 'ms'):.4f} ms (device "
-        f"{total(strips, 'kernel_device_ms')}) against forced resident "
+        f"on their route {total(strips, 'route_ms'):.4f} ms (device "
+        f"{total(strips, 'route_device_ms')}; kernels "
+        f"{total(strips, 'ms'):.4f}, device "
+        f"{total(strips, 'kernel_device_ms')}), the float64 strip kernel "
+        f"{total(strips, 'float_kernel_ms')} ms (device "
+        f"{total(strips, 'float_kernel_device_ms')}), F.conv2d device "
+        f"{total(strips, 'library_device_ms')}, forced resident "
         f"{total(strips, 'resident_ms'):.4f} ms (device "
         f"{total(strips, 'resident_device_ms')}; gemm "
-        f"{total(strips, 'resident_gemm_ms'):.4f})")
+        f"{total(strips, 'resident_gemm_ms'):.4f}), bound "
+        f"{total(strips, 'bound_ms'):.6f} (f32 carriers "
+        f"{total(strips, 'carrier_bound_ms')})")
 
     progs = {"vgg16": prog}
     out["busy"] = None
@@ -4498,6 +4843,7 @@ def main(argv) -> int:
 
         from repro_torch import Options
         from repro_torch.core.quant import W4A4
+        from repro_torch.kernels.conv_bank import strip
         vision_progs, imaging_progs = vision_programs(), imaging_programs()
         opts = Options(scheme=W4A4, device=str(device))
         vision = path_calls({n: p.compile(opts)
@@ -4526,6 +4872,20 @@ def main(argv) -> int:
         device_ms = phase_device_time(device, vision, imaging, os.path.join(
             out_dir, DEVICE_TRACE))
         ca_cold = device_ms.pop("ca_pool.cold")
+        device_ms["conv_strip_int"] = device_ms.pop(
+            "conv_strip_int.conv_bank_op", None)
+        if "conv_bank_op" in rows.get("conv_strip_int", {}).get("by_path",
+                                                                 {}):
+            rows["conv_strip_int"]["by_path"]["conv_bank_op"][
+                "device_ms"] = device_ms["conv_strip_int"]
+        routes = phase_routes(device, {
+            n: p.compile(opts) for n, p in imaging_progs.items()},
+            os.path.join(out_dir, ROUTE_TRACE))
+        for r in routes:
+            log(f"[route] {r['shape']}: float64 route device "
+                f"{r['float_device_ms']} ms, int8 route device "
+                f"{r['int_device_ms']} ms; the rule takes {r['rule']}, "
+                f"faster {r['faster']}")
         # photonic_mvm's and ca_pool's rows are both paths' calls; each
         # path's device time is its own profiler range
         for k in ("photonic_mvm", "ca_pool"):
@@ -4661,12 +5021,23 @@ def main(argv) -> int:
                 + f"; runs {c['fps']}")
 
         vgg16, vgg16_counts, vgg16_err, vgg16_cmp = phase_vgg16(
-            device, rehearse, out_dir)
+            device, rehearse, out_dir, ptxas)
         served.update(vgg16_counts)
         for k in vgg16_err:
             max_err[k] = max(max_err[k], vgg16_err[k])
             n_cmp[k] += vgg16_cmp[k]
-            rows[k]["by_path"]["vgg16"] = vgg16["by_kernel"][k]
+        for k, v in vgg16["by_kernel"].items():
+            rows.setdefault(k, {"library_exact": None, "by_path": {}})
+            rows[k]["by_path"]["vgg16"] = v
+        # the int8 kernel's line is its main path's: VGG16's conv1-conv10
+        # (the conv_bank op's calls stay under by_path)
+        v = vgg16["by_kernel"]["conv_strip_int"]
+        rows["conv_strip_int"].update(
+            {key: v[key] for key in ("ms", "plain_ms", "library_ms",
+                                     "bound_ms", "library_exact")},
+            t_bytes=float(v["bound_by"] == "bytes"),
+            t_ops=float(v["bound_by"] != "bytes"))
+        device_ms["conv_strip_int"] = v["device_ms"]
 
         train, train_counts, train_err, train_cmp = phase_train(
             device, rehearse, out_dir)
@@ -4746,6 +5117,12 @@ def main(argv) -> int:
                 need(f"bound {path}" in served, f"no bound {path} window")
             need(bank_counts["conv_bank"] > 0,
                  "conv_bank never launched by the conv_bank op")
+            for x, w, _ in conv_bank_calls(device):
+                if strip.dense_route(x.shape[-1], w.shape[-1], w.shape[0],
+                                     1) == "int":
+                    need(bank_counts["conv_strip_int"] > 0,
+                         "conv_strip_int never launched by the conv_bank "
+                         "op's quantized path")
             for k in SHARD_BATCH_KERNELS:
                 need(served["shard_batch"][k] > 0, f"{k} never launched on "
                      f"the shard_batch path")

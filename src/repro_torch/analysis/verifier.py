@@ -32,9 +32,11 @@ against the budget, the fused segments' legality, halo recurrence and
 working set), and the Hopper ones:
 
 * every strip step's launch, as ``strip.strip_config`` / ``strip.dw_config``
-  would choose it at batch 1 and at batch 8, must have CTA tiles that
-  cover the whole output (rows, columns, channel blocks; ``LTR020``,
-  error), and shared memory that a CTA can hold (``LTR022``, warning);
+  / ``strip.igemm_config`` would choose it at batch 1 and at batch 8 (the
+  last for a step the plan routed to the int8 kernel, over the conv's own
+  rows), must have CTA tiles that cover the whole output (rows, columns,
+  channel blocks; ``LTR020``, error), and shared memory that a CTA can
+  hold (``LTR022``, warning);
 * a fused segment's shared memory, the two ping-pong frame buffers and
   the reduce scratch re-derived here, must fit one CTA's
   ``SMEM_PER_BLOCK`` (``LTR024``, error).
@@ -78,6 +80,10 @@ _UPSAMPLE_METHODS = ("bilinear", "nearest")
 # warp maxima); restated from the CUDA sources, not imported.
 _SMEM_PER_CTA = 232448
 _CHAIN_SCRATCH = 32 * 4
+# the int8 strip kernel: output pixel slots a CTA, bytes a staged pixel or
+# weight row takes (a 32-byte C_in chunk and 16 unused bytes)
+_INT_SLOTS = 128
+_INT_ROW_BYTES = 48
 # the batches whose strip launches are audited: batch 1 and the largest
 # serving bucket
 _AUDIT_BATCHES = (1, 8)
@@ -365,17 +371,38 @@ def _dw_smem(cfg, k: int, stride: int) -> int:
     return _cdiv((rows_in * ld + rows_in) * 4, 8) * 8 + k * k * cfg.cb * 8
 
 
-def _strip_launches(g, strat) -> List[tuple]:
+def _int_smem(cfg, k: int, stride: int) -> int:
+    """Shared memory of the int8 strip kernel's CTA: ``stages`` C_in
+    stages, each the tile's input patch (halo included) and the chunk's
+    k*k x ``bn`` weight rows, ``_INT_ROW_BYTES`` a pixel or row; with the
+    taps folded into ``kf`` K bytes, one stage: the patch at 4 bytes a
+    pixel, 16-byte aligned, and ``bn`` weight rows of ``kf + 16`` bytes
+    (``csrc/conv_strip.cu::conv_strip_int_launch``)."""
+    rows_in = (cfg.th - 1) * stride + k
+    cols_in = (cfg.tw - 1) * stride + k
+    if cfg.kf:
+        return cfg.stages * (_cdiv(rows_in * cols_in * 4, 16) * 16
+                             + cfg.bn * (cfg.kf + 16))
+    return cfg.stages * (rows_in * cols_in + k * k * cfg.bn) * _INT_ROW_BYTES
+
+
+def _strip_launches(g, strat, route: Optional[str] = None) -> List[tuple]:
     """(kind, batch, rows, cols, c_in, c_out, config) of every strip
     kernel launch the step makes at each audited batch, with the
     configuration the wrapper would choose; general grouped convs launch
-    the dense kernel once per group."""
+    the dense kernel once per group. ``route`` is the plan's: ``"int"``
+    launches the int8 kernel over the conv's own rows."""
     from repro_torch.kernels.conv_bank import strip
     rows = _launch_rows(g, strat)
-    _, w_out = _geom_out_hw(g)
+    h_out, w_out = _geom_out_hw(g)
     out = []
     for b in _AUDIT_BATCHES:
-        if g.groups > 1 and g.c_out == g.groups == g.c_in:
+        if route == "int":
+            cg, og = g.c_in // g.groups, g.c_out // g.groups
+            out.append(("int", b, h_out, w_out, cg, og,
+                        strip.igemm_config(b, h_out, w_out, cg, og,
+                                           g.kernel, g.stride)))
+        elif g.groups > 1 and g.c_out == g.groups == g.c_in:
             out.append(("depthwise", b, rows, w_out, g.c_in, g.c_out,
                         strip.dw_config(b, rows, w_out, g.c_in, g.kernel,
                                         g.stride)))
@@ -394,23 +421,30 @@ def _check_strip_launch(name: str, g, launch, out: List[Diagnostic]) -> None:
     rows, one block ``co_b`` (dense) or ``cb`` (depthwise) channels; the
     row tiles are what the recorded CTA count leaves after the others."""
     kind, b, rows, cols, c_in, c_out, cfg = launch
-    block = cfg.co_b if kind == "dense" else cfg.cb
+    if kind == "int":
+        tile_w, tile_h, block = cfg.tw, cfg.th, cfg.bn
+        degenerate = min(tile_w, tile_h, block) < 1 or \
+            tile_w * tile_h > _INT_SLOTS
+    else:
+        tile_w, tile_h = cfg.tx, cfg.tyt * cfg.run
+        block = cfg.co_b if kind == "dense" else cfg.cb
+        degenerate = min(cfg.tx, cfg.tyt, cfg.run, block) < 1 or (
+            kind == "dense" and not 1 <= cfg.cc <= c_in)
     what = (f"{kind} strip launch at batch {b} ({rows}x{cols}x{c_out}, "
-            f"tile {cfg.tx}x{cfg.tyt * cfg.run}, {block}-channel blocks, "
+            f"tile {tile_w}x{tile_h}, {block}-channel blocks, "
             f"{cfg.ctas} CTAs)")
-    if min(cfg.tx, cfg.tyt, cfg.run, block) < 1 or (
-            kind == "dense" and not 1 <= cfg.cc <= c_in):
+    if degenerate:
         out.append(Diagnostic(
             "LTR020", "error", name,
             f"{what} has a degenerate tile or C_in chunk",
-            hint="this is a strip_config/dw_config bug: every tile "
-                 "dimension must be >= 1 and the chunk within C_in"))
+            hint="this is a strip_config/dw_config/igemm_config bug: "
+                 "every tile dimension must be >= 1, the chunk within "
+                 "C_in and an int8 tile within its pixel slots"))
         return
-    col_tiles = _cdiv(cols, cfg.tx)
+    col_tiles = _cdiv(cols, tile_w)
     blocks = _cdiv(c_out, block)
     row_tiles = cfg.ctas // max(b * col_tiles * blocks, 1)
-    covered = (row_tiles * cfg.tyt * cfg.run, col_tiles * cfg.tx,
-               blocks * block)
+    covered = (row_tiles * tile_h, col_tiles * tile_w, blocks * block)
     if covered[0] < rows or covered[1] < cols or covered[2] < c_out:
         out.append(Diagnostic(
             "LTR020", "error", name,
@@ -418,16 +452,17 @@ def _check_strip_launch(name: str, g, launch, out: List[Diagnostic]) -> None:
             f"{covered[0]} rows, {covered[1]} columns and {covered[2]} "
             f"channels of {rows}x{cols}x{c_out} — the kernel would drop "
             f"outputs",
-            hint="this is a strip_config/dw_config bug in the CTA count "
-                 "or the tile it records"))
-    smem = (_dense_smem(cfg, g.kernel, g.stride) if kind == "dense"
-            else _dw_smem(cfg, g.kernel, g.stride))
+            hint="this is a strip_config/dw_config/igemm_config bug in "
+                 "the CTA count or the tile it records"))
+    smem = {"dense": _dense_smem, "depthwise": _dw_smem,
+            "int": _int_smem}[kind](cfg, g.kernel, g.stride)
     if smem > _SMEM_PER_CTA:
         out.append(Diagnostic(
             "LTR022", "warning", name,
             f"{what} needs {smem} bytes of shared memory; a CTA has "
             f"{_SMEM_PER_CTA} — the launch would be refused",
-            hint="a smaller tile or C_in chunk in strip_config/dw_config"))
+            hint="a smaller tile or C_in chunk in strip_config/dw_config/"
+                 "igemm_config"))
 
 
 def _check_strategies(plan, budget: int, out: List[Diagnostic]) -> None:
@@ -480,7 +515,8 @@ def _check_strategies(plan, budget: int, out: List[Diagnostic]) -> None:
                     f"{budget / 2**20:.1f} MB VMEM budget",
                     hint="shrink REPRO_CONV_VMEM_BUDGET-derived strips "
                          "or check _strip_geometry's row bound"))
-            for launch in _strip_launches(g, strat):
+            for launch in _strip_launches(
+                    g, strat, plan.strip_routes.get(step.name)):
                 _check_strip_launch(step.name, g, launch, out)
         else:
             out.append(Diagnostic(

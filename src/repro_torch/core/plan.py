@@ -136,6 +136,11 @@ class CompiledPlan:
     out_features: int
     consts: Dict[str, object] = dataclasses.field(default_factory=dict)
     fused_segments: Tuple[dispatch.FusedSegmentSpec, ...] = ()
+    # each strip conv's dense kernel, by step name: "int" (the int8
+    # tensor-core kernel) or "float" (``dispatch.select_strip_route``;
+    # depthwise strips have none). Kept off the steps, which equal the
+    # reference's field for field.
+    strip_routes: Dict[str, str] = dataclasses.field(default_factory=dict)
     # the trace families this plan has run (``_execute``)
     _families: set = dataclasses.field(default_factory=set, repr=False)
     # set once the analysis verifier has run over this plan (its warning
@@ -290,6 +295,7 @@ def _compile_model_uncached(layers, frame_shape, scheme, oc, circuit,
     steps: List[PlanStep] = []
     schedules: List[ocore.OCSchedule] = []
     spec_list: List[WASpec] = []
+    strip_routes: Dict[str, str] = {}
 
     h, w, c = frame_shape
     out_features = 0
@@ -347,6 +353,10 @@ def _compile_model_uncached(layers, frame_shape, scheme, oc, circuit,
                 layer.name, h, w, sched_c_in, layer.c_out, layer.kernel,
                 oc=oc))
             spec_list.append(wa)
+            if strat.kind == "strip" and not layer.depthwise:
+                strip_routes[layer.name] = dispatch.select_strip_route(
+                    layer.c_in, layer.c_out, layer.kernel, layer.stride,
+                    groups)
             steps.append(ConvStep(layer.name, wa, layer.kernel, layer.stride,
                                   layer.act, layer.pool, pads, groups=groups,
                                   strategy=strat, geom=geom))
@@ -399,7 +409,8 @@ def _compile_model_uncached(layers, frame_shape, scheme, oc, circuit,
     return CompiledPlan(layers, frame_shape, scheme, tuple(steps),
                         tuple(schedules), tuple(spec_list), report,
                         out_features or c, consts,
-                        fused_segments=fused_segments)
+                        fused_segments=fused_segments,
+                        strip_routes=strip_routes)
 
 
 # ---------------------------------------------------------------------------
@@ -423,7 +434,8 @@ def _execute_steps(steps: Tuple[PlanStep, ...], params: Dict[str, Dict],
                    backend: str = "kernel",
                    weights: Optional[Dict[str, Tuple]] = None,
                    exact_checked: bool = False,
-                   reduce_max=None) -> torch.Tensor:
+                   reduce_max=None,
+                   routes: Optional[Dict[str, str]] = None) -> torch.Tensor:
     """The device forward, batch-first, kernels via ``kernels.dispatch``.
 
     ``per_frame`` switches every CRC requant to per-frame calibration
@@ -436,6 +448,9 @@ def _execute_steps(steps: Tuple[PlanStep, ...], params: Dict[str, Dict],
     inter-stage CRC scale is a whole-frame max, so fusion applies only
     under per-frame calibration or at batch 1; per-tensor calibration at
     batch > 1 runs the unfused per-layer path (bitwise the same numbers).
+
+    ``routes`` are the plan's ``strip_routes`` (``None``: each strip conv
+    resolves its own with the default rule).
 
     ``weights`` are the layers' quantized ``(wq, ws)`` from
     :func:`quantized_weights`, made once by a bound view; ``None``
@@ -453,6 +468,7 @@ def _execute_steps(steps: Tuple[PlanStep, ...], params: Dict[str, Dict],
         return quantize_weight(params[step.name]["w"], step.wa,
                                consts["w_qmax"][step.name])
 
+    routes = routes or {}
     a_qmax = consts["a_qmax"]
     def requant(t):
         return _crc_requant(t, a_qmax, per_frame, reduce_max)
@@ -499,7 +515,8 @@ def _execute_steps(steps: Tuple[PlanStep, ...], params: Dict[str, Dict],
             wq, ws = qweight(step)
             acc = dispatch.conv_int(x, wq, step.stride, step.pads,
                                     groups=step.groups,
-                                    strategy=step.strategy, backend=backend)
+                                    strategy=step.strategy, backend=backend,
+                                    route=routes.get(step.name))
             out = acc * (act_scale * ws.reshape(1, 1, 1, -1))
             if p.get("b") is not None:
                 out = out + p["b"]
@@ -564,4 +581,5 @@ def _execute(plan: CompiledPlan, params: Dict[str, Dict],
                               weights=weights,
                               exact_checked=(weights is not None
                                              or plan.exact_proven),
-                              reduce_max=reduce_max)
+                              reduce_max=reduce_max,
+                              routes=plan.strip_routes)

@@ -6,6 +6,10 @@
 //                           over a whole frame as one strip, stands in for
 //                           kernel.py::conv_bank_kernel (_conv_kernel)
 //   conv_strip_dw_launch -> conv_strip_depthwise_kernel (_conv_strip_dw_kernel)
+//   conv_strip_int_launch -> conv_strip_kernel again, and conv_bank_kernel
+//                           over a whole frame, for integer operands: u8
+//                           codes x s8 levels on the int8 tensor cores
+//                           (conv_igemm_kernel, below)
 //
 // Contract (the TPU kernels'): x is [B, Hp, Wp, C_in], already padded, and
 // the output is every row the padded input yields,
@@ -84,6 +88,49 @@
 // shared memory; float32 slots; two loader warps beside four compute
 // warps) were all bitwise and all slower on the path's calls (PERF.md,
 // Findings).
+
+// Dense on the tensor cores (conv_igemm_kernel<KT, MT, NT, WM, WN>): VGG16's
+// conv1-conv10 (3-512 input channels, 28-224 wide, batch 8) are about 112 G
+// MACs a batch: 0.113 ms of int8 operations at 1,979 TOP/s. With its own
+// operands (u8 in, s8 weights, float32 out) bytes bound conv1-conv5 and
+// operations conv6-conv10: 0.182 ms in all (the float32 carriers the
+// route had before would count 0.229). The float64 kernel above ran them
+// on the FP64 units at ~25% of their rate, 26.6 ms a batch. This kernel
+// is an implicit GEMM: M the output pixels, N the output channels,
+// K = k*k*C_in, as
+//   * a CTA takes a tile of th x tw output pixels (128 slots; the tile's
+//     shape follows the conv's width: 8 x 16 at 224 and 112, 4 x 28 at 28)
+//     for 16, 32 or 64 output channels, 4 warps of 64 x 32 (or 32 x 32,
+//     32 x 16) slots x channels, 2 x 4 (2 x 2) m16n8 fragments each;
+//   * K runs over C_in in 32-byte chunks. A chunk stages the tile's input
+//     patch once, (k-1) halo included, as u8 [pixel][32 + 16 bytes], and
+//     the chunk's weights as s8 [tap][channel][32 + 16 bytes], k contiguous,
+//     by 16-byte cp.async (zero fill past the input, C_in and C_out) into a
+//     ring of 2 stages, so chunk i+1 is in flight while chunk i is summed;
+//   * the k*k taps are shifted views of the one staged patch: a lane's
+//     ldmatrix row address for each fragment is computed once, a tap adds
+//     a uniform offset. So each input byte is read from device memory
+//     about once (the halo: 1.4x at 8 x 16, k = 3), not k*k times as an
+//     im2col would; the 48-byte rows (3 16-byte units, odd) put the 8 rows
+//     of an ldmatrix on 8 different bank groups;
+//   * fragments by ldmatrix.x4, products by mma.sync.m16n8k32 u8 x s8 ->
+//     s32; k = 3 is an instantiation with the taps unrolled;
+//   * C_in of at most 4 (conv1's 3) folds the taps into K instead
+//     (conv_igemm_fold_kernel): the caller pads the codes to 4 channels,
+//     a tap's channels are one 32-bit word, K = k*k*4 rounded up to 32
+//     (2 mma steps at k = 3, not 9 over 32-channel chunks of 3 real ones);
+//     other C_in not a multiple of 16 are zero-filled up to 16 by the
+//     caller and to 32 by the copies;
+//   * the epilogue writes two channels a lane (8 bytes) where C_out is even.
+// The tile, the channel block and the stages come from the wrapper's plain
+// Python function (kernels/conv_bank/strip.py::igemm_config); which dense
+// shapes take this kernel and which the float64 one is
+// strip.py::dense_route, from the card's measurements of both (PERF.md).
+// Numerics: codes 0..255 times levels |q| <= 127 are exact in int32 in any
+// order while 255 * 127 * k * k * C_in < 2^31 (the launcher refuses the
+// rest), and __int2float_rn of the exact sum is the float64 tap loop's
+// exact sum rounded once to float32: bitwise the plain version, past 2^24
+// too. The epilogue is the float64 kernel's, on explicit _rn intrinsics.
 
 // Numerics: the accumulate is float64. Every product of two float32 is
 // exact in float64, and for the integer codes x levels of the device path
@@ -627,6 +674,419 @@ int launch_dw_k(const DwLaunch& l) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// dense, int8 implicit GEMM on the tensor cores
+// ---------------------------------------------------------------------------
+
+// 16 bytes, or 16 zero bytes when `valid` is false (src-size 0: nothing read)
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
+                                                 bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(gmem), "r"(valid ? 16 : 0));
+}
+
+// four 8 x 16-byte matrices; lane l gives the row address of matrix l / 8
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void mma_u8s8(int (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// dequant -> bias -> act on an exact int32 accumulate, as epilogue()
+__device__ __forceinline__ float epilogue_int(int acc, const float* ws,
+                                              const float* bias, int co,
+                                              float act_scale, int act) {
+  float v = __int2float_rn(acc);
+  if (ws != nullptr) {
+    v = __fmul_rn(__fmul_rn(v, act_scale), ws[co]);
+    if (bias != nullptr) v = __fadd_rn(v, bias[co]);
+    v = activate(v, act);
+  }
+  return v;
+}
+
+constexpr int kIgCh = 32;          // input channels (bytes) a stage holds
+constexpr int kIgLd = kIgCh + 16;  // bytes a staged pixel or weight row
+                                   // takes: 3 16-byte units, odd, so the 8
+                                   // rows of an ldmatrix hit 8 bank groups
+constexpr int kIgBm = 128;         // output pixel slots of a CTA
+constexpr int kIgFoldC = 4;        // channels (bytes) a folded tap carries
+constexpr int kIgFoldK = 128;      // most K bytes of a folded conv
+
+struct Igemm {
+  int hp, wp, c_in, c_out, k, stride;  // c_in a multiple of 16, or 4
+  int kf;                   // folded: K = k*k*4 rounded up to 32; else 0
+  int n_rows, w_out;        // output rows and columns
+  int th, tw;               // a CTA's tile: th output rows x tw columns
+  int tiles_w, tiles;       // tiles across a row, tiles a frame
+  int n_blocks;             // output-channel blocks
+  int rows_in, cols_in;     // the staged input patch, halo included
+  int patch_bytes, stage_bytes;
+  float act_scale;
+  int act;
+};
+
+// A CTA's frame, first output pixel and first output channel: blockIdx.x
+// walks the channel blocks fastest, so neighbouring CTAs stage the same
+// input tile while it is in L2
+struct IgTile {
+  int b, oh0, ow0, n0;
+  __device__ __forceinline__ IgTile(const Igemm& g, int bn) {
+    const int nb = blockIdx.x % g.n_blocks;
+    const int mtile = blockIdx.x / g.n_blocks;
+    b = mtile / g.tiles;
+    const int t = mtile - b * g.tiles;
+    const int th_i = t / g.tiles_w;
+    oh0 = th_i * g.th;
+    ow0 = (t - th_i * g.tiles_w) * g.tw;
+    n0 = nb * bn;
+  }
+};
+
+// c0, c1 at pixel slot lane / 4, channels 2 * (lane & 3) and + 1; c2, c3
+// at slot lane / 4 + 8: a lane writes 8 contiguous bytes where c_out is
+// even, four lanes one 32-byte sector
+template <int MT, int NT, int WN>
+__device__ __forceinline__ void store_tile(
+    const int (&acc)[MT][NT][4], const float* __restrict__ ws,
+    const float* __restrict__ bias, float* __restrict__ out, const Igemm& g,
+    int b, int oh0, int ow0, int n0, int wm, int wn, int lane) {
+  const int tile_px = g.th * g.tw;
+  const bool pairs = (g.c_out & 1) == 0;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = (wm * MT + i) * 16 + (lane >> 2) + 8 * h;
+      if (p >= tile_px) continue;
+      const int tr = p / g.tw;
+      const int oh = oh0 + tr;
+      const int ow = ow0 + p - tr * g.tw;
+      if (oh >= g.n_rows || ow >= g.w_out) continue;
+      float* o = out + (((size_t)b * g.n_rows + oh) * g.w_out + ow) *
+                           g.c_out;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int co = n0 + (wn * NT + j) * 8 + (lane & 3) * 2;
+        if (co >= g.c_out) continue;
+        const float v0 = epilogue_int(acc[i][j][2 * h], ws, bias, co,
+                                      g.act_scale, g.act);
+        if (co + 1 >= g.c_out) {
+          o[co] = v0;
+          continue;
+        }
+        const float v1 = epilogue_int(acc[i][j][2 * h + 1], ws, bias, co + 1,
+                                      g.act_scale, g.act);
+        if (pairs) {
+          *(float2*)(o + co) = make_float2(v0, v1);
+        } else {
+          o[co] = v0;
+          o[co + 1] = v1;
+        }
+      }
+    }
+  }
+}
+
+// One CTA: the th x tw output pixels of one tile (at most kIgBm, in
+// row-major slots) for BN = WN*NT*8 output channels; WM x WN warps, each
+// MT m16 fragments of pixel slots x NT n8 fragments of channels. A stage
+// holds a C_in chunk of 32 bytes: the patch as u8 [rows_in*cols_in][kIgLd]
+// (a pixel's 32 channels, then 16 unused bytes), the chunk's weights as s8
+// [k*k][BN][kIgLd] (an output channel's 32 input channels, k contiguous:
+// the mma's "col" B operand). Tap (di, dj) reads the patch shifted by di
+// rows and dj columns: one ldmatrix address a lane and fragment, plus a
+// uniform offset a tap.
+template <int KT, int MT, int NT, int WM, int WN>
+__global__ void __launch_bounds__(32 * WM * WN)
+conv_igemm_kernel(const uint8_t* __restrict__ x, const int8_t* __restrict__ w,
+                  const float* __restrict__ ws, const float* __restrict__ bias,
+                  float* __restrict__ out, const Igemm g) {
+  constexpr int THREADS = 32 * WM * WN;
+  constexpr int BN = WN * NT * 8;
+  static_assert(WM * MT * 16 == kIgBm, "a CTA has kIgBm pixel slots");
+  static_assert(NT % 2 == 0, "B fragments load in pairs");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int k = KT > 0 ? KT : g.k;
+  const int s = g.stride;
+  const int taps = k * k;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp / WN;
+  const int wn = warp - wm * WN;
+  const IgTile tl(g, BN);
+  const int b = tl.b, oh0 = tl.oh0, ow0 = tl.ow0, n0 = tl.n0;
+  const int ih0 = oh0 * s;
+  const int iw0 = ow0 * s;
+  const int tile_px = g.th * g.tw;
+  const int n_chunks = (g.c_in + kIgCh - 1) / kIgCh;
+  const unsigned sbase = (unsigned)__cvta_generic_to_shared(smem);
+
+  // chunk `chunk` into stage `slot`: 16-byte copies, zero past the padded
+  // input, past c_in and past c_out
+  auto stage = [&](int slot, int chunk) {
+    unsigned char* ps = smem + (size_t)slot * g.stage_bytes;
+    unsigned char* wsm = ps + g.patch_bytes;
+    const int c0 = chunk * kIgCh;
+    const int pieces = g.rows_in * g.cols_in * 2;
+    for (int q = tid; q < pieces; q += THREADS) {
+      const int px = q >> 1;
+      const int ch = c0 + 16 * (q & 1);
+      const int r = px / g.cols_in;
+      const int c = px - r * g.cols_in;
+      const bool ok = ih0 + r < g.hp && iw0 + c < g.wp && ch < g.c_in;
+      cp_async16_zfill(ps + px * kIgLd + 16 * (q & 1),
+                       ok ? x + (((size_t)b * g.hp + ih0 + r) * g.wp +
+                                 iw0 + c) * g.c_in + ch
+                          : x,
+                       ok);
+    }
+    const int wpieces = taps * BN * 2;
+    for (int q = tid; q < wpieces; q += THREADS) {
+      const int row = q >> 1;               // tap * BN + n
+      const int tap = row / BN;
+      const int n = row - tap * BN;
+      const int ch = c0 + 16 * (q & 1);
+      const bool ok = n0 + n < g.c_out && ch < g.c_in;
+      cp_async16_zfill(wsm + row * kIgLd + 16 * (q & 1),
+                       ok ? w + ((size_t)tap * g.c_out + n0 + n) * g.c_in + ch
+                          : w,
+                       ok);
+    }
+  };
+
+  // the ldmatrix row a lane gives: A, pixel slot (lane & 15) of each
+  // fragment (a slot past the tile reads pixel 0; its sums are dropped),
+  // k half lane / 16; B, channel (lane & 7) + 8 * (lane / 16) of each pair
+  // of n8 fragments, k half (lane / 8) & 1
+  int a_off[MT];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int p = (wm * MT + i) * 16 + (lane & 15);
+    int px = 0;
+    if (p < tile_px) {
+      const int tr = p / g.tw;
+      px = tr * s * g.cols_in + (p - tr * g.tw) * s;
+    }
+    a_off[i] = px * kIgLd + (lane >> 4) * 16;
+  }
+  const int b_off = (wn * NT * 8 + (lane & 7) + ((lane >> 4) << 3)) * kIgLd +
+                    ((lane >> 3) & 1) * 16;
+
+  int acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+
+  stage(0, 0);
+  cp_async_commit();
+  for (int ci = 0; ci < n_chunks; ++ci) {
+    if (ci + 1 < n_chunks) stage((ci + 1) & 1, ci + 1);
+    cp_async_commit();
+    cp_async_wait<1>();        // chunk ci has landed
+    __syncthreads();
+    const unsigned ps = sbase + (ci & 1) * g.stage_bytes;
+    const unsigned wsm = ps + g.patch_bytes + b_off;
+#pragma unroll
+    for (int di = 0; di < k; ++di) {
+#pragma unroll
+      for (int dj = 0; dj < k; ++dj) {
+        const unsigned pa = ps + (di * g.cols_in + dj) * kIgLd;
+        const unsigned pb = wsm + (di * k + dj) * BN * kIgLd;
+        uint32_t bf[NT / 2][4];
+#pragma unroll
+        for (int j = 0; j < NT / 2; ++j) ldsm_x4(bf[j], pb + j * 16 * kIgLd);
+        uint32_t af[MT][4];
+#pragma unroll
+        for (int i = 0; i < MT; ++i) ldsm_x4(af[i], pa + a_off[i]);
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+            mma_u8s8(acc[i][j], af[i], bf[j / 2][2 * (j & 1)],
+                     bf[j / 2][2 * (j & 1) + 1]);
+      }
+    }
+    __syncthreads();           // slot free for chunk ci + 2
+  }
+
+  store_tile<MT, NT, WN>(acc, ws, bias, out, g, b, oh0, ow0, n0, wm, wn,
+                         lane);
+}
+
+// Small C_in (conv1's 3): the k*k taps folded into K. The codes carry 4
+// channels (the caller's zero padding), so a tap's channels are one 32-bit
+// word, and K = k*k*4 rounded up to 32 bytes (kf, at most 128): 2 mma
+// steps for k = 3 instead of 9 over zero-filled 32-channel chunks. One
+// stage: the patch as u32 [rows_in*cols_in], 4-byte cp.async a pixel, and
+// the weights as s8 [BN][kf + 16] (k = tap*4 + c, zero past k*k*4). The A
+// fragment's register for slot r and k = 4*t .. 4*t + 3 is the patch word
+// of slot r's pixel shifted by tap t: one 32-bit shared load, no
+// ldmatrix; taps past k*k read any word (their weights are zero).
+template <int KT, int MT, int NT, int WM, int WN>
+__global__ void __launch_bounds__(32 * WM * WN)
+conv_igemm_fold_kernel(const uint8_t* __restrict__ x,
+                       const int8_t* __restrict__ w,
+                       const float* __restrict__ ws,
+                       const float* __restrict__ bias,
+                       float* __restrict__ out, const Igemm g) {
+  constexpr int THREADS = 32 * WM * WN;
+  constexpr int BN = WN * NT * 8;
+  static_assert(WM * MT * 16 == kIgBm, "a CTA has kIgBm pixel slots");
+  static_assert(NT % 2 == 0, "B fragments load in pairs");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int k = KT > 0 ? KT : g.k;
+  const int s = g.stride;
+  const int taps = k * k;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp / WN;
+  const int wn = warp - wm * WN;
+  const IgTile tl(g, BN);
+  const int b = tl.b, oh0 = tl.oh0, ow0 = tl.ow0, n0 = tl.n0;
+  const int ih0 = oh0 * s;
+  const int iw0 = ow0 * s;
+  const int tile_px = g.th * g.tw;
+  const int ldw = g.kf + 16;
+  uint32_t* patch = (uint32_t*)smem;
+  unsigned char* wsm = smem + g.patch_bytes;
+
+  for (int px = tid; px < g.rows_in * g.cols_in; px += THREADS) {
+    const int r = px / g.cols_in;
+    const int c = px - r * g.cols_in;
+    const bool ok = ih0 + r < g.hp && iw0 + c < g.wp;
+    cp_async4(patch + px,
+              ok ? x + (((size_t)b * g.hp + ih0 + r) * g.wp + iw0 + c) *
+                           kIgFoldC
+                 : x,
+              ok);
+  }
+  const int row_pieces = g.kf / 16;
+  for (int q = tid; q < BN * row_pieces; q += THREADS) {
+    const int n = q / row_pieces;
+    const int j = q - n * row_pieces;
+    const bool ok = n0 + n < g.c_out;
+    cp_async16_zfill(wsm + n * ldw + 16 * j,
+                     ok ? w + (size_t)(n0 + n) * g.kf + 16 * j : w, ok);
+  }
+  cp_async_commit();
+
+  // the patch word of each fragment's slots lane / 4 and lane / 4 + 8
+  int base[MT][2];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = (wm * MT + i) * 16 + (lane >> 2) + 8 * h;
+      int px = 0;
+      if (p < tile_px) {
+        const int tr = p / g.tw;
+        px = tr * s * g.cols_in + (p - tr * g.tw) * s;
+      }
+      base[i][h] = px;
+    }
+  }
+  const unsigned b_addr = (unsigned)__cvta_generic_to_shared(wsm) +
+                          (wn * NT * 8 + (lane & 7) + ((lane >> 4) << 3)) *
+                              ldw +
+                          ((lane >> 3) & 1) * 16;
+
+  int acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+
+  cp_async_wait<0>();
+  __syncthreads();
+  const int steps = g.kf / 32;
+  for (int ks = 0; ks < steps; ++ks) {
+    // this lane's two taps of the step: k = 4 * (8 * ks + lane % 4) and
+    // 16 bytes further
+    const int t0 = 8 * ks + (lane & 3);
+    const int t1 = t0 + 4;
+    const int o0 = t0 < taps ? (t0 / k) * g.cols_in + t0 % k : 0;
+    const int o1 = t1 < taps ? (t1 / k) * g.cols_in + t1 % k : 0;
+    uint32_t bf[NT / 2][4];
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j)
+      ldsm_x4(bf[j], b_addr + j * 16 * ldw + ks * 32);
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const uint32_t af[4] = {patch[base[i][0] + o0], patch[base[i][1] + o0],
+                              patch[base[i][0] + o1], patch[base[i][1] + o1]};
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        mma_u8s8(acc[i][j], af, bf[j / 2][2 * (j & 1)],
+                 bf[j / 2][2 * (j & 1) + 1]);
+    }
+  }
+  store_tile<MT, NT, WN>(acc, ws, bias, out, g, b, oh0, ow0, n0, wm, wn,
+                         lane);
+}
+
+struct IgLaunch {
+  const void* x;
+  const void* w;
+  const void* ws;
+  const void* bias;
+  void* out;
+  int batch, stages;
+  Igemm g;
+  cudaStream_t stream;
+};
+
+template <typename Kernel>
+int launch_igemm_fn(Kernel kernel, int threads, const IgLaunch& l) {
+  const size_t bytes = (size_t)l.stages * l.g.stage_bytes;
+  if (bytes > (size_t)kSmemMax) return (int)cudaErrorInvalidConfiguration;
+  if (bytes > (size_t)kSmemDefault) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const long long ctas = (long long)l.batch * l.g.tiles * l.g.n_blocks;
+  if (ctas > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<(unsigned)ctas, threads, bytes, l.stream>>>(
+      (const uint8_t*)l.x, (const int8_t*)l.w, (const float*)l.ws,
+      (const float*)l.bias, (float*)l.out, l.g);
+  return (int)cudaGetLastError();
+}
+
+template <int KT, int MT, int NT, int WM, int WN>
+int launch_igemm_k(const IgLaunch& l) {
+  if (l.g.kf > 0) {
+    return launch_igemm_fn(conv_igemm_fold_kernel<KT, MT, NT, WM, WN>,
+                           32 * WM * WN, l);
+  }
+  return launch_igemm_fn(conv_igemm_kernel<KT, MT, NT, WM, WN>, 32 * WM * WN,
+                         l);
+}
+
+template <int MT, int NT, int WM, int WN>
+int launch_igemm_bn(const IgLaunch& l) {
+  if (l.g.k == 3) return launch_igemm_k<3, MT, NT, WM, WN>(l);
+  return launch_igemm_k<0, MT, NT, WM, WN>(l);
+}
+
 template <int CB>
 int launch_dw_cb(const DwLaunch& l, int run) {
   const bool fast = l.g.stride == 1 && (l.g.k == 3 || l.g.k == 5 ||
@@ -729,6 +1189,68 @@ extern "C" int conv_strip_dw_launch(const void* x, const void* w_taps,
     case 1: return launch_dw_cb<1>(l, run);
     case 3: return launch_dw_cb<3>(l, run);
     case 4: return launch_dw_cb<4>(l, run);
+    default: return bad;
+  }
+}
+
+// int8 implicit GEMM: x [B, Hp, Wp, C_in] u8 codes, w_t [k*k, C_out, C_in]
+// s8 levels (C_in a multiple of 16, both 16-byte aligned); or, folded, C_in
+// = 4 with k*k*4 <= 128, x 4-byte aligned and w_t [C_out, kf] (k = tap*4 +
+// c, kf = k*k*4 rounded up to 32, zero past k*k*4); ws, bias: [C_out] or
+// null; out [B, (Hp-k)/stride+1, (Wp-k)/stride+1, C_out] float32. The tile
+// is th x tw output pixels (at most 128), bn output channels a CTA (16, 32
+// or 64), stages 2 when C_in takes more than one 32-byte chunk and 1
+// otherwise, as kernels/conv_bank/strip.py::igemm_config picks them;
+// anything else, or a shape whose accumulate could leave int32 (255 * 127
+// * k * k * C_in >= 2^31), is refused with cudaErrorInvalidValue.
+extern "C" int conv_strip_int_launch(const void* x, const void* w,
+                                     const void* ws, const void* bias,
+                                     void* out, int batch, int hp, int wp,
+                                     int c_in, int c_out, int k, int stride,
+                                     float act_scale, int act, int th, int tw,
+                                     int bn, int stages, void* stream) {
+  const int bad = (int)cudaErrorInvalidValue;
+  const int kf = c_in == kIgFoldC ? (k * k * kIgFoldC + 31) / 32 * 32 : 0;
+  if ((kf == 0 && (c_in < 16 || c_in % 16 != 0)) || kf > kIgFoldK ||
+      c_out < 1 || th < 1 || tw < 1 || th * tw > kIgBm || k < 1 ||
+      stride < 1 || hp < k || wp < k || batch < 1 ||
+      (uintptr_t)x % (kf > 0 ? 4 : 16) != 0 || (uintptr_t)w % 16 != 0 ||
+      255LL * 127 * k * k * c_in >= (1LL << 31)) {
+    return bad;
+  }
+  if (stages != ((c_in + kIgCh - 1) / kIgCh > 1 ? 2 : 1)) return bad;
+  Igemm g{};
+  g.kf = kf;
+  g.hp = hp;
+  g.wp = wp;
+  g.c_in = c_in;
+  g.c_out = c_out;
+  g.k = k;
+  g.stride = stride;
+  g.n_rows = (hp - k) / stride + 1;
+  g.w_out = (wp - k) / stride + 1;
+  g.th = th;
+  g.tw = tw;
+  g.tiles_w = (g.w_out + tw - 1) / tw;
+  g.tiles = (g.n_rows + th - 1) / th * g.tiles_w;
+  g.n_blocks = (c_out + bn - 1) / bn;
+  g.rows_in = (th - 1) * stride + k;
+  g.cols_in = (tw - 1) * stride + k;
+  if (kf > 0) {
+    g.patch_bytes = (g.rows_in * g.cols_in * kIgFoldC + 15) / 16 * 16;
+    g.stage_bytes = g.patch_bytes + bn * (kf + 16);
+  } else {
+    g.patch_bytes = g.rows_in * g.cols_in * kIgLd;
+    g.stage_bytes = g.patch_bytes + k * k * bn * kIgLd;
+  }
+  g.act_scale = act_scale;
+  g.act = act;
+  const IgLaunch l{x, w, ws, bias, out, batch, stages, g,
+                   (cudaStream_t)stream};
+  switch (bn) {
+    case 64: return launch_igemm_bn<4, 4, 2, 2>(l);
+    case 32: return launch_igemm_bn<2, 4, 4, 1>(l);
+    case 16: return launch_igemm_bn<2, 2, 4, 1>(l);
     default: return bad;
   }
 }

@@ -11,7 +11,10 @@ Two strategies, resolved like ``dispatch.select_conv_strategy``:
   strip    — ``strip.conv_strip`` over the strips the strategy resolved.
 
 Both accumulate the same exact integers on the quantized path, so they are
-bitwise equal there. Without a spec the op is a float conv: the kernel
+bitwise equal there. Where ``strip.dense_route`` sends the shape to the
+int8 tensor-core kernel, the quantized path runs ``strip.conv_strip_int``
+over the whole frame instead, in either strategy (counted on its
+``INT_LAUNCHES``). Without a spec the op is a float conv: the kernel
 sums float64 products in its own order, so it agrees with the reference's
 float mode within a tolerance, not bitwise.
 """
@@ -91,6 +94,12 @@ def _conv_bank(x, w, spec, act_scale, padding, strategy, act, bias,
         codes = torch.clamp(torch.round(true_div(x.float(), act_scale)), 0,
                             spec.a_qmax)
         wq, ws = quantize_weight(w, spec)
+        if SK.dense_route(x.shape[-1], c_out, kk, 1) == "int":
+            # u8 codes (0..a_qmax <= 255) x s8 levels, the whole frame in
+            # one launch whatever the strategy
+            xin, w8 = SK.int_operands(codes, wq, ((pad, pad), (pad, pad)))
+            run = SK.conv_strip_int_ref if plain else SK.conv_strip_int
+            return run(xin, w8, ws.reshape(-1), 1, act_scale, act, bias)
         xin, wf, wsf = codes, wq.float(), ws.reshape(-1)
     else:
         xin, wf, wsf = x.float(), w.float(), None

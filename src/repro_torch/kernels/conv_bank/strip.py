@@ -40,12 +40,16 @@ from repro_torch.kernels.conv_bank.ref import conv_taps_int
 
 LAUNCHES = _build.LaunchCounter("conv_strip")
 DW_LAUNCHES = _build.LaunchCounter("conv_strip_depthwise")
+INT_LAUNCHES = _build.LaunchCounter("conv_strip_int")
 _DW_ENTRY = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6 + (
+    ctypes.c_float,) + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
+_DENSE_ENTRY = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7 + (
     ctypes.c_float,) + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
 _SIGNATURES = {
     "conv_strip_launch": (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7 + (
         ctypes.c_float,) + (ctypes.c_int,) * 6 + (ctypes.c_void_p,),
-    "conv_strip_dw_launch": _DW_ENTRY}
+    "conv_strip_dw_launch": _DW_ENTRY,
+    "conv_strip_int_launch": _DENSE_ENTRY}
 
 SMS = 132                       # H100 SXM
 SMEM_MAX = 232448               # bytes a CTA can opt into
@@ -58,6 +62,25 @@ DENSE_SHAPES = ((8, 4, 128), (4, 8, 128), (4, 4, 128), (4, 4, 64),
 DW_THREADS = (128, 64, 32)      # depthwise CTA sizes in order of preference
 DW_FAST_RUN, DW_RUN = 8, 4      # depthwise rows a thread: k 3/5/7 at
                                 # stride 1, and any other k or stride
+# the int8 tensor-core kernel (conv_igemm_kernel): output pixel slots a CTA,
+# input channels (bytes) a stage, bytes a staged pixel or weight row takes,
+# the output-channel blocks it is built for, the channel multiple its
+# operands carry
+IGEMM_BM = 128
+IGEMM_CH = 32
+IGEMM_LD = IGEMM_CH + 16
+IGEMM_BN = (16, 32, 64)
+IGEMM_C_ALIGN = 16
+IGEMM_FOLD_C, IGEMM_FOLD_K = 4, 128          # taps folded into K: channels a
+                                             # tap carries, most K bytes
+IGEMM_TW = (1, 2, 4, 8, 16, 32, 64, 128)    # tile widths besides w_out
+INT_CODE_MAX, INT_LEVEL_MAX = 255, 127       # u8 codes, s8 levels
+# the route rule (PERF.md gives the card's times of both kernels at every
+# path shape): dense shapes from this many input channels, and folded
+# shapes (C_in <= 4, k*k*4 <= 128) from this many output channels, take
+# the int8 kernel; the rest the float64 one
+IGEMM_MIN_C_IN = 16
+IGEMM_MIN_C_OUT = 64
 
 
 @dataclass(frozen=True)
@@ -190,6 +213,124 @@ def dw_config(batch: int, n_rows: int, w_out: int, c: int, k: int,
                     _cdiv(c, cb))
 
 
+@dataclass(frozen=True)
+class IgemmConfig:
+    """One launch of the int8 tensor-core kernel: a tile of ``th`` output
+    rows x ``tw`` columns (at most ``IGEMM_BM`` pixels) for ``bn`` output
+    channels a CTA, C_in in ``IGEMM_CH``-byte chunks through ``stages``
+    shared-memory stages."""
+    k_inst: int                 # the kernel's KT: 3, or 0 (any k)
+    th: int
+    tw: int
+    bn: int
+    stages: int
+    smem: int                   # dynamic shared memory, bytes
+    ctas: int
+    kf: int = 0                 # folded taps: K bytes; 0 otherwise
+
+
+def igemm_fold_k(c_in: int, k: int) -> int:
+    """K bytes of the int8 kernel's folded form (the k*k taps of 4 channels
+    each, rounded up to 32), where C_in <= ``IGEMM_FOLD_C`` and they fit
+    ``IGEMM_FOLD_K``; 0 where the conv takes C_in chunks instead."""
+    kf = _cdiv(k * k * IGEMM_FOLD_C, 32) * 32
+    return kf if c_in <= IGEMM_FOLD_C and kf <= IGEMM_FOLD_K else 0
+
+
+def igemm_c_in(c_in: int, k: int) -> int:
+    """The channels the int8 kernel's operands carry (zeros past C_in): 4
+    in the folded form, else C_in rounded up to a multiple of
+    ``IGEMM_C_ALIGN``."""
+    if igemm_fold_k(c_in, k):
+        return IGEMM_FOLD_C
+    return _cdiv(c_in, IGEMM_C_ALIGN) * IGEMM_C_ALIGN
+
+
+def igemm_stage_bytes(th: int, tw: int, bn: int, k: int, stride: int,
+                      kf: int = 0) -> int:
+    """Bytes of one stage of the int8 kernel, as its launcher lays them
+    out: the tile's input patch (halo included) and the chunk's k*k x
+    ``bn`` weight rows, ``IGEMM_LD`` bytes a pixel or row; folded (``kf``
+    K bytes), the patch at 4 bytes a pixel (16-byte aligned) and ``bn``
+    weight rows of ``kf + 16`` bytes."""
+    rows_in = (th - 1) * stride + k
+    cols_in = (tw - 1) * stride + k
+    if kf:
+        return _cdiv(rows_in * cols_in * IGEMM_FOLD_C, 16) * 16 + \
+            bn * (kf + 16)
+    return (rows_in * cols_in + k * k * bn) * IGEMM_LD
+
+
+def int_exact(c_in: int, k: int) -> bool:
+    """Whether every accumulate of u8 codes x s8 levels over k*k*C_in taps
+    stays inside int32 (the launcher refuses the rest)."""
+    return INT_CODE_MAX * INT_LEVEL_MAX * k * k * igemm_c_in(c_in, k) < \
+        2 ** 31
+
+
+@functools.lru_cache(maxsize=1024)
+def igemm_config(batch: int, n_rows: int, w_out: int, c_in: int, c_out: int,
+                 k: int, stride: int) -> IgemmConfig:
+    """The int8 kernel's launch for output [batch, n_rows, w_out, c_out]
+    from c_in channels at k x k, stride ``stride``: the smallest of
+    ``IGEMM_BN`` that holds c_out (64 past it); the tile of the fewest
+    CTAs, then the smallest staged patch, among widths ``w_out`` and
+    ``IGEMM_TW`` (each as tall as ``IGEMM_BM`` slots allow), then the
+    widest, whose stages fit a CTA, with smaller channel blocks tried when none does. Two
+    stages when C_in takes more than one chunk. A shape nothing fits (a
+    very large k) gets the 1 x 1 tile of 16 channels, whose ``smem`` says
+    so: :func:`launch_int` raises on it. C_in <= 4 at k*k*4 <= 128 takes
+    the folded form (``kf``): one stage, the taps in K."""
+    kf = igemm_fold_k(c_in, k)
+    stages = 2 if _cdiv(igemm_c_in(c_in, k), IGEMM_CH) > 1 else 1
+    bn_first = next((bn for bn in IGEMM_BN if bn >= c_out), IGEMM_BN[-1])
+    widths = sorted({tw for tw in (w_out, *IGEMM_TW)
+                     if tw <= min(w_out, IGEMM_BM)})
+    for bn in reversed([bn for bn in IGEMM_BN if bn <= bn_first]):
+        best = None
+        for tw in widths:
+            th = min(IGEMM_BM // tw, n_rows)
+            smem = stages * igemm_stage_bytes(th, tw, bn, k, stride, kf)
+            if smem > SMEM_MAX:
+                continue
+            tiles = _cdiv(n_rows, th) * _cdiv(w_out, tw)
+            patch = ((th - 1) * stride + k) * ((tw - 1) * stride + k)
+            key = (tiles, patch, -tw)   # then the widest: an ldmatrix's 8
+                                        # rows in one tile row
+            if best is None or key < best[0]:
+                best = (key, th, tw, smem)
+        if best is not None:
+            _, th, tw, smem = best
+            return IgemmConfig(3 if k == 3 else 0, th, tw, bn, stages, smem,
+                               batch * best[0][0] * _cdiv(c_out, bn), kf)
+    bn = IGEMM_BN[0]
+    return IgemmConfig(3 if k == 3 else 0, 1, 1, bn, stages,
+                       stages * igemm_stage_bytes(1, 1, bn, k, stride, kf),
+                       batch * n_rows * w_out * _cdiv(c_out, bn), kf)
+
+
+def dense_route(c_in: int, c_out: int, k: int, stride: int) -> str:
+    """Which kernel a dense conv of integer codes takes: ``"int"`` (the
+    int8 tensor-core kernel, :func:`conv_strip_int`) from
+    ``IGEMM_MIN_C_IN`` input channels, or in the folded form (C_in <= 4,
+    k*k*4 <= 128: VGG16's conv1) from ``IGEMM_MIN_C_OUT`` output channels,
+    where its accumulate is exact in int32 and a stage of its smallest
+    tile fits a CTA; ``"float"`` (the float64 kernel, :func:`conv_strip`)
+    otherwise: the imaging path's 1-4 channel convs, which bytes bound and
+    the int route's cast and channel padding would slow, and the 5-15
+    channel shapes no path has. PERF.md gives the card's times of both at
+    every path shape."""
+    wide = c_in >= IGEMM_MIN_C_IN or (
+        igemm_fold_k(c_in, k) and c_out >= IGEMM_MIN_C_OUT)
+    if not wide or not int_exact(c_in, k):
+        return "float"
+    stages = 2 if _cdiv(igemm_c_in(c_in, k), IGEMM_CH) > 1 else 1
+    if stages * igemm_stage_bytes(1, 1, IGEMM_BN[0], k, stride,
+                                  igemm_fold_k(c_in, k)) > SMEM_MAX:
+        return "float"
+    return "int"
+
+
 def pad_rows_for_strips(xp: torch.Tensor, kk: int, stride: int,
                         strip_rows: int, n_strips: int) -> torch.Tensor:
     """Zero-pad the bottom rows of a spatially padded input so ``n_strips``
@@ -254,6 +395,38 @@ def conv_strip_ref(x_padded: torch.Tensor, w: torch.Tensor,
     kk, c_out = w.shape[0], w.shape[-1]
     _out_rows(x_padded, kk, stride, strip_h, "conv_strip")
     _check_epilogue(ws, bias, act, c_out, "conv_strip")
+    acc = conv_taps_int(x_padded, w, kk, stride, ((0, 0), (0, 0)))
+    return _epilogue(acc, act_scale, ws, bias, act)
+
+
+def _check_int(x_padded: torch.Tensor, w: torch.Tensor, stride: int):
+    """The int8 kernel's operands: u8 codes [B, Hp, Wp, C_in], s8 levels
+    [k, k, C_in, C_out], an accumulate that int32 holds."""
+    if x_padded.ndim != 4 or w.ndim != 4 or w.shape[0] != w.shape[1] or \
+            w.shape[2] != x_padded.shape[-1]:
+        raise ValueError(f"conv_strip_int: x {tuple(x_padded.shape)} and w "
+                         f"{tuple(w.shape)} are not [B, Hp, Wp, C_in] and "
+                         f"[k, k, C_in, C_out]")
+    if x_padded.dtype != torch.uint8 or w.dtype != torch.int8:
+        raise ValueError(f"conv_strip_int: operands are {x_padded.dtype} and "
+                         f"{w.dtype}, not uint8 codes and int8 levels")
+    kk, c_in = w.shape[0], w.shape[2]
+    if not int_exact(c_in, kk):
+        raise ValueError(f"conv_strip_int: {INT_CODE_MAX} * {INT_LEVEL_MAX} "
+                         f"* {kk}*{kk} * {igemm_c_in(c_in, kk)} >= 2^31: an "
+                         f"accumulate could leave int32")
+    _out_rows(x_padded, kk, stride, 1, "conv_strip_int")
+    return kk, w.shape[-1]
+
+
+def conv_strip_int_ref(x_padded: torch.Tensor, w: torch.Tensor,
+                       ws: Optional[torch.Tensor] = None, stride: int = 1,
+                       act_scale: float = 1.0, act: str = "none",
+                       bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of :func:`conv_strip_int`: the float64 tap loop of
+    ``ref.conv_taps_int`` and the same epilogue."""
+    kk, c_out = _check_int(x_padded, w, stride)
+    _check_epilogue(ws, bias, act, c_out, "conv_strip_int")
     acc = conv_taps_int(x_padded, w, kk, stride, ((0, 0), (0, 0)))
     return _epilogue(acc, act_scale, ws, bias, act)
 
@@ -373,3 +546,88 @@ def conv_strip_depthwise(x_padded: torch.Tensor, w_taps: torch.Tensor,
     _check_epilogue(ws, bias, act, c, "conv_strip_depthwise")
     return launch(x_padded, w_taps, ws, bias, act_scale, act, stride, True,
                   DW_LAUNCHES)
+
+
+def int_operands(codes: torch.Tensor, w: torch.Tensor,
+                 pads=((0, 0), (0, 0))):
+    """The int8 kernel's operands from integer-valued codes [B, H, W, C]
+    and levels [k, k, C, C_out]: the codes cast to uint8 and then, in one
+    ``F.pad``, given the border ``pads`` ((top, bottom), (left, right))
+    and zero channels up to :func:`igemm_c_in`'s; the levels cast to int8
+    and given the same zero channels. Operands already in that form come
+    back as they are."""
+    kk, c_in = w.shape[0], w.shape[2]
+    cpad = igemm_c_in(c_in, kk) - c_in
+    (plo, phi), (qlo, qhi) = pads
+    x8, w8 = codes.to(torch.uint8), w.to(torch.int8)
+    if cpad or plo or phi or qlo or qhi:
+        x8 = F.pad(x8, (0, cpad, qlo, qhi, plo, phi))
+    if cpad:
+        w8 = F.pad(w8, (0, 0, 0, cpad))
+    return x8, w8
+
+
+def launch_int(x_padded: torch.Tensor, w: torch.Tensor, ws, bias,
+               act_scale: float, act: str, stride: int) -> torch.Tensor:
+    """Launch the int8 kernel on CUDA tensors (validated by the caller) and
+    count it on ``INT_LAUNCHES``: the operands take :func:`int_operands`'s
+    form (callers on the path hand it over already), the levels are laid
+    out as the kernel stages them ([k*k, C_out, C_in], k contiguous;
+    folded, [C_out, kf] with k = tap*4 + c), and :func:`igemm_config`'s
+    configuration is taken."""
+    dev = x_padded.device
+    kk, c_out = w.shape[0], w.shape[-1]
+    b, hp, wp, c_in = x_padded.shape
+    n_rows = (hp - kk) // stride + 1
+    w_out = (wp - kk) // stride + 1
+    for t in (w, ws, bias):
+        if t is not None and t.device != dev:
+            raise ValueError(f"conv_strip_int: operands on {dev} and "
+                             f"{t.device}")
+    x, w = int_operands(x_padded, w)
+    x, c_k = x.contiguous(), x.shape[-1]
+    kf = igemm_fold_k(c_in, kk)
+    wt = w.reshape(kk * kk, c_k, c_out)
+    if kf:
+        wt = F.pad(wt.reshape(-1, c_out).t(),
+                   (0, kf - kk * kk * IGEMM_FOLD_C)).contiguous()
+    else:
+        wt = wt.transpose(1, 2).contiguous()
+    eps = [t if t is None else t.reshape(-1).to(torch.float32).contiguous()
+           for t in (ws, bias)]
+    out = torch.empty((b, n_rows, w_out, c_out), dtype=torch.float32,
+                      device=dev)
+    if out.numel() == 0:
+        return out
+    cfg = igemm_config(b, n_rows, w_out, c_in, c_out, kk, stride)
+    if cfg.smem > SMEM_MAX:
+        raise ValueError(f"conv_strip_int: {cfg.smem} bytes of shared memory "
+                         f"at k={kk} stride={stride}; a CTA has {SMEM_MAX}")
+    lib = _build.library("conv_strip", _SIGNATURES)
+    err = lib.conv_strip_int_launch(
+        x.data_ptr(), wt.data_ptr(),
+        *[None if t is None else t.data_ptr() for t in eps], out.data_ptr(),
+        b, hp, wp, c_k, c_out, kk, stride, float(act_scale),
+        ACTS[act], cfg.th, cfg.tw, cfg.bn, cfg.stages,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "conv_strip_int")
+    INT_LAUNCHES.inc()
+    return out
+
+
+def conv_strip_int(x_padded: torch.Tensor, w: torch.Tensor,
+                   ws: Optional[torch.Tensor] = None, stride: int = 1,
+                   act_scale: float = 1.0, act: str = "none",
+                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Dense k x k conv of u8 codes and s8 levels on the int8 tensor cores:
+    x_padded [B, Hp, Wp, C_in] uint8, w [k, k, C_in, C_out] int8 ->
+    [B, (Hp-k)/stride+1, (Wp-k)/stride+1, C_out] float32, every row the
+    padded input yields (no strip contract), bitwise equal to
+    :func:`conv_strip_int_ref`. Raises where an accumulate could leave
+    int32 (``255 * 127 * k * k * C_in >= 2^31``)."""
+    kk, c_out = _check_int(x_padded, w, stride)
+    _check_epilogue(ws, bias, act, c_out, "conv_strip_int")
+    if not x_padded.is_cuda:
+        return conv_strip_int_ref(x_padded, w, ws, stride, act_scale, act,
+                                  bias)
+    return launch_int(x_padded, w, ws, bias, act_scale, act, stride)

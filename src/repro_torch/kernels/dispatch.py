@@ -24,7 +24,10 @@ budget, so they equal the reference's:
   strip      — convs whose per-frame patch matrix would exceed the budget,
                and every depthwise conv: the strip conv kernels
                (``conv_strip``, ``conv_strip_depthwise``; general grouped
-               convs one dense call per group).
+               convs one dense call per group). A dense launch takes the
+               int8 tensor-core kernel (``conv_strip_int``, over the
+               conv's own rows) or the float64 one by the route rule
+               (:func:`select_strip_route`), resolved with the strategy.
   fused      — runs of chainable convs execute as one ``conv_chain`` launch
                per segment (``select_fused_segments``), under per-frame
                calibration or at batch 1.
@@ -365,16 +368,32 @@ def _im2col(codes: torch.Tensor, k: int, stride: int, pads):
     return patches.reshape(-1, k * k * codes.shape[-1]), h_out, w_out
 
 
+def select_strip_route(c_in: int, c_out: int, kernel: int, stride: int = 1,
+                       groups: int = 1) -> Optional[str]:
+    """Which kernel a strip conv's dense launches take: ``"int"`` (the int8
+    tensor-core kernel, ``strip.conv_strip_int``) or ``"float"`` (the
+    float64 kernel, ``strip.conv_strip``), by ``strip.dense_route`` over
+    one group's channels; ``None`` for a depthwise conv (multiplier 1),
+    which takes ``conv_strip_depthwise``."""
+    if groups > 1 and c_in == c_out == groups:
+        return None
+    from repro_torch.kernels.conv_bank.strip import dense_route
+    return dense_route(c_in // groups, c_out // groups, kernel, stride)
+
+
 def conv_int(codes: torch.Tensor, wq: torch.Tensor, stride: int, pads,
              groups: int = 1, strategy: Optional[ConvStrategy] = None,
-             backend: str = "kernel") -> torch.Tensor:
+             backend: str = "kernel", route: Optional[str] = None
+             ) -> torch.Tensor:
     """Integer-exact conv accumulate: [B,H,W,Cin] codes x [k,k,Cin/g,Cout]
     levels -> f32 [B,H',W',Cout], no dequant.
 
     The kernel backend runs a resident conv as im2col into the photonic MVM
     kernel (one call per group) and a strip conv through the strip kernels.
-    ``strategy`` is what the plan resolved at compile time; ``None``
-    resolves it here with the default rules.
+    ``strategy`` and ``route`` (:func:`select_strip_route`) are what the
+    plan resolved at compile time; ``None`` resolves them here with the
+    default rules. The int route takes codes 0..255 (the plan's CRC codes)
+    and levels within int8.
     """
     _check_backend(backend)
     from repro_torch.kernels.conv_bank.ref import conv_int_ref
@@ -396,8 +415,11 @@ def conv_int(codes: torch.Tensor, wq: torch.Tensor, stride: int, pads,
     if trace_hooks():
         obs.counter(f"dispatch.conv.{strategy.kind}").inc()
     if strategy.kind == "strip":
+        if route is None:
+            route = select_strip_route(codes.shape[-1], c_out, k, stride,
+                                       groups)
         return _conv_int_strip(codes, wq, stride, pads, groups, strategy,
-                               h_out)
+                               h_out, route)
     b = codes.shape[0]
     og = c_out // groups
     outs = []
@@ -412,17 +434,33 @@ def conv_int(codes: torch.Tensor, wq: torch.Tensor, stride: int, pads,
 
 def _conv_int_strip(codes: torch.Tensor, wq: torch.Tensor, stride: int,
                     pads, groups: int, strat: ConvStrategy,
-                    h_out: int) -> torch.Tensor:
+                    h_out: int, route: Optional[str]) -> torch.Tensor:
     """Raw integer accumulate through the strip conv kernels.
 
-    Pads the rows so ``n_strips`` strips tile exactly (zero rows add zero;
-    the surplus output rows are sliced off), then routes: dense ->
-    ``conv_strip``; depthwise, multiplier 1 -> ``conv_strip_depthwise``;
-    general grouped -> one ``conv_strip`` call per group.
+    The int route takes ``strip.int_operands``' form (uint8 codes cast
+    before the one pad of the conv's own border and channels, int8
+    levels) and launches ``conv_strip_int`` over the conv's own ``h_out``
+    rows: dense, or once per group of a general grouped conv. Otherwise
+    the rows
+    are padded so ``n_strips`` strips tile exactly (zero rows add zero;
+    the surplus output rows are sliced off), and: dense -> ``conv_strip``;
+    depthwise, multiplier 1 -> ``conv_strip_depthwise``; general grouped
+    -> one ``conv_strip`` call per group.
     """
     from repro_torch.kernels.conv_bank import strip as SK
     k, _, cg, c_out = wq.shape
     (plo, phi), (qlo, qhi) = pads
+    if route == "int":
+        def run(x, w):
+            return SK.conv_strip_int(*SK.int_operands(x, w, pads),
+                                     stride=stride)
+
+        if groups == 1:
+            return run(codes, wq)
+        og = c_out // groups
+        return torch.cat([run(codes[..., g * cg:(g + 1) * cg],
+                              wq[..., g * og:(g + 1) * og])
+                          for g in range(groups)], dim=-1)
     xp = SK.pad_rows_for_strips(F.pad(codes, (0, 0, qlo, qhi, plo, phi)),
                                 k, stride, strat.strip_rows, strat.n_strips)
     w = wq.to(torch.float32)

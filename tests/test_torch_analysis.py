@@ -453,9 +453,17 @@ def test_audit_catches_a_segment_over_one_ctas_shared_memory():
 def test_audit_catches_a_strip_launch_that_does_not_cover(monkeypatch):
     """Planted strip configurations: half the CTAs a launch needs
     (LTR020, dense and depthwise), and a C_in chunk whose stages a CTA
-    cannot hold (LTR022)."""
-    vgg16 = Program.from_model("vgg16", params={}).compile(
-        dataclasses.replace(CPU, verify="off")).plan
+    cannot hold (LTR022). VGG16's strip convs are compiled onto the
+    float64 kernel's route here (``test_torch_strip_int.py`` plants the
+    int8 kernel's launches on its own route); the plan is kept out of
+    the cache."""
+    monkeypatch.setattr(strip, "dense_route", lambda *a: "float")
+    plan_mod.clear_plan_cache()
+    try:
+        vgg16 = Program.from_model("vgg16", params={}).compile(
+            dataclasses.replace(CPU, verify="off")).plan
+    finally:
+        plan_mod.clear_plan_cache()
     gauss = Program.from_pipeline("denoise_gauss", 64, 64).compile(
         dataclasses.replace(CPU, verify="off")).plan
     assert not analysis.errors(analysis.verify_plan(vgg16))

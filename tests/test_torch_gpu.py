@@ -7,7 +7,8 @@ and be bitwise equal to its plain PyTorch version on the same inputs; the
 whole serving path on the card must equal the port's CPU run, and an
 imaging pipeline served through ``serve.Server`` must equal batch-1 runs.
 VGG16's kernel shapes at 224x224x3 (``VGG16_SHAPES``) are held bitwise at
-batch 1 and 8, its bound graph replays to its eager run, and a plan the
+batch 1 and 8 (conv1-conv10 on both dense strip kernels, the int8 one also
+at the strip edges and the extremes), its bound graph replays to its eager run, and a plan the
 verifier proved runs its fused chain with no range check. The training
 slice: photonic_mvm's float API on signed codes at both routes, and QAT
 steps on the card against the CPU port's. The LM families: every smoke
@@ -620,6 +621,101 @@ def test_vgg16_shapes_bitwise_equal_to_plain(cuda, kernel, shape, batch):
                            mvm_int_ref(a, wq, ws, 0.37))
 
 
+def _strip_int_case(gen, device, b, h_out, w_out, ci, co, k, stride,
+                    codes=256, levels=127):
+    """u8 codes [b, Hp, Wp, ci] in 0..codes-1 and s8 levels [k, k, ci, co]
+    in -levels..levels, with ws and bias, random from ``gen``."""
+    xp = torch.randint(0, codes, (b, (h_out - 1) * stride + k,
+                                  (w_out - 1) * stride + k, ci),
+                       generator=gen, device=device).to(torch.uint8)
+    w = torch.randint(-levels, levels + 1, (k, k, ci, co), generator=gen,
+                      device=device).to(torch.int8)
+    ws = torch.rand((co,), generator=gen, device=device) + 0.5
+    bias = torch.randn((co,), generator=gen, device=device)
+    return xp, w, ws, bias
+
+
+def _check_strip_int(xp, w, ws, bias, stride):
+    """The int8 kernel bitwise its plain version: raw (one launch
+    counted), at every activation with ws and bias, and with ws alone."""
+    reset_launch_counts()
+    got = strip.conv_strip_int(xp, w, stride=stride)
+    assert launch_counts()["conv_strip_int"] == 1
+    assert launch_counts()["conv_strip"] == 0
+    assert torch.equal(got, strip.conv_strip_int_ref(xp, w, stride=stride))
+    for act in ("none", "relu", "abs", "sign"):
+        e = dict(stride=stride, act_scale=0.37, act=act, bias=bias)
+        assert torch.equal(strip.conv_strip_int(xp, w, ws, **e),
+                           strip.conv_strip_int_ref(xp, w, ws, **e)), act
+    e = dict(stride=stride, act_scale=0.37)
+    assert torch.equal(strip.conv_strip_int(xp, w, ws, **e),
+                       strip.conv_strip_int_ref(xp, w, ws, **e))
+
+
+@pytest.mark.parametrize("b,h_out,w_out,ci,co,k,stride", STRIP_EDGES)
+def test_strip_int_kernel_configs_bitwise_equal_to_plain(cuda, b, h_out,
+                                                         w_out, ci, co, k,
+                                                         stride):
+    gen = torch.Generator(device=cuda).manual_seed(b + h_out + ci + k)
+    _check_strip_int(*_strip_int_case(gen, cuda, b, h_out, w_out, ci, co, k,
+                                      stride), stride)
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("shape", VGG16_SHAPES["conv_strip"],
+                         ids=lambda v: v[0])
+def test_strip_int_vgg16_shapes_bitwise_equal_to_plain(cuda, shape, batch):
+    """conv1-conv10 as the int route launches them: over the conv's own
+    rows, W4A4's codes and levels."""
+    _, _, _, w_out, ci, co, k, stride = shape
+    gen = torch.Generator(device=cuda).manual_seed(batch + ci + co)
+    _check_strip_int(*_strip_int_case(gen, cuda, batch, w_out, w_out, ci,
+                                      co, k, stride, codes=16, levels=7),
+                     stride)
+
+
+@pytest.mark.parametrize("ci,co,level", [(512, 64, 127), (512, 64, -127),
+                                         (3, 64, 127), (496, 33, -127)])
+def test_strip_int_kernel_extremes_bitwise_equal_to_plain(cuda, ci, co,
+                                                          level):
+    """Codes 255 and levels +-127 everywhere: |acc| up to 255 * 127 * 9 *
+    512 = 1.49e8, past float32's exact 2^24, rounded once like the plain
+    version's float64 sum; and mixed signs around it."""
+    xp = torch.full((2, 30, 30, ci), 255, dtype=torch.uint8, device=cuda)
+    w = torch.full((3, 3, ci, co), level, dtype=torch.int8, device=cuda)
+    w[1, 1, :, ::2] = -level
+    gen = torch.Generator(device=cuda).manual_seed(ci + co)
+    ws = torch.rand((co,), generator=gen, device=cuda) + 0.5
+    bias = torch.randn((co,), generator=gen, device=cuda)
+    _check_strip_int(xp, w, ws, bias, 1)
+    # the odd channels' taps all share the level's sign: |acc| = 255 * 127
+    # * 9 * ci exactly (1.49e8 at 512 channels, past 2^24)
+    assert strip.conv_strip_int(xp, w).abs().max() == 255 * 127 * 9 * ci
+
+
+@pytest.mark.parametrize("name,x,w,stride,padding,groups", [
+    ("vgg16_like", (2, 56, 56, 64), (3, 3, 64, 128), 1, "SAME", 1),
+    ("conv1_like", (2, 40, 40, 3), (3, 3, 3, 64), 1, "SAME", 1),
+    ("stride2_valid", (2, 65, 63, 32), (3, 3, 32, 16), 2, "VALID", 1),
+    ("groups2", (2, 40, 40, 32), (3, 3, 16, 24), 1, "SAME", 2)])
+def test_conv_int_int_route_on_card_equals_float_route(cuda, name, x, w,
+                                                       stride, padding,
+                                                       groups):
+    gen = torch.Generator(device=cuda).manual_seed(len(name))
+    codes = torch.randint(0, 16, x, generator=gen, device=cuda).float()
+    wq = torch.randint(-7, 8, w, generator=gen, device=cuda).float()
+    pads = padtype_to_pads(x[1:3], w[0], stride, padding)
+    args = (codes, wq, stride, pads, groups)
+    assert dispatch.select_strip_route(x[-1], w[-1], w[0], stride,
+                                       groups) == "int"
+    reset_launch_counts()
+    got = dispatch.conv_int(*args, strategy=dispatch.ConvStrategy(
+        "strip", 8, -(-x[1] // 8)), route="int")
+    assert launch_counts()["conv_strip_int"] == groups
+    assert launch_counts()["conv_strip"] == 0
+    assert torch.equal(got, dispatch.conv_int(*args, backend="reference"))
+
+
 def _vgg16_program():
     from repro_torch.models.vision import init_vision, vgg16_ir
     layers = tuple(vgg16_ir())
@@ -637,8 +733,9 @@ def test_vgg16_bound_graph_replay_bitwise_equal_to_eager(cuda, bucket):
     reset_launch_counts()
     got = np.asarray(bound.run_padded(f, bucket))       # eager + capture
     counts = launch_counts()
-    assert counts["conv_strip"] > 0 and counts["photonic_mvm"] > 0
+    assert counts["conv_strip_int"] > 0 and counts["photonic_mvm"] > 0
     assert counts["conv_chain"] == counts["ca_pool"] == 0
+    assert counts["conv_strip"] == 0           # conv1-10 on the int8 route
     replayed = np.asarray(bound.run_padded(f, bucket))
     eager = exe.run_per_frame(f).cpu().numpy()
     assert got.shape == (len(f), 1000) and np.isfinite(got).all()
