@@ -22,6 +22,9 @@ runs and read just after (all but the LM through ``serve.Server``):
   vgg16    VGG16 at 224x224x3, full width, seeded random weights from
            numpy, W4A4: 3 requests of 1, 3 and 8 frames, eager and bound
            (conv1-conv10 on the int8 strip kernel, ``conv_strip_int``);
+  eager    LightatorDevice.run at bucket 8 (per-tensor calibration,
+           ``plan._execute``): LeNet under W4A4, W3A4 and MX_43, VGG9-CA
+           and VGG16 at 224x224x3, the vision paths' seeded weights;
   train    LeNet and VGG9-CA (full width) QAT-trained on the card under
            W4A4, their weights evaluated with the dense layers on
            photonic_mvm's float API and run per frame (eager), then served
@@ -287,6 +290,20 @@ Phases, each fatal on failure:
      base's, and the memory terms of the narrow carriers against
      serve_tp's (printed, not asserted).
 
+ 16. eager (``[eager]`` lines; run after phase 9, before phase 10):
+     ``LightatorDevice`` on the card, each (model, scheme) of
+     ``EAGER_RUNS`` on 8 frames: ``run_eager`` (the seed's per-layer
+     interpreter: float64 tap-loop convs and products, no port kernel; its
+     launch counts must stay 0) against ``run`` (the cached compile and
+     ``plan._execute``, whose window's counts are the main path's and must
+     equal a bare ``_execute``'s, every kernel of the plan launched):
+     logits bitwise and reports equal field for field, both bitwise the
+     CPU port's ``run_eager`` on the same frames and params; eager and
+     compiled ms a batch (CUDA events, median of ``EAGER_ITERS``) beside
+     ``nvidia-smi``'s name and power limit. Then the examples
+     ``train_lenet_qat --steps 20`` (QAT under five schemes, each deployed
+     on ``LightatorDevice.run``) and ``serve_quantized_lm --gen 8``.
+
 ``--rehearse`` runs every phase on the CPU with the plain versions: no
 graphs, the bound phase on 2 emulated CPU workers, VGG16 at 32x32x3
 (``vgg16_ir(in_hw=32)``, full channel widths, a conv budget that splits
@@ -395,6 +412,15 @@ VGG16_SATURATE_S = 2.0
 REHEARSAL_VGG16_SATURATE_S = 0.2
 VGG16_TRACE = "vgg16_bound_serve_trace.json"
 VGG16_DEVICE_TRACE = "vgg16_device_time_trace.json"
+# the [eager] phase: (model, scheme) run through LightatorDevice at bucket
+# 8, the timed calls of each pass (the rehearsal's on the CPU), and the
+# two examples' settings
+EAGER_RUNS = (("lenet", "w4a4"), ("lenet", "w3a4"), ("lenet", "mx43"),
+              ("vgg9", "w4a4"), ("vgg16", "w4a4"))
+EAGER_ITERS = 5
+REHEARSAL_EAGER_ITERS = 2
+EAGER_QAT_STEPS = 20
+EAGER_LM_GEN = 8
 # the [train] phase: the schemes LeNet trains under, (steps, batch) per
 # model (the rehearsal's on the CPU), held-out frames per model, the served
 # request sizes, fit_recon_head's frame size and frames, timing iterations
@@ -2677,6 +2703,153 @@ def phase_vgg16(device, rehearse, out_dir, ptxas=None):
     log(f"[vgg16] bound saturate: {rep.achieved_fps:.2f} frames/s "
         f"({rep.submitted} single-frame requests in {rep.duration_s:.2f}s)")
     return out, counts, err, n_cmp
+
+
+# ---------------------------------------------------------------------------
+# the [eager] phase
+# ---------------------------------------------------------------------------
+
+def per_call_ms(device, fn, iters):
+    """Each of ``iters`` calls of ``fn`` in ms (CUDA events on the card,
+    the host clock on the CPU), after one warm-up call."""
+    import torch
+    fn()
+    out = []
+    for _ in range(iters):
+        if device.type == "cuda":
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def phase_eager(device, rehearse, vision_progs, smi):
+    """LightatorDevice on the card (the module docstring's phase 16).
+    Returns its detail and the launch counts of its ``run`` windows."""
+    import dataclasses
+    import statistics
+    import warnings
+    import torch
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.accelerator import LightatorDevice
+    from repro_torch.core.quant import MX_43, W3A4, W4A4
+    from repro_torch.examples import serve_quantized_lm, train_lenet_qat
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    t_phase = time.perf_counter()
+    schemes = {"w4a4": W4A4, "w3a4": W3A4, "mx43": MX_43}
+    hw = REHEARSAL_VGG16_HW if rehearse else VGG16_HW
+    progs = {**vision_progs, "vgg16": vgg16_program(hw)}
+    iters = REHEARSAL_EAGER_ITERS if rehearse else EAGER_ITERS
+    out, counts = {"runs": {}}, {}
+    for name, key in EAGER_RUNS:
+        prog, scheme = progs[name], schemes[key]
+        label = f"{name} {key}"
+        budget = REHEARSAL_VGG16_BUDGET if rehearse and name == "vgg16" \
+            else None
+        dev = LightatorDevice(device=str(device), conv_vmem_budget=budget)
+        f = frames_for(prog, BUCKET, 1800)
+        params = dev._params(prog.params)
+        frames = dev._tensor(f)
+        reset_launch_counts()
+        eager, erep = dev.run_eager(prog.layers, params, frames, scheme)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        eager_counts = launch_counts()
+        need(sum(eager_counts.values()) == 0, f"[eager] {label}: run_eager "
+             f"launched port kernels {eager_counts}")
+        reset_launch_counts()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            got, rep = dev.run(prog.layers, params, frames, scheme)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        run_counts = launch_counts()
+        plan = dev.compile(prog.layers, frames.shape, scheme)
+        reset_launch_counts()
+        plan_mod._execute(plan, params, frames)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        need(run_counts == launch_counts(), f"[eager] {label}: run launched "
+             f"{run_counts}, _execute {launch_counts()}")
+        # per-tensor calibration at batch 8: no fused chain runs
+        want = plan_kernels(plan) - {"conv_chain"}
+        need(rehearse or all(run_counts[k] > 0 for k in want),
+             f"[eager] {label}: run "
+             f"launched {run_counts}; its plan's kernels are {sorted(want)}")
+        counts[f"eager {label}"] = run_counts
+        need(tuple(got.shape) == (BUCKET, plan.out_features)
+             and bool(torch.isfinite(got).all()),
+             f"[eager] {label}: logits {tuple(got.shape)} or not finite")
+        need(torch.equal(eager, got), f"[eager] {label}: run_eager differs "
+             f"from run in {int((eager != got).sum())} logits")
+        need(dataclasses.asdict(erep) == dataclasses.asdict(rep),
+             f"[eager] {label}: the reports differ")
+        t0 = time.perf_counter()
+        cpu_dev = LightatorDevice(device="cpu", conv_vmem_budget=budget)
+        cpu, cpu_rep = cpu_dev.run_eager(prog.layers, prog.params, f, scheme)
+        cpu_s = time.perf_counter() - t0
+        need(torch.equal(eager.cpu(), cpu) and torch.equal(got.cpu(), cpu),
+             f"[eager] {label}: the card's logits differ from the CPU "
+             f"port's run_eager in {int((eager.cpu() != cpu).sum())}")
+        need(dataclasses.asdict(cpu_rep) == dataclasses.asdict(rep),
+             f"[eager] {label}: the CPU's report differs")
+        eager_ms = per_call_ms(device, lambda: dev.run_eager(
+            prog.layers, params, frames, scheme), iters)
+        run_ms = per_call_ms(device, lambda: dev.run(
+            prog.layers, params, frames, scheme), iters)
+        r = {"eager_ms": statistics.median(eager_ms),
+             "run_ms": statistics.median(run_ms), "eager_runs_ms": eager_ms,
+             "run_runs_ms": run_ms, "launches": run_counts,
+             "cpu_eager_s": cpu_s, "frame_hwc": list(prog.input_hwc),
+             "strategies": sorted({v["kind"] for v in
+                                   rep.conv_strategy.values()})}
+        out["runs"][label] = r
+        log(f"[eager] {label} at {'x'.join(map(str, prog.input_hwc))}, "
+            f"batch {BUCKET}: run_eager bitwise run and the CPU port's "
+            f"run_eager (CPU {cpu_s:.2f}s), reports equal; eager "
+            f"{r['eager_ms']:.3f} ms, compiled {r['run_ms']:.3f} ms a batch "
+            f"(median of {iters}, {smi}); run launched "
+            f"{ {k: v for k, v in run_counts.items() if v} }")
+
+    t0 = time.perf_counter()
+    rows = train_lenet_qat.main(["--steps", str(EAGER_QAT_STEPS),
+                                 "--device", str(device)])
+    for row in rows:
+        need(all(math.isfinite(x) for x in row["losses"]),
+             f"[eager] train_lenet_qat {row['scheme']}: a loss is not finite")
+        if "logits" in row:
+            need(bool(torch.isfinite(row["logits"]).all()),
+                 f"[eager] train_lenet_qat {row['scheme']}: logits")
+    out["train_lenet_qat"] = {
+        "seconds": time.perf_counter() - t0,
+        "rows": [{k: row[k] for k in ("scheme", "acc")} | (
+            {"device_acc": row["device_acc"],
+             "avg_power_w": row["report"].avg_power_w,
+             "kfps_per_w": row["report"].kfps_per_w} if "report" in row
+            else {}) for row in rows]}
+    log(f"[eager] train_lenet_qat --steps {EAGER_QAT_STEPS}: "
+        f"{out['train_lenet_qat']['seconds']:.1f}s")
+    t0 = time.perf_counter()
+    toks = serve_quantized_lm.main(["--gen", str(EAGER_LM_GEN), "--device",
+                                    str(device)])
+    for quant, t in toks.items():
+        need(tuple(t.shape) == (4, serve_quantized_lm.PROMPT_LEN
+                                + EAGER_LM_GEN),
+             f"[eager] serve_quantized_lm {quant}: tokens {tuple(t.shape)}")
+    out["serve_quantized_lm_s"] = time.perf_counter() - t0
+    log(f"[eager] serve_quantized_lm --gen {EAGER_LM_GEN}: "
+        f"{out['serve_quantized_lm_s']:.1f}s")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[eager] phase {out['phase_s']:.1f}s")
+    return out, counts
 
 
 # ---------------------------------------------------------------------------
@@ -5039,6 +5212,10 @@ def main(argv) -> int:
             t_ops=float(v["bound_by"] != "bytes"))
         device_ms["conv_strip_int"] = v["device_ms"]
 
+        eager_out, eager_counts = phase_eager(device, rehearse, vision_progs,
+                                              smi)
+        served.update(eager_counts)
+
         train, train_counts, train_err, train_cmp = phase_train(
             device, rehearse, out_dir)
         served.update(train_counts)
@@ -5097,6 +5274,7 @@ def main(argv) -> int:
                        "serve_bound": bound,
                        "imaging_bound_busy_share": bound_busy,
                        "load": load, "obs": obs_out, "vgg16": vgg16,
+                       "eager": eager_out,
                        "train": train, "lm": lm_out, "moe": moe_out,
                        "lm_train": lm_train_out, "dist": dist_out,
                        "roofline": roofline_out,

@@ -27,4 +27,8 @@ def __getattr__(name):
     if name in __all__:
         from repro_torch.core import program
         return getattr(program, name)
+    if name == "obs":
+        # the observability layer, imported on first use
+        import repro_torch.obs as obs
+        return obs
     raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")

@@ -14,6 +14,10 @@
       true IEEE division (``quant.true_div``): the numerics are the
       reference's jitted executor's, bit for bit.
 
+``compile_model`` / ``execute`` are the reference's deprecated front doors
+over these two passes (``core.program`` is the public one); each warns
+once per process.
+
 Verification (``repro_torch.analysis``): ``_compile_model(verify=)`` runs
 the plan verifier before a plan is cached (``plan.verify`` span,
 ``plan.verify.run`` / ``plan.verify.error`` counters), as the reference's
@@ -34,7 +38,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import threading
+import warnings
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -143,6 +149,9 @@ class CompiledPlan:
     strip_routes: Dict[str, str] = dataclasses.field(default_factory=dict)
     # the trace families this plan has run (``_execute``)
     _families: set = dataclasses.field(default_factory=set, repr=False)
+    # the executors handed out (``executor``), by per_frame
+    _exec_fns: Dict[bool, object] = dataclasses.field(
+        default_factory=dict, repr=False)
     # set once the analysis verifier has run over this plan (its warning
     # and error findings are then in ``report.verification``)
     _verified: bool = dataclasses.field(default=False, repr=False)
@@ -153,6 +162,17 @@ class CompiledPlan:
         with no ``LTR001``)? Then the fused chains need no range check."""
         return self._verified and not any(
             d["code"] == "LTR001" for d in self.report.verification)
+
+    def executor(self, per_frame: bool = False):
+        """The ``(params, frames) -> logits`` function of this plan: the
+        execute pass on the kernels under ``per_frame`` calibration, one
+        object per key (the reference's jitted executor). The reference's
+        ``donate`` has no counterpart: eager PyTorch donates no buffer."""
+        fn = self._exec_fns.get(per_frame)
+        if fn is None:
+            fn = functools.partial(_execute, self, per_frame=per_frame)
+            self._exec_fns[per_frame] = fn
+        return fn
 
     def first_run(self, family: tuple) -> bool:
         """Record that ``family`` runs; True the first time."""
@@ -583,3 +603,57 @@ def _execute(plan: CompiledPlan, params: Dict[str, Dict],
                                              or plan.exact_proven),
                               reduce_max=reduce_max,
                               routes=plan.strip_routes)
+
+
+# ---------------------------------------------------------------------------
+# Back-compat shims
+#
+# ``core.program`` (Program / Options / Executable) is the public front door;
+# these keep the reference's first function API working, bitwise (they call
+# the very internals the new API calls), with a one-shot DeprecationWarning.
+# ---------------------------------------------------------------------------
+
+_DEPRECATION_WARNED: set = set()
+
+
+def _warn_deprecated(old: str, replacement: str,
+                     doc: str = "docs/api.md") -> None:
+    """One-shot-per-process DeprecationWarning (the shared shim helper --
+    ``launch.serve`` reuses it with its own ``doc``)."""
+    if old in _DEPRECATION_WARNED:
+        return
+    _DEPRECATION_WARNED.add(old)
+    warnings.warn(f"{old} is deprecated; use {replacement} "
+                  f"(see {doc})", DeprecationWarning, stacklevel=3)
+
+
+def compile_model(layers: Sequence, input_shape: Tuple[int, ...],
+                  scheme: WASpec | MixedPrecisionScheme,
+                  oc: ocore.OCConfig = ocore.DEFAULT_OC,
+                  circuit: pmod.CircuitConstants = pmod.DEFAULT_CIRCUIT,
+                  profile: pmod.AcceleratorProfile = pmod.LIGHTATOR_PROFILE,
+                  weight_sram_kb: float = 512.0,
+                  act_sram_kb: float = 256.0,
+                  fc_batch: int = 1) -> CompiledPlan:
+    """Deprecated shim over the compile pass -- use ``repro_torch.Program``.
+
+    ``Program(layers, params, input_hwc).compile(Options(scheme=...))``
+    resolves the same cached plan; this wrapper keeps the reference's full
+    signature (positional calls included).
+    """
+    _warn_deprecated(
+        "core.plan.compile_model",
+        "repro_torch.Program(...).compile(repro_torch.Options(scheme=...))")
+    return _compile_model(layers, input_shape, scheme, oc=oc,
+                          circuit=circuit, profile=profile,
+                          weight_sram_kb=weight_sram_kb,
+                          act_sram_kb=act_sram_kb, fc_batch=fc_batch)
+
+
+def execute(plan: CompiledPlan, params: Dict[str, Dict],
+            frames: torch.Tensor) -> torch.Tensor:
+    """Deprecated shim over the execute pass -- use ``Executable.run``.
+    ``params`` and ``frames`` are tensors on one device."""
+    _warn_deprecated("core.plan.execute",
+                     "repro_torch.Program(...).compile(...).run(frames)")
+    return plan.executor()(params, frames)

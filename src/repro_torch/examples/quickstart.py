@@ -6,12 +6,12 @@
 2. a photonic-quantized MVM through the photonic_mvm kernel, against its
    oracle;
 3. compile LeNet through ``Program.from_model`` / ``compile(Options)`` and
-   run it per frame (the per-frame-calibrated served path), then a chain of
-   two imaging pipelines as one program;
+   run it per frame (the per-frame-calibrated served path), the same frame
+   on ``LightatorDevice``'s eager interpreter (bitwise the compiled
+   ``run``), then a chain of two imaging pipelines as one program;
 4. an LM architecture (smoke size) under the photonic [4:4] fake-quant.
 
-The reference's ``examples/quickstart.py`` on the port's API: its step 3
-also ran ``LightatorDevice``, which the port does not have.
+The reference's ``examples/quickstart.py`` on the port's API.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import torch
 
 from repro_torch import Options, Program
 from repro_torch.configs import smoke_variant
+from repro_torch.core.accelerator import LightatorDevice
 from repro_torch.core.compressive import compressive_acquire
 from repro_torch.core.program import resolve_device
 from repro_torch.core.quant import MX_43, W4A4
@@ -61,11 +62,20 @@ def main(argv: Optional[List[str]] = None) -> dict:
     prog = Program.from_model(
         "lenet", generator=torch.Generator().manual_seed(2))
     exe = prog.compile(Options(scheme=MX_43, device=str(device)))
-    logits = exe.run_per_frame(uniform(3, (1, 28, 28, 1)))
+    digit = uniform(3, (1, 28, 28, 1))
+    logits = exe.run_per_frame(digit)
     r = exe.report
     print(f"LeNet on Lightator-MX: logits {tuple(logits.shape)}, "
           f"{r.exec_time_s * 1e6:.2f} us/frame, {r.avg_power_w:.2f} W, "
           f"{r.kfps_per_w:.0f} kFPS/W")
+    # the device simulator's per-layer interpreter: the specification the
+    # compiled plan matches bit for bit (logits and report)
+    eager, eager_report = LightatorDevice(device=str(device)).run_eager(
+        prog.layers, prog.params, digit, MX_43)
+    eager_ok = (torch.equal(eager, exe.run(digit))
+                and dataclasses.asdict(eager_report)
+                == dataclasses.asdict(r))
+    print(f"LightatorDevice.run_eager == compiled run: {eager_ok}")
     batch_logits = exe.run_per_frame(uniform(6, (8, 28, 28, 1)))
     print(f"compiled plan: {len(exe.plan.schedules)} schedules cached, "
           f"batched logits {tuple(batch_logits.shape)}")
@@ -91,6 +101,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
           f"finite={finite}")
     print("quickstart OK")
     return {"ca": compressed, "mvm_err": mvm_err, "lenet": batch_logits,
+            "eager_ok": eager_ok,
             "chain": out, "lm_logits": lm_logits}
 
 

@@ -236,6 +236,10 @@ class HostedProgram:
     bound: Tuple[Executable, ...] = ()
     slo: Optional[SLOMonitor] = None  # rolling-window objectives (obs.slo)
 
+    @property
+    def queued_frames(self) -> int:
+        return self.metrics.queued_frames
+
 
 _SENTINEL = object()
 _UNSET = object()

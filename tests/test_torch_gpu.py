@@ -1149,3 +1149,33 @@ def test_shard_batch_runs_each_shard_on_its_device(cuda, mesh, monkeypatch):
     assert torch.equal(got, want)
     assert sorted(current) == sorted((torch.device(d).index,) * 2
                                      for d in mesh)
+
+
+@pytest.mark.parametrize("model", ["lenet", "vgg9"])
+@pytest.mark.parametrize("scheme", ["w4a4", "mx43"])
+def test_run_eager_on_the_card_equals_run_and_launches_nothing(cuda, model,
+                                                               scheme):
+    """``LightatorDevice.run_eager`` on the card (exact float64
+    accumulates, no kernel) is bitwise ``run`` (the kernels), reports equal
+    field for field, and both equal the CPU's ``run_eager``."""
+    import warnings
+    from repro_torch.core.accelerator import LightatorDevice
+    from repro_torch.core.quant import MX_43
+    spec = {"w4a4": W4A4, "mx43": MX_43}[scheme]
+    prog = Program.from_model(model, torch.Generator().manual_seed(6))
+    f = np.random.default_rng(2).random((8, *prog.input_hwc)).astype(
+        np.float32)
+    f[1] *= 0.05
+    dev = LightatorDevice()
+    reset_launch_counts()
+    eager, erep = dev.run_eager(prog.layers, prog.params, f, spec)
+    assert sum(launch_counts().values()) == 0
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        got, rep = dev.run(prog.layers, prog.params, f, spec)
+    assert launch_counts()["photonic_mvm"] > 0
+    assert eager.device.type == "cuda" and torch.equal(eager, got)
+    assert dataclasses.asdict(erep) == dataclasses.asdict(rep)
+    cpu, _ = LightatorDevice(device="cpu").run_eager(prog.layers,
+                                                     prog.params, f, spec)
+    assert torch.equal(eager.cpu(), cpu)
