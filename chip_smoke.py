@@ -62,12 +62,16 @@ Phases, each fatal on failure:
      bitwise equal to its plain PyTorch version on the same inputs (the
      served path's ``ca_pool.ops.acquire``, and the public ``ca_pool`` op
      with a signed bank of its own on every weighted route's edges, in
-     float32 and bfloat16, against ``ca_pool_ref_generic``). The
+     float32 and bfloat16, against ``ca_pool_ref_generic``; the executor's
+     epilogue pair at every requant of one per-frame run of each program
+     and at ``EPILOGUE_EDGES``, codes and scale, per frame and per
+     tensor). The
      conv_bank op, which no served path reaches, is driven once on its own
      with the counts zeroed around it: quantized (the int8 kernel, where
      ``strip.dense_route`` sends its shapes) and in float mode (the
      float64 kernel over the whole frame, its ``conv_bank`` count);
-  4. timing: each kernel at its path shapes (the conv_bank op at its own),
+  4. timing: each kernel at its path shapes (the conv_bank op at its own;
+     the epilogue pair at every requant of the two paths),
      beside its plain version, one library call as a yardstick where
      PyTorch has one (with TF32 off, and whether its answer was exact), the
      profiler's device time, the launch configuration (the chain kernel's
@@ -93,7 +97,8 @@ Phases, each fatal on failure:
      every kernel of a path must have launched in it. The imaging answers'
      PSNR against the float oracle ``apply_float`` is printed, and the
      imaging burst is served once more under the profiler for the device's
-     busy share;
+     busy share (device ms by kind, by port kernel, and the 8 torch ops
+     with the most device time by kernel symbol);
   6. serve, bound: all three paths behind one Server with ``devices=1``,
      ``max_inflight=2``, through ``Executable.bind`` views (own stream,
      pinned staging ring, one CUDA graph per bucket, captured at start),
@@ -127,7 +132,8 @@ Phases, each fatal on failure:
      and the ``plan.verify`` span's time on the cold compile; the strip and
      photonic_mvm kernels bitwise equal to their plain versions at every
      distinct VGG16 shape (``edge_shapes.VGG16_SHAPES``) at buckets 1 and
-     8; served eager and bound (``devices=1``, ``max_inflight=2``), every
+     8, and the epilogue pair at every requant of VGG16's run at both;
+     served eager and bound (``devices=1``, ``max_inflight=2``), every
      answer bitwise equal to batch-1 ``run_per_frame``, the reference
      backend on the card and the port's CPU run on the first 2 frames, the
      bound window's launch counts equal to the replays' credits; each conv
@@ -137,8 +143,10 @@ Phases, each fatal on failure:
      ms -- cast, pad, weight layout and kernel -- beside the kernel's, the
      float64 kernel's, ``F.conv2d``'s, forced resident's and the bound,
      with the instantiation's ptxas registers, shared memory and spills);
-     the bound window's device busy share and a short saturation run's
-     frames/s (``[vgg16]`` lines).
+     each of its 17 epilogue calls timed beside the torch-op sequence it
+     replaces (its plain version) and its bound (``[vgg16] epilogue``
+     lines); the bound window's device busy share (its torch ops named)
+     and a short saturation run's frames/s (``[vgg16]`` lines).
  10. train: photonic_mvm's float API on signed CRC codes held bitwise to
      ``photonic_mvm_ref`` at ``edge_shapes.SIGNED_MVM_SHAPES`` (both
      routes, split-K on and off); LeNet QAT-trained 40 steps at batch 64
@@ -571,18 +579,21 @@ with open(out, "w") as f:
 # the port's kernels are top-level functions of an anonymous namespace
 PORT_KERNEL = r"^(void )?\(anonymous namespace\)::"
 KERNELS = ("photonic_mvm", "conv_chain", "ca_pool", "conv_strip",
-           "conv_strip_depthwise", "conv_bank", "conv_strip_int")
+           "conv_strip_depthwise", "conv_bank", "conv_strip_int", "epilogue")
 # the kernels each served path must launch
-PATH_KERNELS = {"vision": ("photonic_mvm", "conv_chain", "ca_pool"),
+PATH_KERNELS = {"vision": ("photonic_mvm", "conv_chain", "ca_pool",
+                           "epilogue"),
                 "imaging": ("photonic_mvm", "ca_pool", "conv_strip",
-                            "conv_strip_depthwise"),
-                "chain": ("photonic_mvm", "ca_pool", "conv_strip_depthwise"),
-                "vgg16": ("photonic_mvm", "conv_strip_int"),
-                "train": ("photonic_mvm", "conv_chain", "ca_pool")}
+                            "conv_strip_depthwise", "epilogue"),
+                "chain": ("photonic_mvm", "ca_pool", "conv_strip_depthwise",
+                          "epilogue"),
+                "vgg16": ("photonic_mvm", "conv_strip_int", "epilogue"),
+                "train": ("photonic_mvm", "conv_chain", "ca_pool",
+                          "epilogue")}
 # the kernels the [dist] phase's shard_batch path must launch (per-tensor
 # calibration at batch > 1 runs the per-layer path: no fused chain)
 SHARD_BATCH_KERNELS = ("photonic_mvm", "ca_pool", "conv_strip",
-                       "conv_strip_depthwise")
+                       "conv_strip_depthwise", "epilogue")
 SOURCES = {
     "photonic_mvm": ("src/repro_torch/csrc/photonic_mvm.cu",
                      "src/repro/kernels/photonic_mvm/kernel.py:81"),
@@ -597,7 +608,11 @@ SOURCES = {
     "conv_bank": ("src/repro_torch/csrc/conv_strip.cu",
                   "src/repro/kernels/conv_bank/kernel.py:85"),
     "conv_strip_int": ("src/repro_torch/csrc/conv_strip.cu",
-                       "src/repro/kernels/conv_bank/strip_kernel.py:206")}
+                       "src/repro/kernels/conv_bank/strip_kernel.py:206"),
+    # no pallas_call: XLA's fusion of the jitted executor's epilogue (its
+    # conv branch; _crc_requant_traced at plan.py:86)
+    "epilogue": ("src/repro_torch/csrc/epilogue.cu",
+                 "src/repro/core/plan.py:645")}
 # device-time symbols (space-free regexes over the profiler's kernel names)
 KERNEL_SYMBOLS = {"photonic_mvm": r"mvm_(gemm|reduce|skinny)_kernel",
                   "conv_chain": r"conv_chain_kernel",
@@ -605,7 +620,8 @@ KERNEL_SYMBOLS = {"photonic_mvm": r"mvm_(gemm|reduce|skinny)_kernel",
                   "conv_strip": r"conv_dense_kernel",
                   "conv_strip_depthwise": r"conv_dw_kernel",
                   "conv_bank": r"conv_dense_kernel",
-                  "conv_strip_int": r"conv_igemm_(fold_)?kernel"}
+                  "conv_strip_int": r"conv_igemm_(fold_)?kernel",
+                  "epilogue": r"epi_(reduce|quant)_kernel"}
 
 
 class SmokeFailure(RuntimeError):
@@ -755,20 +771,28 @@ def path_calls(exes, device, batch=BUCKET):
     """The inputs each kernel gets for one batch of each program, by kernel:
     photonic_mvm (a, wq), conv_chain (codes, scale, stages, aq), ca_pool
     (img, pool), conv_strip (x_padded, w, stride, strip_h, conv),
-    conv_strip_depthwise (x_padded, w_taps, stride, strip_h, conv) and
-    conv_strip_int (x_padded uint8, w int8, stride, None, conv). Codes are
-    random 0..15, weights the programs' own quantized levels, and a strip
-    conv's input is padded as dispatch pads it on the plan's route."""
+    conv_strip_depthwise (x_padded, w_taps, stride, strip_h, conv),
+    conv_strip_int (x_padded uint8, w int8, stride, None, conv) and
+    epilogue (its ``ops.epilogue`` arguments, label). Codes are random
+    0..15, weights the programs' own quantized levels, and a strip conv's
+    input is padded as dispatch pads it on the plan's route; the
+    epilogue's calls are recorded from one per-frame run of each program
+    on ``frames_for``'s frames (``edge_shapes.epilogue_calls``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.plan import CAStep, ConvStep, DenseStep
     from repro_torch.core.quant import quantize_weight
     from repro_torch.kernels.conv_bank.strip import (int_operands,
                                                      pad_rows_for_strips)
+    from repro_torch.kernels.edge_shapes import epilogue_calls
     gen = torch.Generator().manual_seed(SEED + batch)
     calls = {k: [] for k in KERNELS if k != "conv_bank"}
     for name, exe in exes.items():
         plan, params = exe.plan, exe.params()
+        frames = frames_on(frames_for(exe.program, batch, SEED + batch),
+                           device)
+        calls["epilogue"] += [(args, f"{name}#{j}") for j, args in
+                              enumerate(epilogue_calls(exe, frames))]
         seg_at = {s.start: s for s in plan.fused_segments}
         h, w, c = plan.frame_shape
         i = 0
@@ -869,6 +893,30 @@ def run_conv_bank_op(calls, strategies=("resident", "strip"),
 # phases
 # ---------------------------------------------------------------------------
 
+def per_tensor(args):
+    """An epilogue call's arguments under per-tensor calibration: one
+    act_scale (its first frame's) and ``per_frame`` False."""
+    s = args[1]
+    return (args[0], None if s is None else s.reshape(-1)[0], *args[2:7],
+            False, *args[8:])
+
+
+def compare_epilogue(compare, args, what):
+    """The epilogue pair on ``args`` (``ops.epilogue``'s) against its plain
+    version, codes and scale, bitwise, under the call's calibration and
+    per-tensor."""
+    from repro_torch.kernels.epilogue.ops import epilogue
+    from repro_torch.kernels.epilogue.ref import epilogue_ref
+    for a in (args, per_tensor(args)) if args[7] else (args,):
+        want, got = epilogue_ref(*a), epilogue(*a)
+        label = f"{what} per_frame={a[7]}"
+        need(got[0].dtype == want[0].dtype, f"epilogue {label}: "
+             f"{got[0].dtype} codes, plain {want[0].dtype}")
+        compare("epilogue", got[0].float(), want[0].float(),
+                f"{label} codes")
+        compare("epilogue", got[1], want[1], f"{label} scale")
+
+
 def phase_kernels(device, vision, imaging):
     """Every kernel against its plain version, bitwise."""
     import torch
@@ -884,9 +932,10 @@ def phase_kernels(device, vision, imaging):
     from repro_torch.kernels.conv_bank.ops import conv_bank, conv_bank_plain
     from repro_torch.kernels.conv_bank.ref import conv_chain_ref, conv_int_ref
     from repro_torch.kernels.edge_shapes import (CA_EDGES, CHAIN_EDGES,
-                                                 CHAINS, DW_EDGES, MVM_EDGES,
+                                                 CHAINS, DW_EDGES,
+                                                 EPILOGUE_EDGES, MVM_EDGES,
                                                  STRIP_EDGES, chain_case,
-                                                 odd_offset)
+                                                 epilogue_case, odd_offset)
     from repro_torch.kernels.photonic_mvm.ops import mvm_int
     from repro_torch.kernels.photonic_mvm.ref import mvm_int_ref
     gen = torch.Generator().manual_seed(SEED + 7)
@@ -1066,6 +1115,12 @@ def phase_kernels(device, vision, imaging):
                     strip.conv_strip_depthwise(x, taps, ws, **kw),
                     strip.conv_strip_depthwise_ref(x, taps, ws, **kw),
                     f"{what} sign")
+    for args, label in calls["epilogue"]:
+        compare_epilogue(compare, args, label)
+    for i, edge in enumerate(EPILOGUE_EDGES):
+        for per_frame in (True, False):
+            args = epilogue_case(edge, per_frame, gen, device)
+            compare_epilogue(compare, args, f"edge {i} {edge[1]}")
     for name, xs, wshape, stride, padding, groups in STRIP_CONVS:
         x = torch.randint(0, 16, xs, generator=gen).float().to(device)
         wq = torch.randint(-7, 8, wshape, generator=gen).float().to(device)
@@ -1172,6 +1227,26 @@ def bound_ms(nbytes, ops, kind):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[kind] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def epilogue_work(args):
+    """(bytes, operations, launch) of one epilogue call (``ops.epilogue``'s
+    arguments): its input read once and its codes (or the operand) written
+    once, with the scales; a product, a sum and an activation an input
+    element, a quotient, a rounding and a clamp an output (fp32 work);
+    the launch ``epilogue_config`` gives it."""
+    import torch
+    from repro_torch.kernels.epilogue.ops import epilogue_config, geometry
+    x, s, ws, bias, _, pool, _, per_frame, _, operand = args
+    g = geometry(x, pool, operand)
+    cfg = epilogue_config(g.b, g.n, g.c, g.aligned, g.op_words)
+    n_in, n_out = g.b * g.n * g.p * g.p, g.b * g.n
+    nbytes = n_in * 4 + (g.b * g.op_words * 4 if operand else n_out * 4) + \
+        4 * sum(t.numel() for t in (s, ws, bias)
+                if isinstance(t, torch.Tensor)) + 4 * (g.b if per_frame else 1)
+    return nbytes, 3 * n_in + 3 * n_out, dict(
+        vec=cfg.vec, nblk1=cfg.nblk1, nblk2=cfg.nblk2,
+        ctas=g.b * (cfg.nblk1 + cfg.nblk2))
 
 
 def mvm_library(a, w):
@@ -1305,6 +1380,20 @@ def phase_timing(device, vision, imaging):
             pool=p, library="F.conv2d with the coefficient bank",
             route=cfg.route, r=cfg.r, threads=cfg.threads, ctas=cfg.ctas)
 
+    # the epilogue pair at each requant of the two paths; no one PyTorch
+    # call computes it (its plain version is the torch-op sequence)
+    from repro_torch.kernels.epilogue.ops import epilogue
+    from repro_torch.kernels.epilogue.ref import epilogue_ref
+    for path in ("vision", "imaging"):
+        for args, label in {"vision": vision,
+                            "imaging": imaging}[path]["epilogue"]:
+            nbytes, ops, launch = epilogue_work(args)
+            add("epilogue", time_ms(lambda: epilogue(*args)),
+                time_ms(lambda: epilogue_ref(*args)), None, nbytes, ops,
+                "fp32", path, conv=label, x=list(args[0].shape),
+                act=args[4], epi_pool=args[5],
+                operand=args[9] is not None, **launch)
+
     # the strip kernels: F.conv2d (TF32 off; groups=C for depthwise) on the
     # same padded codes is the yardstick; record whether cuDNN was exact
     for kernel, run, plain in (
@@ -1437,10 +1526,12 @@ def phase_device_time(device, vision, imaging, trace_path,
     from repro_torch.kernels.conv_bank import strip
     from repro_torch.kernels.conv_bank.fused import conv_chain
     from repro_torch.kernels.conv_bank.ref import float32_convs
+    from repro_torch.kernels.epilogue.ops import epilogue
     from repro_torch.kernels.photonic_mvm.ops import mvm_int
     if device.type != "cuda":
         return {k: None for k in KERNELS + ("photonic_mvm.imaging",
-                                          "ca_pool.imaging", "ca_pool.cold")}
+                                          "ca_pool.imaging", "ca_pool.cold",
+                                          "epilogue.imaging")}
     bank = conv_bank_calls(device)
     batches = {
         "photonic_mvm": lambda: [mvm_int(a, w) for a, w in
@@ -1460,7 +1551,10 @@ def phase_device_time(device, vision, imaging, trace_path,
         "conv_bank": lambda: run_conv_bank_op(bank, ("resident",),
                                               quantized=False),
         "conv_strip_int.conv_bank_op": lambda: run_conv_bank_op(
-            bank, ("resident",))}
+            bank, ("resident",)),
+        "epilogue": lambda: [epilogue(*a) for a, _ in vision["epilogue"]],
+        "epilogue.imaging": lambda: [epilogue(*a)
+                                     for a, _ in imaging["epilogue"]]}
     # per path shape of the two redesigned kernels: the kernel, and the
     # library call on the same inputs (all of its kernels)
     mvm_calls = vision["photonic_mvm"] + imaging["photonic_mvm"]
@@ -1937,10 +2031,11 @@ def phase_busy_share(device, progs, trace_path, bound=False):
 def busy_share(events, window=SERVE_WINDOW):
     """The window's length, the union of the device intervals its host
     calls issued, their share of the window, and the device time by kind
-    of work (copies, memsets, the port's kernels, torch ops) and by port
-    kernel."""
+    of work (copies, memsets, the port's kernels, torch ops), by port
+    kernel, and of the 8 torch ops that took the most (by kernel symbol,
+    with their launches)."""
     lo, hi = host_range(events, window)
-    spans, by_kind, by_kernel = [], {}, {}
+    spans, by_kind, by_kernel, torch_ops = [], {}, {}, {}
     for e in device_work(events, window)[0]:
         a, b = e["ts"], e["ts"] + e["dur"]
         spans.append((a, b))
@@ -1948,6 +2043,10 @@ def busy_share(events, window=SERVE_WINDOW):
             "port kernels" if re.search(PORT_KERNEL, e["name"])
             else "torch ops")
         by_kind[kind] = by_kind.get(kind, 0.0) + (b - a) / 1e3
+        if kind == "torch ops":
+            op = torch_ops.setdefault(torch_op_name(e["name"]), [0.0, 0])
+            op[0] += (b - a) / 1e3
+            op[1] += 1
         if kind == "port kernels":
             name = e["name"].replace(" ", "")
             # conv_bank shares conv_strip's kernel: named by conv_strip
@@ -1958,9 +2057,28 @@ def busy_share(events, window=SERVE_WINDOW):
     for a, b in sorted(spans):
         busy += max(0.0, b - (a if end is None else max(a, end)))
         end = b if end is None else max(end, b)
+    top = sorted(torch_ops.items(), key=lambda kv: -kv[1][0])[:8]
     return {"window_ms": (hi - lo) / 1e3, "busy_ms": busy / 1e3,
             "busy_share": busy / (hi - lo), "device_ms_by_kind": by_kind,
-            "port_kernel_ms": by_kernel}
+            "port_kernel_ms": by_kernel,
+            "torch_ops_by_name": [{"name": n, "ms": ms, "launches": c}
+                                  for n, (ms, c) in top],
+            "torch_op_launches": sum(c for _, c in torch_ops.values())}
+
+
+def torch_op_name(name):
+    """A torch op's kernel symbol, short: the function with its template
+    arguments (``vectorized_elementwise_kernel<4, CUDAFunctor_add<float>,
+    ...>``), without namespaces or the argument list."""
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    depth = 0
+    for i, ch in enumerate(name):
+        depth += (ch == "<") - (ch == ">")
+        if ch == "(" and depth == 0 and i > 0:
+            name = name[:i]
+            break
+    name = re.sub(r"\b[A-Za-z_]\w*::", "", name)
+    return re.sub(r"\s+", " ", name)[:200]
 
 
 def check_trace_cli(path, *flags):
@@ -2216,7 +2334,7 @@ def plan_kernels(plan):
     from repro_torch.core.plan import CAStep, ConvStep, DenseStep
     fused = {i for s in plan.fused_segments
              for i in range(s.start, s.start + s.length)}
-    out = {"conv_chain"} if fused else set()
+    out = {"conv_chain", "epilogue"} if fused else {"epilogue"}
     for i, step in enumerate(plan.steps):
         if i in fused:
             continue
@@ -2272,19 +2390,23 @@ def vgg16_compile(prog, device, budget):
     return out, exes
 
 
-def vgg16_kernels(device, buckets):
+def vgg16_kernels(device, buckets, exe):
     """The strip and photonic_mvm kernels at every ``VGG16_SHAPES`` entry
     and bucket, raw and with the epilogue, bitwise against their plain
     versions: conv1-conv10 on the float64 strip kernel (the strips' rows)
     and on the int8 one (the conv's own rows, as the int route launches
-    it). Returns ({kernel: max abs err}, {kernel: comparisons})."""
+    it); and the epilogue pair at every call of ``exe``'s (VGG16's) run at
+    each bucket, both designs, both calibrations. Returns ({kernel: max
+    abs err}, {kernel: comparisons})."""
     import torch
     from repro_torch.kernels.conv_bank import strip
     from repro_torch.kernels.edge_shapes import VGG16_SHAPES, vgg16_case
     from repro_torch.kernels.photonic_mvm.ops import mvm_int
     from repro_torch.kernels.photonic_mvm.ref import mvm_int_ref
     gen = torch.Generator(device=device).manual_seed(SEED + 16)
-    errs = {"conv_strip": [], "photonic_mvm": [], "conv_strip_int": []}
+    from repro_torch.kernels.edge_shapes import epilogue_calls
+    errs = {"conv_strip": [], "photonic_mvm": [], "conv_strip_int": [],
+            "epilogue": []}
 
     def compare(kernel, got, want, what):
         need(got.shape == want.shape and bool(torch.isfinite(got).all()),
@@ -2294,6 +2416,11 @@ def vgg16_kernels(device, buckets):
         errs[kernel].append(err)
         need(torch.equal(got, want), f"[vgg16] {kernel} {what}: differs "
              f"from its plain version (max abs err {err})")
+
+    for b in buckets:
+        frames = frames_on(frames_for(exe.program, b, SEED + 18), device)
+        for j, args in enumerate(epilogue_calls(exe, frames)):
+            compare_epilogue(compare, args, f"[vgg16] call {j} batch {b}")
 
     for kernel, shapes in VGG16_SHAPES.items():
         for shape in shapes:
@@ -2501,12 +2628,13 @@ def vgg16_timing(device, exe, trace_path, ptxas=None):
             for name, fn in row["fns"].items():
                 row[f"{name}_ms"] = time_ms(fn, iters)
         rows.append(row)
+    rows += vgg16_epilogue_rows(device, exe, time_ms, iters)
     for row in rows:
         row["ms"] = row.pop("kernel_ms")
     if cuda:
         from torch.profiler import ProfilerActivity, profile, record_function
         timed = ("kernel", "route", "float_kernel", "library", "resident",
-                 "strip_int")
+                 "strip_int", "torch_ops")
         with float32_convs(), profile(activities=[
                 ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             # a range nobody reads first: on the card this session lost
@@ -2550,6 +2678,57 @@ def vgg16_timing(device, exe, trace_path, ptxas=None):
     return rows
 
 
+def epilogue_labels(plan):
+    """Each epilogue call of a plan's run in order, named by the step whose
+    output it requantizes ("frames" first); a fused segment's steps make
+    none, a no-act dense head none."""
+    from repro_torch.core.plan import (CAStep, ConvStep, DenseStep,
+                                       FlattenStep, UpsampleStep)
+    fused = {i for s in plan.fused_segments
+             for i in range(s.start, s.start + s.length)}
+    out = ["frames"]
+    for i, st in enumerate(plan.steps):
+        if i in fused or (isinstance(st, DenseStep) and st.act == "none"):
+            continue
+        out.append(st.name if isinstance(st, (ConvStep, DenseStep)) else
+                   {CAStep: "ca", UpsampleStep: "upsample",
+                    FlattenStep: "flatten"}[type(st)])
+    return out
+
+
+def vgg16_epilogue_rows(device, exe, time_ms, iters):
+    """The epilogue pair at each of VGG16's requants at bucket 8 (its
+    calls on a per-frame run of ``frames_for``'s frames), as
+    ``vgg16_timing`` rows: the kernel, the plain version -- the torch-op
+    sequence the pair replaces, also profiled as ``torch_ops`` -- and the
+    bound (``epilogue_work``)."""
+    from repro_torch.kernels.edge_shapes import epilogue_calls
+    from repro_torch.kernels.epilogue.ops import epilogue
+    from repro_torch.kernels.epilogue.ref import epilogue_ref
+    frames = frames_on(frames_for(exe.program, BUCKET, SEED + 19), device)
+    calls = epilogue_calls(exe, frames)
+    labels = epilogue_labels(exe.plan)
+    need(len(labels) == len(calls), f"[vgg16] {len(calls)} epilogue calls "
+         f"for the plan's {len(labels)} requants")
+    rows = []
+    for label, args in zip(labels, calls):
+        nbytes, ops, launch = epilogue_work(args)
+        bound, by = bound_ms(nbytes, ops, "fp32")
+        fns = dict(kernel=lambda a=args: epilogue(*a),
+                   plain=lambda a=args: epilogue_ref(*a))
+        fns["torch_ops"] = fns["plain"]
+        # a range of its own: "conv1.epilogue", not the conv's "conv1"
+        row = dict(layer=f"{label}.epilogue", after=label,
+                   kernel="epilogue", library=None,
+                   x=list(args[0].shape), act=args[4], epi_pool=args[5],
+                   operand=args[9] is not None, bytes=nbytes,
+                   bound_ms=bound, bound_by=by, fns=fns, **launch)
+        for name, fn in fns.items():
+            row[f"{name}_ms"] = time_ms(fn, iters)
+        rows.append(row)
+    return rows
+
+
 def phase_vgg16(device, rehearse, out_dir, ptxas=None):
     """VGG16 end to end (the module docstring's phase 9). Returns its
     detail, the launch counts of its eager and bound windows, and its
@@ -2576,7 +2755,7 @@ def phase_vgg16(device, rehearse, out_dir, ptxas=None):
 
     t0 = time.perf_counter()
     err, n_cmp = vgg16_kernels(device, (1,) if rehearse
-                               else VGG16_SHAPE_BUCKETS)
+                               else VGG16_SHAPE_BUCKETS, exe)
     log(f"[vgg16] kernels at VGG16_SHAPES, buckets "
         f"{(1,) if rehearse else VGG16_SHAPE_BUCKETS}: bitwise equal to "
         f"their plain versions ({n_cmp} comparisons, max abs err {err}) in "
@@ -2614,6 +2793,17 @@ def phase_vgg16(device, rehearse, out_dir, ptxas=None):
     out["layers"] = vgg16_timing(device, exe, os.path.join(
         out_dir, VGG16_DEVICE_TRACE), ptxas)
     for r in out["layers"]:
+        if r["kernel"] == "epilogue":
+            log(f"[vgg16] epilogue after {r['after']} {r['x']} act "
+                f"{r['act']} pool {r['epi_pool']} -> "
+                f"{'int8 operand' if r['operand'] else 'float codes'}: "
+                f"{r['ms']:.4f} ms (device {r.get('kernel_device_ms')}; "
+                f"the torch ops it replaces "
+                f"{r['plain_ms']:.4f} ms, device "
+                f"{r.get('torch_ops_device_ms')}; bound "
+                f"{r['bound_ms']:.6f} by {r['bound_by']}; vec {r['vec']}, "
+                f"blocks {r['nblk1']}+{r['nblk2']} a frame)")
+            continue
         extra = (f"; forced resident: route {r['resident_ms']:.4f} "
                  f"(device {r.get('resident_device_ms')}) gemm "
                  f"{r['resident_gemm_ms']:.4f}; library exact "
@@ -2659,6 +2849,12 @@ def phase_vgg16(device, rehearse, out_dir, ptxas=None):
             bound_by=("bytes" if sum(r["bound_ms"] for r in rows
                                      if r["bound_by"] == "bytes") * 2 >
                       sum(r["bound_ms"] for r in rows) else "operations"))
+    epi = [r for r in out["layers"] if r["kernel"] == "epilogue"]
+    out["epilogue"] = {key: total(epi, key) for key in (
+        "ms", "plain_ms", "bound_ms", "kernel_device_ms",
+        "torch_ops_device_ms")}
+    log(f"[vgg16] epilogue per bucket-8 batch ({len(epi)} calls): "
+        f"{out['epilogue']}")
     strips = [r for r in out["layers"] if r.get("strategy") == "strip"]
     log(f"[vgg16] per bucket-8 batch: {out['by_kernel']}; strip layers "
         f"on their route {total(strips, 'route_ms'):.4f} ms (device "
@@ -4902,7 +5098,9 @@ def phase_roofline(procs, rehearse, out_dir, smi, lm_train_ref, dist_out):
 def reread(trace_dir):
     """Each device-time range of the run whose traces lie in ``trace_dir``:
     its launches, kernel records and device ms per batch by kernel
-    function; and the imaging serving window's busy share."""
+    function; and the busy share (by kind, by port kernel, the torch ops
+    by name) of the imaging serving window and, where the run left their
+    traces, of the bound imaging burst and VGG16's bound window."""
     def events(name):
         with open(os.path.join(trace_dir, name)) as f:
             return json.load(f)["traceEvents"]
@@ -4922,9 +5120,10 @@ def reread(trace_dir):
             "launches": launches, "kernel_records": len(kernels),
             "ms_per_batch": by_fn}
     shares = {"imaging_busy_share": busy_share(events(SERVE_TRACE))}
-    if os.path.exists(os.path.join(trace_dir, BOUND_SERVE_TRACE)):
-        shares["imaging_bound_busy_share"] = busy_share(
-            events(BOUND_SERVE_TRACE))
+    for key, name in (("imaging_bound_busy_share", BOUND_SERVE_TRACE),
+                      ("vgg16_bound_busy_share", VGG16_TRACE)):
+        if os.path.exists(os.path.join(trace_dir, name)):
+            shares[key] = busy_share(events(name))
     return {"device_time": out, **shares}
 
 
@@ -4943,7 +5142,7 @@ def launch_label(d):
     route, run, threads and CTAs of ca_pool, CTAs of the others."""
     keys = ("cluster", "splits", "weights_in_smem", "smem",
             "active_clusters", "tile", "run", "cb", "route", "r", "threads",
-            "split", "ctas")
+            "split", "vec", "nblk1", "nblk2", "ctas")
     return ", ".join(f"{k} {d[k]}" for k in keys if k in d) or "-"
 
 
@@ -5030,7 +5229,8 @@ def main(argv) -> int:
                 f"; ca_pool {[(tuple(i.shape), p) for i, p in calls['ca_pool']]}"
                 f"; conv_strip {[(c[4], tuple(c[0].shape)) for c in calls['conv_strip']]}"
                 f"; conv_strip_depthwise "
-                f"{[(c[4], tuple(c[0].shape)) for c in calls['conv_strip_depthwise']]}")
+                f"{[(c[4], tuple(c[0].shape)) for c in calls['conv_strip_depthwise']]}"
+                f"; epilogue {[(l, tuple(a[0].shape)) for a, l in calls['epilogue']]}")
 
         max_err, n_cmp, bank_float_err = phase_kernels(device, vision,
                                                        imaging)
@@ -5061,7 +5261,7 @@ def main(argv) -> int:
                 f"faster {r['faster']}")
         # photonic_mvm's and ca_pool's rows are both paths' calls; each
         # path's device time is its own profiler range
-        for k in ("photonic_mvm", "ca_pool"):
+        for k in ("photonic_mvm", "ca_pool", "epilogue"):
             dev = (device_ms[k], device_ms.pop(f"{k}.imaging"))
             rows[k]["by_path"]["vision"]["device_ms"] = dev[0]
             rows[k]["by_path"]["imaging"]["device_ms"] = dev[1]

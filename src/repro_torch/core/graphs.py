@@ -11,7 +11,8 @@ its answers are the eager ones, bit for bit.
 
     Binding(plan, params, device, backend, staging_slots)
         params on the device once; each conv and dense weight quantized once
-        (``plan.quantized_weights``); the chain kernel's range check run once
+        (``plan.quantized_weights``), an int8-route conv's levels laid out
+        for its kernel once; the chain kernel's range check run once
         over every fused segment, unless the plan verifier has proven it
         (``CompiledPlan.exact_proven``), so no capture reads the device for
         it.
@@ -144,15 +145,15 @@ class Binding:
         self.graphs: Dict[int, BucketGraph] = {}
         self.stream: Optional[torch.cuda.Stream] = None
         if device.type != "cuda":
-            self.weights = plan_mod.quantized_weights(plan.steps, params,
-                                                      plan.consts)
+            self.weights = plan_mod.quantized_weights(
+                plan.steps, params, plan.consts, plan.strip_routes)
             return
         self.stream = torch.cuda.Stream(device)
         # the params were copied on the device's current stream
         self.stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.device(device), torch.cuda.stream(self.stream):
-            self.weights = plan_mod.quantized_weights(plan.steps, params,
-                                                      plan.consts)
+            self.weights = plan_mod.quantized_weights(
+                plan.steps, params, plan.consts, plan.strip_routes)
             if backend == "kernel" and not plan.exact_proven:
                 self._check_segments()
         self.stream.synchronize()
@@ -167,9 +168,11 @@ class Binding:
         from repro_torch.kernels.conv_bank.fused import check_exact
         steps = self.plan.steps
         for seg in self.plan.fused_segments:
-            check_exact([(s.geom, *self.weights[s.name], None)
-                         for s in steps[seg.start:seg.start + seg.length]],
-                        self.plan.consts["a_qmax"])
+            stages = []
+            for s in steps[seg.start:seg.start + seg.length]:
+                wq, ws, _ = self.weights[s.name]
+                stages.append((s.geom, wq, ws, None))
+            check_exact(stages, self.plan.consts["a_qmax"])
 
     def execute(self, frames: torch.Tensor) -> torch.Tensor:
         """The eager per-frame executor on this view's params and weights."""

@@ -9,9 +9,13 @@
 
   _execute_steps(steps, params, frames, consts, per_frame, segments, backend)
       The device forward, batch-first, every device op through
-      ``kernels.dispatch``. It runs eagerly, op by op, so no two float
-      operations are ever contracted into an FMA, and every division is a
-      true IEEE division (``quant.true_div``): the numerics are the
+      ``kernels.dispatch``: the MACs on their kernels, and each requant
+      with its dequant, bias, activation and pool on the epilogue pair
+      (``dispatch.epilogue``), the counterpart of XLA's fusion of the
+      reference's jitted executor. Every float step rounds once, in the
+      reference's association (the kernel's explicit ``_rn`` intrinsics;
+      the plain torch ops run eagerly, op by op, with every division a
+      true IEEE division, ``quant.true_div``): the numerics are the
       reference's jitted executor's, bit for bit.
 
 ``compile_model`` / ``execute`` are the reference's deprecated front doors
@@ -49,8 +53,7 @@ from repro_torch import obs
 from repro_torch.core import optical_core as ocore
 from repro_torch.core import power_model as pmod
 from repro_torch.core.accelerator import (CASpec, ConvSpec, DenseSpec,
-                                          FlattenSpec, UpsampleSpec,
-                                          _activation, _crc_requant, _pool)
+                                          FlattenSpec, UpsampleSpec)
 from repro_torch.core.compressive import upsample_reconstruct
 from repro_torch.core.quant import (ACT_BITS, MixedPrecisionScheme, WASpec,
                                     quantize_weight, resolve_layer_specs)
@@ -147,6 +150,16 @@ class CompiledPlan:
     # depthwise strips have none). Kept off the steps, which equal the
     # reference's field for field.
     strip_routes: Dict[str, str] = dataclasses.field(default_factory=dict)
+    # the dense convs on the int8 strip route whose operand the epilogue
+    # before them writes (``dispatch.epilogue(operand=)``: uint8, their
+    # border and zero channels), so they take it as it is -- where that
+    # epilogue runs: after a fused segment that ran, the chain's float
+    # codes come instead, and the conv casts and pads them; and the conv and
+    # dense steps whose act the epilogue kernel does not take (tanh), whose
+    # dequant, act, pool and requant stay torch ops. Both by step name,
+    # kept off the steps as ``strip_routes`` is.
+    int_operands: Tuple[str, ...] = ()
+    torch_epilogues: Tuple[str, ...] = ()
     # the trace families this plan has run (``_execute``)
     _families: set = dataclasses.field(default_factory=set, repr=False)
     # the executors handed out (``executor``), by per_frame
@@ -420,6 +433,13 @@ def _compile_model_uncached(layers, frame_shape, scheme, oc, circuit,
         [s.geom if isinstance(s, ConvStep) else None for s in steps],
         mode=fuse_mode, budget=conv_budget)
     report.fused_segments = [dataclasses.asdict(f) for f in fused_segments]
+    fused = {name for f in fused_segments for name in f.names}
+    int_operands = tuple(
+        s.name for s in steps if isinstance(s, ConvStep) and s.groups == 1
+        and strip_routes.get(s.name) == "int" and s.name not in fused)
+    torch_epilogues = tuple(
+        s.name for s in steps if isinstance(s, (ConvStep, DenseStep))
+        and s.act not in dispatch.FUSABLE_ACTS)
 
     consts = {
         "a_qmax": float((1 << ACT_BITS) - 1),
@@ -430,7 +450,8 @@ def _compile_model_uncached(layers, frame_shape, scheme, oc, circuit,
                         tuple(schedules), tuple(spec_list), report,
                         out_features or c, consts,
                         fused_segments=fused_segments,
-                        strip_routes=strip_routes)
+                        strip_routes=strip_routes, int_operands=int_operands,
+                        torch_epilogues=torch_epilogues)
 
 
 # ---------------------------------------------------------------------------
@@ -438,13 +459,27 @@ def _compile_model_uncached(layers, frame_shape, scheme, oc, circuit,
 # ---------------------------------------------------------------------------
 
 def quantized_weights(steps: Tuple[PlanStep, ...], params: Dict[str, Dict],
-                      consts: Dict[str, object]) -> Dict[str, Tuple]:
-    """Each conv and dense layer's ``(wq, ws)``: the ``quantize_weight``
-    call :func:`_execute_steps` makes per layer when it is not given them
-    (the same function of the same weights, so the same tensors)."""
-    return {s.name: quantize_weight(params[s.name]["w"], s.wa,
-                                    consts["w_qmax"][s.name])
-            for s in steps if isinstance(s, (ConvStep, DenseStep))}
+                      consts: Dict[str, object],
+                      routes: Optional[Dict[str, str]] = None
+                      ) -> Dict[str, Tuple]:
+    """Each conv and dense layer's ``(wq, ws, levels)``: ``(wq, ws)`` the
+    ``quantize_weight`` call :func:`_execute_steps` makes per layer when it
+    is not given them (the same function of the same weights, so the same
+    tensors); ``levels`` a dense conv's on the int8 strip route
+    (``routes``, the plan's ``strip_routes``) laid out for the kernel once
+    (``strip.int_weights``), where an unbound run lays them out per call,
+    and None for every other layer."""
+    from repro_torch.kernels.conv_bank.strip import int_weights
+    routes = routes or {}
+    out = {}
+    for s in steps:
+        if isinstance(s, (ConvStep, DenseStep)):
+            wq, ws = quantize_weight(params[s.name]["w"], s.wa,
+                                     consts["w_qmax"][s.name])
+            int_route = (isinstance(s, ConvStep) and s.groups == 1
+                         and routes.get(s.name) == "int")
+            out[s.name] = (wq, ws, int_weights(wq) if int_route else None)
+    return out
 
 
 def _execute_steps(steps: Tuple[PlanStep, ...], params: Dict[str, Dict],
@@ -455,13 +490,25 @@ def _execute_steps(steps: Tuple[PlanStep, ...], params: Dict[str, Dict],
                    weights: Optional[Dict[str, Tuple]] = None,
                    exact_checked: bool = False,
                    reduce_max=None,
-                   routes: Optional[Dict[str, str]] = None) -> torch.Tensor:
+                   routes: Optional[Dict[str, str]] = None,
+                   int_operands: Sequence[str] = (),
+                   torch_epilogues: Sequence[str] = ()) -> torch.Tensor:
     """The device forward, batch-first, kernels via ``kernels.dispatch``.
 
     ``per_frame`` switches every CRC requant to per-frame calibration
     (scale [B, 1, ...] instead of one batch-wide scalar): each frame's
     result is then a pure function of that frame, the invariant the
     serving micro-batcher's padding and coalescing rest on.
+
+    Every requant -- the frames', the CA's, each unfused conv's (with its
+    dequant, bias, act and pool), the upsample's, the flatten's and each
+    dense layer's with an activation -- is one ``dispatch.epilogue`` call:
+    the epilogue kernel pair on the kernel backend. Where the next step is
+    in ``int_operands`` (the plan's), the epilogue writes that conv's
+    int8 operand and the conv takes it as it is (a conv there that comes
+    straight after a fused segment that ran gets the chain's float codes,
+    and casts and pads them itself); the steps in
+    ``torch_epilogues`` run theirs as the plain torch ops.
 
     ``segments`` are the plan's fused runs: when a run's start comes up,
     its conv steps execute as one ``dispatch.conv_chain`` launch. The
@@ -472,28 +519,46 @@ def _execute_steps(steps: Tuple[PlanStep, ...], params: Dict[str, Dict],
     ``routes`` are the plan's ``strip_routes`` (``None``: each strip conv
     resolves its own with the default rule).
 
-    ``weights`` are the layers' quantized ``(wq, ws)`` from
-    :func:`quantized_weights`, made once by a bound view; ``None``
-    quantizes each layer's weights on every call. ``exact_checked``: the
-    fused chains' float32 range is already known to hold (the verifier
-    proved the plan, or a bound view ran ``fused.check_exact`` over its
-    weights), so no chain launch checks it again. ``reduce_max``: ``frames``
-    are one shard of a batch (``Options.shard_batch``), and each per-tensor
-    requant's max is taken across the shards through it; the fused chains
-    then do not run (their inter-stage max is the shard's own).
+    ``weights`` are the layers' ``(wq, ws, levels)`` from
+    :func:`quantized_weights` (quantized, and an int-route conv's levels
+    laid out), made once by a bound view; ``None`` quantizes each layer's
+    weights, and lays the levels out, on every call.
+    ``exact_checked``: the fused chains' float32 range is already known to
+    hold (the verifier proved the plan, or a bound view ran
+    ``fused.check_exact`` over its weights), so no chain launch checks it
+    again. ``reduce_max``: ``frames`` are one shard of a batch
+    (``Options.shard_batch``), and each per-tensor requant's max is taken
+    across the shards through it; the fused chains then do not run (their
+    inter-stage max is the shard's own).
     """
     def qweight(step):
         if weights is not None:
             return weights[step.name]
-        return quantize_weight(params[step.name]["w"], step.wa,
-                               consts["w_qmax"][step.name])
+        return (*quantize_weight(params[step.name]["w"], step.wa,
+                                 consts["w_qmax"][step.name]), None)
 
     routes = routes or {}
     a_qmax = consts["a_qmax"]
-    def requant(t):
-        return _crc_requant(t, a_qmax, per_frame, reduce_max)
+    n = len(steps)
+    handed = frozenset(int_operands) if backend == "kernel" else frozenset()
 
-    x, act_scale = requant(frames)
+    # x is the int8 operand the last epilogue wrote for the step at hand
+    x_operand = False
+
+    def epilogue(t, nxt, act_scale=None, ws=None, bias=None, act="none",
+                 pool=None, name=None):
+        """The requant whose codes step ``nxt`` takes."""
+        nonlocal x_operand
+        s = steps[nxt] if nxt < n else None
+        operand = ((s.kernel, s.pads) if s is not None
+                   and getattr(s, "name", None) in handed else None)
+        x_operand = operand is not None
+        return dispatch.epilogue(
+            t, act_scale, ws, bias, act, pool, a_qmax=a_qmax,
+            per_frame=per_frame, reduce_max=reduce_max, operand=operand,
+            backend="reference" if name in torch_epilogues else backend)
+
+    x, act_scale = epilogue(frames, 0)
     fuse_ok = per_frame or (frames.shape[0] == 1 and reduce_max is None)
     hooks = dispatch.trace_hooks()
     if segments and not fuse_ok and hooks:
@@ -506,7 +571,7 @@ def _execute_steps(steps: Tuple[PlanStep, ...], params: Dict[str, Dict],
                       attrs={"segments": len(segments),
                              "batch": int(frames.shape[0])})
     seg_at = {s.start: s for s in segments} if fuse_ok else {}
-    i, n = 0, len(steps)
+    i = 0
     while i < n:
         step = steps[i]
         seg = seg_at.get(i)
@@ -516,11 +581,12 @@ def _execute_steps(steps: Tuple[PlanStep, ...], params: Dict[str, Dict],
                   if hooks else _NO_SPAN):
                 stages = []
                 for s in steps[i:i + seg.length]:
-                    wq, ws = qweight(s)
+                    wq, ws, _ = qweight(s)
                     stages.append((s.geom, wq, ws, params[s.name].get("b")))
                 x, act_scale = dispatch.conv_chain(
                     x, act_scale, stages, a_qmax, per_frame, backend,
                     exact_checked=exact_checked)
+            x_operand = False
             i += seg.length
             continue
         if isinstance(step, CAStep):
@@ -529,40 +595,39 @@ def _execute_steps(steps: Tuple[PlanStep, ...], params: Dict[str, Dict],
                                     backend)
             if g.ndim == 3:
                 g = g[..., None]
-            x, act_scale = requant(g)
+            x, act_scale = epilogue(g, i + 1)
         elif isinstance(step, ConvStep):
             p = params[step.name]
-            wq, ws = qweight(step)
+            wq, ws, levels = qweight(step)
             acc = dispatch.conv_int(x, wq, step.stride, step.pads,
                                     groups=step.groups,
                                     strategy=step.strategy, backend=backend,
-                                    route=routes.get(step.name))
-            out = acc * (act_scale * ws.reshape(1, 1, 1, -1))
-            if p.get("b") is not None:
-                out = out + p["b"]
-            y = _activation(out, step.act)
-            if step.pool is not None:
-                y = _pool(y, *step.pool)
-            x, act_scale = requant(y)
+                                    route=routes.get(step.name),
+                                    operand=x_operand,
+                                    levels=levels)
+            x, act_scale = epilogue(acc, i + 1, act_scale, ws, p.get("b"),
+                                    step.act, step.pool, step.name)
         elif isinstance(step, UpsampleStep):
             intens = x * act_scale
             up = upsample_reconstruct(intens, step.factor, step.method)
-            x, act_scale = requant(up)
+            x, act_scale = epilogue(up, i + 1)
         elif isinstance(step, FlattenStep):
-            intens = x * act_scale
-            flat = intens.reshape(intens.shape[0], -1)
-            x, act_scale = requant(flat)
+            b = x.shape[0]
+            x, act_scale = epilogue(
+                x.reshape(b, -1), i + 1, act_scale if act_scale.ndim == 0
+                else act_scale.reshape(b, 1))
         elif isinstance(step, DenseStep):
             p = params[step.name]
-            wq, ws = qweight(step)
+            wq, ws, _ = qweight(step)
             acc = dispatch.matmul_int(x, wq, backend)
-            out = acc * (act_scale * ws.reshape(1, -1))
-            if p.get("b") is not None:
-                out = out + p["b"]
             if step.act != "none":
-                y = _activation(out, step.act)
-                x, act_scale = requant(y)
+                x, act_scale = epilogue(acc, i + 1, act_scale, ws,
+                                        p.get("b"), step.act, None,
+                                        step.name)
             else:
+                out = acc * (act_scale * ws.reshape(1, -1))
+                if p.get("b") is not None:
+                    out = out + p["b"]
                 x, act_scale = out, None
         else:
             raise TypeError(f"unknown plan step {step!r}")
@@ -602,7 +667,9 @@ def _execute(plan: CompiledPlan, params: Dict[str, Dict],
                               exact_checked=(weights is not None
                                              or plan.exact_proven),
                               reduce_max=reduce_max,
-                              routes=plan.strip_routes)
+                              routes=plan.strip_routes,
+                              int_operands=plan.int_operands,
+                              torch_epilogues=plan.torch_epilogues)
 
 
 # ---------------------------------------------------------------------------

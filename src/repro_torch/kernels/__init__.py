@@ -25,8 +25,9 @@ def _counters():
     from repro_torch.kernels.conv_bank.strip import DW_LAUNCHES as strip_dw
     from repro_torch.kernels.conv_bank.strip import INT_LAUNCHES as strip_int
     from repro_torch.kernels.conv_bank.strip import LAUNCHES as strip
+    from repro_torch.kernels.epilogue.ops import LAUNCHES as epilogue
     from repro_torch.kernels.photonic_mvm.ops import LAUNCHES as mvm
-    return (mvm, chain, ca, strip, strip_dw, bank, strip_int)
+    return (mvm, chain, ca, strip, strip_dw, bank, strip_int, epilogue)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -548,66 +548,103 @@ def conv_strip_depthwise(x_padded: torch.Tensor, w_taps: torch.Tensor,
                   DW_LAUNCHES)
 
 
-def int_operands(codes: torch.Tensor, w: torch.Tensor,
-                 pads=((0, 0), (0, 0))):
-    """The int8 kernel's operands from integer-valued codes [B, H, W, C]
-    and levels [k, k, C, C_out]: the codes cast to uint8 and then, in one
-    ``F.pad``, given the border ``pads`` ((top, bottom), (left, right))
-    and zero channels up to :func:`igemm_c_in`'s; the levels cast to int8
-    and given the same zero channels. Operands already in that form come
-    back as they are."""
-    kk, c_in = w.shape[0], w.shape[2]
-    cpad = igemm_c_in(c_in, kk) - c_in
+def int_codes(codes: torch.Tensor, k: int, pads=((0, 0), (0, 0))
+              ) -> torch.Tensor:
+    """The int8 kernel's input from integer-valued codes [B, H, W, C] of a
+    k x k conv: cast to uint8 and then, in one ``F.pad``, given the border
+    ``pads`` ((top, bottom), (left, right)) and zero channels up to
+    :func:`igemm_c_in`'s. Codes already in that form come back as they
+    are. ``dispatch.epilogue`` writes this form straight from a requant."""
     (plo, phi), (qlo, qhi) = pads
-    x8, w8 = codes.to(torch.uint8), w.to(torch.int8)
+    cpad = igemm_c_in(codes.shape[-1], k) - codes.shape[-1]
+    x8 = codes.to(torch.uint8)
     if cpad or plo or phi or qlo or qhi:
         x8 = F.pad(x8, (0, cpad, qlo, qhi, plo, phi))
+    return x8
+
+
+def int_operands(codes: torch.Tensor, w: torch.Tensor,
+                 pads=((0, 0), (0, 0))):
+    """The int8 kernel's operands from integer-valued codes [B, H, W, C] and
+    levels [k, k, C, C_out]: :func:`int_codes`, and the levels cast to
+    int8 and given the same zero channels. Operands already in that form
+    come back as they are."""
+    kk, c_in = w.shape[0], w.shape[2]
+    cpad = igemm_c_in(c_in, kk) - c_in
+    w8 = w.to(torch.int8)
     if cpad:
         w8 = F.pad(w8, (0, 0, 0, cpad))
-    return x8, w8
+    return int_codes(codes, kk, pads), w8
 
 
-def launch_int(x_padded: torch.Tensor, w: torch.Tensor, ws, bias,
-               act_scale: float, act: str, stride: int) -> torch.Tensor:
-    """Launch the int8 kernel on CUDA tensors (validated by the caller) and
-    count it on ``INT_LAUNCHES``: the operands take :func:`int_operands`'s
-    form (callers on the path hand it over already), the levels are laid
-    out as the kernel stages them ([k*k, C_out, C_in], k contiguous;
-    folded, [C_out, kf] with k = tap*4 + c), and :func:`igemm_config`'s
-    configuration is taken."""
-    dev = x_padded.device
-    kk, c_out = w.shape[0], w.shape[-1]
-    b, hp, wp, c_in = x_padded.shape
-    n_rows = (hp - kk) // stride + 1
-    w_out = (wp - kk) // stride + 1
-    for t in (w, ws, bias):
-        if t is not None and t.device != dev:
-            raise ValueError(f"conv_strip_int: operands on {dev} and "
-                             f"{t.device}")
-    x, w = int_operands(x_padded, w)
-    x, c_k = x.contiguous(), x.shape[-1]
-    kf = igemm_fold_k(c_in, kk)
-    wt = w.reshape(kk * kk, c_k, c_out)
+@dataclass(frozen=True)
+class IntWeights:
+    """A conv's operands for the int8 kernel, laid out once
+    (:func:`int_weights`): ``w8`` the int8 levels [k, k, C_k, C_out] with
+    zero channels up to C_k = :func:`igemm_c_in` (what the plain version
+    takes), ``wt`` the same levels as the kernel stages them ([k*k, C_out,
+    C_k], C_k contiguous; folded, [C_out, kf] with K = tap*4 + channel),
+    ``ws`` and ``bias`` flat contiguous float32 or None."""
+    w8: torch.Tensor
+    wt: torch.Tensor
+    ws: Optional[torch.Tensor] = None
+    bias: Optional[torch.Tensor] = None
+
+
+def int_weights(w: torch.Tensor, ws: Optional[torch.Tensor] = None,
+                bias: Optional[torch.Tensor] = None) -> IntWeights:
+    """Lay out a conv's integer levels w [k, k, C_in, C_out] (and its
+    ``ws`` / ``bias``) for the int8 kernel: the int8 cast, the channel
+    pad, the transpose (or, folded, the [C_out, kf] pad) and the flat
+    float32 scales. A bound view does it once a step at bind
+    (``plan.quantized_weights``); an unbound call once a launch."""
+    kk, c_in, c_out = w.shape[0], w.shape[2], w.shape[-1]
+    c_k = igemm_c_in(c_in, kk)
+    w8 = w.to(torch.int8)
+    if c_k != c_in:
+        w8 = F.pad(w8, (0, 0, 0, c_k - c_in))
+    kf = igemm_fold_k(c_k, kk)
+    wt = w8.reshape(kk * kk, c_k, c_out)
     if kf:
         wt = F.pad(wt.reshape(-1, c_out).t(),
                    (0, kf - kk * kk * IGEMM_FOLD_C)).contiguous()
     else:
         wt = wt.transpose(1, 2).contiguous()
-    eps = [t if t is None else t.reshape(-1).to(torch.float32).contiguous()
-           for t in (ws, bias)]
+    flat = [t if t is None else t.reshape(-1).to(torch.float32).contiguous()
+            for t in (ws, bias)]
+    return IntWeights(w8, wt, *flat)
+
+
+def launch_int(x_padded: torch.Tensor, iw: IntWeights, act_scale: float,
+               act: str, stride: int) -> torch.Tensor:
+    """Launch the int8 kernel on CUDA tensors (validated by the caller) and
+    count it on ``INT_LAUNCHES``: ``x_padded`` takes :func:`int_codes`'
+    form (callers on the path hand it over already), the levels, ``ws``
+    and ``bias`` :func:`int_weights`' layout, and :func:`igemm_config`'s
+    configuration is taken."""
+    dev = x_padded.device
+    kk, c_out = iw.w8.shape[0], iw.w8.shape[-1]
+    for t in (iw.wt, iw.ws, iw.bias):
+        if t is not None and t.device != dev:
+            raise ValueError(f"conv_strip_int: operands on {dev} and "
+                             f"{t.device}")
+    x = int_codes(x_padded, kk).contiguous()
+    b, hp, wp, c_k = x.shape
+    n_rows = (hp - kk) // stride + 1
+    w_out = (wp - kk) // stride + 1
     out = torch.empty((b, n_rows, w_out, c_out), dtype=torch.float32,
                       device=dev)
     if out.numel() == 0:
         return out
-    cfg = igemm_config(b, n_rows, w_out, c_in, c_out, kk, stride)
+    cfg = igemm_config(b, n_rows, w_out, c_k, c_out, kk, stride)
     if cfg.smem > SMEM_MAX:
         raise ValueError(f"conv_strip_int: {cfg.smem} bytes of shared memory "
                          f"at k={kk} stride={stride}; a CTA has {SMEM_MAX}")
     lib = _build.library("conv_strip", _SIGNATURES)
     err = lib.conv_strip_int_launch(
-        x.data_ptr(), wt.data_ptr(),
-        *[None if t is None else t.data_ptr() for t in eps], out.data_ptr(),
-        b, hp, wp, c_k, c_out, kk, stride, float(act_scale),
+        x.data_ptr(), iw.wt.data_ptr(),
+        *[None if t is None else t.data_ptr() for t in (iw.ws, iw.bias)],
+        out.data_ptr(), b, hp, wp, c_k, c_out, kk, stride, float(act_scale),
         ACTS[act], cfg.th, cfg.tw, cfg.bn, cfg.stages,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "conv_strip_int")
@@ -624,10 +661,26 @@ def conv_strip_int(x_padded: torch.Tensor, w: torch.Tensor,
     [B, (Hp-k)/stride+1, (Wp-k)/stride+1, C_out] float32, every row the
     padded input yields (no strip contract), bitwise equal to
     :func:`conv_strip_int_ref`. Raises where an accumulate could leave
-    int32 (``255 * 127 * k * k * C_in >= 2^31``)."""
+    int32 (``255 * 127 * k * k * C_in >= 2^31``). The levels are laid out
+    on each call; :func:`conv_strip_int_laid` takes them laid out once."""
     kk, c_out = _check_int(x_padded, w, stride)
     _check_epilogue(ws, bias, act, c_out, "conv_strip_int")
     if not x_padded.is_cuda:
         return conv_strip_int_ref(x_padded, w, ws, stride, act_scale, act,
                                   bias)
-    return launch_int(x_padded, w, ws, bias, act_scale, act, stride)
+    return launch_int(x_padded, int_weights(w, ws, bias), act_scale, act,
+                      stride)
+
+
+def conv_strip_int_laid(x_padded: torch.Tensor, iw: IntWeights,
+                        stride: int = 1, act_scale: float = 1.0,
+                        act: str = "none") -> torch.Tensor:
+    """:func:`conv_strip_int` on levels laid out once (:func:`int_weights`,
+    its ``ws`` and ``bias`` with them) and x_padded in :func:`int_codes`'
+    form; bitwise equal to :func:`conv_strip_int_ref` on ``iw.w8``."""
+    _, c_out = _check_int(x_padded, iw.w8, stride)
+    _check_epilogue(iw.ws, iw.bias, act, c_out, "conv_strip_int")
+    if not x_padded.is_cuda:
+        return conv_strip_int_ref(x_padded, iw.w8, iw.ws, stride, act_scale,
+                                  act, iw.bias)
+    return launch_int(x_padded, iw, act_scale, act, stride)

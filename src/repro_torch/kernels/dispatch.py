@@ -4,11 +4,12 @@ Two backends, chosen per executable by ``Options(backend=...)``:
 
   kernel     — the hand-written CUDA kernels through their wrappers
                (``photonic_mvm.ops``, ``conv_bank.strip``,
-               ``conv_bank.fused``, ``ca_pool.ops``). A wrapper given a CUDA
-               tensor launches its kernel; given a CPU tensor it runs the
-               kernel's plain version. So on the CPU this backend runs the
-               same Python around the kernels (im2col, strip padding, stage
-               descriptors, shapes) with plain arithmetic inside.
+               ``conv_bank.fused``, ``ca_pool.ops``, ``epilogue.ops``). A
+               wrapper given a CUDA tensor launches its kernel; given a
+               CPU tensor it runs the kernel's plain version. So on the
+               CPU this backend runs the same Python around the kernels
+               (im2col, strip padding, stage descriptors, shapes) with
+               plain arithmetic inside.
   reference  — the plain PyTorch oracles (``conv_int_ref``, the exact
                float64 tap loop of ``conv_taps_int``; ``mvm_int_ref``,
                ``conv_chain_ref``, ``compressive_acquire``) on whatever
@@ -16,6 +17,12 @@ Two backends, chosen per executable by ``Options(backend=...)``:
 
 Both backends are bitwise equal: the accumulates are exact integers and
 every float step rounds the same way.
+
+Every requant of the plan executor goes through :func:`epilogue`: on the
+kernel backend the epilogue pair (``epilogue.ops``; dequant, bias, act,
+pool and the CRC requant, writing the next int8 conv's operand where the
+plan hands it over), on the reference backend the same torch ops the
+executor ran before it (``epilogue.ref``).
 
 Conv strategies follow the reference package's rules and its default 4 MiB
 budget, so they equal the reference's:
@@ -383,8 +390,8 @@ def select_strip_route(c_in: int, c_out: int, kernel: int, stride: int = 1,
 
 def conv_int(codes: torch.Tensor, wq: torch.Tensor, stride: int, pads,
              groups: int = 1, strategy: Optional[ConvStrategy] = None,
-             backend: str = "kernel", route: Optional[str] = None
-             ) -> torch.Tensor:
+             backend: str = "kernel", route: Optional[str] = None,
+             operand: bool = False, levels=None) -> torch.Tensor:
     """Integer-exact conv accumulate: [B,H,W,Cin] codes x [k,k,Cin/g,Cout]
     levels -> f32 [B,H',W',Cout], no dequant.
 
@@ -393,11 +400,27 @@ def conv_int(codes: torch.Tensor, wq: torch.Tensor, stride: int, pads,
     ``strategy`` and ``route`` (:func:`select_strip_route`) are what the
     plan resolved at compile time; ``None`` resolves them here with the
     default rules. The int route takes codes 0..255 (the plan's CRC codes)
-    and levels within int8.
+    and levels within int8; ``levels`` are its ``strip.IntWeights``, laid
+    out once by a bound view (``None``: laid out on this call).
+    ``operand``: ``codes`` are already the int route's operand
+    (``strip.int_codes``' form: uint8, the border ``pads`` and the zero
+    channels), as :func:`epilogue` writes it for a dense conv on the int
+    route; the plan marks that hand-over (``CompiledPlan.int_operands``).
     """
     _check_backend(backend)
     from repro_torch.kernels.conv_bank.ref import conv_int_ref
     k, _, cg, c_out = wq.shape
+    if operand:
+        if backend != "kernel" or route != "int" or groups != 1 or \
+                strategy is None or strategy.kind != "strip":
+            raise ValueError(
+                f"conv_int: a handed-over operand takes the kernel backend's "
+                f"dense int strip route (got backend={backend!r}, "
+                f"route={route!r}, groups={groups}, strategy={strategy})")
+        if trace_hooks():
+            obs.counter("dispatch.conv.strip").inc()
+        return _conv_int_strip(codes, wq, stride, pads, 1, strategy, 0,
+                               route, operand=True, levels=levels)
     if c_out % groups or codes.shape[-1] != cg * groups:
         raise ValueError(
             f"conv_int: groups={groups} must divide c_out={c_out} and "
@@ -419,7 +442,7 @@ def conv_int(codes: torch.Tensor, wq: torch.Tensor, stride: int, pads,
             route = select_strip_route(codes.shape[-1], c_out, k, stride,
                                        groups)
         return _conv_int_strip(codes, wq, stride, pads, groups, strategy,
-                               h_out, route)
+                               h_out, route, levels=levels)
     b = codes.shape[0]
     og = c_out // groups
     outs = []
@@ -434,18 +457,20 @@ def conv_int(codes: torch.Tensor, wq: torch.Tensor, stride: int, pads,
 
 def _conv_int_strip(codes: torch.Tensor, wq: torch.Tensor, stride: int,
                     pads, groups: int, strat: ConvStrategy,
-                    h_out: int, route: Optional[str]) -> torch.Tensor:
+                    h_out: int, route: Optional[str], operand: bool = False,
+                    levels=None) -> torch.Tensor:
     """Raw integer accumulate through the strip conv kernels.
 
-    The int route takes ``strip.int_operands``' form (uint8 codes cast
-    before the one pad of the conv's own border and channels, int8
-    levels) and launches ``conv_strip_int`` over the conv's own ``h_out``
-    rows: dense, or once per group of a general grouped conv. Otherwise
-    the rows
-    are padded so ``n_strips`` strips tile exactly (zero rows add zero;
-    the surplus output rows are sliced off), and: dense -> ``conv_strip``;
-    depthwise, multiplier 1 -> ``conv_strip_depthwise``; general grouped
-    -> one ``conv_strip`` call per group.
+    The int route takes ``strip.int_codes``' form of the codes (uint8
+    cast before the one pad of the conv's own border and channels; as it
+    is where ``operand``) and ``levels`` (``strip.int_weights``; laid out
+    here where None) and launches ``conv_strip_int`` over the conv's own
+    ``h_out`` rows: dense, or once per group of a general grouped conv.
+    Otherwise the rows are padded so ``n_strips`` strips tile exactly
+    (zero rows add zero; the surplus output rows are sliced off), and:
+    dense -> ``conv_strip``; depthwise, multiplier 1 ->
+    ``conv_strip_depthwise``; general grouped -> one ``conv_strip`` call
+    per group.
     """
     from repro_torch.kernels.conv_bank import strip as SK
     k, _, cg, c_out = wq.shape
@@ -456,7 +481,10 @@ def _conv_int_strip(codes: torch.Tensor, wq: torch.Tensor, stride: int,
                                      stride=stride)
 
         if groups == 1:
-            return run(codes, wq)
+            x8 = codes if operand else SK.int_codes(codes, k, pads)
+            if levels is None:
+                levels = SK.int_weights(wq)
+            return SK.conv_strip_int_laid(x8, levels, stride=stride)
         og = c_out // groups
         return torch.cat([run(codes[..., g * cg:(g + 1) * cg],
                               wq[..., g * og:(g + 1) * og])
@@ -524,3 +552,33 @@ def ca_acquire(img: torch.Tensor, pool: int,
         return compressive_acquire(img, pool, rgb_to_gray)
     from repro_torch.kernels.ca_pool.ops import acquire
     return acquire(img, pool, rgb_to_gray)
+
+
+def epilogue(x: torch.Tensor, act_scale: Optional[torch.Tensor] = None,
+             ws: Optional[torch.Tensor] = None,
+             bias: Optional[torch.Tensor] = None, act: str = "none",
+             pool: Optional[Tuple[str, int]] = None, *, a_qmax,
+             per_frame: bool = False, reduce_max=None, operand=None,
+             backend: str = "kernel"):
+    """One requant of the plan executor: a conv's or dense layer's
+    accumulate ``x`` with its ``act_scale``, ``ws``, ``bias``, ``act`` and
+    ``pool`` (or, without ``act_scale``, a float tensor as it is: the
+    frames, the CA's and the upsample's outputs, flatten's ``x * scale``)
+    -> ``(codes, scale)`` after the CRC requant, per frame or per tensor
+    (``reduce_max``: the batch's max across ``Options.shard_batch``'s
+    shards). With ``operand=(k, pads)`` the codes come as the uint8
+    operand of the next k x k conv on the int8 strip route, which then
+    takes them as they are (``conv_int(operand=True)``).
+
+    The kernel backend runs the hand-written pair of ``csrc/epilogue.cu``
+    (``kernels/epilogue/ops.py``; its plain version on a CPU tensor), the
+    reference backend the plain torch-op sequence (``ref.epilogue_ref``).
+    Bitwise equal either way."""
+    _check_backend(backend)
+    if backend == "reference":
+        from repro_torch.kernels.epilogue.ref import epilogue_ref
+        return epilogue_ref(x, act_scale, ws, bias, act, pool, a_qmax,
+                            per_frame, reduce_max, operand)
+    from repro_torch.kernels.epilogue.ops import epilogue as kern
+    return kern(x, act_scale, ws, bias, act, pool, a_qmax, per_frame,
+                reduce_max, operand)

@@ -1,7 +1,8 @@
 """Edge shapes of the launch configurations of ``photonic_mvm`` (its float
-API on signed codes too), the strip convs, the fused conv chain and
-``ca_pool``, the distinct shapes of VGG16's kernel calls at 224x224x3, and
-an operand copy that defeats aligned loads.
+API on signed codes too), the strip convs, the fused conv chain,
+``ca_pool`` and the epilogue, the distinct shapes of VGG16's kernel calls
+at 224x224x3, an operand copy that defeats aligned loads, and the
+epilogue's calls on a compiled program's path.
 
 The ``gpu`` tests (``tests/test_torch_gpu.py``) and ``chip_smoke.py`` both
 hold each kernel bitwise against its plain version at these shapes, so the
@@ -158,6 +159,103 @@ VGG16_SHAPES = {
     "photonic_mvm": [("conv11+conv12+conv13", 196, 4608, 512),
                      ("fc1", 1, 25088, 4096), ("fc2", 1, 4096, 4096),
                      ("fc3", 1, 4096, 1000)]}
+
+
+# the epilogue kernel pair (``epilogue.ops.epilogue_config``): (batch, x's
+# shape a frame, act, bias, pool, operand (k, pads) or None, form): 4
+# channels a unit and 1 (3 channels, odd ones, a misaligned copy), max and
+# avg pools, a frame stride of its own (the float strip route's row slice,
+# "rows"), the operand's channel pads (3 -> 4, 20 -> 32) and borders, a
+# dense accumulate, a plain tensor ("plain": no act_scale), one frame and
+# a batch past one block a frame
+EPILOGUE_EDGES = [
+    (8, (224, 224, 3), "none", False, None, (3, ((1, 1), (1, 1))), "plain"),
+    (8, (56, 56, 64), "relu", True, ("max", 2), (3, ((1, 1), (1, 1))),
+     "acc"),
+    (3, (18, 10, 5), "sign", True, ("avg", 2), None, "acc"),
+    (1, (28, 28, 6), "relu", True, ("avg", 2), None, "acc"),
+    (2, (40, 40, 20), "abs", True, None, (5, ((2, 2), (0, 3))), "acc"),
+    (8, (4096,), "relu", True, None, None, "acc"),
+    (5, (33, 31, 7), "none", False, None, None, "rows"),
+    (4, (16, 16, 8), "relu", False, ("max", 2), None, "odd"),
+    (2, (64, 64, 1), "none", False, None, None, "plain"),
+    (13, (8, 8, 16), "abs", True, None, (3, ((0, 0), (0, 0))), "acc")]
+
+
+def epilogue_case(edge, per_frame, gen, device):
+    """The arguments of ``epilogue.ops.epilogue`` for one
+    ``EPILOGUE_EDGES`` entry, random from ``gen`` (a CPU generator):
+    ``(x, act_scale, ws, bias, act, pool, a_qmax, per_frame, None,
+    operand)``, x an integer accumulate (in ``(-600, 600)``) with a scale
+    a frame or one, or a plain tensor in (-0.5, 1)."""
+    b, shape, act, has_bias, pool, operand, form = edge
+    c = shape[-1]
+    if form == "plain":
+        x = torch.rand((b, *shape), generator=gen) * 1.5 - 0.5
+        s = ws = bias = None
+    else:
+        x = torch.randint(-600, 601, (b, *shape), generator=gen).float()
+        s = torch.rand((b,) + (1,) * len(shape), generator=gen) * 0.01 + 1e-3
+        s = s if per_frame else s.reshape(-1)[0]
+        ws = torch.rand((c,), generator=gen) * 0.2 + 0.01
+        bias = torch.randn((c,), generator=gen) * 0.3 if has_bias else None
+    x = x.to(device)
+    if form == "rows":            # a row slice: frames further apart
+        x = torch.cat([x, x[:, :2]], dim=1)[:, :shape[0]]
+    elif form == "odd":
+        x = odd_offset(x)
+    on = [None if t is None else t.to(device) for t in (s, ws, bias)]
+    return (x, *on, act, pool, 15.0, per_frame, None, operand)
+
+
+# the epilogue on an accumulate with a NaN and a +inf in it: (act, pool)
+EPILOGUE_NAN_EDGES = [("relu", ("max", 2)), ("sign", None),
+                      ("abs", ("avg", 2)), ("none", None)]
+
+
+def epilogue_nan_case(edge, per_frame, gen, device):
+    """The arguments of ``epilogue.ops.epilogue`` for one
+    ``EPILOGUE_NAN_EDGES`` entry, as :func:`epilogue_case`'s: 3 frames of
+    an 8x8x8 integer accumulate, frame 1 with a NaN in it and frame 2 a
+    +inf, float32 codes. The kernel keeps them as its plain version does
+    (a NaN scale and NaN codes; sign(NaN) is 0)."""
+    act, pool = edge
+    x = torch.randint(-600, 601, (3, 8, 8, 8), generator=gen).float()
+    x[1, 2, 3, 4] = float("nan")
+    x[2, 5, 1, 0] = float("inf")
+    s = torch.rand((3, 1, 1, 1), generator=gen) * 0.01 + 1e-3
+    s = s if per_frame else s.reshape(-1)[0]
+    ws = torch.rand((8,), generator=gen) * 0.2 + 0.01
+    bias = torch.randn((8,), generator=gen) * 0.3
+    return (*[t.to(device) for t in (x, s, ws, bias)], act, pool, 15.0,
+            per_frame, None, None)
+
+
+def epilogue_calls(exe, frames, per_frame: bool = True):
+    """The epilogue kernel's calls in one run of ``exe`` (a compiled
+    ``Executable`` on the kernel backend) on ``frames``: each as the
+    arguments of ``epilogue.ops.epilogue`` (the same tuple as
+    :func:`epilogue_case`'s), its tensors cloned, so every call can be
+    made again through the kernel and its plain version at the path's own
+    shapes and values. A step left on the torch ops (tanh) is not one."""
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.kernels import dispatch
+    calls, real = [], dispatch.epilogue
+
+    def record(*args, **kw):
+        if kw["backend"] == "kernel":
+            calls.append(tuple(a.clone() if isinstance(a, torch.Tensor)
+                               else a for a in args) + (
+                kw["a_qmax"], kw["per_frame"], None, kw["operand"]))
+        return real(*args, **kw)
+
+    dispatch.epilogue = record
+    try:
+        plan_mod._execute(exe.plan, exe.params(), frames,
+                          per_frame=per_frame, backend=exe.options.backend)
+    finally:
+        dispatch.epilogue = real
+    return calls
 
 
 def vgg16_case(kernel, shape, batch, gen, device, levels=7):

@@ -93,6 +93,13 @@ def fake_world(world_size: int) -> None:
         dist.destroy_process_group()
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=world_size)
+    # DTensor's native sharding-propagation cache keys a mesh by its shape
+    # and dim names, not by its process groups: an entry an earlier world
+    # left hands back that world's mesh, whose groups are destroyed
+    clear = getattr(torch._C, "_clear_DTensor_sharding_propagator_cache",
+                    None)
+    if clear is not None:
+        clear()
 
 
 def _fake_like(meta_tree):

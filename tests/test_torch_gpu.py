@@ -15,7 +15,10 @@ steps on the card against the CPU port's. The LM families: every smoke
 arch's forward and decode steps on the card against the CPU port (the MoE
 archs under both dispatches and three quant modes, their expert indices
 equal). The public ``ca_pool`` op with a bank of its own, on every
-weighted route.
+weighted route. The plan executor's epilogue kernel pair at its edges and
+at every call of the LeNet, VGG9-CA, imaging (256x256) and VGG16 paths,
+under both calibrations, under ``shard_batch``,
+and the int8 route's levels laid out at bind against per call.
 """
 
 from __future__ import annotations
@@ -38,10 +41,15 @@ from repro_torch.kernels.conv_bank.fused import conv_chain
 from repro_torch.kernels.conv_bank.ops import conv_bank, conv_bank_plain
 from repro_torch.kernels.conv_bank.ref import conv_chain_ref
 from repro_torch.kernels.edge_shapes import (CA_EDGES, CHAIN_EDGES, CHAINS,
-                                             DW_EDGES, MVM_EDGES,
+                                             DW_EDGES, EPILOGUE_EDGES,
+                                             EPILOGUE_NAN_EDGES, MVM_EDGES,
                                              SIGNED_MVM_SHAPES, STRIP_EDGES,
                                              VGG16_SHAPES, chain_case,
-                                             odd_offset, vgg16_case)
+                                             epilogue_calls, epilogue_case,
+                                             epilogue_nan_case, odd_offset,
+                                             vgg16_case)
+from repro_torch.kernels.epilogue.ops import epilogue
+from repro_torch.kernels.epilogue.ref import epilogue_ref
 from repro_torch.kernels.photonic_mvm.ops import mvm_int
 from repro_torch.kernels.photonic_mvm.ref import mvm_int_ref
 
@@ -723,6 +731,38 @@ def _vgg16_program():
                                        layers), (224, 224, 3), name="vgg16")
 
 
+@pytest.mark.parametrize("per_frame,batch", [(True, 3), (False, 3),
+                                             (False, 1)])
+def test_int_route_conv_after_a_fused_segment_bitwise(cuda, per_frame,
+                                                      batch):
+    # conv1-conv2 fuse, conv3 runs on the int route: where the chain ran it
+    # takes the chain's float codes, else conv2's epilogue operand
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.accelerator import ConvSpec, DenseSpec, FlattenSpec
+    from repro_torch.models.vision import init_vision
+    layers = (ConvSpec("conv1", 3, 16),
+              ConvSpec("conv2", 16, 64, pool=("max", 2)),
+              ConvSpec("conv3", 64, 64, pool=("max", 2)), FlattenSpec(),
+              DenseSpec("fc1", 4 * 4 * 64, 10, act="none"))
+    prog = Program(layers, init_vision(torch.Generator().manual_seed(5),
+                                       layers), (16, 16, 3),
+                   name="fused_then_int")
+    exe = prog.compile(Options(scheme=W4A4, conv_strategy="strip",
+                               fuse="auto", verify="off"))
+    plan = exe.plan
+    assert plan.int_operands == ("conv3",) and plan.fused_segments
+    f = torch.from_numpy(_frames_for(prog, batch, 12)).to(cuda)
+    reset_launch_counts()
+    got = plan_mod._execute(plan, exe.params(), f, per_frame=per_frame)
+    counts = launch_counts()
+    ref = plan_mod._execute(plan, exe.params(), f, per_frame=per_frame,
+                            backend="reference")
+    assert torch.equal(got, ref)
+    fused = per_frame or batch == 1
+    assert counts["conv_chain"] == int(fused)
+    assert counts["conv_strip_int"] == 1 + int(not fused)
+
+
 @pytest.mark.parametrize("bucket", [1, 8])
 def test_vgg16_bound_graph_replay_bitwise_equal_to_eager(cuda, bucket):
     prog = _vgg16_program()
@@ -1179,3 +1219,103 @@ def test_run_eager_on_the_card_equals_run_and_launches_nothing(cuda, model,
     cpu, _ = LightatorDevice(device="cpu").run_eager(prog.layers,
                                                      prog.params, f, spec)
     assert torch.equal(eager.cpu(), cpu)
+
+
+# -- the plan executor's epilogue ---------------------------------------------
+
+def _same_epilogue(args):
+    reset_launch_counts()
+    got = epilogue(*args)
+    assert launch_counts()["epilogue"] == 1
+    want = epilogue_ref(*args)
+    assert got[0].dtype == want[0].dtype and torch.equal(got[0], want[0])
+    assert got[1].shape == want[1].shape and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("per_frame", [True, False])
+@pytest.mark.parametrize("i", range(len(EPILOGUE_EDGES)))
+def test_epilogue_kernel_configs_bitwise_equal_to_plain(cuda, i, per_frame):
+    args = epilogue_case(EPILOGUE_EDGES[i], per_frame,
+                         torch.Generator().manual_seed(i), cuda)
+    _same_epilogue(args)
+
+
+def _path_program(name):
+    if name == "vgg16":
+        return _vgg16_program()
+    if name in ("lenet", "vgg9"):
+        return Program.from_model(name, torch.Generator().manual_seed(7))
+    return Program.from_pipeline(name, 256, 256)
+
+
+@pytest.mark.parametrize("per_frame", [True, False])
+@pytest.mark.parametrize("name", ["lenet", "vgg9", "edge_detect",
+                                  "compress_recon", "denoise_gauss",
+                                  "vgg16"])
+def test_epilogue_kernel_at_path_shapes_bitwise_equal_to_plain(
+        cuda, name, per_frame):
+    prog = _path_program(name)
+    exe = prog.compile(Options(scheme=W4A4, verify="off"))
+    f = torch.from_numpy(_frames_for(prog, 8, 9)).to(cuda)
+    calls = epilogue_calls(exe, f, per_frame)
+    assert calls
+    for args in calls:
+        _same_epilogue(args)
+
+
+@pytest.mark.parametrize("name", ["lenet", "vgg9", "denoise_gauss"])
+def test_epilogue_under_shard_batch_bitwise_equal_to_unsharded(cuda, name):
+    """Per-tensor calibration over two shards of cuda:0: pass 1's max goes
+    through the shards' ``reduce_max`` before pass 2."""
+    prog = _path_program(name)
+    f = _frames_for(prog, 8, 10)
+    plain = Options(scheme=W4A4, verify="off")
+    want = prog.compile(plain).run(f).cpu()
+    ref = prog.compile(dataclasses.replace(plain, backend="reference")).run(
+        f).cpu()
+    reset_launch_counts()
+    got = prog.compile(dataclasses.replace(
+        plain, shard_batch=True, mesh=("cuda:0", "cuda:0"))).run(f).cpu()
+    assert launch_counts()["epilogue"] > 0
+    assert torch.equal(got, want) and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("per_frame", [True, False])
+@pytest.mark.parametrize("i", range(len(EPILOGUE_NAN_EDGES)))
+def test_epilogue_kernel_keeps_a_nan_as_its_plain_version(cuda, i,
+                                                           per_frame):
+    args = epilogue_nan_case(EPILOGUE_NAN_EDGES[i], per_frame,
+                             torch.Generator().manual_seed(i), cuda)
+    reset_launch_counts()
+    got = epilogue(*args)
+    assert launch_counts()["epilogue"] == 1
+    want = epilogue_ref(*args)
+    assert bool(want[1].isnan().any()) == (EPILOGUE_NAN_EDGES[i][0]
+                                           != "sign")
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+
+
+def test_int_route_levels_laid_out_at_bind_equal_per_call(cuda):
+    from repro_torch.core import plan as plan_mod
+    prog = _vgg16_program()
+    exe = prog.compile(Options(scheme=W4A4, verify="off"))
+    plan, params = exe.plan, exe.params()
+    assert plan.int_operands == tuple(f"conv{i}" for i in range(1, 11))
+    weights = plan_mod.quantized_weights(plan.steps, params, plan.consts,
+                                         plan.strip_routes)
+    assert all(isinstance(weights[n][2], strip.IntWeights)
+               for n in plan.int_operands)
+    f = torch.from_numpy(_frames_for(prog, 2, 11)).to(cuda)
+    counts = []
+    outs = []
+    for w in (None, weights):
+        reset_launch_counts()
+        outs.append(plan_mod._execute(plan, params, f, per_frame=True,
+                                      weights=w))
+        counts.append(launch_counts())
+    assert torch.equal(outs[0], outs[1])
+    assert counts[0] == counts[1] and counts[0]["conv_strip_int"] == 10
+    # the frames, 13 convs, the flatten, fc1 and fc2
+    assert counts[0]["epilogue"] == 17

@@ -108,3 +108,29 @@ def test_yi_decode_variants_measure_on_a_fake_group(yi_smoke):
     assert tp["cache"] == 2 * (kv8["cache"] - 4) + 4
     assert yi_smoke["serve_tp_kv8"]["t_memory_s"] < \
         yi_smoke["serve_tp"]["t_memory_s"]
+
+
+def test_a_new_fake_world_gets_none_of_the_last_world_s_meshes():
+    """The dry run's smoke cells on a fake 4x4 world, the world destroyed,
+    then a variant on a new 4x4 world: DTensor's native sharding cache,
+    which keys meshes by shape and dim names, must not hand the first
+    world's meshes (their groups destroyed) to the second
+    (``dryrun.fake_world`` clears it)."""
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun
+    cfg = dataclasses.replace(smoke_variant("yi-34b"), fsdp=True)
+    base = next(v for v in hillclimb.VARIANTS["yi-decode"]
+                if v.name == "base")
+    try:
+        for arch, shape in (("smollm-360m", "train_4k"),
+                            ("kimi-k2-1t-a32b", "decode_32k")):
+            rec = dryrun.run_cell(arch, shape, mesh_shape=SMOKE_MESH,
+                                  cfg=smoke_variant(arch))
+            assert rec["status"] == "ok", rec["status"]
+        dist.destroy_process_group()
+        rec = hillclimb.measure("yi-34b", "decode_32k", base,
+                                mesh_shape=SMOKE_MESH, cfg=cfg)
+        assert rec["variant"] == "base" and rec["t_memory_s"] > 0
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

@@ -301,7 +301,7 @@ def test_bound_cpu_view_bitwise_equal_and_staging_reused(lenet, frames28):
                                   exe.run(frames28[:1]).numpy())
     # the weights were quantized once, with the eager executor's call
     from repro_torch.core.plan import quantized_weights
-    for name, (wq, ws) in quantized_weights(
+    for name, (wq, ws, _) in quantized_weights(
             exe.plan.steps, exe.params(), exe.plan.consts).items():
         assert torch.equal(bound._binding.weights[name][0], wq)
         assert torch.equal(bound._binding.weights[name][1], ws)

@@ -96,3 +96,46 @@ def test_reread_attributes_kernels_by_correlation(smoke, tmp_path):
     assert ca["ms_per_batch"] == pytest.approx(
         {"ca_gray_kernel": 10 * per_batch})
     assert got["imaging_busy_share"]["busy_ms"] == pytest.approx(0.35)
+
+
+def test_reread_reads_the_bound_windows_where_the_run_left_them(smoke,
+                                                               tmp_path):
+    for name, events in ((smoke.DEVICE_TRACE, _timing_trace(smoke)),
+                         (smoke.SERVE_TRACE, _serve_trace(smoke))):
+        (tmp_path / name).write_text(json.dumps({"traceEvents": events}))
+    assert set(smoke.reread(str(tmp_path))) == {"device_time",
+                                                "imaging_busy_share"}
+    for name in (smoke.BOUND_SERVE_TRACE, smoke.VGG16_TRACE):
+        (tmp_path / name).write_text(
+            json.dumps({"traceEvents": _serve_trace(smoke)}))
+    got = smoke.reread(str(tmp_path))
+    for key in ("imaging_bound_busy_share", "vgg16_bound_busy_share"):
+        assert got[key] == got["imaging_busy_share"]
+        assert "torch_ops_by_name" in got[key]
+
+
+def test_busy_share_names_the_torch_ops_and_the_epilogue(smoke):
+    quant = ("void (anonymous namespace)::epi_quant_kernel<4, true>"
+             "((anonymous namespace)::Epi, (anonymous namespace)::Quant)")
+    reduce = ("void (anonymous namespace)::epi_reduce_kernel<1>"
+              "((anonymous namespace)::Epi)")
+    add = ("void at::native::vectorized_elementwise_kernel<4, "
+           "at::native::CUDAFunctor_add<float>, at::detail::Array<char*, "
+           "3> >(int, at::native::CUDAFunctor_add<float>, "
+           "at::detail::Array<char*, 3>)")
+    trace = [_range(smoke.SERVE_WINDOW, 0, 1000)]
+    for i, (name, dur) in enumerate([(quant, 30), (reduce, 20)] +
+                                    [(add, 10)] * 3 + [
+            (f"void at::native::op{j}_kernel(float*)", 9 - j)
+            for j in range(9)]):
+        trace += [_launch(i, 10 + i), _device("kernel", name, i, 100 + 40 * i,
+                                              dur)]
+    got = smoke.busy_share(trace)
+    assert got["port_kernel_ms"] == pytest.approx({"epilogue": 0.05})
+    ops = got["torch_ops_by_name"]
+    assert len(ops) == 8 and got["torch_op_launches"] == 12
+    assert ops[0]["name"] == ("vectorized_elementwise_kernel<4, "
+                              "CUDAFunctor_add<float>, Array<char*, 3> >")
+    assert (ops[0]["launches"], ops[0]["ms"]) == (3, pytest.approx(0.03))
+    assert [o["name"] for o in ops[1:]] == [f"op{j}_kernel"
+                                            for j in range(7)]

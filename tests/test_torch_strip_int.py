@@ -84,6 +84,29 @@ def test_plain_int_route_bitwise_equal_to_pallas_and_conv_int_ref(shape):
                                   np.asarray(epi))
 
 
+@pytest.mark.parametrize("shape", PLAIN)
+def test_levels_laid_out_once_equal_the_per_call_layout(shape):
+    # conv_strip_int_laid on int_codes' operand and int_weights' levels
+    # (zero channels up to igemm_c_in) against conv_strip_int on the raw
+    # operands, with an epilogue
+    b, h, w, ci, co, k, s = shape
+    rng = np.random.default_rng(sum(shape) + 1)
+    x, wq = _operands(rng, b, h, w, ci, co, k, s, qmax=255, levels=127)
+    ws = torch.from_numpy((rng.random(co) * 0.1 + 0.01).astype(np.float32))
+    bias = torch.from_numpy(rng.standard_normal(co).astype(np.float32))
+    xt, wt = torch.from_numpy(x), torch.from_numpy(wq)
+    iw = strip.int_weights(wt, ws, bias)
+    assert iw.w8.shape[2] == strip.igemm_c_in(ci, k)
+    x8 = strip.int_codes(xt, k)
+    assert x8.shape[-1] == iw.w8.shape[2]
+    for act in ("relu", "sign"):
+        got = strip.conv_strip_int_laid(x8, iw, stride=s, act_scale=0.37,
+                                        act=act)
+        want = strip.conv_strip_int(xt, wt, ws, stride=s, act_scale=0.37,
+                                    act=act, bias=bias)
+        assert torch.equal(got, want)
+
+
 # (h, w, c_in, c_out, k, stride, padding, groups)
 CONV_INT = {
     "dense_k3": (9, 11, 16, 24, 3, 1, "SAME", 1),
