@@ -63,15 +63,18 @@ Phases, each fatal on failure:
      served path's ``ca_pool.ops.acquire``, and the public ``ca_pool`` op
      with a signed bank of its own on every weighted route's edges, in
      float32 and bfloat16, against ``ca_pool_ref_generic``; the executor's
-     epilogue pair at every requant of one per-frame run of each program
-     and at ``EPILOGUE_EDGES``, codes and scale, per frame and per
-     tensor). The
+     epilogue, in the form ``epilogue_config`` picks (the one-launch
+     cluster per frame, the pair per tensor), at every requant of one
+     per-frame run of each program and at ``EPILOGUE_EDGES``, codes and
+     scale, per frame and per tensor). The
      conv_bank op, which no served path reaches, is driven once on its own
      with the counts zeroed around it: quantized (the int8 kernel, where
      ``strip.dense_route`` sends its shapes) and in float mode (the
      float64 kernel over the whole frame, its ``conv_bank`` count);
   4. timing: each kernel at its path shapes (the conv_bank op at its own;
-     the epilogue pair at every requant of the two paths),
+     the epilogue at every requant of the two paths, and its device time
+     there in each form it can take: the pair and clusters of 4, 8 and
+     16 CTAs a frame, the ``[epilogue form]`` lines),
      beside its plain version, one library call as a yardstick where
      PyTorch has one (with TF32 off, and whether its answer was exact), the
      profiler's device time, the launch configuration (the chain kernel's
@@ -132,7 +135,10 @@ Phases, each fatal on failure:
      and the ``plan.verify`` span's time on the cold compile; the strip and
      photonic_mvm kernels bitwise equal to their plain versions at every
      distinct VGG16 shape (``edge_shapes.VGG16_SHAPES``) at buckets 1 and
-     8, and the epilogue pair at every requant of VGG16's run at both;
+     8, and the epilogue at every requant of VGG16's run at both (conv1-
+     conv10's folded into the int8 conv's store, against the unfolded
+     plain sequence); the eager window's epilogue launches by form (ten
+     folds a batch, the other seven calls in ``epilogue_config``'s form);
      served eager and bound (``devices=1``, ``max_inflight=2``), every
      answer bitwise equal to batch-1 ``run_per_frame``, the reference
      backend on the card and the port's CPU run on the first 2 frames, the
@@ -143,9 +149,13 @@ Phases, each fatal on failure:
      ms -- cast, pad, weight layout and kernel -- beside the kernel's, the
      float64 kernel's, ``F.conv2d``'s, forced resident's and the bound,
      with the instantiation's ptxas registers, shared memory and spills);
-     each of its 17 epilogue calls timed beside the torch-op sequence it
-     replaces (its plain version) and its bound (``[vgg16] epilogue``
-     lines); the bound window's device busy share (its torch ops named)
+     each conv1-conv10 also with the epilogue folded into its store; each
+     of its 17 epilogue calls (pass 2 alone after a folded store) timed
+     beside the torch-op sequence it replaces (its plain version) and its
+     bound, the others also per tensor as the pair (``[vgg16] epilogue``
+     lines: pass 2, the cluster calls
+     and the int8 strip kernels' increase with the folded store); the
+     bound window's device busy share (its torch ops named)
      and a short saturation run's frames/s (``[vgg16]`` lines).
  10. train: photonic_mvm's float API on signed CRC codes held bitwise to
      ``photonic_mvm_ref`` at ``edge_shapes.SIGNED_MVM_SHAPES`` (both
@@ -621,7 +631,7 @@ KERNEL_SYMBOLS = {"photonic_mvm": r"mvm_(gemm|reduce|skinny)_kernel",
                   "conv_strip_depthwise": r"conv_dw_kernel",
                   "conv_bank": r"conv_dense_kernel",
                   "conv_strip_int": r"conv_igemm_(fold_)?kernel",
-                  "epilogue": r"epi_(reduce|quant)_kernel"}
+                  "epilogue": r"epi_(reduce|quant|cluster)_kernel"}
 
 
 class SmokeFailure(RuntimeError):
@@ -656,7 +666,7 @@ def ptxas_report(log_text):
         if m:
             name = m.group(1)
             base = re.search(r"\d+([a-z_]+_kernel)", name)
-            args = re.findall(r"Li(\d+)E", name)
+            args = re.findall(r"L[ib](\d+)E", name)
             label = (base.group(1) if base else name) + (
                 f"<{','.join(args)}>" if args else "")
             cur = {"function": label, "registers": None, "smem_bytes": 0,
@@ -677,17 +687,21 @@ def ptxas_report(log_text):
     return out
 
 
-def igemm_ptxas(by_function, cfg):
+def igemm_ptxas(by_function, cfg, fold=False):
     """The ptxas line of the int8 strip kernel instantiation that
-    ``cfg`` (a ``strip.IgemmConfig``) launches, from the .cu's own form
-    ``conv_igemm[_fold]_kernel<KT, MT, NT, WM, WN>`` with ``BN = WN * NT *
-    8`` output channels: None where the build's log has no such line."""
+    ``cfg`` (a ``strip.IgemmConfig``) launches, with the epilogue folded
+    into its store or not, from the .cu's own form
+    ``conv_igemm[_fold]_kernel<KT, MT, NT, WM, WN, kFold>`` with ``BN = WN
+    * NT * 8`` output channels: None where the build's log has no such
+    line."""
     want = "conv_igemm_fold_kernel" if cfg.kf else "conv_igemm_kernel"
     for name, rep in by_function.items():
-        m = re.fullmatch(r"(\w+)<(\d+),(\d+),(\d+),(\d+),(\d+)>", name)
+        m = re.fullmatch(r"(\w+)<(\d+),(\d+),(\d+),(\d+),(\d+),(\d)>",
+                         name)
         if m and m.group(1) == want:
-            kt, _, nt, _, wn = map(int, m.groups()[1:])
-            if kt == cfg.k_inst and wn * nt * 8 == cfg.bn:
+            kt, _, nt, _, wn, kfold = map(int, m.groups()[1:])
+            if kt == cfg.k_inst and wn * nt * 8 == cfg.bn and \
+                    kfold == int(fold):
                 return rep
     return None
 
@@ -791,7 +805,7 @@ def path_calls(exes, device, batch=BUCKET):
         plan, params = exe.plan, exe.params()
         frames = frames_on(frames_for(exe.program, batch, SEED + batch),
                            device)
-        calls["epilogue"] += [(args, f"{name}#{j}") for j, args in
+        calls["epilogue"] += [(call, f"{name}#{j}") for j, call in
                               enumerate(epilogue_calls(exe, frames))]
         seg_at = {s.start: s for s in plan.fused_segments}
         h, w, c = plan.frame_shape
@@ -893,23 +907,25 @@ def run_conv_bank_op(calls, strategies=("resident", "strip"),
 # phases
 # ---------------------------------------------------------------------------
 
-def per_tensor(args):
-    """An epilogue call's arguments under per-tensor calibration: one
+def per_tensor(call):
+    """An ``edge_shapes.EpilogueCall`` under per-tensor calibration: one
     act_scale (its first frame's) and ``per_frame`` False."""
-    s = args[1]
-    return (args[0], None if s is None else s.reshape(-1)[0], *args[2:7],
-            False, *args[8:])
+    s = call.act_scale
+    return dataclasses.replace(
+        call, act_scale=None if s is None else s.reshape(-1)[0],
+        per_frame=False)
 
 
-def compare_epilogue(compare, args, what):
-    """The epilogue pair on ``args`` (``ops.epilogue``'s) against its plain
-    version, codes and scale, bitwise, under the call's calibration and
-    per-tensor."""
-    from repro_torch.kernels.epilogue.ops import epilogue
-    from repro_torch.kernels.epilogue.ref import epilogue_ref
-    for a in (args, per_tensor(args)) if args[7] else (args,):
-        want, got = epilogue_ref(*a), epilogue(*a)
-        label = f"{what} per_frame={a[7]}"
+def compare_epilogue(compare, call, what):
+    """The epilogue kernels on ``call`` (an ``edge_shapes.EpilogueCall``:
+    ``ops.epilogue``'s arguments, or a folded conv's
+    ``ops.epilogue_fold``'s) against their plain version, codes and scale,
+    bitwise, under the call's calibration and per-tensor."""
+    from repro_torch.kernels.edge_shapes import epilogue_fns
+    for a in (call, per_tensor(call)) if call.per_frame else (call,):
+        kernel, plain = epilogue_fns(a)
+        want, got = plain(), kernel()
+        label = f"{what} per_frame={a.per_frame}"
         need(got[0].dtype == want[0].dtype, f"epilogue {label}: "
              f"{got[0].dtype} codes, plain {want[0].dtype}")
         compare("epilogue", got[0].float(), want[0].float(),
@@ -934,8 +950,9 @@ def phase_kernels(device, vision, imaging):
     from repro_torch.kernels.edge_shapes import (CA_EDGES, CHAIN_EDGES,
                                                  CHAINS, DW_EDGES,
                                                  EPILOGUE_EDGES, MVM_EDGES,
-                                                 STRIP_EDGES, chain_case,
-                                                 epilogue_case, odd_offset)
+                                                 STRIP_EDGES, EpilogueCall,
+                                                 chain_case, epilogue_case,
+                                                 odd_offset)
     from repro_torch.kernels.photonic_mvm.ops import mvm_int
     from repro_torch.kernels.photonic_mvm.ref import mvm_int_ref
     gen = torch.Generator().manual_seed(SEED + 7)
@@ -1115,12 +1132,13 @@ def phase_kernels(device, vision, imaging):
                     strip.conv_strip_depthwise(x, taps, ws, **kw),
                     strip.conv_strip_depthwise_ref(x, taps, ws, **kw),
                     f"{what} sign")
-    for args, label in calls["epilogue"]:
-        compare_epilogue(compare, args, label)
+    for call, label in calls["epilogue"]:
+        compare_epilogue(compare, call, label)
     for i, edge in enumerate(EPILOGUE_EDGES):
         for per_frame in (True, False):
-            args = epilogue_case(edge, per_frame, gen, device)
-            compare_epilogue(compare, args, f"edge {i} {edge[1]}")
+            call = EpilogueCall(*epilogue_case(edge, per_frame, gen,
+                                               device))
+            compare_epilogue(compare, call, f"edge {i} {edge[1]}")
     for name, xs, wshape, stride, padding, groups in STRIP_CONVS:
         x = torch.randint(0, 16, xs, generator=gen).float().to(device)
         wq = torch.randint(-7, 8, wshape, generator=gen).float().to(device)
@@ -1229,24 +1247,75 @@ def bound_ms(nbytes, ops, kind):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def epilogue_work(args):
-    """(bytes, operations, launch) of one epilogue call (``ops.epilogue``'s
-    arguments): its input read once and its codes (or the operand) written
-    once, with the scales; a product, a sum and an activation an input
-    element, a quotient, a rounding and a clamp an output (fp32 work);
-    the launch ``epilogue_config`` gives it."""
+def epilogue_accumulate(call):
+    """An ``edge_shapes.EpilogueCall``'s input to the epilogue: its x, or
+    for a folded conv's the conv's accumulate (an empty tensor of its
+    shape: only the geometry is read)."""
+    import torch
+    if not call.folded:
+        return call.x
+    x8, w8, stride = call.x, call.levels.w8, call.stride
+    k = w8.shape[0]
+    return torch.empty((x8.shape[0], (x8.shape[1] - k) // stride + 1,
+                        (x8.shape[2] - k) // stride + 1, w8.shape[-1]),
+                       device=x8.device)
+
+
+def epilogue_work(call):
+    """(bytes, operations, launch) of one epilogue call (an
+    ``edge_shapes.EpilogueCall``): its input -- for a folded conv
+    the accumulate the conv would have written -- read once and its codes
+    (or the operand) written once, with the scales; a product, a sum and
+    an activation an input element, a quotient, a rounding and a clamp an
+    output (fp32 work): the same work whichever form does it. The launch
+    ``epilogue_config`` gives it: the form (cluster, pair or the fold's
+    pass 2) and its CTAs."""
     import torch
     from repro_torch.kernels.epilogue.ops import epilogue_config, geometry
-    x, s, ws, bias, _, pool, _, per_frame, _, operand = args
-    g = geometry(x, pool, operand)
-    cfg = epilogue_config(g.b, g.n, g.c, g.aligned, g.op_words)
+    g = geometry(epilogue_accumulate(call), call.pool, call.operand)
+    fold = call.folded
+    cfg = epilogue_config(g.b, g.n, g.c, g.aligned, g.op_words, g.p,
+                          call.per_frame, False, fold)
     n_in, n_out = g.b * g.n * g.p * g.p, g.b * g.n
-    nbytes = n_in * 4 + (g.b * g.op_words * 4 if operand else n_out * 4) + \
-        4 * sum(t.numel() for t in (s, ws, bias)
-                if isinstance(t, torch.Tensor)) + 4 * (g.b if per_frame else 1)
+    nbytes = n_in * 4 + (g.b * g.op_words * 4 if call.operand
+                         else n_out * 4) + \
+        4 * sum(t.numel() for t in (call.act_scale, call.ws, call.bias)
+                if isinstance(t, torch.Tensor)) + \
+        4 * (g.b if call.per_frame else 1)
+    form = "fold" if fold else "cluster" if cfg.cluster else "pair"
     return nbytes, 3 * n_in + 3 * n_out, dict(
-        vec=cfg.vec, nblk1=cfg.nblk1, nblk2=cfg.nblk2,
-        ctas=g.b * (cfg.nblk1 + cfg.nblk2))
+        form=form, vec=cfg.vec, nblk1=cfg.nblk1, nblk2=cfg.nblk2,
+        cluster=cfg.cluster,
+        ctas=g.b * (cfg.cluster or (cfg.nblk2 if fold else
+                                    cfg.nblk1 + cfg.nblk2)))
+
+
+def epilogue_forms(call):
+    """The launches an ``ops.epilogue`` call (an ``edge_shapes.
+    EpilogueCall``, per frame) can take, by name: the pair (``pair``) and
+    a cluster of each of ``ops.CLUSTERS`` CTAs a frame where its slices
+    fit (``cluster4``, ``cluster8``, ``cluster16``)."""
+    from repro_torch.kernels.epilogue import ops
+    g = ops.geometry(ops._frames(call.x), call.pool, call.operand)
+    base = ops.epilogue_config(g.b, g.n, g.c, g.aligned, g.op_words, g.p)
+    vec = base.vec
+    out = {"pair": ops.EpilogueConfig(vec, base.nblk1, base.nblk2)}
+    for cl in ops.CLUSTERS:
+        smem = ops.cluster_smem(g.n, g.c, vec, cl, g.op_words > 0)
+        if smem <= ops.SMEM_MAX:
+            out[f"cluster{cl}"] = ops.EpilogueConfig(vec, cluster=cl,
+                                                     smem=smem)
+    return out
+
+
+def epilogue_launch(call, cfg):
+    """``ops.epilogue``'s call on ``call`` (an ``edge_shapes.
+    EpilogueCall``) in the launch ``cfg`` (on the CPU its plain
+    version)."""
+    from repro_torch.kernels.epilogue import ops
+    if not call.x.is_cuda:
+        return ops.epilogue_ref(call.x, **call.requant())
+    return ops.launch(call.x, **call.requant(), config=cfg)
 
 
 def mvm_library(a, w):
@@ -1380,19 +1449,18 @@ def phase_timing(device, vision, imaging):
             pool=p, library="F.conv2d with the coefficient bank",
             route=cfg.route, r=cfg.r, threads=cfg.threads, ctas=cfg.ctas)
 
-    # the epilogue pair at each requant of the two paths; no one PyTorch
-    # call computes it (its plain version is the torch-op sequence)
-    from repro_torch.kernels.epilogue.ops import epilogue
-    from repro_torch.kernels.epilogue.ref import epilogue_ref
+    # the epilogue at each requant of the two paths; no one PyTorch call
+    # computes it (its plain version is the torch-op sequence)
+    from repro_torch.kernels.edge_shapes import epilogue_fns
     for path in ("vision", "imaging"):
-        for args, label in {"vision": vision,
+        for call, label in {"vision": vision,
                             "imaging": imaging}[path]["epilogue"]:
-            nbytes, ops, launch = epilogue_work(args)
-            add("epilogue", time_ms(lambda: epilogue(*args)),
-                time_ms(lambda: epilogue_ref(*args)), None, nbytes, ops,
-                "fp32", path, conv=label, x=list(args[0].shape),
-                act=args[4], epi_pool=args[5],
-                operand=args[9] is not None, **launch)
+            nbytes, ops, launch = epilogue_work(call)
+            kernel, plain = epilogue_fns(call)
+            add("epilogue", time_ms(kernel), time_ms(plain), None, nbytes,
+                ops, "fp32", path, conv=label, x=list(call.x.shape),
+                act=call.act, epi_pool=call.pool,
+                operand=call.operand is not None, **launch)
 
     # the strip kernels: F.conv2d (TF32 off; groups=C for depthwise) on the
     # same padded codes is the yardstick; record whether cuDNN was exact
@@ -1526,7 +1594,7 @@ def phase_device_time(device, vision, imaging, trace_path,
     from repro_torch.kernels.conv_bank import strip
     from repro_torch.kernels.conv_bank.fused import conv_chain
     from repro_torch.kernels.conv_bank.ref import float32_convs
-    from repro_torch.kernels.epilogue.ops import epilogue
+    from repro_torch.kernels.edge_shapes import epilogue_fns
     from repro_torch.kernels.photonic_mvm.ops import mvm_int
     if device.type != "cuda":
         return {k: None for k in KERNELS + ("photonic_mvm.imaging",
@@ -1552,9 +1620,16 @@ def phase_device_time(device, vision, imaging, trace_path,
                                               quantized=False),
         "conv_strip_int.conv_bank_op": lambda: run_conv_bank_op(
             bank, ("resident",)),
-        "epilogue": lambda: [epilogue(*a) for a, _ in vision["epilogue"]],
-        "epilogue.imaging": lambda: [epilogue(*a)
+        "epilogue": lambda: [epilogue_fns(a)[0]()
+                             for a, _ in vision["epilogue"]],
+        "epilogue.imaging": lambda: [epilogue_fns(a)[0]()
                                      for a, _ in imaging["epilogue"]]}
+    # each requant of the two paths in every form it can take (the rule's
+    # numbers: epilogue_config picks among them)
+    for i, (call, _) in enumerate(vision["epilogue"] + imaging["epilogue"]):
+        for form, cfg in epilogue_forms(call).items():
+            batches[f"epilogue.form.{form}.{i}"] = \
+                lambda a=call, c=cfg: epilogue_launch(a, c)
     # per path shape of the two redesigned kernels: the kernel, and the
     # library call on the same inputs (all of its kernels)
     mvm_calls = vision["photonic_mvm"] + imaging["photonic_mvm"]
@@ -2419,8 +2494,8 @@ def vgg16_kernels(device, buckets, exe):
 
     for b in buckets:
         frames = frames_on(frames_for(exe.program, b, SEED + 18), device)
-        for j, args in enumerate(epilogue_calls(exe, frames)):
-            compare_epilogue(compare, args, f"[vgg16] call {j} batch {b}")
+        for j, call in enumerate(epilogue_calls(exe, frames)):
+            compare_epilogue(compare, call, f"[vgg16] call {j} batch {b}")
 
     for kernel, shapes in VGG16_SHAPES.items():
         for shape in shapes:
@@ -2529,7 +2604,7 @@ def vgg16_timing(device, exe, trace_path, ptxas=None):
     for step in plan.steps:
         if not isinstance(step, (ConvStep, DenseStep)):
             continue
-        wq, _ = quantize_weight(params[step.name]["w"], step.wa)
+        wq, ws_q = quantize_weight(params[step.name]["w"], step.wa)
         if isinstance(step, DenseStep):
             a = torch.randint(0, 16, (b, wq.shape[0]), generator=gen,
                               device=device, dtype=torch.int8)
@@ -2595,6 +2670,19 @@ def vgg16_timing(device, exe, trace_path, ptxas=None):
                         plain=lambda x8=x8, w8=w8, s=g.stride:
                         strip.conv_strip_int_ref(x8, w8, stride=s),
                         float_kernel=float_kernel)
+                    if step.name in plan.folded_epilogues:
+                        # the same conv with its requant's first pass in
+                        # its store (the path's form), on laid-out levels
+                        fold = strip.Fold(
+                            torch.rand((b, 1, 1, 1), generator=gen,
+                                       device=device) * 0.01 + 1e-3,
+                            ws_q, params[step.name].get("b"), step.act)
+                        fns["fold_kernel"] = (
+                            lambda x8=x8, lv=strip.int_weights(w8),
+                            s=g.stride, f=fold: strip.conv_strip_int_laid(
+                                x8, lv, s, fold=f))
+                        row["fold_ptxas"] = igemm_ptxas(by_function, icfg,
+                                                        True)
                     row.update(
                         kernel="conv_strip_int", launch_rows=hc,
                         float_launch_rows=launch_rows, ctas=icfg.ctas,
@@ -2634,7 +2722,8 @@ def vgg16_timing(device, exe, trace_path, ptxas=None):
     if cuda:
         from torch.profiler import ProfilerActivity, profile, record_function
         timed = ("kernel", "route", "float_kernel", "library", "resident",
-                 "strip_int", "torch_ops")
+                 "strip_int", "torch_ops", "fold_kernel", "pair_store",
+                 "pass2_per_tensor")
         with float32_convs(), profile(activities=[
                 ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             # a range nobody reads first: on the card this session lost
@@ -2667,7 +2756,10 @@ def vgg16_timing(device, exe, trace_path, ptxas=None):
                         f"kernel records for {launches} launches; not "
                         f"measured")
                 symbol = {"kernel": KERNEL_SYMBOLS[row["kernel"]],
-                          "float_kernel": KERNEL_SYMBOLS["conv_strip"]}.get(
+                          "float_kernel": KERNEL_SYMBOLS["conv_strip"],
+                          "fold_kernel": KERNEL_SYMBOLS["conv_strip_int"],
+                          "pair_store": KERNEL_SYMBOLS["epilogue"],
+                          "pass2_per_tensor": KERNEL_SYMBOLS["epilogue"]}.get(
                               name, ".*")
                 row[f"{name}_device_ms"] = (
                     sum(e["dur"] for e in kernels
@@ -2697,13 +2789,18 @@ def epilogue_labels(plan):
 
 
 def vgg16_epilogue_rows(device, exe, time_ms, iters):
-    """The epilogue pair at each of VGG16's requants at bucket 8 (its
-    calls on a per-frame run of ``frames_for``'s frames), as
-    ``vgg16_timing`` rows: the kernel, the plain version -- the torch-op
-    sequence the pair replaces, also profiled as ``torch_ops`` -- and the
-    bound (``epilogue_work``)."""
-    from repro_torch.kernels.edge_shapes import epilogue_calls
-    from repro_torch.kernels.epilogue.ops import epilogue
+    """The epilogue at each of VGG16's requants at bucket 8 (its calls on
+    a per-frame run of ``frames_for``'s frames), as ``vgg16_timing`` rows:
+    the kernel -- for a conv whose requant folds into its store, pass 2
+    alone on that store's y and maxima (the store's cost is the conv
+    row's ``fold_kernel`` against its ``kernel``) --, the plain version
+    -- the torch-op sequence the epilogue replaces, on the conv's
+    accumulate, also profiled as ``torch_ops`` --, the bound
+    (``epilogue_work``), and for every other call the pair under
+    per-tensor calibration (``pair_store``)."""
+    from repro_torch.kernels.conv_bank import strip
+    from repro_torch.kernels.edge_shapes import epilogue_calls, epilogue_fns
+    from repro_torch.kernels.epilogue import ops
     from repro_torch.kernels.epilogue.ref import epilogue_ref
     frames = frames_on(frames_for(exe.program, BUCKET, SEED + 19), device)
     calls = epilogue_calls(exe, frames)
@@ -2711,22 +2808,54 @@ def vgg16_epilogue_rows(device, exe, time_ms, iters):
     need(len(labels) == len(calls), f"[vgg16] {len(calls)} epilogue calls "
          f"for the plan's {len(labels)} requants")
     rows = []
-    for label, args in zip(labels, calls):
-        nbytes, ops, launch = epilogue_work(args)
-        bound, by = bound_ms(nbytes, ops, "fp32")
-        fns = dict(kernel=lambda a=args: epilogue(*a),
-                   plain=lambda a=args: epilogue_ref(*a))
+    for label, call in zip(labels, calls):
+        nbytes, work, launch = epilogue_work(call)
+        bound, by = bound_ms(nbytes, work, "fp32")
+        if call.folded:
+            c = call
+            y, partials = strip.conv_strip_int_laid(
+                c.x, c.levels, c.stride,
+                fold=strip.Fold(c.act_scale, c.ws, c.bias, c.act))
+            acc = strip.conv_strip_int_laid(c.x, c.levels, c.stride)
+            fns = dict(kernel=lambda y=y, pt=partials, c=c:
+                       ops.quant_folded(y, pt, c.pool, c.a_qmax,
+                                        c.per_frame, None, c.operand),
+                       plain=lambda acc=acc, kw=c.requant():
+                       epilogue_ref(acc, **kw),
+                       # per tensor: each block reduces the batch's maxima
+                       pass2_per_tensor=lambda y=y, pt=partials, c=c:
+                       ops.quant_folded(y, pt, c.pool, c.a_qmax, False,
+                                        None, c.operand))
+        else:
+            fns = dict(zip(("kernel", "plain"), epilogue_fns(call)))
+            pt = per_tensor(call)
+            fns["pair_store"] = lambda a=pt, c=epilogue_forms(pt)["pair"]: \
+                epilogue_launch(a, c)
         fns["torch_ops"] = fns["plain"]
         # a range of its own: "conv1.epilogue", not the conv's "conv1"
         row = dict(layer=f"{label}.epilogue", after=label,
                    kernel="epilogue", library=None,
-                   x=list(args[0].shape), act=args[4], epi_pool=args[5],
-                   operand=args[9] is not None, bytes=nbytes,
-                   bound_ms=bound, bound_by=by, fns=fns, **launch)
+                   x=list(epilogue_accumulate(call).shape), act=call.act,
+                   epi_pool=call.pool, operand=call.operand is not None,
+                   bytes=nbytes, bound_ms=bound, bound_by=by, fns=fns,
+                   **launch)
         for name, fn in fns.items():
             row[f"{name}_ms"] = time_ms(fn, iters)
         rows.append(row)
     return rows
+
+
+def vgg16_epilogue_forms(plan):
+    """The epilogue launches of one per-frame run of ``plan`` by form:
+    each folded conv's, and the form ``epilogue_config`` gives every other
+    requant (the verifier's walk of the plan's requant shapes)."""
+    from repro_torch.analysis.verifier import _epilogue_requants
+    from repro_torch.kernels.epilogue.ops import epilogue_config
+    out = {"pair": 0, "cluster": 0, "fold": len(plan.folded_epilogues)}
+    for _, n, c, p, words in _epilogue_requants(plan):
+        cfg = epilogue_config(BUCKET, n, c, True, words, p, True)
+        out["cluster" if cfg.cluster else "pair"] += 1
+    return out
 
 
 def phase_vgg16(device, rehearse, out_dir, ptxas=None):
@@ -2734,6 +2863,7 @@ def phase_vgg16(device, rehearse, out_dir, ptxas=None):
     detail, the launch counts of its eager and bound windows, and its
     kernels' max abs errors and comparison counts."""
     import numpy as np
+    from repro_torch.kernels.epilogue import ops as epi_ops
     hw = REHEARSAL_VGG16_HW if rehearse else VGG16_HW
     budget = REHEARSAL_VGG16_BUDGET if rehearse else None
     prog = vgg16_program(hw)
@@ -2772,7 +2902,10 @@ def phase_vgg16(device, rehearse, out_dir, ptxas=None):
         start_s = time.perf_counter() - t0
         try:
             before = credited(hosted)
+            forms0 = {f: n.value for f, n in epi_ops.FORMS.items()}
             outs, c, wall = serve_window(server, reqs)
+            forms = {f: n.value - forms0[f]
+                     for f, n in epi_ops.FORMS.items()}
             after = credited(hosted)
         finally:
             server.stop()
@@ -2780,6 +2913,19 @@ def phase_vgg16(device, rehearse, out_dir, ptxas=None):
             need(c == {k: after[k] - before[k] for k in KERNELS},
                  f"[vgg16] bound: launch counts {c} are not the replays' "
                  f"credits")
+        elif device.type == "cuda":
+            # a batch: the frames, 13 convs, the flatten, fc1, fc2; conv1-10
+            # folded into their stores (no epi_reduce_kernel for them), the
+            # other 7 in the form epilogue_config gives them per frame
+            want = vgg16_epilogue_forms(exe.plan)
+            batches = c["epilogue"] // sum(want.values())
+            need(len(exe.plan.folded_epilogues) == 10 and want["fold"] == 10
+                 and forms == {f: n * batches for f, n in want.items()},
+                 f"[vgg16] {window}: epilogue launches by form {forms} "
+                 f"for {c['epilogue']} calls; a batch takes {want}")
+            log(f"[vgg16] {window}: epilogue launches by form {forms} "
+                f"({batches} batches of {want}; folded: "
+                f"{', '.join(exe.plan.folded_epilogues)})")
         vgg16_check(window, frames, np.concatenate(
             [np.asarray(o) for o in outs]), expected)
         counts[window] = c
@@ -2794,15 +2940,21 @@ def phase_vgg16(device, rehearse, out_dir, ptxas=None):
         out_dir, VGG16_DEVICE_TRACE), ptxas)
     for r in out["layers"]:
         if r["kernel"] == "epilogue":
+            pair = (f"; per tensor, pass 2 device "
+                    f"{r.get('pass2_per_tensor_device_ms')}"
+                    if r["form"] == "fold" else
+                    f"; per tensor, the pair device "
+                    f"{r.get('pair_store_device_ms')}")
             log(f"[vgg16] epilogue after {r['after']} {r['x']} act "
                 f"{r['act']} pool {r['epi_pool']} -> "
-                f"{'int8 operand' if r['operand'] else 'float codes'}: "
+                f"{'int8 operand' if r['operand'] else 'float codes'}, "
+                f"{'pass 2 after the folded store' if r['form'] == 'fold' else r['form']}: "
                 f"{r['ms']:.4f} ms (device {r.get('kernel_device_ms')}; "
                 f"the torch ops it replaces "
                 f"{r['plain_ms']:.4f} ms, device "
                 f"{r.get('torch_ops_device_ms')}; bound "
-                f"{r['bound_ms']:.6f} by {r['bound_by']}; vec {r['vec']}, "
-                f"blocks {r['nblk1']}+{r['nblk2']} a frame)")
+                f"{r['bound_ms']:.6f} by {r['bound_by']}; launch "
+                f"{launch_label(r)}){pair}")
             continue
         extra = (f"; forced resident: route {r['resident_ms']:.4f} "
                  f"(device {r.get('resident_device_ms')}) gemm "
@@ -2813,7 +2965,14 @@ def phase_vgg16(device, rehearse, out_dir, ptxas=None):
                       f"{r['strip_int_ms']:.4f} (device "
                       f"{r.get('strip_int_device_ms')})")
         if r["kernel"] == "conv_strip_int":
-            px = r["ptxas"] or {}
+            px, fpx = r["ptxas"] or {}, r.get("fold_ptxas") or {}
+            if "fold_kernel_ms" in r:
+                extra += (f"; with the epilogue folded into its store "
+                          f"{r['fold_kernel_ms']:.4f} ms (device "
+                          f"{r.get('fold_kernel_device_ms')}; ptxas "
+                          f"{fpx.get('registers')} regs, spills "
+                          f"{fpx.get('spill_stores')}/"
+                          f"{fpx.get('spill_loads')} B)")
             extra += (f"; route device {r.get('route_device_ms')}, float64 "
                       f"kernel {r['float_kernel_ms']:.4f} (device "
                       f"{r.get('float_kernel_device_ms')}, "
@@ -2853,7 +3012,33 @@ def phase_vgg16(device, rehearse, out_dir, ptxas=None):
     out["epilogue"] = {key: total(epi, key) for key in (
         "ms", "plain_ms", "bound_ms", "kernel_device_ms",
         "torch_ops_device_ms")}
-    log(f"[vgg16] epilogue per bucket-8 batch ({len(epi)} calls): "
+    convs = [r for r in out["layers"] if "fold_kernel_ms" in r]
+    delta = [None if None in (r.get("fold_kernel_device_ms"),
+                              r.get("kernel_device_ms"))
+             else r["fold_kernel_device_ms"] - r["kernel_device_ms"]
+             for r in convs]
+    out["epilogue"].update(
+        pass2_device_ms=total([r for r in epi if r["form"] == "fold"],
+                              "kernel_device_ms"),
+        other_device_ms=total([r for r in epi if r["form"] != "fold"],
+                              "kernel_device_ms"),
+        fold_store_delta_device_ms=None if None in delta else sum(delta),
+        int8_strip_device_ms=total(convs, "kernel_device_ms"),
+        int8_strip_fold_device_ms=total(convs, "fold_kernel_device_ms"),
+        forms={f: sum(r["form"] == f for r in epi)
+               for f in ("fold", "cluster", "pair")})
+    e = out["epilogue"]
+    e["device_ms_with_store_delta"] = None if None in (
+        e["kernel_device_ms"], e["fold_store_delta_device_ms"]) else \
+        e["kernel_device_ms"] + e["fold_store_delta_device_ms"]
+    log(f"[vgg16] epilogue per bucket-8 batch ({len(epi)} calls, forms "
+        f"{e['forms']}): device {e['kernel_device_ms']} ms (pass 2 after "
+        f"the {len(convs)} folded stores {e['pass2_device_ms']}, the other "
+        f"calls {e['other_device_ms']}) + the int8 strip kernels' increase "
+        f"with the folded store {e['fold_store_delta_device_ms']} (raw "
+        f"{e['int8_strip_device_ms']}, folded "
+        f"{e['int8_strip_fold_device_ms']}) = "
+        f"{e['device_ms_with_store_delta']}; bound {e['bound_ms']:.6f}; "
         f"{out['epilogue']}")
     strips = [r for r in out["layers"] if r.get("strategy") == "strip"]
     log(f"[vgg16] per bucket-8 batch: {out['by_kernel']}; strip layers "
@@ -5140,9 +5325,9 @@ def launch_label(d):
     """A per-call detail's launch configuration: cluster and CTAs of the
     chain kernel, tile, run, channel block and CTAs of the depthwise one,
     route, run, threads and CTAs of ca_pool, CTAs of the others."""
-    keys = ("cluster", "splits", "weights_in_smem", "smem",
+    keys = ("form", "cluster", "splits", "weights_in_smem", "smem",
             "active_clusters", "tile", "run", "cb", "route", "r", "threads",
-            "split", "vec", "nblk1", "nblk2", "ctas")
+            "split", "vec", "nblk1", "nblk2", "store", "ctas")
     return ", ".join(f"{k} {d[k]}" for k in keys if k in d) or "-"
 
 
@@ -5230,7 +5415,7 @@ def main(argv) -> int:
                 f"; conv_strip {[(c[4], tuple(c[0].shape)) for c in calls['conv_strip']]}"
                 f"; conv_strip_depthwise "
                 f"{[(c[4], tuple(c[0].shape)) for c in calls['conv_strip_depthwise']]}"
-                f"; epilogue {[(l, tuple(a[0].shape)) for a, l in calls['epilogue']]}")
+                f"; epilogue {[(l, tuple(a.x.shape)) for a, l in calls['epilogue']]}")
 
         max_err, n_cmp, bank_float_err = phase_kernels(device, vision,
                                                        imaging)
@@ -5277,6 +5462,22 @@ def main(argv) -> int:
                 d["device_ms"] = device_ms.pop(f"{k}.shape{i}", None)
                 d["library_device_ms"] = device_ms.pop(
                     f"library.{k}.shape{i}", None)
+        # the epilogue's forms at each requant of the two paths
+        totals = {}
+        for i, d in enumerate(detail["epilogue"]):
+            d["forms"] = {key.split(".")[2]: device_ms.pop(key)
+                          for key in [k for k in device_ms
+                                      if k.startswith(f"epilogue.form.")
+                                      and k.endswith(f".{i}")]}
+            for form, ms in d["forms"].items():
+                t = totals.setdefault(d["path"], {}).setdefault(form, 0.0)
+                totals[d["path"]][form] = None if None in (t, ms) else t + ms
+            log(f"[epilogue form] {d['path']} {call_label(d)}: device ms "
+                f"{d['forms']}; the rule takes {d['form']}"
+                f"{d['cluster'] or ''}")
+        for path, t in totals.items():
+            log(f"[epilogue form] {path} per bucket-8 batch, device ms by "
+                f"form: {t}")
         for k in KERNELS:
             for d in detail[k]:
                 log(f"[timing] {k} {d['path']} {call_label(d)}: device "

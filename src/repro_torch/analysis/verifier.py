@@ -39,7 +39,13 @@ working set), and the Hopper ones:
   hold (``LTR022``, warning);
 * a fused segment's shared memory, the two ping-pong frame buffers and
   the reduce scratch re-derived here, must fit one CTA's
-  ``SMEM_PER_BLOCK`` (``LTR024``, error).
+  ``SMEM_PER_BLOCK`` (``LTR024``, error);
+* a conv whose requant folds into the int8 kernel's store
+  (``CompiledPlan.folded_epilogues``) counts the fold's warp maxima in
+  its CTA's shared memory (``LTR022``), and every requant the epilogue
+  kernel runs as one clustered launch, at batch 1 and 8 under per-frame
+  calibration, must have slices that cover the frame and fit a CTA
+  (``LTR026``, error).
 
 The geometry is re-derived from first principles, not imported from
 ``kernels.dispatch`` or ``fused.smem_layout``: a dispatch-side edit that
@@ -87,6 +93,12 @@ _INT_ROW_BYTES = 48
 # the batches whose strip launches are audited: batch 1 and the largest
 # serving bucket
 _AUDIT_BATCHES = (1, 8)
+# the int8 kernel's folded epilogue: its 4 warps' maxima after the stages;
+# the epilogue's cluster CTA: the floats after its slice of y (its max,
+# the warp maxima, the frame's), and the cluster sizes its entry takes
+_FOLD_RED_BYTES = 4 * 4
+_CLUSTER_SCRATCH = 32
+_CLUSTER_SIZES = (4, 8, 16)
 
 
 def verify_mode() -> str:
@@ -371,27 +383,32 @@ def _dw_smem(cfg, k: int, stride: int) -> int:
     return _cdiv((rows_in * ld + rows_in) * 4, 8) * 8 + k * k * cfg.cb * 8
 
 
-def _int_smem(cfg, k: int, stride: int) -> int:
+def _int_smem(cfg, k: int, stride: int, folded: bool = False) -> int:
     """Shared memory of the int8 strip kernel's CTA: ``stages`` C_in
     stages, each the tile's input patch (halo included) and the chunk's
     k*k x ``bn`` weight rows, ``_INT_ROW_BYTES`` a pixel or row; with the
     taps folded into ``kf`` K bytes, one stage: the patch at 4 bytes a
     pixel, 16-byte aligned, and ``bn`` weight rows of ``kf + 16`` bytes
-    (``csrc/conv_strip.cu::conv_strip_int_launch``)."""
+    (``csrc/conv_strip.cu::conv_strip_int_launch``); and, where the
+    requant is ``folded`` into its store, the warp maxima after them."""
     rows_in = (cfg.th - 1) * stride + k
     cols_in = (cfg.tw - 1) * stride + k
+    red = _FOLD_RED_BYTES if folded else 0
     if cfg.kf:
         return cfg.stages * (_cdiv(rows_in * cols_in * 4, 16) * 16
-                             + cfg.bn * (cfg.kf + 16))
-    return cfg.stages * (rows_in * cols_in + k * k * cfg.bn) * _INT_ROW_BYTES
+                             + cfg.bn * (cfg.kf + 16)) + red
+    return cfg.stages * (rows_in * cols_in + k * k * cfg.bn) * \
+        _INT_ROW_BYTES + red
 
 
-def _strip_launches(g, strat, route: Optional[str] = None) -> List[tuple]:
+def _strip_launches(g, strat, route: Optional[str] = None,
+                    folded: bool = False) -> List[tuple]:
     """(kind, batch, rows, cols, c_in, c_out, config) of every strip
     kernel launch the step makes at each audited batch, with the
     configuration the wrapper would choose; general grouped convs launch
     the dense kernel once per group. ``route`` is the plan's: ``"int"``
-    launches the int8 kernel over the conv's own rows."""
+    launches the int8 kernel over the conv's own rows (kind
+    ``"int_folded"`` where its requant is ``folded`` into the store)."""
     from repro_torch.kernels.conv_bank import strip
     rows = _launch_rows(g, strat)
     h_out, w_out = _geom_out_hw(g)
@@ -399,7 +416,8 @@ def _strip_launches(g, strat, route: Optional[str] = None) -> List[tuple]:
     for b in _AUDIT_BATCHES:
         if route == "int":
             cg, og = g.c_in // g.groups, g.c_out // g.groups
-            out.append(("int", b, h_out, w_out, cg, og,
+            out.append(("int_folded" if folded else "int", b, h_out, w_out,
+                        cg, og,
                         strip.igemm_config(b, h_out, w_out, cg, og,
                                            g.kernel, g.stride)))
         elif g.groups > 1 and g.c_out == g.groups == g.c_in:
@@ -421,6 +439,8 @@ def _check_strip_launch(name: str, g, launch, out: List[Diagnostic]) -> None:
     rows, one block ``co_b`` (dense) or ``cb`` (depthwise) channels; the
     row tiles are what the recorded CTA count leaves after the others."""
     kind, b, rows, cols, c_in, c_out, cfg = launch
+    folded = kind == "int_folded"
+    kind = "int" if folded else kind
     if kind == "int":
         tile_w, tile_h, block = cfg.tw, cfg.th, cfg.bn
         degenerate = min(tile_w, tile_h, block) < 1 or \
@@ -454,8 +474,9 @@ def _check_strip_launch(name: str, g, launch, out: List[Diagnostic]) -> None:
             f"outputs",
             hint="this is a strip_config/dw_config/igemm_config bug in "
                  "the CTA count or the tile it records"))
-    smem = {"dense": _dense_smem, "depthwise": _dw_smem,
-            "int": _int_smem}[kind](cfg, g.kernel, g.stride)
+    smem = (_int_smem(cfg, g.kernel, g.stride, folded) if kind == "int"
+            else {"dense": _dense_smem, "depthwise": _dw_smem}[kind](
+                cfg, g.kernel, g.stride))
     if smem > _SMEM_PER_CTA:
         out.append(Diagnostic(
             "LTR022", "warning", name,
@@ -516,13 +537,109 @@ def _check_strategies(plan, budget: int, out: List[Diagnostic]) -> None:
                     hint="shrink REPRO_CONV_VMEM_BUDGET-derived strips "
                          "or check _strip_geometry's row bound"))
             for launch in _strip_launches(
-                    g, strat, plan.strip_routes.get(step.name)):
+                    g, strat, plan.strip_routes.get(step.name),
+                    step.name in getattr(plan, "folded_epilogues", ())):
                 _check_strip_launch(step.name, g, launch, out)
         else:
             out.append(Diagnostic(
                 "LTR020", "error", step.name,
                 f"unknown conv strategy kind {strat.kind!r}",
                 hint="expected 'resident' or 'strip'"))
+
+
+def _epilogue_requants(plan) -> List[tuple]:
+    """(name, n, c, p, operand words) of each requant the epilogue kernel
+    runs in a per-frame run of ``plan``: the frames', and each step's
+    outside the fused segments (which run under per-frame calibration),
+    the torch epilogues and the folded convs, re-derived from the layer
+    walk: ``n`` pooled elements a frame of ``c`` channels (a flat
+    vector's: ``c`` its length), pooled by ``p``; the next int8 conv's
+    operand words a frame where the plan hands it one, else 0."""
+    from repro_torch.core.accelerator import CASpec, DenseSpec
+    from repro_torch.core.plan import (CAStep, ConvStep, DenseStep,
+                                       FlattenStep, UpsampleStep)
+    from repro_torch.kernels.conv_bank.strip import igemm_c_in
+    steps = plan.steps
+    fused = {i for sg in plan.fused_segments
+             for i in range(sg.start, sg.start + sg.length)}
+    skip = set(plan.torch_epilogues) | set(
+        getattr(plan, "folded_epilogues", ()))
+
+    def words(i, h, w, c):
+        nxt = steps[i] if i < len(steps) else None
+        if not isinstance(nxt, ConvStep) or nxt.name not in \
+                plan.int_operands:
+            return 0
+        (top, bottom), (left, right) = nxt.pads
+        return (h + top + bottom) * (w + left + right) * \
+            igemm_c_in(c, nxt.kernel) // 4
+
+    h, w, c = plan.frame_shape
+    out = [("frames", h * w * c, c, 1, words(0, h, w, c))]
+    for i, (layer, step) in enumerate(zip(plan.layers, steps)):
+        p, flat = 1, False
+        if isinstance(step, CAStep) and isinstance(layer, CASpec):
+            h, w = h // step.pool, w // step.pool
+            c = 1 if step.rgb_to_gray else c
+        elif isinstance(step, ConvStep):
+            h, w = _geom_pooled_hw(step.geom)
+            c = step.geom.c_out
+            p = step.pool[1] if step.pool is not None else 1
+        elif isinstance(step, UpsampleStep):
+            h, w = h * step.factor, w * step.factor
+        elif isinstance(step, FlattenStep):
+            h, w, c, flat = 1, 1, h * w * c, True
+        elif isinstance(step, DenseStep) and isinstance(layer, DenseSpec):
+            h, w, c, flat = 1, 1, layer.fan_out, True
+            if step.act == "none":
+                continue
+        if i in fused or getattr(step, "name", None) in skip:
+            continue
+        out.append((getattr(step, "name", type(step).__name__), h * w * c,
+                    c, p, 0 if flat else words(i + 1, h, w, c)))
+    return out
+
+
+def _check_epilogue_clusters(plan, out: List[Diagnostic]) -> None:
+    """Every requant the epilogue kernel runs as one clustered launch (at
+    batch 1 and 8, per frame, frames aligned or not), with the launch
+    ``epilogue.ops.epilogue_config`` would choose: its CTAs' slices of y,
+    re-derived here (whole ``vec``-units; whole groups of pixels where it
+    writes an operand), must cover the frame and, with the scratch after
+    them, fit a CTA's shared memory, in a cluster the kernel takes."""
+    from repro_torch.kernels.epilogue.ops import epilogue_config
+    for name, n, c, p, op_words in _epilogue_requants(plan):
+        for b in _AUDIT_BATCHES:
+            for aligned in (True, False):
+                cfg = epilogue_config(b, n, c, aligned, op_words, p, True)
+                if not cfg.cluster:
+                    continue
+                vec, cl = cfg.vec, cfg.cluster
+                if op_words:
+                    gp = 1 if vec == 1 or c % 4 == 0 else (
+                        4 if c % 2 else 2)
+                    per = _cdiv(_cdiv(n // c, gp), cl) * gp * c
+                else:
+                    per = _cdiv(n // vec, cl) * vec
+                smem = (_cdiv(per, 4) * 4 + _CLUSTER_SCRATCH) * 4
+                bad = None
+                if cl not in _CLUSTER_SIZES:
+                    bad = f"a cluster of {cl} CTAs"
+                elif n % vec or per * cl < n:
+                    bad = (f"{cl} slices of {per} elements for a frame of "
+                           f"{n} in units of {vec}")
+                elif smem > cfg.smem or smem > _SMEM_PER_CTA:
+                    bad = (f"{smem} bytes of shared memory a CTA (launched "
+                           f"with {cfg.smem}; a CTA has {_SMEM_PER_CTA})")
+                if bad:
+                    out.append(Diagnostic(
+                        "LTR026", "error", name,
+                        f"the epilogue's clustered requant at batch {b} "
+                        f"({n} elements a frame, {c} channels): {bad} — "
+                        f"the launch would be refused or drop codes",
+                        hint="epilogue_config's cluster rule and the "
+                             "audit disagree"))
+                    return
 
 
 def audit_fused_segments(geoms: Sequence, segments: Sequence,
@@ -643,6 +760,7 @@ def verify_plan(plan, budget: Optional[int] = None,
     _check_shapes(plan.layers, plan.frame_shape, out)
     _check_accumulators(plan, out, include_info=include_info)
     _check_strategies(plan, budget, out)
+    _check_epilogue_clusters(plan, out)
     geoms = [s.geom if isinstance(s, ConvStep) else None
              for s in plan.steps]
     out.extend(audit_fused_segments(geoms, plan.fused_segments, budget))

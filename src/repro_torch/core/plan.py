@@ -10,9 +10,10 @@
   _execute_steps(steps, params, frames, consts, per_frame, segments, backend)
       The device forward, batch-first, every device op through
       ``kernels.dispatch``: the MACs on their kernels, and each requant
-      with its dequant, bias, activation and pool on the epilogue pair
-      (``dispatch.epilogue``), the counterpart of XLA's fusion of the
-      reference's jitted executor. Every float step rounds once, in the
+      with its dequant, bias, activation and pool on the epilogue kernel
+      (``dispatch.epilogue``; after a dense int8 strip conv folded into
+      its store, ``dispatch.conv_int_epilogue``), the counterpart of XLA's
+      fusion of the reference's jitted executor. Every float step rounds once, in the
       reference's association (the kernel's explicit ``_rn`` intrinsics;
       the plain torch ops run eagerly, op by op, with every division a
       true IEEE division, ``quant.true_div``): the numerics are the
@@ -160,6 +161,11 @@ class CompiledPlan:
     # kept off the steps as ``strip_routes`` is.
     int_operands: Tuple[str, ...] = ()
     torch_epilogues: Tuple[str, ...] = ()
+    # the dense convs on the int8 strip route, outside any fused segment,
+    # whose requant (an act the epilogue kernel takes, a max pool or none)
+    # folds the epilogue's first pass into the conv's store
+    # (``dispatch.conv_int_epilogue``); by step name, kept off the steps
+    folded_epilogues: Tuple[str, ...] = ()
     # the trace families this plan has run (``_execute``)
     _families: set = dataclasses.field(default_factory=set, repr=False)
     # the executors handed out (``executor``), by per_frame
@@ -440,6 +446,11 @@ def _compile_model_uncached(layers, frame_shape, scheme, oc, circuit,
     torch_epilogues = tuple(
         s.name for s in steps if isinstance(s, (ConvStep, DenseStep))
         and s.act not in dispatch.FUSABLE_ACTS)
+    folded_epilogues = tuple(
+        s.name for s in steps if isinstance(s, ConvStep) and s.groups == 1
+        and strip_routes.get(s.name) == "int" and s.name not in fused
+        and s.act in dispatch.FUSABLE_ACTS
+        and (s.pool is None or s.pool[0] == "max"))
 
     consts = {
         "a_qmax": float((1 << ACT_BITS) - 1),
@@ -451,7 +462,8 @@ def _compile_model_uncached(layers, frame_shape, scheme, oc, circuit,
                         out_features or c, consts,
                         fused_segments=fused_segments,
                         strip_routes=strip_routes, int_operands=int_operands,
-                        torch_epilogues=torch_epilogues)
+                        torch_epilogues=torch_epilogues,
+                        folded_epilogues=folded_epilogues)
 
 
 # ---------------------------------------------------------------------------
@@ -492,7 +504,8 @@ def _execute_steps(steps: Tuple[PlanStep, ...], params: Dict[str, Dict],
                    reduce_max=None,
                    routes: Optional[Dict[str, str]] = None,
                    int_operands: Sequence[str] = (),
-                   torch_epilogues: Sequence[str] = ()) -> torch.Tensor:
+                   torch_epilogues: Sequence[str] = (),
+                   folded_epilogues: Sequence[str] = ()) -> torch.Tensor:
     """The device forward, batch-first, kernels via ``kernels.dispatch``.
 
     ``per_frame`` switches every CRC requant to per-frame calibration
@@ -508,7 +521,10 @@ def _execute_steps(steps: Tuple[PlanStep, ...], params: Dict[str, Dict],
     int8 operand and the conv takes it as it is (a conv there that comes
     straight after a fused segment that ran gets the chain's float codes,
     and casts and pads them itself); the steps in
-    ``torch_epilogues`` run theirs as the plain torch ops.
+    ``torch_epilogues`` run theirs as the plain torch ops. A conv in
+    ``folded_epilogues`` and its requant are one
+    ``dispatch.conv_int_epilogue`` call on the kernel backend: the
+    epilogue's first pass folded into the conv's store.
 
     ``segments`` are the plan's fused runs: when a run's start comes up,
     its conv steps execute as one ``dispatch.conv_chain`` launch. The
@@ -541,17 +557,23 @@ def _execute_steps(steps: Tuple[PlanStep, ...], params: Dict[str, Dict],
     a_qmax = consts["a_qmax"]
     n = len(steps)
     handed = frozenset(int_operands) if backend == "kernel" else frozenset()
+    folded = (frozenset(folded_epilogues) if backend == "kernel"
+              else frozenset())
 
     # x is the int8 operand the last epilogue wrote for the step at hand
     x_operand = False
+
+    def next_operand(nxt):
+        """The operand form step ``nxt`` takes its codes in, or None."""
+        s = steps[nxt] if nxt < n else None
+        return ((s.kernel, s.pads) if s is not None
+                and getattr(s, "name", None) in handed else None)
 
     def epilogue(t, nxt, act_scale=None, ws=None, bias=None, act="none",
                  pool=None, name=None):
         """The requant whose codes step ``nxt`` takes."""
         nonlocal x_operand
-        s = steps[nxt] if nxt < n else None
-        operand = ((s.kernel, s.pads) if s is not None
-                   and getattr(s, "name", None) in handed else None)
+        operand = next_operand(nxt)
         x_operand = operand is not None
         return dispatch.epilogue(
             t, act_scale, ws, bias, act, pool, a_qmax=a_qmax,
@@ -596,6 +618,15 @@ def _execute_steps(steps: Tuple[PlanStep, ...], params: Dict[str, Dict],
             if g.ndim == 3:
                 g = g[..., None]
             x, act_scale = epilogue(g, i + 1)
+        elif isinstance(step, ConvStep) and step.name in folded:
+            wq, ws, levels = qweight(step)
+            operand = next_operand(i + 1)
+            x, act_scale = dispatch.conv_int_epilogue(
+                x, act_scale, wq, ws, params[step.name].get("b"),
+                step.stride, step.pads, step.act, step.pool, a_qmax=a_qmax,
+                per_frame=per_frame, reduce_max=reduce_max, operand=operand,
+                x_operand=x_operand, levels=levels, backend=backend)
+            x_operand = operand is not None
         elif isinstance(step, ConvStep):
             p = params[step.name]
             wq, ws, levels = qweight(step)
@@ -669,7 +700,8 @@ def _execute(plan: CompiledPlan, params: Dict[str, Dict],
                               reduce_max=reduce_max,
                               routes=plan.strip_routes,
                               int_operands=plan.int_operands,
-                              torch_epilogues=plan.torch_epilogues)
+                              torch_epilogues=plan.torch_epilogues,
+                              folded_epilogues=plan.folded_epilogues)
 
 
 # ---------------------------------------------------------------------------

@@ -121,7 +121,14 @@
 //     (2 mma steps at k = 3, not 9 over 32-channel chunks of 3 real ones);
 //     other C_in not a multiple of 16 are zero-filled up to 16 by the
 //     caller and to 32 by the copies;
-//   * the epilogue writes two channels a lane (8 bytes) where C_out is even.
+//   * the epilogue writes two channels a lane (8 bytes) where C_out is even;
+//   * the plan executor's requant can fold its first pass into that store
+//     (conv_strip_int_fold_launch, store_tile<..., kFold>; VGG16's
+//     conv1-conv10, kernels/epilogue/ops.py::epilogue_fold): each value
+//     goes out as the plan's y -- acc * (act_scale[b] * ws) + bias, the
+//     activation, the clamp at 0, unpooled, act_scale read on the device
+//     -- and each CTA writes its max of y, so csrc/epilogue.cu's pass 2
+//     follows with nothing between them.
 // The tile, the channel block and the stages come from the wrapper's plain
 // Python function (kernels/conv_bank/strip.py::igemm_config); which dense
 // shapes take this kernel and which the float64 one is
@@ -716,6 +723,13 @@ __device__ __forceinline__ float epilogue_int(int acc, const float* ws,
   return v;
 }
 
+// the plan's epilogue's max (csrc/epilogue.cu): a NaN is kept, as torch's
+// clamp and max pool keep it
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+
+
 constexpr int kIgCh = 32;          // input channels (bytes) a stage holds
 constexpr int kIgLd = kIgCh + 16;  // bytes a staged pixel or weight row
                                    // takes: 3 16-byte units, odd, so the 8
@@ -723,6 +737,7 @@ constexpr int kIgLd = kIgCh + 16;  // bytes a staged pixel or weight row
 constexpr int kIgBm = 128;         // output pixel slots of a CTA
 constexpr int kIgFoldC = 4;        // channels (bytes) a folded tap carries
 constexpr int kIgFoldK = 128;      // most K bytes of a folded conv
+constexpr int kIgFoldRed = 4;      // the fold's warp maxima (4 warps a CTA)
 
 struct Igemm {
   int hp, wp, c_in, c_out, k, stride;  // c_in a multiple of 16, or 4
@@ -735,6 +750,13 @@ struct Igemm {
   int patch_bytes, stage_bytes;
   float act_scale;
   int act;
+  // the fold (kFold): the plan's epilogue up to its pool, in its
+  // association, and each CTA's max into partials[blockIdx.x]
+  const float* scale;       // act_scale: scale_n (1 or batch) values
+  float* partials;          // [batch, tiles * n_blocks]
+  int scale_n, ws_n, bias_n;  // 1 or batch; 1 or c_out; 1 or c_out
+  int red_offset;           // bytes of dynamic shared memory before the
+                            // fold's kIgFoldRed floats of warp maxima
 };
 
 // A CTA's frame, first output pixel and first output channel: blockIdx.x
@@ -756,12 +778,12 @@ struct IgTile {
 
 // c0, c1 at pixel slot lane / 4, channels 2 * (lane & 3) and + 1; c2, c3
 // at slot lane / 4 + 8: a lane writes 8 contiguous bytes where c_out is
-// even, four lanes one 32-byte sector
-template <int MT, int NT, int WN>
-__device__ __forceinline__ void store_tile(
-    const int (&acc)[MT][NT][4], const float* __restrict__ ws,
-    const float* __restrict__ bias, float* __restrict__ out, const Igemm& g,
-    int b, int oh0, int ow0, int n0, int wm, int wn, int lane) {
+// even, four lanes one 32-byte sector. `value(acc, j, t)` is what goes out
+// for the lane's channel 2 * (lane & 3) + t of n8 fragment j.
+template <int MT, int NT, int WN, typename Value>
+__device__ __forceinline__ void store_values(
+    const int (&acc)[MT][NT][4], float* __restrict__ out, const Igemm& g,
+    int b, int oh0, int ow0, int n0, int wm, int wn, int lane, Value value) {
   const int tile_px = g.th * g.tw;
   const bool pairs = (g.c_out & 1) == 0;
 #pragma unroll
@@ -780,14 +802,12 @@ __device__ __forceinline__ void store_tile(
       for (int j = 0; j < NT; ++j) {
         const int co = n0 + (wn * NT + j) * 8 + (lane & 3) * 2;
         if (co >= g.c_out) continue;
-        const float v0 = epilogue_int(acc[i][j][2 * h], ws, bias, co,
-                                      g.act_scale, g.act);
+        const float v0 = value(acc[i][j][2 * h], j, 0, co);
         if (co + 1 >= g.c_out) {
           o[co] = v0;
           continue;
         }
-        const float v1 = epilogue_int(acc[i][j][2 * h + 1], ws, bias, co + 1,
-                                      g.act_scale, g.act);
+        const float v1 = value(acc[i][j][2 * h + 1], j, 1, co + 1);
         if (pairs) {
           *(float2*)(o + co) = make_float2(v0, v1);
         } else {
@@ -796,6 +816,106 @@ __device__ __forceinline__ void store_tile(
         }
       }
     }
+  }
+}
+
+// the fold's store, for one activation ACT (fused::ACTS: 0 none, 1 relu,
+// 2 abs, 3 sign): the plan's y clamped at 0 -- none and relu both
+// (v > 0 || v != v) ? v : 0, abs |v|, sign v > 0 (sign(NaN) is 0) -- from
+// the lane's channels' act_scale * ws and bias, made once; the CTA's max
+// of y into partials[blockIdx.x]
+template <int MT, int NT, int WN, int ACT>
+__device__ __forceinline__ void store_fold(
+    const int (&acc)[MT][NT][4], const float* __restrict__ ws,
+    const float* __restrict__ bias, float* __restrict__ out, const Igemm& g,
+    int b, int oh0, int ow0, int n0, int wm, int wn, int lane,
+    unsigned char* smem) {
+  const float sb = __ldg(g.scale + (g.scale_n > 1 ? b : 0));
+  float wsc[NT][2], bv[NT][2];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const int co = min(n0 + (wn * NT + j) * 8 + (lane & 3) * 2 + t,
+                         g.c_out - 1);
+      wsc[j][t] = __fmul_rn(sb, __ldg(ws + (g.ws_n > 1 ? co : 0)));
+      bv[j][t] = bias != nullptr ? __ldg(bias + (g.bias_n > 1 ? co : 0))
+                                 : 0.0f;
+    }
+  }
+  float m = 0.0f;                        // every y is >= 0
+  bool nan = false;
+  store_values<MT, NT, WN>(
+      acc, out, g, b, oh0, ow0, n0, wm, wn, lane,
+      [&](int a, int j, int t, int) {
+        float v = __fmul_rn(__int2float_rn(a), wsc[j][t]);
+        if (bias != nullptr) v = __fadd_rn(v, bv[j][t]);
+        float y;
+        if constexpr (ACT == 2) {
+          y = fabsf(v);
+        } else if constexpr (ACT == 3) {
+          y = v > 0.0f ? 1.0f : 0.0f;
+        } else {
+          y = (v > 0.0f || v != v) ? v : 0.0f;
+        }
+        m = fmaxf(m, y);
+        nan |= y != y;
+        return y;
+      });
+  // a NaN anywhere makes the max NaN, as nan_max's chain would
+  if (nan) m = __int_as_float(0x7fffffff);
+  for (int off = 16; off > 0; off >>= 1) {
+    m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, off));
+  }
+  float* red = reinterpret_cast<float*>(smem + g.red_offset);
+  if (lane == 0) red[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int warps = blockDim.x >> 5;
+    float r = red[0];
+    for (int i = 1; i < warps; ++i) r = nan_max(r, red[i]);
+    g.partials[blockIdx.x] = r;
+  }
+}
+
+// The CTA's output: epilogue_int's strip association (acc * act_scale *
+// ws, the conv_bank op's and the ws API's, unchanged); or, kFold, the
+// plan's (csrc/epilogue.cu's pooled()): v = __fmul_rn(__int2float_rn(acc),
+// __fmul_rn(scale[b], ws[co])), __fadd_rn(v, bias[co]), the activation,
+// and y = max(v, 0), unpooled; the CTA's max of y goes to
+// partials[blockIdx.x] (a CTA is one frame's, and a frame's CTAs are
+// consecutive: partials[b][CTA within the frame]). The max of the
+// unpooled clamped y equals the max of the max-pooled ones -- the windows
+// tile the frame, max is exact in any order, and a NaN anywhere makes
+// both NaN -- so epilogue.cu's pass 2 takes these partials as its pass
+// 1's and max-pools this y as it writes the codes.
+template <int MT, int NT, int WN, bool kFold>
+__device__ __forceinline__ void store_tile(
+    const int (&acc)[MT][NT][4], const float* __restrict__ ws,
+    const float* __restrict__ bias, float* __restrict__ out, const Igemm& g,
+    int b, int oh0, int ow0, int n0, int wm, int wn, int lane,
+    unsigned char* smem) {
+  if constexpr (kFold) {
+    switch (g.act) {
+      case 2:
+        store_fold<MT, NT, WN, 2>(acc, ws, bias, out, g, b, oh0, ow0, n0, wm,
+                                  wn, lane, smem);
+        return;
+      case 3:
+        store_fold<MT, NT, WN, 3>(acc, ws, bias, out, g, b, oh0, ow0, n0, wm,
+                                  wn, lane, smem);
+        return;
+      default:
+        store_fold<MT, NT, WN, 1>(acc, ws, bias, out, g, b, oh0, ow0, n0, wm,
+                                  wn, lane, smem);
+        return;
+    }
+  } else {
+    store_values<MT, NT, WN>(
+        acc, out, g, b, oh0, ow0, n0, wm, wn, lane,
+        [&](int a, int, int, int co) {
+          return epilogue_int(a, ws, bias, co, g.act_scale, g.act);
+        });
   }
 }
 
@@ -808,7 +928,7 @@ __device__ __forceinline__ void store_tile(
 // the mma's "col" B operand). Tap (di, dj) reads the patch shifted by di
 // rows and dj columns: one ldmatrix address a lane and fragment, plus a
 // uniform offset a tap.
-template <int KT, int MT, int NT, int WM, int WN>
+template <int KT, int MT, int NT, int WM, int WN, bool kFold>
 __global__ void __launch_bounds__(32 * WM * WN)
 conv_igemm_kernel(const uint8_t* __restrict__ x, const int8_t* __restrict__ w,
                   const float* __restrict__ ws, const float* __restrict__ bias,
@@ -817,6 +937,7 @@ conv_igemm_kernel(const uint8_t* __restrict__ x, const int8_t* __restrict__ w,
   constexpr int BN = WN * NT * 8;
   static_assert(WM * MT * 16 == kIgBm, "a CTA has kIgBm pixel slots");
   static_assert(NT % 2 == 0, "B fragments load in pairs");
+  static_assert(!kFold || WM * WN <= kIgFoldRed, "a warp max a slot");
   extern __shared__ __align__(16) unsigned char smem[];
   const int k = KT > 0 ? KT : g.k;
   const int s = g.stride;
@@ -925,8 +1046,8 @@ conv_igemm_kernel(const uint8_t* __restrict__ x, const int8_t* __restrict__ w,
     __syncthreads();           // slot free for chunk ci + 2
   }
 
-  store_tile<MT, NT, WN>(acc, ws, bias, out, g, b, oh0, ow0, n0, wm, wn,
-                         lane);
+  store_tile<MT, NT, WN, kFold>(acc, ws, bias, out, g, b, oh0, ow0, n0, wm,
+                                wn, lane, smem);
 }
 
 // Small C_in (conv1's 3): the k*k taps folded into K. The codes carry 4
@@ -938,7 +1059,7 @@ conv_igemm_kernel(const uint8_t* __restrict__ x, const int8_t* __restrict__ w,
 // fragment's register for slot r and k = 4*t .. 4*t + 3 is the patch word
 // of slot r's pixel shifted by tap t: one 32-bit shared load, no
 // ldmatrix; taps past k*k read any word (their weights are zero).
-template <int KT, int MT, int NT, int WM, int WN>
+template <int KT, int MT, int NT, int WM, int WN, bool kFold>
 __global__ void __launch_bounds__(32 * WM * WN)
 conv_igemm_fold_kernel(const uint8_t* __restrict__ x,
                        const int8_t* __restrict__ w,
@@ -949,6 +1070,7 @@ conv_igemm_fold_kernel(const uint8_t* __restrict__ x,
   constexpr int BN = WN * NT * 8;
   static_assert(WM * MT * 16 == kIgBm, "a CTA has kIgBm pixel slots");
   static_assert(NT % 2 == 0, "B fragments load in pairs");
+  static_assert(!kFold || WM * WN <= kIgFoldRed, "a warp max a slot");
   extern __shared__ __align__(16) unsigned char smem[];
   const int k = KT > 0 ? KT : g.k;
   const int s = g.stride;
@@ -1039,8 +1161,8 @@ conv_igemm_fold_kernel(const uint8_t* __restrict__ x,
                  bf[j / 2][2 * (j & 1) + 1]);
     }
   }
-  store_tile<MT, NT, WN>(acc, ws, bias, out, g, b, oh0, ow0, n0, wm, wn,
-                         lane);
+  store_tile<MT, NT, WN, kFold>(acc, ws, bias, out, g, b, oh0, ow0, n0, wm,
+                                wn, lane, smem);
 }
 
 struct IgLaunch {
@@ -1056,7 +1178,8 @@ struct IgLaunch {
 
 template <typename Kernel>
 int launch_igemm_fn(Kernel kernel, int threads, const IgLaunch& l) {
-  const size_t bytes = (size_t)l.stages * l.g.stage_bytes;
+  const size_t bytes = (size_t)l.stages * l.g.stage_bytes +
+                       (l.g.partials != nullptr ? kIgFoldRed * 4 : 0);
   if (bytes > (size_t)kSmemMax) return (int)cudaErrorInvalidConfiguration;
   if (bytes > (size_t)kSmemDefault) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -1071,14 +1194,22 @@ int launch_igemm_fn(Kernel kernel, int threads, const IgLaunch& l) {
   return (int)cudaGetLastError();
 }
 
-template <int KT, int MT, int NT, int WM, int WN>
-int launch_igemm_k(const IgLaunch& l) {
+template <int KT, int MT, int NT, int WM, int WN, bool kFold>
+int launch_igemm_f(const IgLaunch& l) {
   if (l.g.kf > 0) {
-    return launch_igemm_fn(conv_igemm_fold_kernel<KT, MT, NT, WM, WN>,
+    return launch_igemm_fn(conv_igemm_fold_kernel<KT, MT, NT, WM, WN, kFold>,
                            32 * WM * WN, l);
   }
-  return launch_igemm_fn(conv_igemm_kernel<KT, MT, NT, WM, WN>, 32 * WM * WN,
-                         l);
+  return launch_igemm_fn(conv_igemm_kernel<KT, MT, NT, WM, WN, kFold>,
+                         32 * WM * WN, l);
+}
+
+template <int KT, int MT, int NT, int WM, int WN>
+int launch_igemm_k(const IgLaunch& l) {
+  if (l.g.partials != nullptr) {
+    return launch_igemm_f<KT, MT, NT, WM, WN, true>(l);
+  }
+  return launch_igemm_f<KT, MT, NT, WM, WN, false>(l);
 }
 
 template <int MT, int NT, int WM, int WN>
@@ -1193,6 +1324,62 @@ extern "C" int conv_strip_dw_launch(const void* x, const void* w_taps,
   }
 }
 
+namespace {
+
+// The int8 launch's geometry into *g, or cudaErrorInvalidValue for a
+// shape or configuration the kernel does not take (see below)
+int igemm_geometry(Igemm* g, const void* x, const void* w, int batch, int hp,
+                   int wp, int c_in, int c_out, int k, int stride, int th,
+                   int tw, int bn, int stages) {
+  const int bad = (int)cudaErrorInvalidValue;
+  const int kf = c_in == kIgFoldC ? (k * k * kIgFoldC + 31) / 32 * 32 : 0;
+  if ((kf == 0 && (c_in < 16 || c_in % 16 != 0)) || kf > kIgFoldK ||
+      c_out < 1 || th < 1 || tw < 1 || th * tw > kIgBm || k < 1 ||
+      stride < 1 || hp < k || wp < k || batch < 1 ||
+      (uintptr_t)x % (kf > 0 ? 4 : 16) != 0 || (uintptr_t)w % 16 != 0 ||
+      255LL * 127 * k * k * c_in >= (1LL << 31)) {
+    return bad;
+  }
+  if (stages != ((c_in + kIgCh - 1) / kIgCh > 1 ? 2 : 1)) return bad;
+  if (bn != 64 && bn != 32 && bn != 16) return bad;
+  *g = Igemm{};
+  g->kf = kf;
+  g->hp = hp;
+  g->wp = wp;
+  g->c_in = c_in;
+  g->c_out = c_out;
+  g->k = k;
+  g->stride = stride;
+  g->n_rows = (hp - k) / stride + 1;
+  g->w_out = (wp - k) / stride + 1;
+  g->th = th;
+  g->tw = tw;
+  g->tiles_w = (g->w_out + tw - 1) / tw;
+  g->tiles = (g->n_rows + th - 1) / th * g->tiles_w;
+  g->n_blocks = (c_out + bn - 1) / bn;
+  g->rows_in = (th - 1) * stride + k;
+  g->cols_in = (tw - 1) * stride + k;
+  if (kf > 0) {
+    g->patch_bytes = (g->rows_in * g->cols_in * kIgFoldC + 15) / 16 * 16;
+    g->stage_bytes = g->patch_bytes + bn * (kf + 16);
+  } else {
+    g->patch_bytes = g->rows_in * g->cols_in * kIgLd;
+    g->stage_bytes = g->patch_bytes + k * k * bn * kIgLd;
+  }
+  g->red_offset = stages * g->stage_bytes;
+  return 0;
+}
+
+int launch_igemm(const IgLaunch& l, int bn) {
+  switch (bn) {
+    case 64: return launch_igemm_bn<4, 4, 2, 2>(l);
+    case 32: return launch_igemm_bn<2, 4, 4, 1>(l);
+    default: return launch_igemm_bn<2, 2, 4, 1>(l);
+  }
+}
+
+}  // namespace
+
 // int8 implicit GEMM: x [B, Hp, Wp, C_in] u8 codes, w_t [k*k, C_out, C_in]
 // s8 levels (C_in a multiple of 16, both 16-byte aligned); or, folded, C_in
 // = 4 with k*k*4 <= 128, x 4-byte aligned and w_t [C_out, kf] (k = tap*4 +
@@ -1209,48 +1396,45 @@ extern "C" int conv_strip_int_launch(const void* x, const void* w,
                                      int c_in, int c_out, int k, int stride,
                                      float act_scale, int act, int th, int tw,
                                      int bn, int stages, void* stream) {
-  const int bad = (int)cudaErrorInvalidValue;
-  const int kf = c_in == kIgFoldC ? (k * k * kIgFoldC + 31) / 32 * 32 : 0;
-  if ((kf == 0 && (c_in < 16 || c_in % 16 != 0)) || kf > kIgFoldK ||
-      c_out < 1 || th < 1 || tw < 1 || th * tw > kIgBm || k < 1 ||
-      stride < 1 || hp < k || wp < k || batch < 1 ||
-      (uintptr_t)x % (kf > 0 ? 4 : 16) != 0 || (uintptr_t)w % 16 != 0 ||
-      255LL * 127 * k * k * c_in >= (1LL << 31)) {
-    return bad;
-  }
-  if (stages != ((c_in + kIgCh - 1) / kIgCh > 1 ? 2 : 1)) return bad;
-  Igemm g{};
-  g.kf = kf;
-  g.hp = hp;
-  g.wp = wp;
-  g.c_in = c_in;
-  g.c_out = c_out;
-  g.k = k;
-  g.stride = stride;
-  g.n_rows = (hp - k) / stride + 1;
-  g.w_out = (wp - k) / stride + 1;
-  g.th = th;
-  g.tw = tw;
-  g.tiles_w = (g.w_out + tw - 1) / tw;
-  g.tiles = (g.n_rows + th - 1) / th * g.tiles_w;
-  g.n_blocks = (c_out + bn - 1) / bn;
-  g.rows_in = (th - 1) * stride + k;
-  g.cols_in = (tw - 1) * stride + k;
-  if (kf > 0) {
-    g.patch_bytes = (g.rows_in * g.cols_in * kIgFoldC + 15) / 16 * 16;
-    g.stage_bytes = g.patch_bytes + bn * (kf + 16);
-  } else {
-    g.patch_bytes = g.rows_in * g.cols_in * kIgLd;
-    g.stage_bytes = g.patch_bytes + k * k * bn * kIgLd;
-  }
+  Igemm g;
+  const int err = igemm_geometry(&g, x, w, batch, hp, wp, c_in, c_out, k,
+                                 stride, th, tw, bn, stages);
+  if (err != 0) return err;
   g.act_scale = act_scale;
   g.act = act;
   const IgLaunch l{x, w, ws, bias, out, batch, stages, g,
                    (cudaStream_t)stream};
-  switch (bn) {
-    case 64: return launch_igemm_bn<4, 4, 2, 2>(l);
-    case 32: return launch_igemm_bn<2, 4, 4, 1>(l);
-    case 16: return launch_igemm_bn<2, 2, 4, 1>(l);
-    default: return bad;
+  return launch_igemm(l, bn);
+}
+
+// The same conv with the plan's epilogue folded into its store (kFold in
+// store_tile): out is y, unpooled, activated and clamped at 0, and
+// partials [B, tiles * n_blocks] each CTA's max of it. scale (act_scale,
+// scale_n 1 or B values) and ws (ws_n 1 or C_out) are device pointers,
+// bias (bias_n 1 or C_out) one or null: nothing is read on the host, so a
+// CUDA graph captures the conv after the requant that wrote scale.
+extern "C" int conv_strip_int_fold_launch(
+    const void* x, const void* w, const void* ws, const void* bias, void* out,
+    void* partials, const void* scale, int scale_n, int ws_n, int bias_n,
+    int batch, int hp, int wp, int c_in, int c_out, int k, int stride,
+    int act, int th, int tw, int bn, int stages, void* stream) {
+  Igemm g;
+  const int err = igemm_geometry(&g, x, w, batch, hp, wp, c_in, c_out, k,
+                                 stride, th, tw, bn, stages);
+  if (err != 0) return err;
+  if (ws == nullptr || scale == nullptr || partials == nullptr ||
+      (scale_n != 1 && scale_n != batch) || (ws_n != 1 && ws_n != c_out) ||
+      (bias != nullptr && bias_n != 1 && bias_n != c_out) || act < 0 ||
+      act > 3) {
+    return (int)cudaErrorInvalidValue;
   }
+  g.act = act;
+  g.scale = (const float*)scale;
+  g.partials = (float*)partials;
+  g.scale_n = scale_n;
+  g.ws_n = ws_n;
+  g.bias_n = bias_n;
+  const IgLaunch l{x, w, ws, bias, out, batch, stages, g,
+                   (cudaStream_t)stream};
+  return launch_igemm(l, bn);
 }

@@ -16,6 +16,12 @@ With ``ws`` the per-layer epilogue follows the accumulate, in the
 reference kernel's association: ``acc * act_scale * ws``, then ``+ bias``,
 then the activation. Without ``ws`` the raw accumulate comes back.
 
+The int8 kernel also takes the plan executor's epilogue folded into its
+store (:class:`Fold`, :func:`launch_int`): in the plan's association,
+``acc * (act_scale * ws)`` with ``act_scale`` on the device, ``+ bias``,
+the activation and the clamp at 0, unpooled, and each CTA's max of it,
+which ``epilogue.ops.quant_folded`` turns into the codes.
+
 A CUDA tensor launches the kernel; a CPU tensor takes the plain version
 (``conv_strip_ref`` / ``conv_strip_depthwise_ref``: the float64 tap loop of
 ``ref.conv_taps_int`` and the same epilogue). There is no fallback between
@@ -49,7 +55,9 @@ _SIGNATURES = {
     "conv_strip_launch": (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7 + (
         ctypes.c_float,) + (ctypes.c_int,) * 6 + (ctypes.c_void_p,),
     "conv_strip_dw_launch": _DW_ENTRY,
-    "conv_strip_int_launch": _DENSE_ENTRY}
+    "conv_strip_int_launch": _DENSE_ENTRY,
+    "conv_strip_int_fold_launch": (ctypes.c_void_p,) * 7 + (
+        ctypes.c_int,) * 15 + (ctypes.c_void_p,)}
 
 SMS = 132                       # H100 SXM
 SMEM_MAX = 232448               # bytes a CTA can opt into
@@ -73,6 +81,8 @@ IGEMM_BN = (16, 32, 64)
 IGEMM_C_ALIGN = 16
 IGEMM_FOLD_C, IGEMM_FOLD_K = 4, 128          # taps folded into K: channels a
                                              # tap carries, most K bytes
+IGEMM_FOLD_RED = 4 * 4          # the epilogue fold's warp maxima, bytes of
+                                # shared memory after the stages
 IGEMM_TW = (1, 2, 4, 8, 16, 32, 64, 128)    # tile widths besides w_out
 INT_CODE_MAX, INT_LEVEL_MAX = 255, 127       # u8 codes, s8 levels
 # the route rule (PERF.md gives the card's times of both kernels at every
@@ -615,16 +625,42 @@ def int_weights(w: torch.Tensor, ws: Optional[torch.Tensor] = None,
     return IntWeights(w8, wt, *flat)
 
 
+@dataclass(frozen=True)
+class Fold:
+    """The plan's epilogue up to its pool, folded into the int8 kernel's
+    store: ``act_scale`` a tensor of 1 or B values (on the device: a
+    CUDA graph captures the conv after the requant that wrote it), ``ws``
+    and ``bias`` of 1 or C_out values (``bias`` may be None), ``act`` one
+    of ``fused.ACTS``."""
+    act_scale: torch.Tensor
+    ws: torch.Tensor
+    bias: Optional[torch.Tensor]
+    act: str
+
+
+def fold_partials(b: int, cfg: IgemmConfig) -> int:
+    """The fold's partial maxima a frame: one a CTA (a CTA is one frame's:
+    its tiles times its channel blocks)."""
+    return cfg.ctas // b
+
+
 def launch_int(x_padded: torch.Tensor, iw: IntWeights, act_scale: float,
-               act: str, stride: int) -> torch.Tensor:
+               act: str, stride: int, fold: Optional[Fold] = None):
     """Launch the int8 kernel on CUDA tensors (validated by the caller) and
     count it on ``INT_LAUNCHES``: ``x_padded`` takes :func:`int_codes`'
     form (callers on the path hand it over already), the levels, ``ws``
     and ``bias`` :func:`int_weights`' layout, and :func:`igemm_config`'s
-    configuration is taken."""
+    configuration is taken. With ``fold`` (``iw``'s own ``ws`` and
+    ``bias`` unused) -> ``(y, partials)``: y unpooled, activated and
+    clamped at 0, and partials [B, :func:`fold_partials`] each CTA's max
+    of y; else the output."""
     dev = x_padded.device
     kk, c_out = iw.w8.shape[0], iw.w8.shape[-1]
-    for t in (iw.wt, iw.ws, iw.bias):
+    flat = [t.reshape(-1).to(torch.float32).contiguous()
+            if t is not None else None
+            for t in ((fold.act_scale, fold.ws, fold.bias) if fold
+                      else (None, iw.ws, iw.bias))]
+    for t in (iw.wt, *flat):
         if t is not None and t.device != dev:
             raise ValueError(f"conv_strip_int: operands on {dev} and "
                              f"{t.device}")
@@ -634,22 +670,46 @@ def launch_int(x_padded: torch.Tensor, iw: IntWeights, act_scale: float,
     w_out = (wp - kk) // stride + 1
     out = torch.empty((b, n_rows, w_out, c_out), dtype=torch.float32,
                       device=dev)
-    if out.numel() == 0:
-        return out
     cfg = igemm_config(b, n_rows, w_out, c_k, c_out, kk, stride)
-    if cfg.smem > SMEM_MAX:
-        raise ValueError(f"conv_strip_int: {cfg.smem} bytes of shared memory "
+    if out.numel() == 0:
+        if fold:
+            raise ValueError("conv_strip_int: a folded epilogue of nothing")
+        return out
+    smem = cfg.smem + (IGEMM_FOLD_RED if fold else 0)
+    if smem > SMEM_MAX:
+        raise ValueError(f"conv_strip_int: {smem} bytes of shared memory "
                          f"at k={kk} stride={stride}; a CTA has {SMEM_MAX}")
     lib = _build.library("conv_strip", _SIGNATURES)
-    err = lib.conv_strip_int_launch(
-        x.data_ptr(), iw.wt.data_ptr(),
-        *[None if t is None else t.data_ptr() for t in (iw.ws, iw.bias)],
-        out.data_ptr(), b, hp, wp, c_k, c_out, kk, stride, float(act_scale),
-        ACTS[act], cfg.th, cfg.tw, cfg.bn, cfg.stages,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "conv_strip_int")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if fold is None:
+        err = lib.conv_strip_int_launch(
+            x.data_ptr(), iw.wt.data_ptr(),
+            *[None if t is None else t.data_ptr() for t in flat[1:]],
+            out.data_ptr(), b, hp, wp, c_k, c_out, kk, stride,
+            float(act_scale), ACTS[act], cfg.th, cfg.tw, cfg.bn, cfg.stages,
+            stream)
+        _build.check(err, "conv_strip_int")
+        INT_LAUNCHES.inc()
+        return out
+    s, ws, bias = flat
+    if fold.act not in ACTS or s.numel() not in (1, b) or \
+            ws.numel() not in (1, c_out) or \
+            (bias is not None and bias.numel() not in (1, c_out)):
+        raise ValueError(f"conv_strip_int: a fold of act {fold.act!r}, "
+                         f"{s.numel()} scales, {ws.numel()} ws and "
+                         f"{None if bias is None else bias.numel()} biases "
+                         f"for {b} frames of {c_out} channels")
+    partials = torch.empty((b, fold_partials(b, cfg)), dtype=torch.float32,
+                           device=dev)
+    err = lib.conv_strip_int_fold_launch(
+        x.data_ptr(), iw.wt.data_ptr(), ws.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        partials.data_ptr(), s.data_ptr(), s.numel(), ws.numel(),
+        0 if bias is None else bias.numel(), b, hp, wp, c_k, c_out, kk,
+        stride, ACTS[fold.act], cfg.th, cfg.tw, cfg.bn, cfg.stages, stream)
+    _build.check(err, "conv_strip_int (folded epilogue)")
     INT_LAUNCHES.inc()
-    return out
+    return out, partials
 
 
 def conv_strip_int(x_padded: torch.Tensor, w: torch.Tensor,
@@ -672,15 +732,51 @@ def conv_strip_int(x_padded: torch.Tensor, w: torch.Tensor,
                       stride)
 
 
+def fold_ref(acc: torch.Tensor, fold: Fold, cfg: IgemmConfig):
+    """Plain version of the fold's store on the raw accumulate ``acc``
+    [B, H, W, C_out]: y = act(acc * (act_scale * ws) + bias) clamped at
+    0 (the plan's association), and each CTA's max of y over
+    ``cfg``'s tiles (``th`` x ``tw`` pixels of ``bn`` channels, in the
+    kernel's CTA order: row tiles, column tiles, channel blocks) ->
+    ``(y, partials [B, tiles * blocks])``."""
+    b, h, w, c = acc.shape
+    s = fold.act_scale.reshape(-1).float()
+    s = s.reshape(-1, 1, 1, 1) if s.numel() > 1 else s.reshape(())
+    y = acc * (s * fold.ws.reshape(-1).float())
+    if fold.bias is not None:
+        y = y + fold.bias.reshape(-1).float()
+    y = torch.clamp_min(_activation(y, fold.act), 0.0)
+    th, tw, bn = cfg.th, cfg.tw, cfg.bn
+    tiles = F.pad(y, (0, -c % bn, 0, -w % tw, 0, -h % th))
+    tiles = tiles.reshape(b, -(-h // th), th, -(-w // tw), tw, -(-c // bn),
+                          bn)
+    partials = tiles.amax(dim=(2, 4, 6)).reshape(b, -1)
+    return y, partials
+
+
 def conv_strip_int_laid(x_padded: torch.Tensor, iw: IntWeights,
                         stride: int = 1, act_scale: float = 1.0,
-                        act: str = "none") -> torch.Tensor:
+                        act: str = "none", fold: Optional[Fold] = None):
     """:func:`conv_strip_int` on levels laid out once (:func:`int_weights`,
     its ``ws`` and ``bias`` with them) and x_padded in :func:`int_codes`'
-    form; bitwise equal to :func:`conv_strip_int_ref` on ``iw.w8``."""
+    form; bitwise equal to :func:`conv_strip_int_ref` on ``iw.w8``. With
+    ``fold`` (``act_scale``, ``act`` and ``iw``'s ``ws`` and ``bias``
+    unused) -> ``(y, partials)`` as :func:`launch_int` gives them, bitwise
+    equal to :func:`fold_ref` on the plain raw accumulate."""
     _, c_out = _check_int(x_padded, iw.w8, stride)
-    _check_epilogue(iw.ws, iw.bias, act, c_out, "conv_strip_int")
-    if not x_padded.is_cuda:
+    if fold is None:
+        _check_epilogue(iw.ws, iw.bias, act, c_out, "conv_strip_int")
+    elif fold.act not in ACTS:
+        raise ValueError(f"conv_strip_int: act {fold.act!r} not in "
+                         f"{tuple(ACTS)}")
+    if x_padded.is_cuda:
+        return launch_int(x_padded, iw, act_scale, act, stride, fold)
+    if fold is None:
         return conv_strip_int_ref(x_padded, iw.w8, iw.ws, stride, act_scale,
                                   act, iw.bias)
-    return launch_int(x_padded, iw, act_scale, act, stride)
+    acc = conv_strip_int_ref(x_padded, iw.w8, stride=stride)
+    b, n_rows, w_out, _ = acc.shape
+    cfg = igemm_config(b, n_rows, w_out, igemm_c_in(iw.w8.shape[2],
+                                                    iw.w8.shape[0]),
+                       c_out, iw.w8.shape[0], stride)
+    return fold_ref(acc, fold, cfg)

@@ -506,6 +506,40 @@ def _conv_int_strip(codes: torch.Tensor, wq: torch.Tensor, stride: int,
     return out[:, :h_out]
 
 
+def conv_int_epilogue(codes: torch.Tensor, act_scale: torch.Tensor,
+                      wq: torch.Tensor, ws: torch.Tensor,
+                      bias: Optional[torch.Tensor], stride: int, pads,
+                      act: str, pool: Optional[Tuple[str, int]], *, a_qmax,
+                      per_frame: bool = False, reduce_max=None,
+                      operand=None, x_operand: bool = False, levels=None,
+                      backend: str = "kernel"):
+    """A dense conv on the int8 strip route and the requant after it, the
+    epilogue's first pass folded into the conv's store (the plan's
+    ``CompiledPlan.folded_epilogues``): :func:`conv_int` then
+    :func:`epilogue` in one call -> ``(codes, scale)``, bitwise equal to
+    the two. ``x_operand``: ``codes`` are the conv's operand already (the
+    epilogue before wrote it); else they are cast and padded here.
+    ``levels`` as :func:`conv_int` takes them. The kernel backend runs the
+    conv with the folded store and the epilogue's pass 2
+    (``epilogue.ops.epilogue_fold``; its plain version on a CPU tensor);
+    the reference backend does not fold."""
+    _check_backend(backend)
+    if backend != "kernel":
+        raise ValueError("conv_int_epilogue: the fold is the kernel "
+                         "backend's; the reference backend runs conv_int "
+                         "and epilogue")
+    from repro_torch.kernels.conv_bank import strip as SK
+    from repro_torch.kernels.epilogue.ops import epilogue_fold
+    k = wq.shape[0]
+    x8 = codes if x_operand else SK.int_codes(codes, k, pads)
+    if levels is None:
+        levels = SK.int_weights(wq)
+    if trace_hooks():
+        obs.counter("dispatch.conv.strip").inc()
+    return epilogue_fold(x8, act_scale, ws, bias, act, pool, a_qmax,
+                         per_frame, reduce_max, operand, levels, stride)
+
+
 def conv_chain(codes: torch.Tensor, act_scale, stages: Sequence, a_qmax,
                per_frame: bool, backend: str = "kernel",
                exact_checked: bool = False):

@@ -1,8 +1,9 @@
 """Edge shapes of the launch configurations of ``photonic_mvm`` (its float
 API on signed codes too), the strip convs, the fused conv chain,
 ``ca_pool`` and the epilogue, the distinct shapes of VGG16's kernel calls
-at 224x224x3, an operand copy that defeats aligned loads, and the
-epilogue's calls on a compiled program's path.
+at 224x224x3, an operand copy that defeats aligned loads, the
+epilogue's calls on a compiled program's path, and the values whose codes
+a half-integer quotient decides.
 
 The ``gpu`` tests (``tests/test_torch_gpu.py``) and ``chip_smoke.py`` both
 hold each kernel bitwise against its plain version at these shapes, so the
@@ -11,6 +12,10 @@ two check the same set.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import numpy as np
 import torch
 
 # (m, k, n, route, split-K) of photonic_mvm.ops.mvm_config: the skinny route,
@@ -231,31 +236,128 @@ def epilogue_nan_case(edge, per_frame, gen, device):
             per_frame, None, None)
 
 
+@dataclass(frozen=True)
+class EpilogueCall:
+    """One epilogue call, by name: ``ops.epilogue``'s arguments (in its
+    order, so a tuple of :func:`epilogue_case`'s is ``EpilogueCall(*args)``),
+    ``x`` the accumulate; or, for a requant folded into its conv's store
+    (``levels`` set), ``ops.epilogue_fold``'s: ``x`` the conv's uint8
+    operand, ``levels`` its ``strip.IntWeights`` and ``stride`` its
+    stride."""
+    x: torch.Tensor
+    act_scale: Optional[torch.Tensor] = None
+    ws: Optional[torch.Tensor] = None
+    bias: Optional[torch.Tensor] = None
+    act: str = "none"
+    pool: Optional[tuple] = None
+    a_qmax: Any = None
+    per_frame: bool = False
+    reduce_max: Any = None
+    operand: Optional[tuple] = None
+    levels: Any = None
+    stride: int = 1
+
+    @property
+    def folded(self) -> bool:
+        """Whether the requant is folded into its conv's store."""
+        return self.levels is not None
+
+    def requant(self) -> dict:
+        """The requant's keyword arguments: ``ops.epilogue``'s but ``x``."""
+        return dict(act_scale=self.act_scale, ws=self.ws, bias=self.bias,
+                    act=self.act, pool=self.pool, a_qmax=self.a_qmax,
+                    per_frame=self.per_frame, reduce_max=self.reduce_max,
+                    operand=self.operand)
+
+
 def epilogue_calls(exe, frames, per_frame: bool = True):
     """The epilogue kernel's calls in one run of ``exe`` (a compiled
-    ``Executable`` on the kernel backend) on ``frames``: each as the
-    arguments of ``epilogue.ops.epilogue`` (the same tuple as
-    :func:`epilogue_case`'s), its tensors cloned, so every call can be
+    ``Executable`` on the kernel backend) on ``frames``, each an
+    :class:`EpilogueCall` with its tensors cloned, so every call can be
     made again through the kernel and its plain version at the path's own
-    shapes and values. A step left on the torch ops (tanh) is not one."""
+    shapes and values (:func:`epilogue_fns`); a requant folded into its
+    conv's store (the plan's ``folded_epilogues``) with the conv's operand,
+    levels and stride. A step left on the torch ops (tanh) is not one."""
     from repro_torch.core import plan as plan_mod
     from repro_torch.kernels import dispatch
-    calls, real = [], dispatch.epilogue
+    from repro_torch.kernels.conv_bank import strip
+    calls = []
+    real, real_fold = dispatch.epilogue, dispatch.conv_int_epilogue
 
-    def record(*args, **kw):
+    def cloned(t):
+        return t.clone() if isinstance(t, torch.Tensor) else t
+
+    def record(x, act_scale=None, ws=None, bias=None, act="none", pool=None,
+               **kw):
         if kw["backend"] == "kernel":
-            calls.append(tuple(a.clone() if isinstance(a, torch.Tensor)
-                               else a for a in args) + (
-                kw["a_qmax"], kw["per_frame"], None, kw["operand"]))
-        return real(*args, **kw)
+            calls.append(EpilogueCall(
+                cloned(x), cloned(act_scale), cloned(ws), cloned(bias), act,
+                pool, a_qmax=kw["a_qmax"], per_frame=kw["per_frame"],
+                operand=kw["operand"]))
+        return real(x, act_scale, ws, bias, act, pool, **kw)
+
+    def record_fold(codes, act_scale, wq, ws, bias, stride, pads, act, pool,
+                    **kw):
+        k = wq.shape[0]
+        x8 = codes if kw["x_operand"] else strip.int_codes(codes, k, pads)
+        levels = kw["levels"] if kw["levels"] is not None else \
+            strip.int_weights(wq)
+        calls.append(EpilogueCall(
+            cloned(x8), cloned(act_scale), cloned(ws), cloned(bias), act,
+            pool, a_qmax=kw["a_qmax"], per_frame=kw["per_frame"],
+            operand=kw["operand"], levels=levels, stride=stride))
+        return real_fold(codes, act_scale, wq, ws, bias, stride, pads, act,
+                         pool, **kw)
 
     dispatch.epilogue = record
+    dispatch.conv_int_epilogue = record_fold
     try:
         plan_mod._execute(exe.plan, exe.params(), frames,
                           per_frame=per_frame, backend=exe.options.backend)
     finally:
         dispatch.epilogue = real
+        dispatch.conv_int_epilogue = real_fold
     return calls
+
+
+def epilogue_fns(call: EpilogueCall):
+    """``(kernel, plain)``: an :class:`EpilogueCall` through the kernel
+    wrapper (``ops.epilogue``, or ``ops.epilogue_fold`` for a folded
+    conv's) and through its plain version, each returning ``(codes,
+    scale)``."""
+    from repro_torch.kernels.epilogue import ops
+    from repro_torch.kernels.epilogue.ref import epilogue_ref
+    kw = call.requant()
+    if call.folded:
+        conv = dict(levels=call.levels, stride=call.stride)
+        return (lambda: ops.epilogue_fold(call.x, **kw, **conv),
+                lambda: ops.epilogue_fold_ref(call.x, **kw, **conv))
+    return (lambda: ops.epilogue(call.x, **kw),
+            lambda: epilogue_ref(call.x, **kw))
+
+
+def quotient_ties(scale: float, top: int) -> np.ndarray:
+    """float32 values y >= 0 whose codes at ``scale`` (``rint(y / scale)``,
+    half to even) a half-integer quotient decides, for quotients up to
+    ``top`` + 1: for each k the float32 nearest (k + 0.5) * scale and its
+    neighbours up to 4 ulps each way, the values whose quotient is
+    2^-23..2^-19 (relative) off the tie, and tiny quotients (2^-22 to
+    2^-18); with 0 and ``top`` * scale. Where ``scale`` is a power of two
+    the ties are exact and half to even decides them."""
+    f32 = np.float32
+    k = np.arange(0, top + 2, dtype=np.float64) + 0.5
+    out = [f32(0), f32(top * float(scale))]
+    for q in [k] + [k * (1 + sg * 2.0 ** -e) for e in range(19, 24)
+                    for sg in (-1, 1)] + [2.0 ** -np.arange(18, 23)]:
+        out.extend((q * float(scale)).astype(f32))
+    ties = (k * float(scale)).astype(f32)
+    lo, hi = ties.copy(), ties.copy()
+    for _ in range(4):
+        lo = np.nextafter(lo, f32(0))
+        hi = np.nextafter(hi, f32(np.inf))
+        out.extend(lo)
+        out.extend(hi)
+    return np.asarray(out, f32)
 
 
 def vgg16_case(kernel, shape, batch, gen, device, levels=7):

@@ -209,11 +209,13 @@ def test_operand_equals_int_operands_first_output(c, k, pads):
 
 def test_launch_configuration():
     cfg = ops.epilogue_config(8, 224 * 224 * 64, 64, True)
-    assert cfg.vec == 4
+    assert cfg.vec == 4 and cfg.cluster == 0
     assert cfg.nblk1 * 8 <= ops.TARGET_BLOCKS + 8 and cfg.nblk1 > 1
-    # a misaligned or 3-channel tensor takes single elements; a small
-    # frame one block
-    assert ops.epilogue_config(8, 224 * 224 * 3, 3, True).vec == 1
+    # a misaligned tensor, or a pooled 3-channel one, takes single
+    # elements; an unpooled 3-channel one 4 flat elements; a small frame
+    # one block
+    assert ops.epilogue_config(8, 224 * 224 * 3, 3, True).vec == 4
+    assert ops.epilogue_config(8, 112 * 112 * 3, 3, True, p=2).vec == 1
     assert ops.epilogue_config(8, 224 * 224 * 4, 4, False).vec == 1
     assert ops.epilogue_config(8, 784, 1, True).nblk1 == 1
     words = 226 * 226 * 4 // 4
@@ -303,20 +305,28 @@ def test_int_route_run_hands_the_operand_over_bitwise(per_frame):
     frames = torch.from_numpy(rng.random((3, 16, 16, 3)).astype(np.float32))
     frames[1] *= 0.1
     calls = []
-    real = dispatch.epilogue
+    real, real_fold = dispatch.epilogue, dispatch.conv_int_epilogue
 
     def spy(*a, **kw):
         calls.append(kw.get("operand"))
         return real(*a, **kw)
 
+    def spy_fold(*a, **kw):
+        calls.append(kw.get("operand"))
+        return real_fold(*a, **kw)
+
     dispatch.epilogue = spy
+    dispatch.conv_int_epilogue = spy_fold
     try:
         reset_launch_counts()
         got = tplan._execute(plan, params, frames, per_frame=per_frame)
     finally:
         dispatch.epilogue = real
+        dispatch.conv_int_epilogue = real_fold
     assert sum(launch_counts().values()) == 0           # the CPU: plain
-    # the frames, four convs, flatten, fc1: one epilogue each
+    # the frames, four convs (conv2's folded into the conv), flatten, fc1:
+    # one epilogue each
+    assert plan.folded_epilogues == ("conv2",)
     assert len(calls) == 7
     assert sum(c is not None for c in calls) == len(plan.int_operands)
     weights = tplan.quantized_weights(plan.steps, params, plan.consts,
@@ -388,17 +398,25 @@ def test_an_int_route_conv_after_a_fused_segment_takes_the_chain_s_codes(
     frames = torch.from_numpy(
         rng.random((batch, 16, 16, 3)).astype(np.float32))
     handed = []
-    real = dispatch.conv_int
+    real, real_fold = dispatch.conv_int, dispatch.conv_int_epilogue
 
     def spy(*a, **kw):
         handed.append(kw.get("operand"))
         return real(*a, **kw)
 
+    def spy_fold(*a, **kw):
+        handed.append(kw.get("x_operand"))
+        return real_fold(*a, **kw)
+
     dispatch.conv_int = spy
+    dispatch.conv_int_epilogue = spy_fold
     try:
         got = tplan._execute(plan, exe.params(), frames, per_frame=per_frame)
     finally:
         dispatch.conv_int = real
+        dispatch.conv_int_epilogue = real_fold
+    # conv3 folds its requant into its store
+    assert plan.folded_epilogues == ("conv3",)
     fused = per_frame or batch == 1
     assert handed == ([False] if fused else [False, False, True])
     weights = tplan.quantized_weights(plan.steps, exe.params(), plan.consts,
@@ -424,15 +442,42 @@ def _jax_layer(layer):
         **{f: getattr(layer, f) for f in layer.__dataclass_fields__})
 
 
+# the quotient's shortcut of csrc/epilogue.cu's Coder: within this of a
+# half-integer (relative; absolute below 1) the true quotient decides
+GUARD = np.float32(2.0 ** -20)
+
+
+def _coder(y, scale, code_max):
+    """``Coder``'s codes of ``y`` (float32 values >= 0, or NaN, or inf)
+    at ``scale``, in its float32 arithmetic: q = y * rcp(scale), its
+    rounding (half to even) unless q lies within ``GUARD`` of a
+    half-integer, where the true quotient's rounding is taken; clamped at
+    ``code_max``."""
+    f32 = np.float32
+    y = np.asarray(y, f32)
+    scale = f32(scale)
+    with np.errstate(invalid="ignore", over="ignore", divide="ignore"):
+        q = (y * (f32(1) / scale)).astype(f32)
+        k = np.rint(q).astype(f32)
+        guard = (np.fmax(q, f32(1)) * GUARD).astype(f32)
+        near = np.abs(np.abs((q - k).astype(f32)) - f32(0.5)) < guard
+        k = np.where(near, np.rint((y / scale).astype(f32)), k).astype(f32)
+        return np.where(k > f32(code_max), f32(code_max), k).astype(f32) + \
+            f32(0)
+
+
 class _EmulatedPair:
-    """The two entry points of ``csrc/epilogue.cu``, emulated on the CPU
+    """The three entry points of ``csrc/epilogue.cu``, emulated on the CPU
     over the structs the wrapper lays out (read back through ctypes from
     CPU tensors' memory): each block's range of units, the stored y and
-    the block maxima, pass 2's reduction of them, the codes of the stored
-    y and the operand's words, in the
-    kernel's arithmetic (float32 products, sums and quotients, each
-    rounded once). It holds the wrapper's layout and the kernel's walk,
-    not the compiled code."""
+    the block maxima, pass 2's reduction of them (or of a folded conv's
+    maxima, pooling its y), the codes of y (:func:`_coder`'s quotient)
+    and the operand's words; and the cluster
+    kernel's slices of a frame (whole groups of pixels where it writes an
+    operand), their maxima, and each slice's codes or its range of the
+    padded operand's words, in the kernel's arithmetic (float32 products,
+    sums and quotients, each rounded once). It holds the wrapper's layout
+    and the kernel's walk, not the compiled code."""
 
     def __init__(self):
         self.launches = []
@@ -452,7 +497,7 @@ class _EmulatedPair:
             b if e.scale_n > 1 else 0]
         out = []
         for j in range(vec):
-            cj = c0 + j
+            cj = (c0 + j) % e.c         # at p == 1 the next pixel's
             wsc = (s * self._arr(e.ws, e.ws_n)[cj if e.ws_n > 1 else 0]
                    if e.ws else np.full(o.shape, s, f32)).astype(f32)
             bv = (self._arr(e.bias, e.bias_n)[cj if e.bias_n > 1 else 0]
@@ -498,9 +543,102 @@ class _EmulatedPair:
                 ys = self._y(e, b, u * vec, vec) if len(u) else []
                 part[b * e.nblk1 + blk] = np.max(
                     [np.float32(0)] + [y.max() for y in ys if len(y)])
+                assert e.y, "pass 1 stores y"
                 dst = self._arr(e.y, e.batch * e.n)
                 for j, y in enumerate(ys):
                     dst[b * e.n + u * vec + j] = y
+        return 0
+
+    @staticmethod
+    def _code(y, scale, q):
+        return _coder(y, scale, q.code_max)
+
+    def _words(self, e, q, lo_word, hi_word, y_of):
+        """Operand words [lo_word, hi_word) of a frame, each from
+        ``y_of(o)`` (y at pooled elements ``o``, an array) -> uint32."""
+        cw = q.cp // 4
+        u = np.arange(lo_word, hi_word)
+        pix, c0 = u // cw, (u % cw) * 4
+        r, s = pix // q.wp - q.top, pix % q.wp - q.left
+        inside = (r >= 0) & (r < q.h) & (s >= 0) & (s < e.w_out) & \
+            (c0 < e.c)
+        word = np.zeros(len(u), np.uint32)
+        o = (r * e.w_out + s) * e.c + c0
+        for j in range(4):
+            ok = inside & (c0 + j < e.c)
+            if ok.any():
+                word[ok] |= y_of(o[ok] + j).astype(np.uint32) << \
+                    np.uint32(8 * j)
+        return word
+
+    def epilogue_cluster_launch(self, epi, qt, vec, cluster, smem, stream):
+        import ctypes
+        e, q = epi._obj, qt._obj
+        self.launches.append(f"cluster{cluster}")
+        assert cluster in ops.CLUSTERS and not q.amax
+        assert q.per_frame or e.batch == 1
+        f32 = np.float32
+        operand = bool(q.operand)
+        npix = e.n // e.c
+        gp = 1 if vec == 1 or e.c % 4 == 0 else (4 if e.c % 2 else 2)
+        slices = []
+        for rank in range(cluster):
+            if operand:
+                groups = -(-npix // gp)
+                lo = min(npix, groups * rank // cluster * gp) * e.c
+                hi = min(npix, groups * (rank + 1) // cluster * gp) * e.c
+                cap = -(-groups // cluster) * gp * e.c
+            else:
+                units = e.n // vec
+                lo = units * rank // cluster * vec
+                hi = units * (rank + 1) // cluster * vec
+                cap = -(-units // cluster) * vec
+            assert lo % vec == 0 and hi - lo <= cap
+            assert smem >= (-(-cap // 4) * 4 + 32) * 4
+            slices.append((lo, hi))
+        assert slices[0][0] == 0 and slices[-1][1] == e.n and all(
+            a[1] == b[0] for a, b in zip(slices, slices[1:]))
+
+        def padded(pix):
+            if pix == 0:
+                return 0
+            if pix == npix:
+                return q.hp * q.wp
+            r = pix // e.w_out
+            return (r + q.top) * q.wp + pix - r * e.w_out + q.left
+
+        for b in range(e.batch):
+            ys, maxima = [], []
+            for lo, hi in slices:
+                o = np.arange(lo, hi, vec)
+                y = np.zeros(hi - lo, f32)
+                for j, yj in enumerate(self._y(e, b, o, vec) if len(o)
+                                       else []):
+                    y[o - lo + j] = yj
+                ys.append(y)
+                maxima.append(y.max() if len(y) else f32(0))
+            # every slice's max, through each CTA's slot
+            scale = f32(np.maximum(np.max([f32(0)] + maxima), f32(1e-8)) /
+                        f32(q.aq))
+            self._arr(q.scale_out, e.batch)[b if q.per_frame else 0] = scale
+            if not operand:
+                dst = self._arr(q.codes, e.batch * e.n)
+                for (lo, hi), y in zip(slices, ys):
+                    dst[b * e.n + lo:b * e.n + hi] = self._code(y, scale, q)
+                continue
+            cw = q.cp // 4
+            words = q.hp * q.wp * cw
+            dst = self._arr(q.operand, e.batch * words, ctypes.c_uint32)
+            for (lo, hi), y in zip(slices, ys):
+                wlo = padded(lo // e.c) * cw
+                whi = padded(hi // e.c) * cw
+
+                def y_of(o, lo=lo, hi=hi, y=y):
+                    assert ((o >= lo) & (o < hi)).all(), "a peer's y"
+                    return self._code(y[o - lo], scale, q)
+
+                dst[b * words + wlo:b * words + whi] = self._words(
+                    e, q, wlo, whi, y_of)
         return 0
 
     def epilogue_quant_launch(self, epi, qt, vec, stream):
@@ -518,11 +656,12 @@ class _EmulatedPair:
                     scale
 
             def codes(o, width):
-                ys = [self._arr(e.y, e.batch * e.n)[b * e.n + o + j]
-                      for j in range(width)]
-                return [np.clip(np.rint((y / scale).astype(f32)), 0,
-                                q.code_max).astype(f32) + f32(0)
-                        for y in ys]
+                if e.y:
+                    ys = [self._arr(e.y, e.batch * e.n)[b * e.n + o + j]
+                          for j in range(width)]
+                else:
+                    ys = self._y(e, b, o, width)
+                return [self._code(y, scale, q) for y in ys]
 
             if q.codes:
                 units = e.n // vec
@@ -534,27 +673,57 @@ class _EmulatedPair:
                         dst[b * e.n + u * vec + j] = cd
             else:
                 import ctypes
-                cw = q.cp // 4
-                words = q.hp * q.wp * cw
+                words = q.hp * q.wp * (q.cp // 4)
                 dst = self._arr(q.operand, e.batch * words, ctypes.c_uint32)
-                u = np.arange(words)
-                pix, c0 = u // cw, (u % cw) * 4
-                r, s = pix // q.wp - q.top, pix % q.wp - q.left
-                inside = (r >= 0) & (r < q.h) & (s >= 0) & (s < e.w_out) & \
-                    (c0 < e.c)
-                word = np.zeros(words, np.uint32)
-                o = (r * e.w_out + s) * e.c + c0
-                for j in range(4):
-                    ok = inside & (c0 + j < e.c)
-                    if ok.any():
-                        cd = codes(o[ok] + j, 1)[0]
-                        word[ok] |= cd.astype(np.uint32) << np.uint32(8 * j)
-                dst[b * words:(b + 1) * words] = word
+                dst[b * words:(b + 1) * words] = self._words(
+                    e, q, 0, words, lambda o: codes(o, 1)[0])
         return 0
 
 
-def _emulated_launch(monkeypatch, args):
-    """``ops.launch(*args)`` on the CPU through :class:`_EmulatedPair`."""
+# scales the quotient's shortcut is held at: powers of two (exact ties,
+# where half to even decides), the least a frame's scale can be (1e-8 over
+# a_qmax 15) and log-uniform ones from a seeded generator
+CODER_SCALES = [2.0 ** e for e in range(-30, 6, 3)] + [1e-8 / 15] + [
+    float(10.0 ** e) for e in np.random.default_rng(21).uniform(-10, 3, 11)]
+
+
+@pytest.mark.parametrize("code_max", [15, 255])
+@pytest.mark.parametrize("scale", CODER_SCALES)
+def test_coder_emulated_equals_the_true_quotient(scale, code_max):
+    # the kernels' codes come from y * rcp(scale), divided only within
+    # GUARD of a half-integer: held against torch's true float32 division
+    # (half to even) on and around every half-integer quotient up to
+    # code_max, on random y, NaN and inf
+    from repro_torch.kernels.edge_shapes import quotient_ties
+    f32 = np.float32
+    s = f32(scale)
+    rng = np.random.default_rng(len(CODER_SCALES) + code_max)
+    y = np.concatenate([quotient_ties(s, code_max),
+                        (rng.uniform(0, code_max + 1, 4096) * s).astype(f32),
+                        np.array([np.nan, np.inf], f32)])
+    got = _coder(y, s, code_max)
+    yt = torch.from_numpy(y)
+    want = torch.clamp(torch.round(yt / torch.tensor(s)), max=code_max)
+    np.testing.assert_array_equal(got, want.numpy())
+    # both roads ran: the product's rounding and, near the ties, the
+    # division's
+    finite = y[np.isfinite(y)]
+    q = (finite * (f32(1) / s)).astype(f32)
+    near = np.abs(np.abs(q - np.rint(q)) - f32(0.5)) < \
+        (np.fmax(q, f32(1)) * GUARD).astype(f32)
+    assert near.sum() > code_max and (~near).sum() > 4096
+    if np.log2(scale) % 1 == 0:
+        # exact ties: half to even takes k for an even k and k + 1 for an
+        # odd one
+        y = finite
+        exact = (y.astype(np.float64) / scale) % 1 == 0.5
+        assert exact.sum() > code_max
+        assert (np.rint(y[exact] / s) % 2 == 0).all()
+
+
+def _emulated_launch(monkeypatch, args, config=None):
+    """``ops.launch(*args)`` (in ``config``'s form, or the wrapper's) on
+    the CPU through :class:`_EmulatedPair`."""
     from repro_torch.kernels import _build
     pair = _EmulatedPair()
     monkeypatch.setattr(_build, "library", lambda name, sigs: pair)
@@ -565,13 +734,18 @@ def _emulated_launch(monkeypatch, args):
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: _Stream())
     reset_launch_counts()
     try:
-        got = ops.launch(*args)
+        got = ops.launch(*args, config=config)
         assert launch_counts()["epilogue"] == 1
     finally:
         # the emulated launch counted; no later test of this process may
         # find it (a CPU run launches nothing)
         reset_launch_counts()
-    assert pair.launches == ["reduce", "quant"]
+    x, pool, per_frame, operand = args[0], args[5], args[7], args[9]
+    g = ops.geometry(x.contiguous(), pool, operand)
+    cfg = config or ops.epilogue_config(g.b, g.n, g.c, g.aligned,
+                                        g.op_words, g.p, per_frame)
+    assert pair.launches == ([f"cluster{cfg.cluster}"] if cfg.cluster
+                             else ["reduce", "quant"])
     return got
 
 

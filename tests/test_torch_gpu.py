@@ -15,10 +15,13 @@ steps on the card against the CPU port's. The LM families: every smoke
 arch's forward and decode steps on the card against the CPU port (the MoE
 archs under both dispatches and three quant modes, their expert indices
 equal). The public ``ca_pool`` op with a bank of its own, on every
-weighted route. The plan executor's epilogue kernel pair at its edges and
-at every call of the LeNet, VGG9-CA, imaging (256x256) and VGG16 paths,
-under both calibrations, under ``shard_batch``,
-and the int8 route's levels laid out at bind against per call.
+weighted route. The plan executor's epilogue kernels at their edges (the
+one-launch cluster form at every cluster size it takes), at quotients on
+and around half-integers (each code the true quotient's), and at every
+call of the LeNet, VGG9-CA, imaging (256x256) and VGG16 paths, under both
+calibrations, under ``shard_batch``; the requant folded into the int8
+strip conv's store at VGG16's shapes and the strip edges; and the int8
+route's levels laid out at bind against per call.
 """
 
 from __future__ import annotations
@@ -44,10 +47,12 @@ from repro_torch.kernels.edge_shapes import (CA_EDGES, CHAIN_EDGES, CHAINS,
                                              DW_EDGES, EPILOGUE_EDGES,
                                              EPILOGUE_NAN_EDGES, MVM_EDGES,
                                              SIGNED_MVM_SHAPES, STRIP_EDGES,
-                                             VGG16_SHAPES, chain_case,
-                                             epilogue_calls, epilogue_case,
+                                             VGG16_SHAPES, EpilogueCall,
+                                             chain_case, epilogue_calls,
+                                             epilogue_case, epilogue_fns,
                                              epilogue_nan_case, odd_offset,
-                                             vgg16_case)
+                                             quotient_ties, vgg16_case)
+from repro_torch.kernels.epilogue import ops
 from repro_torch.kernels.epilogue.ops import epilogue
 from repro_torch.kernels.epilogue.ref import epilogue_ref
 from repro_torch.kernels.photonic_mvm.ops import mvm_int
@@ -1223,21 +1228,175 @@ def test_run_eager_on_the_card_equals_run_and_launches_nothing(cuda, model,
 
 # -- the plan executor's epilogue ---------------------------------------------
 
-def _same_epilogue(args):
+def _same_epilogue(call):
+    kernel, plain = epilogue_fns(call)
     reset_launch_counts()
-    got = epilogue(*args)
+    got = kernel()
+    assert launch_counts()["epilogue"] == 1
+    assert launch_counts()["conv_strip_int"] == int(call.folded)
+    want = plain()
+    assert got[0].dtype == want[0].dtype and torch.equal(got[0], want[0])
+    assert got[1].shape == want[1].shape and torch.equal(got[1], want[1])
+
+
+def _fold_case(gen, device, b, h_out, w_out, ci, co, k, stride, per_frame):
+    """A folded conv's operands (W4A4 codes and levels), its act_scale (one
+    a frame or one), ws and bias, random from ``gen``."""
+    xp, w, ws, bias = _strip_int_case(gen, device, b, h_out, w_out, ci, co,
+                                      k, stride, codes=16, levels=7)
+    s = torch.rand((b, 1, 1, 1), generator=gen, device=device) * 0.01 + 1e-3
+    s = s if per_frame else s.reshape(-1)[0]
+    x8, _ = strip.int_operands(xp, w)
+    return x8, strip.int_weights(w), s, ws * 0.1, bias
+
+
+def _check_fold(x8, levels, s, ws, bias, stride, per_frame):
+    """The folded store (y and each CTA's max) and the folded call (codes
+    and scale, float codes and a 3 x 3 operand) bitwise their plain
+    versions, at every act, with and without a max pool and a bias."""
+    from repro_torch.kernels.epilogue.ops import (epilogue_fold,
+                                                  epilogue_fold_ref)
+    kk = levels.w8.shape[0]
+    h = (x8.shape[1] - kk) // stride + 1
+    w = (x8.shape[2] - kk) // stride + 1
+    pools = [None] + ([("max", 2)] if h % 2 == 0 and w % 2 == 0 else [])
+    acc = strip.conv_strip_int_ref(x8, levels.w8, stride=stride)
+    cfg = strip.igemm_config(x8.shape[0], h, w, x8.shape[-1],
+                             levels.w8.shape[-1], kk, stride)
+    for act in ("relu", "none", "abs", "sign"):
+        fold = strip.Fold(s, ws, bias if act != "none" else None, act)
+        reset_launch_counts()
+        got = strip.conv_strip_int_laid(x8, levels, stride, fold=fold)
+        assert launch_counts()["conv_strip_int"] == 1
+        want = strip.fold_ref(acc, fold, cfg)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        for pool in pools:
+            hp, wp = (h // 2, w // 2) if pool else (h, w)
+            for operand in (None, (3, padtype_to_pads((hp, wp), 3, 1,
+                                                      "SAME"))):
+                args = (x8, s, ws, fold.bias, act, pool, 15.0, per_frame,
+                        None, operand, levels, stride)
+                reset_launch_counts()
+                got = epilogue_fold(*args)
+                assert launch_counts()["epilogue"] == 1
+                want = epilogue_fold_ref(*args)
+                assert got[0].dtype == want[0].dtype
+                assert torch.equal(got[0], want[0]), (act, pool, operand)
+                assert got[1].shape == want[1].shape
+                assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("per_frame", [True, False])
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("shape", VGG16_SHAPES["conv_strip"],
+                         ids=lambda v: v[0])
+def test_folded_conv_vgg16_shapes_bitwise_equal_to_plain(cuda, shape, batch,
+                                                         per_frame):
+    _, _, _, w_out, ci, co, k, stride = shape
+    gen = torch.Generator(device=cuda).manual_seed(batch + ci + co + 1)
+    _check_fold(*_fold_case(gen, cuda, batch, w_out, w_out, ci, co, k,
+                            stride, per_frame), stride, per_frame)
+
+
+@pytest.mark.parametrize("per_frame", [True, False])
+@pytest.mark.parametrize("b,h_out,w_out,ci,co,k,stride", STRIP_EDGES)
+def test_folded_conv_configs_bitwise_equal_to_plain(cuda, b, h_out, w_out,
+                                                    ci, co, k, stride,
+                                                    per_frame):
+    gen = torch.Generator(device=cuda).manual_seed(b + h_out + ci + k + 2)
+    _check_fold(*_fold_case(gen, cuda, b, h_out, w_out, ci, co, k, stride,
+                            per_frame), stride, per_frame)
+
+
+@pytest.mark.parametrize("cluster", ops.CLUSTERS)
+@pytest.mark.parametrize("per_frame", [True, False])
+@pytest.mark.parametrize("i", range(len(EPILOGUE_EDGES)))
+def test_cluster_epilogue_configs_bitwise_equal_to_plain(cuda, i, per_frame,
+                                                         cluster):
+    """The one-launch form at each edge (per tensor, at one frame), every
+    cluster size it takes, against the plain version."""
+    edge = EPILOGUE_EDGES[i] if per_frame else (1,) + EPILOGUE_EDGES[i][1:]
+    args = epilogue_case(edge, per_frame, torch.Generator().manual_seed(i),
+                         cuda)
+    g = ops.geometry(args[0].contiguous(), args[5], args[9])
+    vec = ops.epilogue_config(g.b, g.n, g.c, g.aligned, g.op_words, g.p,
+                              True).vec
+    smem = ops.cluster_smem(g.n, g.c, vec, cluster, g.op_words > 0)
+    if smem > ops.SMEM_MAX:
+        # the frame does not fit this cluster: the launch is refused
+        with pytest.raises(Exception):
+            ops.launch(*args, config=ops.EpilogueConfig(
+                vec, cluster=cluster, smem=smem))
+        return
+    reset_launch_counts()
+    got = ops.launch(*args, config=ops.EpilogueConfig(
+        vec, cluster=cluster, smem=smem))
     assert launch_counts()["epilogue"] == 1
     want = epilogue_ref(*args)
     assert got[0].dtype == want[0].dtype and torch.equal(got[0], want[0])
     assert got[1].shape == want[1].shape and torch.equal(got[1], want[1])
-
 
 @pytest.mark.parametrize("per_frame", [True, False])
 @pytest.mark.parametrize("i", range(len(EPILOGUE_EDGES)))
 def test_epilogue_kernel_configs_bitwise_equal_to_plain(cuda, i, per_frame):
     args = epilogue_case(EPILOGUE_EDGES[i], per_frame,
                          torch.Generator().manual_seed(i), cuda)
-    _same_epilogue(args)
+    _same_epilogue(EpilogueCall(*args))
+
+
+def _tie_frames(scale_of, b, c, per_pixel):
+    """``b`` frames [b, 32, 32, c] of ``quotient_ties`` at the scale the
+    codes take, amax / 15 (a_qmax), each frame's max amax = ``scale_of`` *
+    15, tiled; each value ``per_pixel`` x ``per_pixel`` times (a max
+    pool's windows)."""
+    f32 = np.float32
+    amax = f32(scale_of * 15)
+    scale = f32(amax / f32(15))
+    vals = quotient_ties(scale, 15)
+    vals = vals[vals <= amax]
+    n = 32 * 32 * c
+    frames = np.resize(vals, (b, n)).astype(f32)
+    frames[np.arange(b), np.arange(b) * 7] = amax
+    x = torch.from_numpy(frames.reshape(b, 32, 32, c))
+    return x.repeat_interleave(per_pixel, 1).repeat_interleave(per_pixel, 2)
+
+
+@pytest.mark.parametrize("scale", [0.125, 0.37])
+@pytest.mark.parametrize("operand", [False, True])
+@pytest.mark.parametrize("c", [4, 3])
+@pytest.mark.parametrize("form", ["pair", "cluster", "fold", "fold_pooled"])
+def test_epilogue_codes_at_half_integer_quotients_bitwise_equal_to_plain(
+        cuda, form, c, operand, scale):
+    """Each code of y on and around a half-integer quotient (exact ties at
+    a power-of-two scale, where half to even decides; 1-4 ulps off; 2^-23
+    to 2^-19 off; tiny quotients; up to code_max), where the kernels take
+    the quotient from the reciprocal and divide only near the tie: the
+    pair, the cluster and the fold's pass 2 (unpooled and max-pooled) are
+    bitwise the plain version's true division."""
+    b = 2
+    x = _tie_frames(scale, b, c, 2 if form == "fold_pooled" else 1)
+    pool = ("max", 2) if form == "fold_pooled" else None
+    op = (3, ((1, 1), (1, 1))) if operand else None
+    per_frame = form != "pair"         # per tensor at batch 2: the pair
+    want = epilogue_ref(x, None, None, None, "none", pool, 15.0, per_frame,
+                        None, op)
+    xc = x.to(cuda)
+    reset_launch_counts()
+    if form.startswith("fold"):
+        partials = xc.reshape(b, -1).amax(1, keepdim=True)
+        got = ops.launch_folded(xc, partials, pool, 15.0, per_frame, None,
+                                op)
+    else:
+        g = ops.geometry(xc, None, op)
+        cfg = ops.epilogue_config(g.b, g.n, g.c, g.aligned, g.op_words,
+                                  g.p, per_frame)
+        assert bool(cfg.cluster) == (form == "cluster")
+        got = epilogue(xc, None, None, None, "none", None, 15.0, per_frame,
+                       None, op)
+    assert launch_counts()["epilogue"] == 1
+    assert got[0].dtype == want[0].dtype
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
 
 
 def _path_program(name):
@@ -1259,8 +1418,8 @@ def test_epilogue_kernel_at_path_shapes_bitwise_equal_to_plain(
     f = torch.from_numpy(_frames_for(prog, 8, 9)).to(cuda)
     calls = epilogue_calls(exe, f, per_frame)
     assert calls
-    for args in calls:
-        _same_epilogue(args)
+    for call in calls:
+        _same_epilogue(call)
 
 
 @pytest.mark.parametrize("name", ["lenet", "vgg9", "denoise_gauss"])
@@ -1277,6 +1436,31 @@ def test_epilogue_under_shard_batch_bitwise_equal_to_unsharded(cuda, name):
     got = prog.compile(dataclasses.replace(
         plain, shard_batch=True, mesh=("cuda:0", "cuda:0"))).run(f).cpu()
     assert launch_counts()["epilogue"] > 0
+    assert torch.equal(got, want) and torch.equal(got, ref)
+
+
+def test_folded_epilogue_under_shard_batch_bitwise_equal_to_unsharded(cuda):
+    """conv2 and conv3 on the int8 route fold their requant into their
+    store; over two shards of cuda:0 the folded pass 2 takes the batch's
+    max through ``reduce_max``, between the conv and pass 2."""
+    from repro_torch.core.accelerator import ConvSpec, DenseSpec, FlattenSpec
+    from repro_torch.models.vision import init_vision
+    layers = (ConvSpec("conv1", 3, 16, pool=("max", 2)),
+              ConvSpec("conv2", 16, 32, act="none"),
+              ConvSpec("conv3", 32, 32, pool=("max", 2)), FlattenSpec(),
+              DenseSpec("fc1", 4 * 4 * 32, 10, act="none"))
+    prog = Program(layers, init_vision(torch.Generator().manual_seed(6),
+                                       layers), (16, 16, 3), name="folds")
+    plain = Options(scheme=W4A4, verify="off", conv_vmem_budget=2048)
+    assert prog.compile(plain).plan.folded_epilogues == ("conv2", "conv3")
+    f = _frames_for(prog, 8, 14)
+    want = prog.compile(plain).run(f).cpu()
+    ref = prog.compile(dataclasses.replace(plain, backend="reference")).run(
+        f).cpu()
+    reset_launch_counts()
+    got = prog.compile(dataclasses.replace(
+        plain, shard_batch=True, mesh=("cuda:0", "cuda:0"))).run(f).cpu()
+    assert launch_counts()["conv_strip_int"] == 4
     assert torch.equal(got, want) and torch.equal(got, ref)
 
 

@@ -119,19 +119,26 @@ def test_busy_share_names_the_torch_ops_and_the_epilogue(smoke):
              "((anonymous namespace)::Epi, (anonymous namespace)::Quant)")
     reduce = ("void (anonymous namespace)::epi_reduce_kernel<1>"
               "((anonymous namespace)::Epi)")
+    cluster = ("void (anonymous namespace)::epi_cluster_kernel<4, false>"
+               "((anonymous namespace)::Epi, (anonymous namespace)::Quant)")
+    fold = ("void (anonymous namespace)::conv_igemm_kernel<3, 4, 4, 2, 2, "
+            "true>(unsigned char const*, signed char const*, float const*, "
+            "float const*, float*, (anonymous namespace)::Igemm)")
     add = ("void at::native::vectorized_elementwise_kernel<4, "
            "at::native::CUDAFunctor_add<float>, at::detail::Array<char*, "
            "3> >(int, at::native::CUDAFunctor_add<float>, "
            "at::detail::Array<char*, 3>)")
     trace = [_range(smoke.SERVE_WINDOW, 0, 1000)]
-    for i, (name, dur) in enumerate([(quant, 30), (reduce, 20)] +
+    for i, (name, dur) in enumerate([(quant, 30), (reduce, 20),
+                                     (cluster, 15), (fold, 25)] +
                                     [(add, 10)] * 3 + [
             (f"void at::native::op{j}_kernel(float*)", 9 - j)
             for j in range(9)]):
         trace += [_launch(i, 10 + i), _device("kernel", name, i, 100 + 40 * i,
                                               dur)]
     got = smoke.busy_share(trace)
-    assert got["port_kernel_ms"] == pytest.approx({"epilogue": 0.05})
+    assert got["port_kernel_ms"] == pytest.approx(
+        {"epilogue": 0.065, "conv_strip_int": 0.025})
     ops = got["torch_ops_by_name"]
     assert len(ops) == 8 and got["torch_op_launches"] == 12
     assert ops[0]["name"] == ("vectorized_elementwise_kernel<4, "
