@@ -148,7 +148,10 @@ Phases, each fatal on failure:
      and on the float64 strip kernel: per layer the int8 route's device
      ms -- cast, pad, weight layout and kernel -- beside the kernel's, the
      float64 kernel's, ``F.conv2d``'s, forced resident's and the bound,
-     with the instantiation's ptxas registers, shared memory and spills);
+     with the instantiation's ptxas registers, shared memory and spills;
+     each photonic_mvm step on its levels laid out once, with its route,
+     tile, CTAs, shared memory and ptxas line); the bound view's
+     photonic_mvm levels checked laid out at bind;
      each conv1-conv10 also with the epilogue folded into its store; each
      of its 17 epilogue calls (pass 2 alone after a folded store) timed
      beside the torch-op sequence it replaces (its plain version) and its
@@ -158,8 +161,8 @@ Phases, each fatal on failure:
      bound window's device busy share (its torch ops named)
      and a short saturation run's frames/s (``[vgg16]`` lines).
  10. train: photonic_mvm's float API on signed CRC codes held bitwise to
-     ``photonic_mvm_ref`` at ``edge_shapes.SIGNED_MVM_SHAPES`` (both
-     routes, split-K on and off); LeNet QAT-trained 40 steps at batch 64
+     ``photonic_mvm_ref`` at ``edge_shapes.SIGNED_MVM_SHAPES`` (every
+     route); LeNet QAT-trained 40 steps at batch 64
      under fp32, W4A4, W3A4, W2A4 and MX_43, and VGG9-CA at full width 10
      steps under W4A4 (``launch/train_vision.py``), each fatal unless
      every loss is finite and the last below the first, with the step
@@ -362,7 +365,8 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"int8": 1979e12,       # dense tensor-core int8
             "tf32": 495e12,        # dense tensor-core TF32
             "fp32": 67e12}         # float32 FMAs outside the tensor cores
-RAGGED_MVM = [(1, 1, 1), (37, 101, 53), (130, 777, 129), (300, 2304, 257)]
+RAGGED_MVM = [(1, 1, 1), (37, 101, 53), (130, 777, 129), (300, 2304, 257)] + [
+    (m, 4096 + 37 * m, 1000) for m in (1, 7, 13, 16)]
 # the conv_bank op's own calls: x [B, H, W, Cin] -> Cout, k x k, W4A4 with
 # relu and bias, in both strategies
 CONV_BANK = [(BUCKET, 32, 32, 16, 32, k) for k in (3, 5, 7)]
@@ -624,7 +628,8 @@ SOURCES = {
     "epilogue": ("src/repro_torch/csrc/epilogue.cu",
                  "src/repro/core/plan.py:645")}
 # device-time symbols (space-free regexes over the profiler's kernel names)
-KERNEL_SYMBOLS = {"photonic_mvm": r"mvm_(gemm|reduce|skinny)_kernel",
+KERNEL_SYMBOLS = {"photonic_mvm":
+                  r"mvm_(gemm|stream|wgmma|skinny|layout)_kernel",
                   "conv_chain": r"conv_chain_kernel",
                   "ca_pool": r"ca_(gray|mean|generic)_kernel",
                   "conv_strip": r"conv_dense_kernel",
@@ -685,6 +690,18 @@ def ptxas_report(log_text):
             m = re.search(r"(\d+) bytes smem", line)
             cur["smem_bytes"] = int(m.group(1)) if m else 0
     return out
+
+
+def mvm_ptxas(by_function, cfg):
+    """The ptxas line of the photonic_mvm instantiation that ``cfg`` (a
+    ``photonic_mvm.ops.MvmConfig``) launches, from the .cu's own forms:
+    ``mvm_stream_kernel<NT>`` (NT = bm / 8), ``mvm_wgmma_kernel``,
+    ``mvm_gemm_kernel``, ``mvm_skinny_kernel<N>``; None where the build's
+    log has no such line."""
+    name = {"stream": f"mvm_stream_kernel<{cfg.bm // 8}>",
+            "wgmma": "mvm_wgmma_kernel", "gemm": "mvm_gemm_kernel",
+            "skinny": f"mvm_skinny_kernel<{cfg.bn}>"}[cfg.route]
+    return by_function.get(name)
 
 
 def igemm_ptxas(by_function, cfg, fold=False):
@@ -953,7 +970,7 @@ def phase_kernels(device, vision, imaging):
                                                  STRIP_EDGES, EpilogueCall,
                                                  chain_case, epilogue_case,
                                                  odd_offset)
-    from repro_torch.kernels.photonic_mvm.ops import mvm_int
+    from repro_torch.kernels.photonic_mvm.ops import mvm_int, mvm_weights
     from repro_torch.kernels.photonic_mvm.ref import mvm_int_ref
     gen = torch.Generator().manual_seed(SEED + 7)
     errs = {k: [] for k in KERNELS}
@@ -997,10 +1014,14 @@ def phase_kernels(device, vision, imaging):
         ragged.append((odd_offset(a.to(device)), odd_offset(w.to(device))))
     for a, w in calls["photonic_mvm"] + ragged:
         ws = (torch.rand((w.shape[1],), generator=gen) + 0.5).to(device)
+        what = f"M,K,N={a.shape[0]},{a.shape[1]},{w.shape[1]}"
         for act_scale, scales in ((1.0, None), (0.37, ws)):
             compare("photonic_mvm", mvm_int(a, w, scales, act_scale),
-                    mvm_int_ref(a, w, scales, act_scale),
-                    f"M,K,N={a.shape[0]},{a.shape[1]},{w.shape[1]}")
+                    mvm_int_ref(a, w, scales, act_scale), what)
+        # the levels' layout kernel against its plain version (the CPU's)
+        compare("photonic_mvm", mvm_weights(w).wt.float(),
+                mvm_weights(w.cpu()).wt.to(w.device).float(),
+                f"{what} layout")
 
     chains = list(calls["conv_chain"])
     for h, w, c, specs in CHAINS:
@@ -1358,7 +1379,6 @@ def phase_timing(device, vision, imaging):
     from repro_torch.kernels.conv_bank.fused import conv_chain
     from repro_torch.kernels.conv_bank.ops import conv_bank, conv_bank_plain
     from repro_torch.kernels.conv_bank.ref import conv_chain_ref, float32_convs
-    from repro_torch.kernels.photonic_mvm.ops import mvm_int
     from repro_torch.kernels.photonic_mvm.ref import mvm_int_ref
     time_ms = timer(device)
     rows, detail = {}, {k: [] for k in KERNELS}
@@ -1393,7 +1413,9 @@ def phase_timing(device, vision, imaging):
     from repro_torch.kernels.conv_bank.fused import (chain_config,
                                                      max_active_clusters)
     from repro_torch.kernels.conv_bank.strip import dw_config, strip_config
-    from repro_torch.kernels.photonic_mvm.ops import mvm_config
+    from repro_torch.kernels.photonic_mvm.ops import (mvm_config,
+                                                      mvm_int_laid,
+                                                      mvm_weights)
     mvm_calls = [("vision", a, w) for a, w in vision["photonic_mvm"]] + \
         [("imaging", a, w) for a, w in imaging["photonic_mvm"]]
     for path, a, w in mvm_calls:          # the path's form: no ws
@@ -1401,11 +1423,12 @@ def phase_timing(device, vision, imaging):
         n = w.shape[1]
         cfg = mvm_config(m, k, n)
         lib_fn, lib_name = mvm_library(a, w)
-        add("photonic_mvm", time_ms(lambda: mvm_int(a, w)),
+        mw = mvm_weights(w)               # laid out once, as at bind
+        add("photonic_mvm", time_ms(lambda: mvm_int_laid(a, mw)),
             time_ms(lambda: mvm_int_ref(a, w)), time_ms(lib_fn),
             m * k + k * n + 4 * m * n, 2 * m * n * k, "int8", path,
             M=m, K=k, N=n, library=lib_name, route=cfg.route,
-            tile=[cfg.bm, cfg.bn], split=cfg.split, ctas=cfg.ctas)
+            tile=[cfg.bm, cfg.bn], ctas=cfg.ctas)
 
     for codes, scale, stages, aq in vision["conv_chain"]:
         b = codes.shape[0]
@@ -1595,17 +1618,20 @@ def phase_device_time(device, vision, imaging, trace_path,
     from repro_torch.kernels.conv_bank.fused import conv_chain
     from repro_torch.kernels.conv_bank.ref import float32_convs
     from repro_torch.kernels.edge_shapes import epilogue_fns
-    from repro_torch.kernels.photonic_mvm.ops import mvm_int
+    from repro_torch.kernels.photonic_mvm.ops import mvm_int_laid, mvm_weights
     if device.type != "cuda":
         return {k: None for k in KERNELS + ("photonic_mvm.imaging",
                                           "ca_pool.imaging", "ca_pool.cold",
                                           "epilogue.imaging")}
     bank = conv_bank_calls(device)
+    # the levels laid out once, as a bound view lays them out at bind
+    laid = {path: [(a, mvm_weights(w)) for a, w in calls["photonic_mvm"]]
+            for path, calls in (("vision", vision), ("imaging", imaging))}
     batches = {
-        "photonic_mvm": lambda: [mvm_int(a, w) for a, w in
-                                 vision["photonic_mvm"]],
-        "photonic_mvm.imaging": lambda: [mvm_int(a, w) for a, w in
-                                         imaging["photonic_mvm"]],
+        "photonic_mvm": lambda: [mvm_int_laid(a, mw)
+                                 for a, mw in laid["vision"]],
+        "photonic_mvm.imaging": lambda: [mvm_int_laid(a, mw)
+                                         for a, mw in laid["imaging"]],
         "conv_chain": lambda: [conv_chain(*c) for c in vision["conv_chain"]],
         "ca_pool": lambda: [acquire(img, p, True)
                             for img, p in vision["ca_pool"]],
@@ -1633,8 +1659,10 @@ def phase_device_time(device, vision, imaging, trace_path,
     # per path shape of the two redesigned kernels: the kernel, and the
     # library call on the same inputs (all of its kernels)
     mvm_calls = vision["photonic_mvm"] + imaging["photonic_mvm"]
-    for i, (a, w) in enumerate(mvm_calls):
-        batches[f"photonic_mvm.shape{i}"] = lambda a=a, w=w: mvm_int(a, w)
+    for i, ((a, w), (_, mw)) in enumerate(zip(
+            mvm_calls, laid["vision"] + laid["imaging"])):
+        batches[f"photonic_mvm.shape{i}"] = \
+            lambda a=a, mw=mw: mvm_int_laid(a, mw)
         batches[f"library.photonic_mvm.shape{i}"] = mvm_library(a, w)[0]
     for kernel, run in (("conv_strip", strip.conv_strip),
                         ("conv_strip_depthwise", strip.conv_strip_depthwise)):
@@ -1862,6 +1890,26 @@ def credited(hosted):
             for g in exe._binding.graphs.values():
                 for k, n in g.launches.items():
                     out[k] += g.replays * n
+    return out
+
+
+def mvm_levels_not_laid(hosted):
+    """The dense layers and one-group resident convs whose photonic_mvm
+    levels a bound view of ``hosted`` did not lay out at bind (each would
+    be laid out on every call of the bound path); empty when none."""
+    from repro_torch.core.plan import ConvStep, DenseStep
+    from repro_torch.kernels.photonic_mvm.ops import MvmWeights
+    out = []
+    for h in hosted.values():
+        for exe in h.bound:
+            b = exe._binding
+            for st in b.plan.steps:
+                mvm = isinstance(st, DenseStep) or (
+                    isinstance(st, ConvStep) and st.groups == 1
+                    and st.strategy is not None
+                    and st.strategy.kind == "resident")
+                if mvm and not isinstance(b.weights[st.name][2], MvmWeights):
+                    out.append(st.name)
     return out
 
 
@@ -2590,13 +2638,17 @@ def vgg16_timing(device, exe, trace_path, ptxas=None):
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.conv_bank import strip
     from repro_torch.kernels.conv_bank.ref import float32_convs
-    from repro_torch.kernels.photonic_mvm.ops import mvm_config, mvm_int
+    from repro_torch.kernels.photonic_mvm.ops import (mvm_config,
+                                                      mvm_int_laid,
+                                                      mvm_weights)
     from repro_torch.kernels.photonic_mvm.ref import mvm_int_ref
     cuda = device.type == "cuda"
     time_ms = timer(device)
     iters = VGG16_ITERS if cuda else 1
     by_function = {f["function"]: f for f in (ptxas or {}).get(
         "conv_strip", [])}
+    mvm_functions = {f["function"]: f for f in (ptxas or {}).get(
+        "photonic_mvm", [])}
     gen = torch.Generator(device=device).manual_seed(SEED + 17)
     plan, params = exe.plan, exe.params()
     b, rows = BUCKET, []
@@ -2611,7 +2663,8 @@ def vgg16_timing(device, exe, trace_path, ptxas=None):
             w2 = wq.to(torch.int8)
             m, k, n = a.shape[0], wq.shape[0], wq.shape[1]
             lib_fn, lib_name = mvm_library(a, w2)
-            kernel = lambda a=a, w2=w2: mvm_int(a, w2)
+            # the path's form: the levels laid out once, as at bind
+            kernel = lambda a=a, mw=mvm_weights(w2): mvm_int_laid(a, mw)
             row = dict(layer=step.name, kernel="photonic_mvm",
                        library=lib_name, fns=dict(
                            kernel=kernel, route=kernel, library=lib_fn,
@@ -2630,16 +2683,22 @@ def vgg16_timing(device, exe, trace_path, ptxas=None):
             a = dispatch._im2col(codes, g.kernel, g.stride, g.pads)[0] \
                 .to(torch.int8)
             w2 = wq.reshape(-1, g.c_out).to(torch.int8)
+            mw = mvm_weights(w2)
             m, k, n = a.shape[0], a.shape[1], g.c_out
             route = plan.strip_routes.get(step.name)
+            # a resident conv's route on its levels laid out once, as at
+            # bind (a strip conv's lays its own out per call)
+            laid = mw if step.strategy.kind == "resident" and \
+                g.groups == 1 else None
             fns = dict(
                 route=lambda codes=codes, wq=wq, g=g, st=step.strategy,
-                route=route: dispatch.conv_int(codes, wq, g.stride, g.pads,
-                                               strategy=st, route=route),
+                route=route, laid=laid: dispatch.conv_int(
+                    codes, wq, g.stride, g.pads, strategy=st, route=route,
+                    levels=laid),
                 library=strip_library(xp_real, wf, g.stride, False),
                 resident=lambda codes=codes, wq=wq, g=g: dispatch.conv_int(
                     codes, wq, g.stride, g.pads, strategy=resident),
-                resident_gemm=lambda a=a, w2=w2: mvm_int(a, w2))
+                resident_gemm=lambda a=a, mw=mw: mvm_int_laid(a, mw))
             row = dict(layer=step.name, strategy=step.strategy.kind,
                        x=[b, g.h_in, g.w_in, g.c_in], c_out=g.c_out,
                        library="F.conv2d (TF32 off)", fns=fns)
@@ -2709,7 +2768,9 @@ def vgg16_timing(device, exe, trace_path, ptxas=None):
                     fns["library"]().permute(0, 2, 3, 1), fns["route"]())
         if row["kernel"] == "photonic_mvm":
             cfg = mvm_config(m, k, n)
-            row.update(tile=[cfg.bm, cfg.bn], split=cfg.split)
+            row.update(route=cfg.route, tile=[cfg.bm, cfg.bn],
+                       ctas=cfg.ctas, smem=cfg.smem,
+                       ptxas=mvm_ptxas(mvm_functions, cfg))
         row.update(M=m, K=k, N=n, macs=macs)
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 2 * macs, "int8")
         with float32_convs():
@@ -2901,6 +2962,10 @@ def phase_vgg16(device, rehearse, out_dir, ptxas=None):
                                      options=opts)
         start_s = time.perf_counter() - t0
         try:
+            if bound:
+                missing = mvm_levels_not_laid(hosted)
+                need(not missing, f"[vgg16] bound: the photonic_mvm "
+                     f"levels of {missing} are not laid out at bind")
             before = credited(hosted)
             forms0 = {f: n.value for f, n in epi_ops.FORMS.items()}
             outs, c, wall = serve_window(server, reqs)
@@ -2983,6 +3048,13 @@ def phase_vgg16(device, rehearse, out_dir, ptxas=None):
                       f"{px.get('registers')} regs, spills "
                       f"{px.get('spill_stores')}/{px.get('spill_loads')} B; "
                       f"f32 carriers' bound {r['carrier_bound_ms']:.6f}")
+        if r["kernel"] == "photonic_mvm":
+            px = r["ptxas"] or {}
+            extra += (f"; {r['route']} route, tile {r['tile'][0]}x"
+                      f"{r['tile'][1]}, {r['ctas']} "
+                      f"CTAs, {r['smem']} B smem, ptxas "
+                      f"{px.get('registers')} regs, spills "
+                      f"{px.get('spill_stores')}/{px.get('spill_loads')} B")
         log(f"[vgg16] {r['layer']} {r['kernel']}: {r['ms']:.4f} ms "
             f"(device {r.get('kernel_device_ms')}; route "
             f"{r['route_ms']:.4f}, plain {r['plain_ms']:.4f}, library "
@@ -3239,7 +3311,7 @@ def phase_eager(device, rehearse, vision_progs, smi):
 
 def train_signed_mvm(device):
     """photonic_mvm's float API on signed CRC codes at every
-    ``SIGNED_MVM_SHAPES`` entry (both routes, split-K on and off), W4A4
+    ``SIGNED_MVM_SHAPES`` entry (every route), W4A4
     and W2A4, against ``photonic_mvm_ref`` on the same tensors. Returns
     (max abs err, comparisons)."""
     import torch
@@ -3249,9 +3321,9 @@ def train_signed_mvm(device):
     from repro_torch.kernels.photonic_mvm.ref import (photonic_mvm_ref,
                                                       signed_codes)
     err, n_cmp = 0.0, 0
-    for m, k, n, route, split in SIGNED_MVM_SHAPES:
+    for m, k, n, route in SIGNED_MVM_SHAPES:
         cfg = mvm_config(m, k, n)
-        need((cfg.route, cfg.split > 1) == (route, split),
+        need(cfg.route == route,
              f"[train] mvm_config{(m, k, n)} is {cfg}")
         g = torch.Generator().manual_seed(m * 5 + k + n)
         x = (torch.randn((m, k), generator=g) * 0.6).to(device)
@@ -3417,7 +3489,7 @@ def phase_train(device, rehearse, out_dir):
     out = {"runs": {}}
     err, n_cmp = train_signed_mvm(device)
     log(f"[train] photonic_mvm float API, signed codes: bitwise equal to "
-        f"photonic_mvm_ref at {n_cmp} shape x scheme cases (both routes, "
+        f"photonic_mvm_ref at {n_cmp} shape x scheme cases (every route, "
         f"split-K on and off), max abs err {err}")
 
     tests = {m: tv.dataset(m, n_test, seed=9) for m in plan}

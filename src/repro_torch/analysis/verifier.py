@@ -37,6 +37,11 @@ working set), and the Hopper ones:
   rows), must have CTA tiles that cover the whole output (rows, columns,
   channel blocks; ``LTR020``, error), and shared memory that a CTA can
   hold (``LTR022``, warning);
+* every dense layer's and resident conv's photonic_mvm launch, as
+  ``photonic_mvm.ops.mvm_config`` chooses it at batch 1 and at batch 8,
+  must have tiles that cover the output (``LTR020``, error), and shared
+  memory a CTA can hold: 227 KB
+  dynamic, 48 KB static without the opt-in (``LTR022``, warning);
 * a fused segment's shared memory, the two ping-pong frame buffers and
   the reduce scratch re-derived here, must fit one CTA's
   ``SMEM_PER_BLOCK`` (``LTR024``, error);
@@ -98,6 +103,11 @@ _AUDIT_BATCHES = (1, 8)
 # the warp maxima, the frame's), and the cluster sizes its entry takes
 _FOLD_RED_BYTES = 4 * 4
 _CLUSTER_SCRATCH = 32
+# static shared memory a CTA has without the opt-in; photonic_mvm's K box
+# (bytes of K a TMA box) and the skinny route's rows a CTA
+_SMEM_STATIC = 48 * 1024
+_MVM_KBOX = 128
+_MVM_SKINNY_ROWS = 1024
 _CLUSTER_SIZES = (4, 8, 16)
 
 
@@ -486,6 +496,94 @@ def _check_strip_launch(name: str, g, launch, out: List[Diagnostic]) -> None:
                  "igemm_config"))
 
 
+def mvm_launches(plan) -> List[tuple]:
+    """(name, batch, m, k, n, config) of every photonic_mvm launch the
+    plan's per-layer path makes at each audited batch: each dense layer's
+    ([batch, fan_in] codes) and each resident conv's im2col GEMM (one a
+    group, all alike), with the launch ``photonic_mvm.ops.mvm_config``
+    gives it."""
+    from repro_torch.core.accelerator import DenseSpec
+    from repro_torch.core.plan import ConvStep, DenseStep
+    from repro_torch.kernels.photonic_mvm.ops import mvm_config
+    out = []
+    for layer, step in zip(plan.layers, plan.steps):
+        for b in _AUDIT_BATCHES:
+            if isinstance(step, DenseStep) and isinstance(layer, DenseSpec):
+                m, k, n = b, layer.fan_in, layer.fan_out
+            elif isinstance(step, ConvStep) and step.strategy is not None \
+                    and step.strategy.kind == "resident":
+                g = step.geom
+                h, w = _geom_out_hw(g)
+                m, k = b * h * w, g.kernel * g.kernel * (g.c_in // g.groups)
+                n = g.c_out // g.groups
+            else:
+                continue
+            out.append((step.name, b, m, k, n, mvm_config(m, k, n)))
+    return out
+
+
+def _mvm_smem(cfg, n: int) -> Tuple[int, bool]:
+    """Shared memory of one photonic_mvm CTA under ``cfg`` and whether it
+    is dynamic (opted into past 48 KB), restated from
+    ``csrc/photonic_mvm.cu``: skinny, static, 1,024 rows of 32 codes (+16)
+    and 32 x N int32 levels; gemm, static, a 3-stage ring of (bm + bn)
+    rows of 48 bytes; stream, dynamic, 4 stages of 8 boxes of 16 x 128
+    bytes, sixteen 16 x 16 int32 tiles, 8 mbarriers and 1 KB of
+    alignment; wgmma, dynamic, 4 stages of a 64 x 128-byte box of codes and one of
+    levels, 8 mbarriers and 1 KB of alignment."""
+    if cfg.route == "skinny":
+        return _MVM_SKINNY_ROWS * 32 + 16 + 4 * 32 * n, False
+    if cfg.route == "gemm":
+        return 3 * (cfg.bm + cfg.bn) * 48, False
+    if cfg.route == "stream":
+        return 4 * 8 * 16 * _MVM_KBOX + 16 * 256 * 4 + 8 * 8 + 1024, True
+    return 4 * (cfg.bm + cfg.bn) * _MVM_KBOX + 8 * 8 + 1024, True
+
+
+def _check_mvm_launch(name: str, b: int, m: int, k: int, n: int, cfg,
+                      out: List[Diagnostic]) -> None:
+    """One photonic_mvm launch against the output it must cover and the
+    shared memory a CTA has. The grid is the route's tiles, each over all
+    of K: the stream route's 16-channel tiles cover every row of codes (bm
+    of them), the skinny route's 1,024-row runs every channel, the others
+    bm x bn tiles."""
+    what = (f"photonic_mvm launch at batch {b} ({m}x{k}x{n}, {cfg.route} "
+            f"tile {cfg.bm}x{cfg.bn}, {cfg.ctas} CTAs)")
+    if min(cfg.bm, cfg.bn) < 1:
+        out.append(Diagnostic(
+            "LTR020", "error", name,
+            f"{what} has a degenerate tile",
+            hint="this is a photonic_mvm.ops.mvm_config bug: every tile "
+                 "dimension must be >= 1"))
+        return
+    tiles = cfg.ctas
+    if cfg.route == "skinny":
+        covered = (tiles * cfg.bm, cfg.bn)
+    elif cfg.route == "stream":
+        covered = (cfg.bm, tiles * cfg.bn)
+    else:
+        col_tiles = _cdiv(n, cfg.bn)
+        covered = (tiles // col_tiles * cfg.bm, col_tiles * cfg.bn)
+    if covered[0] < m or covered[1] < n:
+        out.append(Diagnostic(
+            "LTR020", "error", name,
+            f"{what} does not cover the output: its tiles reach "
+            f"{covered[0]} rows and {covered[1]} channels of {m}x{n} — "
+            f"the kernel would drop outputs",
+            hint="this is a photonic_mvm.ops.mvm_config bug in the CTA "
+                 "count or the tile it records"))
+    smem, dynamic = _mvm_smem(cfg, n)
+    if smem > _SMEM_PER_CTA or (not dynamic and smem > _SMEM_STATIC):
+        out.append(Diagnostic(
+            "LTR022", "warning", name,
+            f"{what} needs {smem} bytes of "
+            f"{'dynamic' if dynamic else 'static'} shared memory; a CTA "
+            f"has {_SMEM_PER_CTA if dynamic else _SMEM_STATIC} "
+            f"{'' if dynamic else 'without the opt-in '}— the launch "
+            f"would be refused",
+            hint="a smaller tile or ring in photonic_mvm.ops.mvm_config"))
+
+
 def _check_strategies(plan, budget: int, out: List[Diagnostic]) -> None:
     from repro_torch.core.plan import ConvStep
 
@@ -760,6 +858,8 @@ def verify_plan(plan, budget: Optional[int] = None,
     _check_shapes(plan.layers, plan.frame_shape, out)
     _check_accumulators(plan, out, include_info=include_info)
     _check_strategies(plan, budget, out)
+    for launch in mvm_launches(plan):
+        _check_mvm_launch(*launch, out)
     _check_epilogue_clusters(plan, out)
     geoms = [s.geom if isinstance(s, ConvStep) else None
              for s in plan.steps]

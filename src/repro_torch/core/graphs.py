@@ -11,9 +11,11 @@ its answers are the eager ones, bit for bit.
 
     Binding(plan, params, device, backend, staging_slots)
         params on the device once; each conv and dense weight quantized once
-        (``plan.quantized_weights``), an int8-route conv's levels laid out
-        for its kernel once; the chain kernel's range check run once
-        over every fused segment, unless the plan verifier has proven it
+        (``plan.quantized_weights``), and the levels laid out once for
+        the kernel that runs each layer (the int8 strip conv's, and
+        photonic_mvm's for the dense layers and resident convs); the
+        chain kernel's range check run once over every fused segment,
+        unless the plan verifier has proven it
         (``CompiledPlan.exact_proven``), so no capture reads the device for
         it.
     Binding.run_padded(frames, bucket) -> HostResult

@@ -477,20 +477,29 @@ def quantized_weights(steps: Tuple[PlanStep, ...], params: Dict[str, Dict],
     """Each conv and dense layer's ``(wq, ws, levels)``: ``(wq, ws)`` the
     ``quantize_weight`` call :func:`_execute_steps` makes per layer when it
     is not given them (the same function of the same weights, so the same
-    tensors); ``levels`` a dense conv's on the int8 strip route
-    (``routes``, the plan's ``strip_routes``) laid out for the kernel once
-    (``strip.int_weights``), where an unbound run lays them out per call,
-    and None for every other layer."""
+    tensors); ``levels`` the integer levels laid out once for the kernel
+    that runs the layer, where an unbound run lays them out per call: a
+    dense conv's on the int8 strip route (``routes``, the plan's
+    ``strip_routes``) for that kernel (``strip.int_weights``), a dense
+    layer's and a resident conv's (one group) for ``photonic_mvm``
+    (``photonic_mvm.ops.mvm_weights``), and None for every other layer."""
     from repro_torch.kernels.conv_bank.strip import int_weights
+    from repro_torch.kernels.photonic_mvm.ops import mvm_weights
     routes = routes or {}
     out = {}
     for s in steps:
         if isinstance(s, (ConvStep, DenseStep)):
             wq, ws = quantize_weight(params[s.name]["w"], s.wa,
                                      consts["w_qmax"][s.name])
-            int_route = (isinstance(s, ConvStep) and s.groups == 1
-                         and routes.get(s.name) == "int")
-            out[s.name] = (wq, ws, int_weights(wq) if int_route else None)
+            levels = None
+            if isinstance(s, DenseStep):
+                levels = mvm_weights(wq)
+            elif s.groups == 1 and routes.get(s.name) == "int":
+                levels = int_weights(wq)
+            elif s.groups == 1 and s.strategy is not None and \
+                    s.strategy.kind == "resident":
+                levels = mvm_weights(wq.reshape(-1, wq.shape[-1]))
+            out[s.name] = (wq, ws, levels)
     return out
 
 
@@ -536,9 +545,10 @@ def _execute_steps(steps: Tuple[PlanStep, ...], params: Dict[str, Dict],
     resolves its own with the default rule).
 
     ``weights`` are the layers' ``(wq, ws, levels)`` from
-    :func:`quantized_weights` (quantized, and an int-route conv's levels
-    laid out), made once by a bound view; ``None`` quantizes each layer's
-    weights, and lays the levels out, on every call.
+    :func:`quantized_weights` (quantized, and the levels laid out for the
+    int8 strip conv's and photonic_mvm's kernels), made once by a bound
+    view; ``None`` quantizes each layer's weights, and lays the levels
+    out, on every call.
     ``exact_checked``: the fused chains' float32 range is already known to
     hold (the verifier proved the plan, or a bound view ran
     ``fused.check_exact`` over its weights), so no chain launch checks it
@@ -649,8 +659,8 @@ def _execute_steps(steps: Tuple[PlanStep, ...], params: Dict[str, Dict],
                 else act_scale.reshape(b, 1))
         elif isinstance(step, DenseStep):
             p = params[step.name]
-            wq, ws, _ = qweight(step)
-            acc = dispatch.matmul_int(x, wq, backend)
+            wq, ws, levels = qweight(step)
+            acc = dispatch.matmul_int(x, wq, backend, levels=levels)
             if step.act != "none":
                 x, act_scale = epilogue(acc, i + 1, act_scale, ws,
                                         p.get("b"), step.act, None,

@@ -8,57 +8,124 @@
 // act_scale = 1 is the raw accumulate the plan's unfused steps dequantize
 // themselves (no scale vector to allocate per call).
 //
-// What bounds it on an H100 (the SXM data sheet's 3.35 TB/s and 1,979
-// int8 TOP/s at its 700 W limit): at the serving shapes the work is small.
-// The vision path's GEMMs (M <= 2048, K <= 2304, N <= 256 at batch 8) are
-// a few hundred MOP over a few MB, so neither HBM nor the int8 tensor cores
-// are the limit: the K loop's latency and the number of CTAs are. The imaging
-// path's resident convs (M = 524,288, K <= 9, N <= 4) are bytes-bound:
-// ~9 MB per call and a handful of MACs per byte. The first design (64x64
-// tiles, byte-wise gathers, __dp4a, one unpipelined buffer) gave 1-32 CTAs
-// at the vision shapes and 8,192 mostly idle tiles at the imaging ones.
-// The launcher now takes a route and a tile from the wrapper's plain
-// Python function (kernels/photonic_mvm/ops.py::mvm_config):
+// The levels come laid out once (kernels/photonic_mvm/ops.py::mvm_weights):
+// wt [N, k_pad] int8, K contiguous, zero from K up to k_pad, a multiple of
+// 128 bytes (one TMA box of K). A bound view lays them out at bind; a call
+// on [K, N] levels lays them out per call. Either way one launch of
+// mvm_layout_kernel does it (mvm_layout_launch): 128 x 64-byte tiles
+// transposed through shared memory with 16-byte loads and stores (a torch
+// copy of the transposed view moved fc1's 206 MB at ~0.27 TB/s, byte-wide
+// 64 x 64 tiles at ~1.1).
 //
-//   gemm    mma.sync m16n8k32 s8 x s8 -> s32 on the tensor cores. CTA tiles
-//           of 16..64 rows x 8..64 columns, one to four warps, so the
-//           small-M layers get more CTAs; K in 32-byte steps through a
-//           3-stage cp.async ring (16-byte copies, 8 for an 8-wide tile)
-//           so copies overlap the MMAs; split-K over gridDim.z where M x N
-//           is small and K is large: each split writes its int32 partial
-//           sums to a workspace, and mvm_reduce_kernel adds them and runs
-//           the epilogue once. Ragged or unaligned operands are copied
-//           byte by byte with zero fill, so the caller pads nothing.
+// What bounds it on an H100 (the SXM data sheet's 3.35 TB/s and 1,979
+// int8 TOP/s at its 700 W limit), at the shapes the main path gives it:
+//   * VGG16's fc1-fc3 at a serving bucket (M = 1..16 rows of codes; fc1
+//     8 x 25,088 x 4,096) read 103, 17 and 4 MB of levels for a few
+//     hundred MOP: HBM bytes bound them (fc1 0.0308 ms at batch 8). The
+//     stream route reads fc1's at 2.5-2.7 TB/s, 75-80% of the rate
+//     (0.038-0.041 ms at batch 1 and 8; scripts/mvm_routes.py --time on an
+//     NVIDIA H100 80GB HBM3 at 700 W). With 512-byte stages and 8 warps a
+//     CTA it read them at 2.1 (0.049 ms).
+//   * VGG16's conv11-13 as im2col GEMMs (1,568 x 4,608 x 512 at batch 8)
+//     are 7.4 GOP over ~10 MB: the int8 tensor cores bound them
+//     (0.0047 ms), and only wgmma reaches their full rate. The wgmma
+//     route takes 0.014 ms (the same run), a third of that rate: 200
+//     CTAs of 64 x 64 on 132 SMs, one warpgroup a CTA.
+//   * The vision path's GEMMs (M <= 2,048, K <= 2,304, N <= 256) are a
+//     few hundred MOP over a few MB: the launch and the K loop's latency,
+//     not HBM or the tensor cores (2.5-7 us a call on every route).
+//   * The imaging path's resident convs (M = 524,288, K <= 9, N <= 4)
+//     are bytes-bound: ~9 MB per call, a handful of MACs per byte.
+// The launcher takes a route and tile from the wrapper's plain Python
+// function (ops.py::mvm_config), one route per shape; every CTA covers all
+// of K (a K split over a cluster was built and measured, and was no faster
+// at any path shape: ops.py::mvm_config):
+//
+//   stream  M <= 16 (the dense layers): the weight stream. The product is
+//           computed transposed, out^T = W^T a^T: 16 output channels of
+//           the laid-out levels are mma.m16n8k32's row-major A, the codes
+//           its column-major B (one or two n8 tiles of batch rows), so no
+//           zero row is multiplied. A producer warp streams 128-byte K
+//           boxes of the levels by TMA (128-byte swizzle, conflict-free
+//           ldmatrix; an evict-first L2 policy, so the codes stay in L2)
+//           into a 4-stage mbarrier ring of 16 KB stages (64 KB in flight
+//           a CTA, two CTAs an SM); sixteen consumer warps split each
+//           stage's K, take the codes through __ldg (L2) one stage ahead,
+//           and add their partial sums in shared memory.
+//   wgmma   M > 16, K a multiple of 16 (conv11-13 and the vision GEMMs):
+//           wgmma.mma_async m64n64k32 s32.s8.s8, both operands K-major in
+//           shared memory in TMA's 128-byte swizzle: A the codes [M, K]
+//           (a tensor map built per call on the host), B the laid-out
+//           levels (its map built with the layout). A producer warp fills
+//           a 4-stage ring of 128-byte K boxes; one consumer warpgroup
+//           keeps one wgmma group in flight. 64 x 64 tiles (64 x 128 was
+//           no faster at conv11-13 and slower at the vision GEMMs).
+//   gemm    M > 16 with K not a multiple of 16 (a tensor map needs 16-byte
+//           rows; the 1-channel im2col's K = 9): mma.sync m16n8k32 on
+//           16 x 64 CTA tiles (four warps of 16 x 16), K in 32-byte steps
+//           through a 3-stage cp.async ring. Ragged or unaligned codes are copied byte by
+//           byte with zero fill, so the caller pads nothing.
 //   skinny  N <= 8 and K <= 32 (the imaging convs): no tensor core. A CTA
 //           copies a run of 1,024 rows of a (one contiguous span of bytes)
-//           into shared memory with 16-byte cp.async, the weights (<= 256
-//           levels) sit in shared memory, each thread sums its rows in
-//           int32 and stores its N outputs with one vector store.
+//           into shared memory with 16-byte cp.async, the levels (<= 256)
+//           sit in shared memory, each thread sums its rows in int32 and
+//           stores its N outputs with one vector store.
 //
-// Numerics: every accumulate is int32, exact in any order (the split-K
-// partials included), so each route equals the plain version's exact
-// integer product. The epilogue is __fmul_rn(__fmul_rn((float)acc,
-// act_scale), ws[n]), or its first factor alone when ws is null: the
-// reference's association, rounded step by step, never contracted.
+// Numerics: every accumulate is int32, exact in any order (the warps'
+// partial sums included), so each route
+// equals the plain version's exact integer product. The epilogue is
+// __fmul_rn(__fmul_rn((float)acc, act_scale), ws[n]), or its first factor
+// alone when ws is null: the reference's association, rounded step by
+// step, never contracted.
 
-#include <cuda_runtime.h>
+#include <cuda.h>             // CUtensorMap and its enums; no -lcuda: the
+#include <cuda_runtime.h>     // encoder is found through the runtime
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
-constexpr int BK = 32;                 // int8 per K step (one m16n8k32)
-constexpr int STAGES = 3;              // cp.async ring depth
-constexpr int A_LD = BK + 16;          // smem row of an A tile: 48 bytes,
+constexpr int BK = 32;                 // gemm: int8 per K step (m16n8k32)
+constexpr int STAGES = 3;              // gemm: cp.async ring depth
+constexpr int A_LD = BK + 16;          // gemm: smem row of a tile, 48 bytes,
                                        // so the fragment reads hit 32 banks
+constexpr int GM_BM = 16;              // gemm: a CTA tile's rows
+constexpr int GM_BN = 64;              // and columns, a warp's 16 of them
+constexpr int GM_WN = GM_BN / 16;      // warps, side by side along N
+constexpr int GM_THREADS = 32 * GM_WN;
 constexpr int SK_THREADS = 256;
 constexpr int SK_ROWS = 1024;          // rows of a that a skinny CTA stages
 constexpr int SK_KMAX = 32;
 constexpr int SK_NMAX = 8;
-constexpr int RED_THREADS = 256;
+
+constexpr int KBOX = 128;              // bytes of K a TMA box (the swizzle)
+
+constexpr int ST_CH = 16;              // stream: output channels a CTA
+constexpr int ST_BOXES = 8;            // stream: K boxes a stage (1 KB)
+constexpr int ST_STAGES = 4;
+constexpr int ST_WARPS = 2 * ST_BOXES; // consumer warps, then one producer
+constexpr int ST_THREADS = 32 * (ST_WARPS + 1);
+constexpr int ST_BOX_BYTES = ST_CH * KBOX;
+constexpr int ST_STAGE_BYTES = ST_BOXES * ST_BOX_BYTES;
+constexpr int ST_TILE = 16 * ST_CH;    // int sums a warp: 16 rows x 16 ch
+
+constexpr int WG_BM = 64;              // wgmma: a CTA tile's rows
+constexpr int WG_BN = 64;              // and columns
+constexpr int WG_STAGES = 4;
+constexpr int WG_THREADS = 128 + 32;   // one consumer warpgroup, a producer
+
+constexpr int LK = 128;                // layout: a CTA's bytes of K (a box)
+constexpr int LN = 64;                 // and rows of N
+constexpr int L_LD = LK + 4;           // its smem row: 33 words, odd
+constexpr int LT_THREADS = 256;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
 
 __device__ __forceinline__ void cp_async(void* smem, const void* gmem,
                                          int bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  const unsigned s = smem_u32(smem);
   if (bytes == 16) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
                  :: "r"(s), "l"(gmem));
@@ -77,6 +144,71 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t b = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(b), "r"(parity) : "memory");
+  }
+}
+
+// one 2-D TMA box (c0 = byte of K, c1 = row) into smem, counted on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"((uint64_t)map), "r"(smem_u32(bar)),
+         "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// the same, read from HBM with an evict-first L2 policy (`policy`, from
+// createpolicy): a stream of levels read once does not push out of L2 the
+// codes every CTA reads again
+__device__ __forceinline__ void tma_load_once(void* dst,
+                                              const CUtensorMap* map,
+                                              uint64_t* bar, int c0, int c1,
+                                              uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.L2::cache_hint [%0], [%1, {%3, %4}], [%2], %5;\n"
+      :: "r"(smem_u32(dst)), "l"((uint64_t)map), "r"(smem_u32(bar)),
+         "r"(c0), "r"(c1), "l"(policy)
+      : "memory");
+}
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return (uint8_t*)(((uintptr_t)p + 1023) & ~(uintptr_t)1023);
+}
+
 __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
                                        const uint32_t (&b)[2]) {
   asm volatile(
@@ -93,50 +225,102 @@ __device__ __forceinline__ float dequant(int acc, float act_scale,
   return ws != nullptr ? __fmul_rn(v, __ldg(ws + n)) : v;
 }
 
-// four int8 of one column, rows r .. r+3 of a row-major smem tile, packed
-// low byte first: the k-contiguous register mma's B operand takes
-__device__ __forceinline__ uint32_t pack_column(const int8_t* p, int ld) {
-  return (uint32_t)(uint8_t)p[0] | (uint32_t)(uint8_t)p[ld] << 8 |
-         (uint32_t)(uint8_t)p[2 * ld] << 16 |
-         (uint32_t)(uint8_t)p[3 * ld] << 24;
+// one m16n8k32 A fragment of a 128-byte-swizzled TMA box [16 rows][128 B]
+// (1024-byte aligned): k32 step kk, rows 0-15; matrices 0-3 are rows 0-7
+// and 8-15 of bytes 0-15, then of bytes 16-31 (a0..a3)
+__device__ __forceinline__ void ldmatrix_a(uint32_t (&a)[4],
+                                           const uint8_t* box, int kk,
+                                           int lane) {
+  const int r = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int c = 2 * kk + (lane >> 4);
+  const uint8_t* p = box + r * KBOX + ((c ^ (r & 7)) << 4);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(smem_u32(p)));
 }
 
-// One CTA: a BM x BN output tile over the K steps [z*steps_per, ...) of
-// split z = blockIdx.z. WM x WN warps, each a (BM/WM) x (BN/WN) sub-tile of
-// MT x NT m16n8 fragments. Smem per stage: A [BM][A_LD] (k contiguous, the
-// row-major A fragment is a 32-bit read) and w [BK][BN + 16] as it lies in
-// memory (n contiguous; the B fragment packs four rows of one column).
-template <int BM, int BN, int WM, int WN>
-__global__ void __launch_bounds__(32 * WM * WN)
-mvm_gemm_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ w,
+// wgmma's shared-memory descriptor of a K-major tile in the 128-byte
+// swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart (the stride
+// byte offset; the leading one is unused for a swizzled K-major tile)
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t)1 << 16 |
+         (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// d += A (64 x 32 bytes) . B (64 x 32 bytes)^T, both K-major in smem
+__device__ __forceinline__ void wgmma_n64(int (&d)[32], uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// four bytes of row `row` of the codes from byte k (low byte first), zero
+// past M and K: one 32-bit load where K and a keep words aligned (vec)
+__device__ __forceinline__ uint32_t code_word(const int8_t* __restrict__ a,
+                                              int row, int k, int M, int K,
+                                              int vec) {
+  if (row >= M || k >= K) return 0u;
+  const int8_t* p = a + (size_t)row * K + k;
+  if (vec) return __ldg((const unsigned int*)p);
+  uint32_t v = 0;
+  for (int e = 0; e < 4 && k + e < K; ++e) {
+    v |= (uint32_t)(uint8_t)__ldg(p + e) << (8 * e);
+  }
+  return v;
+}
+
+// One CTA: a 16 x 64 output tile over all of K. Four warps side by side,
+// each 16 rows x 16 columns: NT = 2 m16n8 fragments. Smem per stage: the
+// codes [16][A_LD] and the levels [64][A_LD], both K contiguous, so a
+// fragment register is one 32-bit read.
+__global__ void __launch_bounds__(GM_THREADS)
+mvm_gemm_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ wt,
                 const float* __restrict__ ws, float act_scale,
-                float* __restrict__ out, int* __restrict__ part, int M,
-                int N, int K, int steps_per, int vec_a, int vec_w) {
-  constexpr int THREADS = 32 * WM * WN;
-  constexpr int MT = BM / WM / 16;
-  constexpr int NT = BN / WN / 8;
-  constexpr int B_LD = BN + 16;
-  constexpr int CH = BN < 16 ? BN : 16;     // bytes of one w copy
-  constexpr int B_CHUNKS = BN / CH;
-  static_assert(MT >= 1 && NT >= 1, "warp tile below m16n8");
+                float* __restrict__ out, int M, int N, int K, int k_pad,
+                int vec_a) {
+  constexpr int BM = GM_BM;
+  constexpr int BN = GM_BN;
+  constexpr int THREADS = GM_THREADS;
+  constexpr int NT = 2;
   __shared__ __align__(16) int8_t as[STAGES][BM * A_LD];
-  __shared__ __align__(16) int8_t bs[STAGES][BK * B_LD];
+  __shared__ __align__(16) int8_t bs[STAGES][BN * A_LD];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = warp / WN;
-  const int wn = warp % WN;
+  const int wn = tid >> 5;
   const int g = lane >> 2;
   const int tig = lane & 3;
   const int m0 = blockIdx.x * BM;          // x: no 65,535 limit on M tiles
   const int n0 = blockIdx.y * BN;
-  const int steps = (K + BK - 1) / BK;
-  const int s0 = blockIdx.z * steps_per;
-  const int nsteps = max(0, min(steps, s0 + steps_per) - s0);
+  const int nsteps = max(1, (K + BK - 1) / BK);
 
-  // one K step into ring slot `slot`: 16-byte (8-byte) async copies where
-  // the chunk is whole and aligned, else bytes with zero fill past M, N, K
+  // one K step into ring slot `slot`: 16-byte async copies where the chunk
+  // of codes is whole and aligned, else bytes with zero fill past M and K;
+  // the levels' rows are zero past K up to k_pad (a multiple of 128)
   auto load = [&](int slot, int step) {
     const int k0 = step * BK;
 #pragma unroll
@@ -155,118 +339,282 @@ mvm_gemm_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ w,
       }
     }
 #pragma unroll
-    for (int t = tid; t < BK * B_CHUNKS; t += THREADS) {
-      const int r = t / B_CHUNKS;
-      const int c = t % B_CHUNKS;
-      const int gk = k0 + r;
-      const int gn = n0 + CH * c;
-      int8_t* dst = &bs[slot][r * B_LD + CH * c];
-      const int8_t* src = w + (size_t)gk * N + gn;
-      if (vec_w && gk < K && gn + CH <= N) {
-        cp_async(dst, src, CH);
+    for (int t = tid; t < BN * 2; t += THREADS) {
+      const int r = t >> 1;
+      const int gn = n0 + r;
+      int8_t* dst = &bs[slot][r * A_LD + 16 * (t & 1)];
+      if (gn < N) {
+        cp_async(dst, wt + (size_t)gn * k_pad + k0 + 16 * (t & 1), 16);
       } else {
-#pragma unroll
-        for (int e = 0; e < CH; ++e)
-          dst[e] = (gk < K && gn + e < N) ? src[e] : (int8_t)0;
+        *(int4*)dst = make_int4(0, 0, 0, 0);
       }
     }
   };
 
-  int acc[MT][NT][4];
+  int acc[NT][4];
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0;
 
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nsteps) load(s, s0 + s);
+    if (s < nsteps) load(s, s);
     cp_async_commit();
   }
   for (int it = 0; it < nsteps; ++it) {
     cp_async_wait<STAGES - 2>();      // step `it` has landed
     __syncthreads();                  // ... for every thread; slot of it-1 free
     const int nx = it + STAGES - 1;
-    if (nx < nsteps) load(nx % STAGES, s0 + nx);
+    if (nx < nsteps) load(nx % STAGES, nx);
     cp_async_commit();
     const int8_t* A = as[it % STAGES];
     const int8_t* B = bs[it % STAGES];
-    uint32_t af[MT][4], bf[NT][2];
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      const int8_t* p = A + (wm * MT * 16 + i * 16 + g) * A_LD + tig * 4;
-      af[i][0] = *(const uint32_t*)p;
-      af[i][1] = *(const uint32_t*)(p + 8 * A_LD);
-      af[i][2] = *(const uint32_t*)(p + 16);
-      af[i][3] = *(const uint32_t*)(p + 8 * A_LD + 16);
-    }
+    uint32_t af[4], bf[NT][2];
+    const int8_t* pa = A + g * A_LD + tig * 4;
+    af[0] = *(const uint32_t*)pa;
+    af[1] = *(const uint32_t*)(pa + 8 * A_LD);
+    af[2] = *(const uint32_t*)(pa + 16);
+    af[3] = *(const uint32_t*)(pa + 8 * A_LD + 16);
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
-      const int8_t* p = B + (tig * 4) * B_LD + wn * NT * 8 + j * 8 + g;
-      bf[j][0] = pack_column(p, B_LD);
-      bf[j][1] = pack_column(p + 16 * B_LD, B_LD);
+      const int8_t* p = B + (wn * NT * 8 + j * 8 + g) * A_LD + tig * 4;
+      bf[j][0] = *(const uint32_t*)p;
+      bf[j][1] = *(const uint32_t*)(p + 16);
     }
 #pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j) mma_s8(acc[i][j], af[i], bf[j]);
+    for (int j = 0; j < NT; ++j) mma_s8(acc[j], af, bf[j]);
   }
   cp_async_wait<0>();
 
   // accumulator fragment: c0, c1 at row g, c2, c3 at row g + 8; columns
   // tig*2 and tig*2 + 1
 #pragma unroll
-  for (int i = 0; i < MT; ++i) {
+  for (int j = 0; j < NT; ++j) {
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = m0 + wm * MT * 16 + i * 16 + g + (e >= 2 ? 8 : 0);
-        const int col = n0 + wn * NT * 8 + j * 8 + tig * 2 + (e & 1);
-        if (row >= M || col >= N) continue;
-        if (gridDim.z == 1) {
-          out[(size_t)row * N + col] = dequant(acc[i][j][e], act_scale, ws,
-                                               col);
-        } else {
-          part[((size_t)blockIdx.z * M + row) * N + col] = acc[i][j][e];
-        }
+    for (int e = 0; e < 4; ++e) {
+      const int row = m0 + g + (e >= 2 ? 8 : 0);
+      const int col = n0 + wn * NT * 8 + j * 8 + tig * 2 + (e & 1);
+      if (row < M && col < N) {
+        out[(size_t)row * N + col] = dequant(acc[j][e], act_scale, ws, col);
       }
     }
   }
 }
 
-// split-K: out = dequant(sum over the splits of part[z]), the int32 sum
-// exact in any order; int4 loads where the row count allows
-__global__ void __launch_bounds__(RED_THREADS)
-mvm_reduce_kernel(const int* __restrict__ part, int split,
-                  const float* __restrict__ ws, float act_scale,
-                  float* __restrict__ out, long long mn, int N) {
-  const long long stride = (long long)gridDim.x * RED_THREADS;
-  const long long first = (long long)blockIdx.x * RED_THREADS + threadIdx.x;
-  if ((mn & 3) == 0) {
-    const long long n4 = mn >> 2;
-    for (long long i = first; i < n4; i += stride) {
-      int4 s = ((const int4*)part)[i];
-      for (int z = 1; z < split; ++z) {
-        const int4 v = ((const int4*)(part + z * mn))[i];
-        s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
-      }
-      const int n = (int)((4 * i) % N);
-      float4 o;
-      o.x = dequant(s.x, act_scale, ws, n);
-      o.y = dequant(s.y, act_scale, ws, (n + 1) % N);
-      o.z = dequant(s.z, act_scale, ws, (n + 2) % N);
-      o.w = dequant(s.w, act_scale, ws, (n + 3) % N);
-      ((float4*)out)[i] = o;
+// The weight stream: out^T = W^T a^T over 16 output channels a CTA
+// (blockIdx.x) and all `boxes` K boxes. NT n8 tiles cover M <= 8 * NT rows
+// of codes.
+template <int NT>
+__global__ void __launch_bounds__(ST_THREADS)
+mvm_stream_kernel(const __grid_constant__ CUtensorMap wmap,
+                  const int8_t* __restrict__ a, const float* __restrict__ ws,
+                  float act_scale, float* __restrict__ out, int M, int N,
+                  int K, int boxes, int vec_a) {
+  constexpr int ENTRIES = 8 * NT * ST_CH;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = align1024(smem_raw);
+  int* red = (int*)(ring + ST_STAGES * ST_STAGE_BYTES);  // [warp][row][ch]
+  uint64_t* full = (uint64_t*)(red + ST_WARPS * ST_TILE);
+  uint64_t* empty = full + ST_STAGES;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  const int n0 = blockIdx.x * ST_CH;
+  const int nstage = (boxes + ST_BOXES - 1) / ST_BOXES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], ST_WARPS);
     }
-    return;
+    mbar_init_fence();
   }
-  for (long long i = first; i < mn; i += stride) {
-    int s = part[i];
-    for (int z = 1; z < split; ++z) s += part[z * mn + i];
-    out[i] = dequant(s, act_scale, ws, (int)(i % N));
+  __syncthreads();
+
+  int acc[NT][4];
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0;
+
+  if (warp == ST_WARPS) {
+    // the producer: stage i is boxes 8i .. 8i + 7 of the levels' 16 rows
+    if (lane == 0) {
+      uint64_t policy;
+      asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+                   : "=l"(policy));
+      for (int i = 0; i < nstage; ++i) {
+        const int slot = i % ST_STAGES;
+        if (i >= ST_STAGES) {
+          mbar_wait(&empty[slot], ((i / ST_STAGES) - 1) & 1);
+        }
+        const int bx = i * ST_BOXES;
+        const int nb = min(ST_BOXES, boxes - bx);
+        uint8_t* dst = ring + slot * ST_STAGE_BYTES;
+        mbar_expect_tx(&full[slot], nb * ST_BOX_BYTES);
+        for (int j = 0; j < nb; ++j) {
+          tma_load_once(dst + j * ST_BOX_BYTES, &wmap, &full[slot],
+                        (bx + j) * KBOX, n0, policy);
+        }
+      }
+    }
+    __syncwarp();
+  } else {
+    // consumer warp w: box w / 2 of each stage, its 32-byte steps
+    // 2 (w & 1) and 2 (w & 1) + 1; the codes come one stage ahead
+    const int wbox = warp >> 1;
+    const int kk0 = 2 * (warp & 1);
+    uint32_t bc[2][NT][2], bn[2][NT][2] = {};
+    auto load_codes = [&](int i, uint32_t (&b)[2][NT][2]) {
+      const int box = i * ST_BOXES + wbox;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int k = box * KBOX + (kk0 + j) * 32 + 16 * h + 4 * tig;
+            b[j][t][h] = box < boxes
+                             ? code_word(a, 8 * t + g, k, M, K, vec_a) : 0u;
+          }
+    };
+    load_codes(0, bc);
+    for (int i = 0; i < nstage; ++i) {
+      const int slot = i % ST_STAGES;
+      if (i + 1 < nstage) load_codes(i + 1, bn);
+      mbar_wait(&full[slot], (i / ST_STAGES) & 1);
+      if (i * ST_BOXES + wbox < boxes) {
+        const uint8_t* box = ring + slot * ST_STAGE_BYTES +
+                             wbox * ST_BOX_BYTES;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          uint32_t af[4];
+          ldmatrix_a(af, box, kk0 + j, lane);
+#pragma unroll
+          for (int t = 0; t < NT; ++t) mma_s8(acc[t], af, bc[j][t]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[slot]);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) bc[j][t][h] = bn[j][t][h];
+    }
+    // fragment: c0, c1 at channel g, c2, c3 at g + 8; rows of codes
+    // 8t + 2 tig and + 1
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ch = g + (e >= 2 ? 8 : 0);
+        const int row = 8 * t + 2 * tig + (e & 1);
+        red[warp * ST_TILE + row * ST_CH + ch] = acc[t][e];
+      }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < ENTRIES; e += ST_THREADS) {
+    int s = 0;
+#pragma unroll
+    for (int w = 0; w < ST_WARPS; ++w) s += red[w * ST_TILE + e];
+    const int row = e / ST_CH;
+    const int n = n0 + e % ST_CH;
+    if (row < M && n < N) {
+      out[(size_t)row * N + n] = dequant(s, act_scale, ws, n);
+    }
+  }
+}
+
+// The compute-bound GEMM: a 64 x 64 tile (blockIdx.x, .y) over all `boxes`
+// K boxes. Warps 0-3 are the consumer warpgroup, warp 4 the producer.
+__global__ void __launch_bounds__(WG_THREADS)
+mvm_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
+                 const __grid_constant__ CUtensorMap wmap,
+                 const float* __restrict__ ws, float act_scale,
+                 float* __restrict__ out, int M, int N, int boxes) {
+  constexpr int BN = WG_BN;
+  constexpr int A_BYTES = WG_BM * KBOX;
+  constexpr int B_BYTES = BN * KBOX;
+  constexpr int STAGE = A_BYTES + B_BYTES;
+  constexpr int NR = BN / 2;           // accumulators a thread
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = align1024(smem_raw);
+  uint64_t* full = (uint64_t*)(ring + WG_STAGES * STAGE);
+  uint64_t* empty = full + WG_STAGES;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  const int m0 = blockIdx.x * WG_BM;
+  const int n0 = blockIdx.y * BN;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  int acc[NR];
+#pragma unroll
+  for (int i = 0; i < NR; ++i) acc[i] = 0;
+
+  if (warp == 4) {
+    if (lane == 0) {
+      for (int i = 0; i < boxes; ++i) {
+        const int slot = i % WG_STAGES;
+        if (i >= WG_STAGES) {
+          mbar_wait(&empty[slot], ((i / WG_STAGES) - 1) & 1);
+        }
+        uint8_t* dst = ring + slot * STAGE;
+        mbar_expect_tx(&full[slot], STAGE);
+        tma_load(dst, &amap, &full[slot], i * KBOX, m0);
+        tma_load(dst + A_BYTES, &wmap, &full[slot], i * KBOX, n0);
+      }
+    }
+    __syncwarp();
+  } else {
+    for (int i = 0; i < boxes; ++i) {
+      const int slot = i % WG_STAGES;
+      mbar_wait(&full[slot], (i / WG_STAGES) & 1);
+      const uint8_t* sa = ring + slot * STAGE;
+      const uint64_t da = sw128_desc(sa);
+      const uint64_t db = sw128_desc(sa + A_BYTES);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KBOX / 32; ++kk) {
+        wgmma_n64(acc, da + 2 * kk, db + 2 * kk);   // 32 bytes of K
+      }
+      wgmma_commit();
+      wgmma_wait<1>();                 // box i - 1's products are done
+      if (i > 0 && lane == 0) mbar_arrive(&empty[(i - 1) % WG_STAGES]);
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < NR; ++i) asm volatile("" : "+r"(acc[i]) :: "memory");
+  }
+  // accumulator j of thread (warp w, g, tig): row 16w + g (+8 for j & 2),
+  // columns 8 (j / 4) + 2 tig and + 1 (j and j + 1 for even j)
+  if (warp < 4) {
+#pragma unroll
+    for (int j = 0; j < NR; j += 2) {
+      const int row = m0 + 16 * warp + g + ((j & 2) ? 8 : 0);
+      const int col = n0 + 8 * (j >> 2) + 2 * tig;
+      if (row >= M) continue;
+      float* o = out + (size_t)row * N + col;
+      if (col + 1 < N && (N & 1) == 0) {
+        *(float2*)o = make_float2(dequant(acc[j], act_scale, ws, col),
+                                  dequant(acc[j + 1], act_scale, ws,
+                                          col + 1));
+      } else {
+        if (col < N) o[0] = dequant(acc[j], act_scale, ws, col);
+        if (col + 1 < N) o[1] = dequant(acc[j + 1], act_scale, ws, col + 1);
+      }
+    }
   }
 }
 
@@ -276,15 +624,17 @@ mvm_reduce_kernel(const int* __restrict__ part, int split,
 // the span's address mod 16, so aligned global words land on aligned smem.
 template <int NN>
 __global__ void __launch_bounds__(SK_THREADS)
-mvm_skinny_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ w,
+mvm_skinny_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ wt,
                   const float* __restrict__ ws, float act_scale,
-                  float* __restrict__ out, int M, int K) {
+                  float* __restrict__ out, int M, int K, int k_pad) {
   __shared__ __align__(16) int8_t abuf[SK_ROWS * SK_KMAX + 16];
   __shared__ int wsm[SK_KMAX * NN];
   const int tid = threadIdx.x;
   const int m0 = blockIdx.x * SK_ROWS;
   const int rows = min(SK_ROWS, M - m0);
-  for (int i = tid; i < K * NN; i += SK_THREADS) wsm[i] = w[i];
+  for (int i = tid; i < K * NN; i += SK_THREADS) {
+    wsm[i] = wt[(i % NN) * k_pad + i / NN];       // [k][n] from [n][k_pad]
+  }
 
   const int8_t* p = a + (size_t)m0 * K;
   const uintptr_t pa = (uintptr_t)p;
@@ -335,34 +685,135 @@ mvm_skinny_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ w,
   }
 }
 
+// The levels' layout: w [K, N] int8 (rows N bytes apart) -> wt [N, k_pad],
+// K contiguous, zero from K up to k_pad. CTA (x, y) takes K bytes
+// k0..k0+127 of rows n0..n0+63: each thread loads two 16-byte runs of a
+// row of w (bytes with zero fill where N is not a multiple of 16 or w is
+// unaligned, and past K and N) and scatters them to the smem tile [n][k];
+// then each thread stores two 16-byte runs of a row of wt. The 33-word smem
+// rows keep those 16-byte reads free of bank conflicts.
+__global__ void __launch_bounds__(LT_THREADS)
+mvm_layout_kernel(const int8_t* __restrict__ w, int8_t* __restrict__ wt,
+                  int K, int N, int k_pad, int vec) {
+  __shared__ __align__(16) int8_t t[LN * L_LD];
+  const int k0 = blockIdx.x * LK;
+  const int n0 = blockIdx.y * LN;
+  uint32_t v[2][4] = {};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {          // both runs' loads first
+    const int i = threadIdx.x + r * LT_THREADS;
+    const int k = k0 + i / 4;            // row of w
+    const int c = 16 * (i % 4);          // its 16 bytes from n0 + c
+    const int8_t* src = w + (size_t)k * N + n0 + c;
+    if (vec && k < K && n0 + c < N) {
+      const int4 u = __ldg((const int4*)src);
+      v[r][0] = u.x;
+      v[r][1] = u.y;
+      v[r][2] = u.z;
+      v[r][3] = u.w;
+    } else if (k < K) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        if (n0 + c + j < N) {
+          v[r][j / 4] |= (uint32_t)(uint8_t)src[j] << (8 * (j % 4));
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = threadIdx.x + r * LT_THREADS;
+    const int c = 16 * (i % 4);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      t[(c + j) * L_LD + i / 4] = (int8_t)(v[r][j / 4] >> (8 * (j % 4)));
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = threadIdx.x + r * LT_THREADS;
+    const int n = i / 8;                 // row of wt
+    const int q = 16 * (i % 8);          // its 16 bytes from k0 + q
+    if (n0 + n < N) {
+      const uint32_t* p = (const uint32_t*)(t + n * L_LD + q);
+      *(uint4*)(wt + (size_t)(n0 + n) * k_pad + k0 + q) =
+          make_uint4(p[0], p[1], p[2], p[3]);
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// the CUDA driver API's cuTensorMapEncodeTiled, found once through the
+// runtime
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? (EncodeTiled)p : nullptr;
+  }();
+  return fn;
+}
+
+// a 2-D map of an int8 matrix [rows, cols] with rows `cols` bytes apart:
+// boxes of 128 bytes of a row x box_rows rows, in the 128-byte swizzle,
+// zero filled past the matrix
+int encode_map(CUtensorMap* map, const void* base, int rows, int cols,
+               int box_rows) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols};
+  const cuuint32_t box[2] = {(cuuint32_t)KBOX, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+                         const_cast<void*>(base), dims, strides, box, unit,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 struct Args {
   const int8_t* a;
-  const int8_t* w;
+  const int8_t* wt;
   const float* ws;
   float act_scale;
   float* out;
-  int* part;
-  int M, N, K, split, steps_per;
+  int M, N, K, k_pad;
   cudaStream_t stream;
 };
 
-template <int BM, int BN, int WM, int WN>
+// a launch of `kernel` with `smem` bytes of dynamic shared memory
+template <typename... Params, typename... Actual>
+int launch(void (*kernel)(Params...), dim3 grid, int threads, int smem,
+           cudaStream_t stream, Actual... args) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, threads, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
 int launch_gemm(const Args& x) {
-  constexpr int CH = BN < 16 ? BN : 16;
   const int vec_a = x.K % 16 == 0 && (uintptr_t)x.a % 16 == 0;
-  const int vec_w = x.N % CH == 0 && (uintptr_t)x.w % CH == 0;
-  const dim3 grid((x.M + BM - 1) / BM, (x.N + BN - 1) / BN, x.split);
-  mvm_gemm_kernel<BM, BN, WM, WN><<<grid, 32 * WM * WN, 0, x.stream>>>(
-      x.a, x.w, x.ws, x.act_scale, x.out, x.part, x.M, x.N, x.K,
-      x.steps_per, vec_a, vec_w);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || x.split == 1) return (int)err;
-  const long long mn = (long long)x.M * x.N;
-  long long blocks = ((mn % 4 == 0 ? mn / 4 : mn) + RED_THREADS - 1) /
-                     RED_THREADS;
-  if (blocks > 4 * 132) blocks = 4 * 132;      // grid-stride beyond that
-  mvm_reduce_kernel<<<(int)blocks, RED_THREADS, 0, x.stream>>>(
-      x.part, x.split, x.ws, x.act_scale, x.out, mn, x.N);
+  const dim3 grid((x.M + GM_BM - 1) / GM_BM, (x.N + GM_BN - 1) / GM_BN);
+  mvm_gemm_kernel<<<grid, GM_THREADS, 0, x.stream>>>(
+      x.a, x.wt, x.ws, x.act_scale, x.out, x.M, x.N, x.K, x.k_pad, vec_a);
   return (int)cudaGetLastError();
 }
 
@@ -370,27 +821,89 @@ template <int NN>
 int launch_skinny(const Args& x) {
   const int blocks = (x.M + SK_ROWS - 1) / SK_ROWS;
   mvm_skinny_kernel<NN><<<blocks, SK_THREADS, 0, x.stream>>>(
-      x.a, x.w, x.ws, x.act_scale, x.out, x.M, x.K);
+      x.a, x.wt, x.ws, x.act_scale, x.out, x.M, x.K, x.k_pad);
   return (int)cudaGetLastError();
+}
+
+constexpr int ST_SMEM = ST_STAGES * ST_STAGE_BYTES +
+                        ST_WARPS * ST_TILE * 4 +
+                        2 * ST_STAGES * 8 + 1024;
+
+template <int NT>
+int launch_stream(const Args& x, const CUtensorMap& wmap) {
+  const int vec_a = x.K % 4 == 0 && (uintptr_t)x.a % 4 == 0;
+  const dim3 grid((x.N + ST_CH - 1) / ST_CH);
+  return launch(mvm_stream_kernel<NT>, grid, ST_THREADS, ST_SMEM, x.stream,
+                wmap, x.a, x.ws, x.act_scale, x.out, x.M, x.N,
+                x.K, x.k_pad / KBOX, vec_a);
+}
+
+int launch_wgmma(const Args& x, const CUtensorMap& wmap) {
+  alignas(64) CUtensorMap amap;
+  const int err = encode_map(&amap, x.a, x.M, x.K, WG_BM);
+  if (err != 0) return err;
+  constexpr int smem = WG_STAGES * (WG_BM + WG_BN) * KBOX +
+                       2 * WG_STAGES * 8 + 1024;
+  const dim3 grid((x.M + WG_BM - 1) / WG_BM, (x.N + WG_BN - 1) / WG_BN);
+  return launch(mvm_wgmma_kernel, grid, WG_THREADS, smem, x.stream, amap,
+                wmap, x.ws, x.act_scale, x.out, x.M, x.N,
+                x.k_pad / KBOX);
 }
 
 }  // namespace
 
-// route 0: skinny (bn == N <= 8, K <= 32); route 1: gemm with a bm x bn
-// tile from the table below, `split` K splits of `steps_per` 32-byte steps
-// each, `part` an int32 [split, M, N] workspace when split > 1. Anything
-// else is refused with cudaErrorInvalidValue: there is no other kernel.
-extern "C" int mvm_int_launch(const void* a, const void* w, const void* ws,
-                              float act_scale, void* out, void* part, int M,
-                              int N, int K, int route, int bm, int bn,
-                              int split, int steps_per, void* stream) {
-  const Args x{(const int8_t*)a, (const int8_t*)w, (const float*)ws,
-               act_scale, (float*)out, (int*)part, M, N, K, split,
-               steps_per, (cudaStream_t)stream};
+// Lay out the levels: w [K, N] int8, contiguous -> wt [N, k_pad] (k_pad a
+// positive multiple of 128 >= K, wt 16-byte aligned), one launch on
+// `stream`.
+extern "C" int mvm_layout_launch(const void* w, void* wt, int K, int N,
+                                 int k_pad, void* stream) {
+  if (K < 0 || N < 1 || k_pad < KBOX || k_pad % KBOX != 0 || k_pad < K ||
+      (uintptr_t)wt % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int vec = N % 16 == 0 && (uintptr_t)w % 16 == 0;
+  const dim3 grid(k_pad / LK, (N + LN - 1) / LN);
+  mvm_layout_kernel<<<grid, LT_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)w, (int8_t*)wt, K, N, k_pad, vec);
+  return (int)cudaGetLastError();
+}
+
+// The levels' tensor map for a route's box (16 rows for stream, the tile's
+// bn for wgmma), written as 128 bytes into `map_out`: built once with the
+// layout (ops.py::mvm_weights), then handed to every launch.
+extern "C" int mvm_tensor_map(void* map_out, const void* wt, int n,
+                              int k_pad, int box_rows) {
+  if (n < 1 || k_pad < KBOX || k_pad % KBOX != 0 || box_rows < 1 ||
+      box_rows > 256 || (uintptr_t)wt % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  alignas(64) CUtensorMap map;
+  const int err = encode_map(&map, wt, n, k_pad, box_rows);
+  if (err == 0) memcpy(map_out, &map, sizeof(map));
+  return err;
+}
+
+// route 0: skinny (bn == N <= 8, K <= 32); 1: gemm (bm = 16, bn = 64); 2:
+// stream (bm = 8 or 16 >= M rows of codes, bn = 16 channels a CTA); 3:
+// wgmma (bm = bn = 64, K a multiple of 16, `a` 16-byte aligned). wt
+// [N, k_pad] are the laid-out levels, `wmap` (routes 2 and 3) their
+// 128-byte tensor map with the route's box. Anything else is refused with
+// cudaErrorInvalidValue: there is no other kernel.
+extern "C" int mvm_int_launch(const void* a, const void* wt,
+                              const void* wmap, const void* ws,
+                              float act_scale, void* out, int M, int N,
+                              int K, int k_pad, int route, int bm, int bn,
+                              void* stream) {
+  const Args x{(const int8_t*)a, (const int8_t*)wt, (const float*)ws,
+               act_scale, (float*)out, M, N, K, k_pad,
+               (cudaStream_t)stream};
   const int bad = (int)cudaErrorInvalidValue;
-  if (M < 1 || N < 1 || K < 0 || split < 1 || steps_per < 1) return bad;
+  if (M < 1 || N < 1 || K < 0 || k_pad < KBOX || k_pad % KBOX != 0 ||
+      k_pad < K || (uintptr_t)wt % 16 != 0) {
+    return bad;
+  }
   if (route == 0) {
-    if (bn != N || N > SK_NMAX || K > SK_KMAX || split != 1) return bad;
+    if (bn != N || N > SK_NMAX || K > SK_KMAX) return bad;
     switch (N) {
       case 1: return launch_skinny<1>(x);
       case 2: return launch_skinny<2>(x);
@@ -403,19 +916,22 @@ extern "C" int mvm_int_launch(const void* a, const void* w, const void* ws,
       default: return bad;
     }
   }
-  if (route != 1 || (split > 1 && part == nullptr)) return bad;
-  const long long steps = ((long long)K + BK - 1) / BK;
-  if ((long long)(split - 1) * steps_per >= (steps > 0 ? steps : 1)) {
-    return bad;                                // an empty split
+  if (route == 1) {
+    if (bm != GM_BM || bn != GM_BN) return bad;
+    return launch_gemm(x);
   }
-  switch (bm * 1000 + bn) {
-    case 64064: return launch_gemm<64, 64, 2, 2>(x);
-    case 32064: return launch_gemm<32, 64, 2, 2>(x);
-    case 32032: return launch_gemm<32, 32, 2, 2>(x);
-    case 16064: return launch_gemm<16, 64, 1, 4>(x);
-    case 16032: return launch_gemm<16, 32, 1, 2>(x);
-    case 16016: return launch_gemm<16, 16, 1, 2>(x);
-    case 16008: return launch_gemm<16, 8, 1, 1>(x);
-    default: return bad;
+  if ((route != 2 && route != 3) || wmap == nullptr) return bad;
+  alignas(64) CUtensorMap map;
+  memcpy(&map, wmap, sizeof(map));
+  if (route == 2) {
+    if (bn != ST_CH || M > bm) return bad;
+    if (bm == 8) return launch_stream<1>(x, map);
+    if (bm == 16) return launch_stream<2>(x, map);
+    return bad;
   }
+  if (bm != WG_BM || bn != WG_BN || K < 16 || K % 16 != 0 ||
+      (uintptr_t)a % 16 != 0) {
+    return bad;
+  }
+  return launch_wgmma(x, map);
 }

@@ -345,17 +345,21 @@ def _check_backend(backend: str) -> None:
 
 
 def matmul_int(a_codes: torch.Tensor, wq: torch.Tensor,
-               backend: str = "kernel") -> torch.Tensor:
+               backend: str = "kernel", levels=None) -> torch.Tensor:
     """Integer-exact MAC: [M, K] codes x [K, N] levels -> f32 [M, N].
 
     The raw accumulate with no dequant (no ws, act_scale = 1), so callers
-    apply the scales in their own association order.
+    apply the scales in their own association order. ``levels`` are
+    ``wq`` laid out once for the kernel (``photonic_mvm.ops.mvm_weights``,
+    by a bound view); ``None`` lays them out on this call.
     """
     _check_backend(backend)
     if backend == "reference":
         from repro_torch.kernels.photonic_mvm.ref import mvm_int_ref
         return mvm_int_ref(a_codes, wq)
-    from repro_torch.kernels.photonic_mvm.ops import mvm_int
+    from repro_torch.kernels.photonic_mvm.ops import mvm_int, mvm_int_laid
+    if levels is not None:
+        return mvm_int_laid(a_codes.to(torch.int8), levels)
     return mvm_int(a_codes.to(torch.int8), wq.to(torch.int8))
 
 
@@ -400,8 +404,10 @@ def conv_int(codes: torch.Tensor, wq: torch.Tensor, stride: int, pads,
     ``strategy`` and ``route`` (:func:`select_strip_route`) are what the
     plan resolved at compile time; ``None`` resolves them here with the
     default rules. The int route takes codes 0..255 (the plan's CRC codes)
-    and levels within int8; ``levels`` are its ``strip.IntWeights``, laid
-    out once by a bound view (``None``: laid out on this call).
+    and levels within int8; ``levels`` are the levels laid out once by a
+    bound view for the kernel that runs the conv (``None``: laid out on
+    this call): the int route's ``strip.IntWeights``, a resident conv's
+    (one group) ``photonic_mvm.ops.MvmWeights``.
     ``operand``: ``codes`` are already the int route's operand
     (``strip.int_codes``' form: uint8, the border ``pads`` and the zero
     channels), as :func:`epilogue` writes it for a dense conv on the int
@@ -450,7 +456,7 @@ def conv_int(codes: torch.Tensor, wq: torch.Tensor, stride: int, pads,
         patches, h_out, w_out = _im2col(
             codes[..., g * cg:(g + 1) * cg], k, stride, pads)
         acc = matmul_int(patches, wq[..., g * og:(g + 1) * og].reshape(
-            k * k * cg, og), backend)
+            k * k * cg, og), backend, levels if groups == 1 else None)
         outs.append(acc.reshape(b, h_out, w_out, og))
     return outs[0] if groups == 1 else torch.cat(outs, dim=-1)
 

@@ -18,28 +18,35 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-# (m, k, n, route, split-K) of photonic_mvm.ops.mvm_config: the skinny route,
-# split-K on and off, every gemm tile, K 2/9/31/33/2304, M 1/8/129, N 1/4/100
-MVM_EDGES = [(129, 2, 1, "skinny", False), (8, 9, 4, "skinny", False),
-             (129, 31, 4, "skinny", False), (1, 9, 100, "gemm", False),
-             (1, 33, 1, "gemm", True), (129, 33, 100, "gemm", True),
-             (8, 2304, 100, "gemm", True), (129, 2304, 4, "gemm", True),
-             (2048, 9, 64, "gemm", False), (8, 31, 100, "gemm", False),
-             (33, 100, 257, "gemm", True), (33, 300, 257, "gemm", True),
-             (33, 777, 129, "gemm", True)]
+# (m, k, n, route) of photonic_mvm.ops.mvm_config: every route; the skinny
+# one at K 2/9/31; the stream one at M 1/8/9/13/16 (one and two n8 tiles),
+# K 9/31 (byte loads of the codes), 33, 777, 1,001, 4,097 (ragged boxes)
+# and 25,088, N 1/64/100/129/1,000; the wgmma one at K 16 (below a box),
+# ragged M and N; the gemm one at K 9/33/100/300/777 (no tensor map: K not
+# a multiple of 16)
+MVM_EDGES = [(129, 2, 1, "skinny"), (8, 9, 4, "skinny"),
+             (129, 31, 4, "skinny"), (1, 9, 100, "stream"),
+             (1, 33, 1, "stream"), (8, 31, 100, "stream"),
+             (8, 2304, 100, "stream"), (1, 4097, 1, "stream"),
+             (16, 777, 129, "stream"), (13, 1001, 1000, "stream"),
+             (9, 4096, 1000, "stream"), (16, 25088, 64, "stream"),
+             (129, 2304, 4, "wgmma"), (4096, 256, 256, "wgmma"),
+             (100, 4096, 1000, "wgmma"), (300, 16, 70, "wgmma"),
+             (17, 4608, 512, "wgmma"), (2048, 9, 64, "gemm"),
+             (129, 33, 100, "gemm"), (33, 100, 257, "gemm"),
+             (33, 300, 257, "gemm"), (33, 777, 129, "gemm")]
 
-# (m, k, n, route, split-K) of photonic_mvm's float API on signed CRC codes
+# (m, k, n, route) of photonic_mvm's float API on signed CRC codes
 # (``ops.photonic_mvm``, ``nn.layers.dense(mode="kernel")``): M 1/8/64,
-# ragged M/K/N, both routes, split-K on and off; LeNet's fc1 at M = 1 and
-# VGG9-CA's at batch 64 among them, and both fc1s at M = 512 (several M
-# tiles under split-K, as in the smoke's kernel-mode evaluation)
-SIGNED_MVM_SHAPES = [(1, 31, 8, "skinny", False), (8, 20, 5, "skinny", False),
-                     (64, 9, 3, "skinny", False), (8, 31, 100, "gemm", False),
-                     (1, 400, 120, "gemm", True), (8, 101, 53, "gemm", True),
-                     (64, 1024, 512, "gemm", True),
-                     (37, 777, 129, "gemm", True),
-                     (512, 400, 120, "gemm", True),
-                     (512, 1024, 512, "gemm", True)]
+# ragged M/K/N, every route; LeNet's fc1 at M = 1 and VGG9-CA's at batch
+# 64 among them, and both fc1s at M = 512 (several M tiles, as in the
+# smoke's kernel-mode evaluation)
+SIGNED_MVM_SHAPES = [(1, 31, 8, "skinny"), (8, 20, 5, "skinny"),
+                     (64, 9, 3, "skinny"), (8, 31, 100, "stream"),
+                     (1, 400, 120, "stream"), (8, 101, 53, "stream"),
+                     (16, 8192, 100, "stream"), (64, 1024, 512, "wgmma"),
+                     (40, 4096, 200, "wgmma"), (37, 777, 129, "gemm"),
+                     (512, 400, 120, "wgmma"), (512, 1024, 512, "wgmma")]
 
 # (b, h_out, w_out, c_in, c_out, k, stride) of conv_bank.strip.strip_config:
 # ragged tiles and runs (a 16-byte-aligned 1-channel row among them), k 7,

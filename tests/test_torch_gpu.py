@@ -21,7 +21,10 @@ and around half-integers (each code the true quotient's), and at every
 call of the LeNet, VGG9-CA, imaging (256x256) and VGG16 paths, under both
 calibrations, under ``shard_batch``; the requant folded into the int8
 strip conv's store at VGG16's shapes and the strip edges; and the int8
-route's levels laid out at bind against per call.
+route's levels laid out at bind against per call. photonic_mvm's four
+routes at their edges (the stream at M = 1..16 with ragged K and N =
+1,000, each route forced at a shape the rule gives another, a
+configuration the launcher refuses) and VGG16 under ``shard_batch``.
 """
 
 from __future__ import annotations
@@ -82,12 +85,11 @@ def test_mvm_kernel_bitwise_equal_to_plain(cuda, m, k, n):
 
 
 @pytest.mark.parametrize("odd", [False, True])
-@pytest.mark.parametrize("m,k,n,route,split", MVM_EDGES)
+@pytest.mark.parametrize("m,k,n,route", MVM_EDGES)
 def test_mvm_kernel_configs_bitwise_equal_to_plain(cuda, m, k, n, route,
-                                                   split, odd):
+                                                   odd):
     from repro_torch.kernels.photonic_mvm.ops import mvm_config
-    cfg = mvm_config(m, k, n)
-    assert (cfg.route, cfg.split > 1) == (route, split)
+    assert mvm_config(m, k, n).route == route
     g = torch.Generator().manual_seed(m * 7 + k * 3 + n)
     a = torch.randint(-15, 16, (m, k), generator=g).to(torch.int8).to(cuda)
     w = torch.randint(-127, 128, (k, n), generator=g).to(torch.int8).to(cuda)
@@ -97,9 +99,102 @@ def test_mvm_kernel_configs_bitwise_equal_to_plain(cuda, m, k, n, route,
     ws = (torch.rand((n,), generator=g) + 0.5).to(cuda)
     reset_launch_counts()
     got = mvm_int(a, w)
-    assert launch_counts()["photonic_mvm"] == 1     # the split-K pass too
+    assert launch_counts()["photonic_mvm"] == 1
     assert torch.equal(got, mvm_int_ref(a, w))
     assert torch.equal(mvm_int(a, w, ws, 0.37), mvm_int_ref(a, w, ws, 0.37))
+
+
+@pytest.mark.parametrize("odd", [False, True])
+@pytest.mark.parametrize("m", range(1, 17))
+def test_mvm_stream_rows_and_ragged_k_bitwise_equal_to_plain(cuda, m, odd):
+    """The weight stream at every M it takes (one and two n8 tiles of
+    codes), K not a multiple of a 128-byte box (nor of 4 at odd M: the
+    codes by bytes), N = 1,000 (fc3's), the codes one byte past an
+    allocation; on laid-out levels as the bound path gives them, and per
+    call."""
+    from repro_torch.kernels.photonic_mvm.ops import (mvm_config,
+                                                      mvm_int_laid,
+                                                      mvm_weights)
+    k, n = 4096 + 37 * m, 1000
+    cfg = mvm_config(m, k, n)
+    assert cfg.route == "stream"
+    g = torch.Generator().manual_seed(m)
+    a = torch.randint(-15, 16, (m, k), generator=g).to(torch.int8).to(cuda)
+    w = torch.randint(-127, 128, (k, n), generator=g).to(torch.int8).to(cuda)
+    if odd:
+        a = odd_offset(a)
+    ws = (torch.rand((n,), generator=g) + 0.5).to(cuda)
+    mw = mvm_weights(w)
+    reset_launch_counts()
+    got = mvm_int_laid(a, mw, ws, 0.37)
+    assert launch_counts()["photonic_mvm"] == 1
+    assert torch.equal(got, mvm_int_ref(a, w, ws, 0.37))
+    assert torch.equal(mvm_int_laid(a, mw), mvm_int(a, w))
+    assert torch.equal(mvm_int(a, w), mvm_int_ref(a, w))
+
+
+@pytest.mark.parametrize("m,k,n,cfg", [
+    (8, 4096, 1000, ("gemm", 16, 64)),
+    (16, 4608, 512, ("wgmma", 64, 64)),
+    (1568, 4608, 512, ("gemm", 16, 64)),
+    (2048, 576, 64, ("gemm", 16, 64)),
+    (128, 2304, 256, ("gemm", 16, 64)),
+    (8, 4097, 1000, ("stream", 16, 16))],
+    ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else None)
+def test_every_route_forced_bitwise_equal_to_plain(cuda, m, k, n, cfg):
+    """Each route at a shape the rule gives another (the stream's two n8
+    tiles at eight rows among them): one launch, bitwise."""
+    from repro_torch.kernels.photonic_mvm.ops import (MvmConfig, launch,
+                                                      mvm_weights)
+    g = torch.Generator().manual_seed(m + k + n)
+    a = torch.randint(0, 16, (m, k), generator=g).to(torch.int8).to(cuda)
+    w = torch.randint(-127, 128, (k, n), generator=g).to(torch.int8).to(cuda)
+    ws = (torch.rand((n,), generator=g) + 0.5).to(cuda)
+    mw = mvm_weights(w)
+    reset_launch_counts()
+    got = launch(a, mw, MvmConfig(*cfg), ws, 0.37)
+    assert launch_counts()["photonic_mvm"] == 1
+    assert torch.equal(got, mvm_int_ref(a, w, ws, 0.37))
+
+
+@pytest.mark.parametrize("k,n", [(0, 3), (1, 1), (31, 9), (128, 16),
+                                 (129, 5), (4608, 20), (300, 1000),
+                                 (25088, 70)])
+def test_mvm_layout_kernel_bitwise_equal_to_plain(cuda, k, n):
+    """The levels' layout on the card (one launch, uncounted) is the plain
+    version's: the transpose, the zero pad, from int8 levels, a
+    non-contiguous view and float-carried levels."""
+    from repro_torch.kernels.photonic_mvm.ops import mvm_weights
+    g = torch.Generator().manual_seed(k + n)
+    w = torch.randint(-127, 128, (k, 2 * n), generator=g).to(torch.int8)
+    for levels in (w[:, :n].contiguous(), w[:, ::2], w[:, :n].float()):
+        want = mvm_weights(levels).wt
+        reset_launch_counts()
+        got = mvm_weights(levels.to(cuda))
+        torch.cuda.synchronize()
+        assert launch_counts()["photonic_mvm"] == 0
+        assert got.wt.is_contiguous() and torch.equal(got.wt.cpu(), want)
+
+
+def test_mvm_launcher_refuses_a_launch_it_has_no_kernel_for(cuda):
+    """No fallback: a configuration the launcher has no kernel for raises
+    (the stream route past its rows, a 64 x 128 wgmma tile, a gemm tile
+    and a stream width it has no kernel for, a tensor map on K = 100)."""
+    from repro_torch.kernels._build import KernelError
+    from repro_torch.kernels.photonic_mvm.ops import (MvmConfig, launch,
+                                                      mvm_weights)
+    g = torch.Generator().manual_seed(2)
+    for m, k, cfg in ((9, 256, MvmConfig("stream", 8, 16)),
+                      (64, 256, MvmConfig("wgmma", 64, 128)),
+                      (64, 256, MvmConfig("gemm", 32, 64)),
+                      (8, 4096, MvmConfig("stream", 8, 32)),
+                      (64, 100, MvmConfig("wgmma", 64, 64))):
+        a = torch.randint(0, 16, (m, k), generator=g).to(torch.int8)
+        w = torch.randint(-127, 128, (k, 40), generator=g).to(torch.int8)
+        reset_launch_counts()
+        with pytest.raises(KernelError):
+            launch(a.to(cuda), mvm_weights(w.to(cuda)), cfg)
+        assert launch_counts()["photonic_mvm"] == 0
 
 
 @pytest.mark.parametrize("dw,act,pool,stride", [
@@ -787,6 +882,27 @@ def test_vgg16_bound_graph_replay_bitwise_equal_to_eager(cuda, bucket):
     np.testing.assert_array_equal(got, eager)
     np.testing.assert_array_equal(replayed, eager)
     assert bound._binding.graphs[bucket].replays == 2
+    # fc1-fc3 and conv11-13 take their levels laid out at bind: the
+    # graph holds no per-call layout
+    from repro_torch.kernels.photonic_mvm.ops import MvmWeights
+    assert all(isinstance(bound._binding.weights[name][2], MvmWeights)
+               for name in ("conv11", "conv12", "conv13", "fc1", "fc2",
+                            "fc3"))
+
+
+def test_vgg16_under_shard_batch_bitwise_equal_to_unsharded(cuda):
+    """Two shards of cuda:0, each on its own thread: conv11-13 (wgmma,
+    M = 196 a shard) and fc1-fc3 (the stream) bitwise the unsharded
+    run."""
+    prog = _vgg16_program()
+    f = _frames_for(prog, 2, 12)
+    plain = Options(scheme=W4A4, verify="off")
+    want = prog.compile(plain).run(f).cpu()
+    reset_launch_counts()
+    got = prog.compile(dataclasses.replace(
+        plain, shard_batch=True, mesh=("cuda:0", "cuda:0"))).run(f).cpu()
+    assert launch_counts()["photonic_mvm"] == 12       # 6 a shard
+    assert torch.equal(got, want)
 
 
 def test_verified_chain_plan_launches_with_no_range_check(cuda, monkeypatch):
@@ -819,9 +935,9 @@ def test_verified_chain_plan_launches_with_no_range_check(cuda, monkeypatch):
 
 # -- training (the QAT slice) --------------------------------------------------
 
-@pytest.mark.parametrize("m,k,n,route,split", SIGNED_MVM_SHAPES)
+@pytest.mark.parametrize("m,k,n,route", SIGNED_MVM_SHAPES)
 def test_signed_photonic_mvm_float_api_bitwise_equal_to_plain(cuda, m, k, n,
-                                                              route, split):
+                                                              route):
     """The float API on signed CRC codes in [-15, 15] (``dense``'s kernel
     mode) launches the kernel once on the route ``mvm_config`` picks and
     is bitwise equal to ``photonic_mvm_ref`` on the same card tensors."""
@@ -829,8 +945,7 @@ def test_signed_photonic_mvm_float_api_bitwise_equal_to_plain(cuda, m, k, n,
     from repro_torch.kernels.photonic_mvm.ops import mvm_config, photonic_mvm
     from repro_torch.kernels.photonic_mvm.ref import (photonic_mvm_ref,
                                                       signed_codes)
-    cfg = mvm_config(m, k, n)
-    assert (cfg.route, cfg.split > 1) == (route, split)
+    assert mvm_config(m, k, n).route == route
     g = torch.Generator().manual_seed(m * 5 + k + n)
     x = (torch.randn((m, k), generator=g) * 0.6).to(cuda)
     w = torch.randn((k, n), generator=g).to(cuda)

@@ -104,28 +104,33 @@ IMAGING_SHAPES = [(524288, 9, 2), (524288, 2, 1), (524288, 9, 1),
                   (524288, 9, 4)]
 
 
+def _tiles(cfg, m, n):
+    """The output tiles of ``cfg``: one CTA each, each over all of K."""
+    from repro_torch.kernels.photonic_mvm import ops
+    if cfg.route == "skinny":
+        return -(-m // ops.SKINNY_ROWS)
+    if cfg.route == "stream":
+        return -(-n // 16)
+    return -(-m // cfg.bm) * -(-n // cfg.bn)
+
+
 def _assert_legal(cfg, m, k, n):
     from repro_torch.kernels.photonic_mvm import ops
     assert cfg.smem <= 232448
+    assert cfg.ctas == _tiles(cfg, m, n)
     if cfg.route == "skinny":
         assert n <= ops.SKINNY_MAX_N and k <= ops.SKINNY_MAX_K
-        assert (cfg.bn, cfg.split) == (n, 1)
-        assert cfg.ctas == -(-m // ops.SKINNY_ROWS)
+        assert cfg.bn == n
         return
-    assert cfg.route == "gemm" and (cfg.bm, cfg.bn) in ops.GEMM_TILES
-    steps = max(1, -(-k // ops.BK))
-    # every split has work, and the splits cover every K step
-    assert (cfg.split - 1) * cfg.steps_per < steps <= cfg.split * \
-        cfg.steps_per
-    assert cfg.ctas == -(-m // cfg.bm) * -(-n // cfg.bn) * cfg.split
-
-
-def _most_ctas(m, k, n):
-    """The most CTAs any gemm tile and split can give: one K step each."""
-    from repro_torch.kernels.photonic_mvm import ops
-    steps = max(1, -(-k // ops.BK))
-    return max(-(-m // bm) * -(-n // bn) * steps
-               for bm, bn in ops.GEMM_TILES)
+    if cfg.route == "stream":
+        assert m <= cfg.bm and cfg.bm in (8, 16) and cfg.bn == 16
+        return
+    assert m > ops.STREAM_MAX_M
+    if cfg.route == "wgmma":
+        assert k > 0 and k % 16 == 0 and (cfg.bm, cfg.bn) == (64, 64)
+    else:
+        assert cfg.route == "gemm" and k % 16
+        assert (cfg.bm, cfg.bn) == ops.GEMM_TILE
 
 
 @pytest.mark.parametrize("m,k,n", VISION_SHAPES + IMAGING_SHAPES)
@@ -133,17 +138,22 @@ def test_mvm_config_is_legal_and_fills_the_card_at_path_shapes(m, k, n):
     from repro_torch.kernels.photonic_mvm.ops import mvm_config
     cfg = mvm_config(m, k, n)
     _assert_legal(cfg, m, k, n)
-    assert cfg.route == ("skinny" if (m, k, n) in IMAGING_SHAPES else "gemm")
-    # one full wave of 132 SMs wherever the shape has that much work
-    assert cfg.ctas >= min(132, _most_ctas(m, k, n))
+    want = ("skinny" if (m, k, n) in IMAGING_SHAPES else "stream" if m <= 16
+            else "gemm" if k % 16 else "wgmma")
+    assert cfg.route == want
 
 
 def test_mvm_config_split_k_only_where_m_n_small_and_k_large():
-    from repro_torch.kernels.photonic_mvm.ops import mvm_config
-    assert mvm_config(2048, 9, 64).split == 1       # one K step
-    assert mvm_config(128, 2304, 256).split > 1
-    assert mvm_config(8, 1024, 512).split > 1
-    assert mvm_config(4096, 1024, 512).split == 1   # tiles fill the card
+    """No route splits K (a split over a cluster was measured no faster at
+    any path shape): every launch is one CTA an output tile, even where
+    M x N is small and K long."""
+    import dataclasses
+    from repro_torch.kernels.photonic_mvm.ops import MvmConfig, mvm_config
+    assert "split" not in {f.name for f in dataclasses.fields(MvmConfig)}
+    for m, k, n in ((2048, 9, 64), (196, 4608, 512), (16, 25088, 64),
+                    (8, 4096, 1000), (128, 2304, 256), (4096, 1024, 512)):
+        cfg = mvm_config(m, k, n)
+        assert cfg.ctas == _tiles(cfg, m, n)
 
 
 def test_mvm_config_is_legal_on_ragged_shapes():

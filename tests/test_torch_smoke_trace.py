@@ -11,6 +11,7 @@ from __future__ import annotations
 import importlib.util
 import json
 import pathlib
+import re
 
 import pytest
 
@@ -146,3 +147,28 @@ def test_busy_share_names_the_torch_ops_and_the_epilogue(smoke):
     assert (ops[0]["launches"], ops[0]["ms"]) == (3, pytest.approx(0.03))
     assert [o["name"] for o in ops[1:]] == [f"op{j}_kernel"
                                             for j in range(7)]
+
+
+def _kernels_of(source):
+    """The ``__global__`` functions a CUDA source defines."""
+    text = (ROOT / "src" / "repro_torch" / "csrc" / source).read_text()
+    return set(re.findall(r"__global__[^(]*?(?:\([^)]*\))?\s*(\w+_kernel)\s*\(",
+                          text))
+
+
+def test_photonic_mvm_symbols_name_every_route_and_no_other_kernel(smoke):
+    """Every photonic_mvm kernel (the four routes and the levels' layout)
+    is counted under its symbol, as the profiler names it, and no other
+    source's kernel is."""
+    symbol = smoke.KERNEL_SYMBOLS["photonic_mvm"]
+    mvm = _kernels_of("photonic_mvm.cu")
+    assert mvm == {"mvm_gemm_kernel", "mvm_stream_kernel",
+                   "mvm_wgmma_kernel", "mvm_skinny_kernel",
+                   "mvm_layout_kernel"}
+    for name in mvm:
+        profiled = f"void (anonymous namespace)::{name}<1>(CUtensorMap, int)"
+        assert re.search(symbol, profiled.replace(" ", "")), name
+    others = set().union(*(_kernels_of(p.name) for p in (
+        ROOT / "src" / "repro_torch" / "csrc").glob("*.cu")
+        if p.name != "photonic_mvm.cu"))
+    assert others and not any(re.search(symbol, o) for o in others)
