@@ -57,7 +57,10 @@ Phases, each fatal on failure:
      geometries, a stride-2 VALID and a grouped conv, a VGG16-like layer,
      the conv_bank op in both strategies at k = 3, 5, 7; the int8 strip
      kernel at every strip edge on codes 0..255 and levels +-127 at every
-     activation, at its extremes with |acc| past 2^24, and through
+     activation, at its extremes with |acc| past 2^24, its wgmma form
+     forced at ``INT_WGMMA_EDGES`` (raw, every activation with and without bias, the
+     folded store under both calibrations; C_in 7,360 at the int32
+     edge), and through
      dispatch on a conv1-like, a stride-2 and a grouped conv), and is held
      bitwise equal to its plain PyTorch version on the same inputs (the
      served path's ``ca_pool.ops.acquire``, and the public ``ca_pool`` op
@@ -152,6 +155,11 @@ Phases, each fatal on failure:
      each photonic_mvm step on its levels laid out once, with its route,
      tile, CTAs, shared memory and ptxas line); the bound view's
      photonic_mvm levels checked laid out at bind;
+     the int8 strip kernel's two forms at conv2-conv10 (and, for
+     information, conv11-13 forced onto it, and the conv_bank op's calls:
+     ``INT_FORM_SHAPES``) at buckets 1 and 8, each forced, by device time beside ``F.conv2d`` and the bound, with each
+     form's launch and ptxas line (``[vgg16] int8 forms`` lines, and per
+     bucket the shapes the rule gives the wgmma form where it is slower);
      each conv1-conv10 also with the epilogue folded into its store; each
      of its 17 epilogue calls (pass 2 alone after a folded store) timed
      beside the torch-op sequence it replaces (its plain version) and its
@@ -367,9 +375,6 @@ PEAK_OPS = {"int8": 1979e12,       # dense tensor-core int8
             "fp32": 67e12}         # float32 FMAs outside the tensor cores
 RAGGED_MVM = [(1, 1, 1), (37, 101, 53), (130, 777, 129), (300, 2304, 257)] + [
     (m, 4096 + 37 * m, 1000) for m in (1, 7, 13, 16)]
-# the conv_bank op's own calls: x [B, H, W, Cin] -> Cout, k x k, W4A4 with
-# relu and bias, in both strategies
-CONV_BANK = [(BUCKET, 32, 32, 16, 32, k) for k in (3, 5, 7)]
 # extra strip convs through dispatch.conv_int: (name, x shape, w shape,
 # stride, padding, groups)
 STRIP_CONVS = [("stride2_valid", (2, 65, 63, 8), (3, 3, 8, 16), 2, "VALID", 1),
@@ -434,6 +439,7 @@ VGG16_SATURATE_S = 2.0
 REHEARSAL_VGG16_SATURATE_S = 0.2
 VGG16_TRACE = "vgg16_bound_serve_trace.json"
 VGG16_DEVICE_TRACE = "vgg16_device_time_trace.json"
+VGG16_FORMS_TRACE = "vgg16_int_forms_trace.json"
 # the [eager] phase: (model, scheme) run through LightatorDevice at bucket
 # 8, the timed calls of each pass (the rehearsal's on the CPU), and the
 # two examples' settings
@@ -621,7 +627,10 @@ SOURCES = {
                              "src/repro/kernels/conv_bank/strip_kernel.py:289"),
     "conv_bank": ("src/repro_torch/csrc/conv_strip.cu",
                   "src/repro/kernels/conv_bank/kernel.py:85"),
-    "conv_strip_int": ("src/repro_torch/csrc/conv_strip.cu",
+    # the wgmma form (conv2-conv10) and the mma.sync forms (conv1's folded
+    # taps among them): "source" names the first, "sources" both
+    "conv_strip_int": (("src/repro_torch/csrc/conv_strip_wgmma.cu",
+                        "src/repro_torch/csrc/conv_strip.cu"),
                        "src/repro/kernels/conv_bank/strip_kernel.py:206"),
     # no pallas_call: XLA's fusion of the jitted executor's epilogue (its
     # conv branch; _crc_requant_traced at plan.py:86)
@@ -635,7 +644,7 @@ KERNEL_SYMBOLS = {"photonic_mvm":
                   "conv_strip": r"conv_dense_kernel",
                   "conv_strip_depthwise": r"conv_dw_kernel",
                   "conv_bank": r"conv_dense_kernel",
-                  "conv_strip_int": r"conv_igemm_(fold_)?kernel",
+                  "conv_strip_int": r"conv_igemm_(fold_|wgmma_)?kernel",
                   "epilogue": r"epi_(reduce|quant|cluster)_kernel"}
 
 
@@ -704,13 +713,26 @@ def mvm_ptxas(by_function, cfg):
     return by_function.get(name)
 
 
+def int8_ptxas(ptxas):
+    """The build's ptxas lines of the int8 strip kernels by function: the
+    mma.sync forms' (``conv_strip``'s library) and the wgmma form's
+    (``conv_strip_wgmma``'s)."""
+    return {f["function"]: f for name in ("conv_strip", "conv_strip_wgmma")
+            for f in (ptxas or {}).get(name, [])}
+
+
 def igemm_ptxas(by_function, cfg, fold=False):
     """The ptxas line of the int8 strip kernel instantiation that
     ``cfg`` (a ``strip.IgemmConfig``) launches, with the epilogue folded
-    into its store or not, from the .cu's own form
-    ``conv_igemm[_fold]_kernel<KT, MT, NT, WM, WN, kFold>`` with ``BN = WN
-    * NT * 8`` output channels: None where the build's log has no such
-    line."""
+    into its store or not, from the .cu's own forms: the wgmma one
+    ``conv_igemm_wgmma_kernel<MB, BN, kFold>`` (MB = th * tw / 128 m64
+    blocks a warpgroup), the mma.sync ones ``conv_igemm[_fold]_kernel<KT,
+    MT, NT, WM, WN, kFold>`` with ``BN = WN * NT * 8`` output channels:
+    None where the build's log has no such line."""
+    if cfg.form == "wgmma":
+        return by_function.get(f"conv_igemm_wgmma_kernel<"
+                               f"{cfg.th * cfg.tw // 128},{cfg.bn},"
+                               f"{int(fold)}>")
     want = "conv_igemm_fold_kernel" if cfg.kf else "conv_igemm_kernel"
     for name, rep in by_function.items():
         m = re.fullmatch(r"(\w+)<(\d+),(\d+),(\d+),(\d+),(\d+),(\d)>",
@@ -897,9 +919,10 @@ def path_calls(exes, device, batch=BUCKET):
 def conv_bank_calls(device):
     """(x, w, bias) of the conv_bank op's own calls."""
     import torch
+    from repro_torch.kernels.edge_shapes import CONV_BANK_CALLS
     gen = torch.Generator().manual_seed(SEED + 11)
     out = []
-    for b, h, w, ci, co, k in CONV_BANK:
+    for b, h, w, ci, co, k in CONV_BANK_CALLS:
         x = torch.rand((b, h, w, ci), generator=gen)
         wt = torch.randn((k, k, ci, co), generator=gen) * 0.2
         bias = torch.randn((co,), generator=gen) * 0.1
@@ -966,7 +989,8 @@ def phase_kernels(device, vision, imaging):
     from repro_torch.kernels.conv_bank.ref import conv_chain_ref, conv_int_ref
     from repro_torch.kernels.edge_shapes import (CA_EDGES, CHAIN_EDGES,
                                                  CHAINS, DW_EDGES,
-                                                 EPILOGUE_EDGES, MVM_EDGES,
+                                                 EPILOGUE_EDGES,
+                                                 INT_WGMMA_EDGES, MVM_EDGES,
                                                  STRIP_EDGES, EpilogueCall,
                                                  chain_case, epilogue_case,
                                                  odd_offset)
@@ -1117,6 +1141,47 @@ def phase_kernels(device, vision, imaging):
         kw = dict(stride=stride, act_scale=0.37)
         compare("conv_strip_int", strip.conv_strip_int(x8, w8, ws, **kw),
                 strip.conv_strip_int_ref(x8, w8, ws, **kw), f"{what} ws")
+    # the int8 kernel's wgmma form at its edges, forced (the rule gives
+    # the narrower ones the mma.sync form): raw, every act with ws and
+    # bias, and the folded store (y and each CTA's max) under both
+    # calibrations; C_in 7,360 at codes 255 and levels +-127 (|acc| just
+    # under 2^31)
+    for b, h_out, w_out, ci, co, k in INT_WGMMA_EDGES:
+        cfg = strip.igemm_config(b, h_out, w_out, ci, co, k, 1,
+                                 form="wgmma")
+        what = f"wgmma edge {(b, h_out, w_out)} {ci}->{co} k{k}"
+        shape = (b, h_out + k - 1, w_out + k - 1, ci)
+        if ci == 7360:
+            x8 = torch.full(shape, 255, dtype=torch.uint8)
+            w8 = torch.full((k, k, ci, co), 127, dtype=torch.int8)
+            w8[1, 1, :, ::2] = -127
+        else:
+            x8 = torch.randint(0, 256, shape, generator=gen).to(torch.uint8)
+            w8 = torch.randint(-127, 128, (k, k, ci, co),
+                               generator=gen).to(torch.int8)
+        x8, w8 = x8.to(device), w8.to(device)
+        ws = (torch.rand((co,), generator=gen) + 0.5).to(device)
+        bias = torch.randn((co,), generator=gen).to(device)
+        acc = strip.conv_strip_int_ref(x8, w8)
+        iw = strip.int_weights(w8, form="wgmma")
+        compare("conv_strip_int", strip.conv_strip_int_laid(x8, iw, cfg=cfg),
+                acc, what)
+        for act in ("none", "relu", "abs", "sign"):
+            for bb in (bias, None):
+                compare("conv_strip_int", strip.conv_strip_int_laid(
+                    x8, strip.int_weights(w8, ws, bb, form="wgmma"), 1,
+                    0.37, act, cfg=cfg), strip.conv_strip_int_ref(
+                        x8, w8, ws, act_scale=0.37, act=act, bias=bb),
+                    f"{what} {act} bias {bb is not None}")
+        for scale in (torch.rand((b, 1, 1, 1), generator=gen),
+                      torch.rand((), generator=gen)):
+            fold = strip.Fold(scale.to(device) * 0.01 + 1e-3, ws * 0.1,
+                              bias, "relu")
+            y, partials = strip.conv_strip_int_laid(x8, iw, fold=fold,
+                                                    cfg=cfg)
+            wy, wp = strip.fold_ref(acc, fold, cfg)
+            compare("conv_strip_int", y, wy, f"{what} folded store")
+            compare("conv_strip_int", partials, wp, f"{what} folded maxima")
     for xs, wshape, level in STRIP_INT_EXTREMES:
         x8 = torch.full(xs, 255, dtype=torch.uint8, device=device)
         w8 = torch.full(wshape, level, dtype=torch.int8, device=device)
@@ -2645,8 +2710,7 @@ def vgg16_timing(device, exe, trace_path, ptxas=None):
     cuda = device.type == "cuda"
     time_ms = timer(device)
     iters = VGG16_ITERS if cuda else 1
-    by_function = {f["function"]: f for f in (ptxas or {}).get(
-        "conv_strip", [])}
+    by_function = int8_ptxas(ptxas)
     mvm_functions = {f["function"]: f for f in (ptxas or {}).get(
         "photonic_mvm", [])}
     gen = torch.Generator(device=device).manual_seed(SEED + 17)
@@ -2736,10 +2800,10 @@ def vgg16_timing(device, exe, trace_path, ptxas=None):
                             torch.rand((b, 1, 1, 1), generator=gen,
                                        device=device) * 0.01 + 1e-3,
                             ws_q, params[step.name].get("b"), step.act)
+                        lv = strip.int_weights(w8, stride=g.stride)
                         fns["fold_kernel"] = (
-                            lambda x8=x8, lv=strip.int_weights(w8),
-                            s=g.stride, f=fold: strip.conv_strip_int_laid(
-                                x8, lv, s, fold=f))
+                            lambda x8=x8, lv=lv, s=g.stride, f=fold:
+                            strip.conv_strip_int_laid(x8, lv, s, fold=f))
                         row["fold_ptxas"] = igemm_ptxas(by_function, icfg,
                                                         True)
                     row.update(
@@ -2829,6 +2893,129 @@ def vgg16_timing(device, exe, trace_path, ptxas=None):
     for row in rows:
         del row["fns"]
     return rows
+
+
+def vgg16_int_forms(device, trace_path, ptxas=None, rehearse=False):
+    """The int8 strip conv's two forms at ``edge_shapes.INT_FORM_SHAPES``:
+    VGG16's conv2-conv10 (as the int route launches them), conv11-13
+    (which the plan runs as im2col GEMMs) forced onto the int8 kernel and
+    the conv_bank op's own calls, at buckets 1 and 8 on W4A4's codes and
+    levels: the wgmma form and the mma.sync form, each forced on the
+    levels laid out for it, and ``F.conv2d`` on the same codes (TF32 off),
+    by device time (CUPTI, ``VGG16_DEVICE_ITERS`` calls a range); the
+    rule's form; the bound (u8 codes, s8 levels, f32 output once; or the
+    int8 operations). The two forms are held bitwise to each other, off
+    VGG16's strip convs to the plain version too. Returns one row a shape
+    and bucket (``served``: one of VGG16's strip convs). A CPU rehearsal
+    runs the plain version at 8x8 frames of at most 64 channels, batch
+    1."""
+    import torch
+    from repro_torch.kernels.conv_bank import strip
+    from repro_torch.kernels.conv_bank.ref import float32_convs
+    from repro_torch.kernels.edge_shapes import INT_FORM_SHAPES, VGG16_SHAPES
+    cuda = device.type == "cuda"
+    served = {name for name, *_ in VGG16_SHAPES["conv_strip"]}
+    shapes = INT_FORM_SHAPES
+    buckets = VGG16_SHAPE_BUCKETS
+    if rehearse:
+        shapes = [(n, 8, min(ci, 64), min(co, 64), k)
+                  for n, _, ci, co, k in shapes]
+        buckets = (1,)
+    by_function = int8_ptxas(ptxas)
+    gen = torch.Generator().manual_seed(SEED + 23)
+    rows = []
+    for name, h, ci, co, k in shapes:
+        for b in buckets:
+            x8 = torch.randint(0, 16, (b, h + k - 1, h + k - 1, ci),
+                               generator=gen).to(torch.uint8).to(device)
+            w8 = torch.randint(-7, 8, (k, k, ci, co), generator=gen).to(
+                torch.int8).to(device)
+            cfgs = {form: strip.igemm_config(b, h, h, ci, co, k, 1,
+                                             form=form)
+                    for form in ("wgmma", "mma")}
+            fns = {form: lambda c=c, x8=x8, iw=strip.int_weights(
+                w8, form=form): strip.conv_strip_int_laid(x8, iw, cfg=c)
+                for form, c in cfgs.items()}
+            fns["library"] = strip_library(x8.float(), w8.float(), 1, False)
+            got = fns["wgmma"]()
+            need(torch.equal(got, fns["mma"]()), f"[vgg16] int8 forms "
+                 f"{name} batch {b}: the wgmma form differs from the "
+                 f"mma.sync form")
+            if name not in served:
+                need(torch.equal(got, strip.conv_strip_int_ref(x8, w8)),
+                     f"[vgg16] int8 forms {name} batch {b}: the wgmma "
+                     f"form differs from the plain version")
+            macs = b * h * h * co * k * k * ci
+            bound, by = bound_ms(x8.numel() + w8.numel() + b * h * h * co * 4,
+                                 2 * macs, "int8")
+            rule = strip.igemm_config(b, h, h, ci, co, k, 1)
+            rows.append(dict(
+                layer=name, batch=b, layers=name.count("+") + 1,
+                served=name in served, rule=rule.form, bound_ms=bound,
+                bound_by=by, macs=macs, fns=fns,
+                **{f"{form}_cfg": dataclasses.asdict(c)
+                   for form, c in cfgs.items()},
+                **{f"{form}_ptxas": igemm_ptxas(by_function, c)
+                   for form, c in cfgs.items()}))
+    if cuda:
+        from torch.profiler import ProfilerActivity, profile, record_function
+        with float32_convs(), profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function(f"{DEVICE_RANGE}int_forms.warm"):
+                for _ in range(VGG16_WARM_LAUNCHES):
+                    torch.zeros(1, device=device)
+                for fn in rows[0]["fns"].values():
+                    fn()
+                torch.cuda.synchronize()
+            for r in rows:
+                for fn_name, fn in r["fns"].items():
+                    fn()
+                    torch.cuda.synchronize()
+                    with record_function(f"{DEVICE_RANGE}int_forms."
+                                         f"{r['layer']}.b{r['batch']}."
+                                         f"{fn_name}"):
+                        for _ in range(VGG16_DEVICE_ITERS):
+                            fn()
+                        torch.cuda.synchronize()
+        events = load_trace(prof, trace_path)
+    for r in rows:
+        for fn_name in r.pop("fns"):
+            r[f"{fn_name}_device_ms"] = None
+            if not cuda:
+                continue
+            kernels, launches = device_work(
+                events, f"{DEVICE_RANGE}int_forms.{r['layer']}.b"
+                f"{r['batch']}.{fn_name}", ("kernel",))
+            if not kernels or len(kernels) < launches:
+                log(f"[vgg16] int8 forms {r['layer']} b{r['batch']} "
+                    f"{fn_name}: {len(kernels)} kernel records for "
+                    f"{launches} launches; not measured")
+                continue
+            symbol = (".*" if fn_name == "library"
+                      else KERNEL_SYMBOLS["conv_strip_int"])
+            r[f"{fn_name}_device_ms"] = sum(
+                e["dur"] for e in kernels
+                if re.search(symbol, e["name"].replace(" ", ""))) \
+                / VGG16_DEVICE_ITERS / 1e3
+    return rows
+
+
+def int_forms_line(r):
+    """One ``[vgg16] int8 forms`` line of a ``vgg16_int_forms`` row."""
+    def form(f):
+        c, px = r[f"{f}_cfg"], r[f"{f}_ptxas"] or {}
+        return (f"{c['th']}x{c['tw']} x {c['bn']} ch, {c['ch']}-channel "
+                f"chunks, {c['stages']} stages, {c['ctas']} CTAs, "
+                f"{c['smem']} B smem, ptxas {px.get('registers')} regs, "
+                f"spills {px.get('spill_stores')}/{px.get('spill_loads')} "
+                f"B: device {r[f'{f}_device_ms']} ms")
+    w, m = r["wgmma_device_ms"], r["mma_device_ms"]
+    ratio = f"{w / m:.3f}" if w and m else None
+    return (f"[vgg16] int8 forms {r['layer']} b{r['batch']}: wgmma "
+            f"{form('wgmma')}; mma.sync {form('mma')}; F.conv2d device "
+            f"{r['library_device_ms']} ms; bound {r['bound_ms']:.6f} by "
+            f"{r['bound_by']}; the rule takes {r['rule']}; wgmma / mma "
+            f"{ratio}")
 
 
 def epilogue_labels(plan):
@@ -3061,6 +3248,30 @@ def phase_vgg16(device, rehearse, out_dir, ptxas=None):
             f"{r['library']} {r['library_ms']:.4f} device "
             f"{r.get('library_device_ms')}, bound {r['bound_ms']:.6f} by "
             f"{r['bound_by']}){extra}")
+
+    out["int_forms"] = vgg16_int_forms(device, os.path.join(
+        out_dir, VGG16_FORMS_TRACE), ptxas, rehearse)
+    for r in out["int_forms"]:
+        log(int_forms_line(r))
+    for b in sorted({r["batch"] for r in out["int_forms"]}):
+        rows = [r for r in out["int_forms"] if r["batch"] == b]
+        for group, what in (("", "conv2-conv10"),
+                            ("bank", "the conv_bank op's calls")):
+            convs = [r for r in rows if r["served"] == (group == "") and
+                     r["layer"].startswith("conv_bank") == bool(group)]
+            sums = {key: None if any(r[key] is None for r in convs) else
+                    sum(r[key] * r["layers"] for r in convs)
+                    for key in ("wgmma_device_ms", "mma_device_ms",
+                                "library_device_ms", "bound_ms")}
+            out[f"int_forms{'_' + group if group else ''}_b{b}"] = sums
+            log(f"[vgg16] int8 forms, {what} at bucket {b}: {sums}")
+        slower = [r["layer"] for r in rows if r["rule"] == "wgmma" and
+                  None not in (r["wgmma_device_ms"], r["mma_device_ms"])
+                  and r["wgmma_device_ms"] > r["mma_device_ms"]]
+        out[f"int_forms_b{b}"]["slower_on_the_rule"] = slower
+        log(f"[vgg16] int8 forms at bucket {b}: shapes the rule gives the "
+            f"wgmma form where it is slower than the mma.sync form: "
+            f"{slower}")
 
     def total(rows, key):
         vals = [r.get(key) for r in rows]
@@ -5723,12 +5934,13 @@ def main(argv) -> int:
         kernels = []
         for name in KERNELS:
             src, replaces = SOURCES[name]
+            srcs = (src,) if isinstance(src, str) else src
             r = rows[name]
             n = bank_counts[name] if name == "conv_bank" else \
                 sum(served[path][name] for path in served)
             kernels.append({
-                "name": name, "route": "cuda", "source": src,
-                "replaces": replaces, "launches": n,
+                "name": name, "route": "cuda", "source": srcs[0],
+                "sources": list(srcs), "replaces": replaces, "launches": n,
                 "launches_by_path": launches[name],
                 "max_abs_err": max_err[name],
                 "bitwise_equal": max_err[name] == 0.0, "ms": r["ms"],

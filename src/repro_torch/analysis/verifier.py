@@ -91,17 +91,24 @@ _UPSAMPLE_METHODS = ("bilinear", "nearest")
 # warp maxima); restated from the CUDA sources, not imported.
 _SMEM_PER_CTA = 232448
 _CHAIN_SCRATCH = 32 * 4
-# the int8 strip kernel: output pixel slots a CTA, bytes a staged pixel or
-# weight row takes (a 32-byte C_in chunk and 16 unused bytes)
+# the int8 strip kernel's mma.sync forms: output pixel slots a CTA, bytes
+# a staged pixel or weight row takes (a 32-byte C_in chunk and 16 unused
+# bytes); its wgmma form: the tile's pixels a CTA (8 x 8 blocks, two
+# warpgroups of one or two m64 blocks), the alignment of its stages and
+# patch planes (a TMA box's), an mbarrier's bytes
 _INT_SLOTS = 128
 _INT_ROW_BYTES = 48
+_INT_WGMMA_PIXELS = (128, 256)
+_INT_WGMMA_ALIGN = 128
+_MBARRIER = 8
 # the batches whose strip launches are audited: batch 1 and the largest
 # serving bucket
 _AUDIT_BATCHES = (1, 8)
-# the int8 kernel's folded epilogue: its 4 warps' maxima after the stages;
+# the int8 kernel's folded epilogue: its (at most 8) warps' maxima after
+# the stages;
 # the epilogue's cluster CTA: the floats after its slice of y (its max,
 # the warp maxima, the frame's), and the cluster sizes its entry takes
-_FOLD_RED_BYTES = 4 * 4
+_FOLD_RED_BYTES = 8 * 4
 _CLUSTER_SCRATCH = 32
 # static shared memory a CTA has without the opt-in; photonic_mvm's K box
 # (bytes of K a TMA box) and the skinny route's rows a CTA
@@ -394,16 +401,26 @@ def _dw_smem(cfg, k: int, stride: int) -> int:
 
 
 def _int_smem(cfg, k: int, stride: int, folded: bool = False) -> int:
-    """Shared memory of the int8 strip kernel's CTA: ``stages`` C_in
-    stages, each the tile's input patch (halo included) and the chunk's
-    k*k x ``bn`` weight rows, ``_INT_ROW_BYTES`` a pixel or row; with the
-    taps folded into ``kf`` K bytes, one stage: the patch at 4 bytes a
-    pixel, 16-byte aligned, and ``bn`` weight rows of ``kf + 16`` bytes
-    (``csrc/conv_strip.cu::conv_strip_int_launch``); and, where the
+    """Shared memory of the int8 strip kernel's CTA. The mma.sync form:
+    ``stages`` C_in stages, each the tile's input patch (halo included)
+    and the chunk's k*k x ``bn`` weight rows, ``_INT_ROW_BYTES`` a pixel or
+    row; with the taps folded into ``kf`` K bytes, one stage: the patch at
+    4 bytes a pixel, 16-byte aligned, and ``bn`` weight rows of ``kf + 16``
+    bytes. The wgmma form: the alignment's slack, then ``stages`` stages
+    of ``ch / 16`` patch planes (16 channels of the patch, pitch rounded
+    up to the alignment) and as many weight planes (k*k x ``bn`` rows of
+    16 channels), and two mbarriers a stage
+    (``csrc/conv_strip.cu::conv_strip_int_launch``,
+    ``csrc/conv_strip_wgmma.cu::conv_strip_int_wgmma_launch``). Where the
     requant is ``folded`` into its store, the warp maxima after them."""
     rows_in = (cfg.th - 1) * stride + k
     cols_in = (cfg.tw - 1) * stride + k
     red = _FOLD_RED_BYTES if folded else 0
+    if cfg.form == "wgmma":
+        pitch = _cdiv(rows_in * cols_in * 16, _INT_WGMMA_ALIGN) * \
+            _INT_WGMMA_ALIGN
+        stage = cfg.ch // 16 * (pitch + k * k * cfg.bn * 16)
+        return _INT_WGMMA_ALIGN + cfg.stages * (stage + 2 * _MBARRIER) + red
     if cfg.kf:
         return cfg.stages * (_cdiv(rows_in * cols_in * 4, 16) * 16
                              + cfg.bn * (cfg.kf + 16)) + red
@@ -453,8 +470,10 @@ def _check_strip_launch(name: str, g, launch, out: List[Diagnostic]) -> None:
     kind = "int" if folded else kind
     if kind == "int":
         tile_w, tile_h, block = cfg.tw, cfg.th, cfg.bn
-        degenerate = min(tile_w, tile_h, block) < 1 or \
-            tile_w * tile_h > _INT_SLOTS
+        degenerate = min(tile_w, tile_h, block) < 1 or (
+            tile_w % 8 or tile_h % 8 or
+            tile_w * tile_h not in _INT_WGMMA_PIXELS
+            if cfg.form == "wgmma" else tile_w * tile_h > _INT_SLOTS)
     else:
         tile_w, tile_h = cfg.tx, cfg.tyt * cfg.run
         block = cfg.co_b if kind == "dense" else cfg.cb
@@ -469,7 +488,8 @@ def _check_strip_launch(name: str, g, launch, out: List[Diagnostic]) -> None:
             f"{what} has a degenerate tile or C_in chunk",
             hint="this is a strip_config/dw_config/igemm_config bug: "
                  "every tile dimension must be >= 1, the chunk within "
-                 "C_in and an int8 tile within its pixel slots"))
+                 "C_in and an int8 tile within its pixel slots (the wgmma "
+                 "form: 8 x 8 blocks, 128 or 256 pixels)"))
         return
     col_tiles = _cdiv(cols, tile_w)
     blocks = _cdiv(c_out, block)

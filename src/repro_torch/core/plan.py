@@ -495,7 +495,7 @@ def quantized_weights(steps: Tuple[PlanStep, ...], params: Dict[str, Dict],
             if isinstance(s, DenseStep):
                 levels = mvm_weights(wq)
             elif s.groups == 1 and routes.get(s.name) == "int":
-                levels = int_weights(wq)
+                levels = int_weights(wq, stride=s.stride)
             elif s.groups == 1 and s.strategy is not None and \
                     s.strategy.kind == "resident":
                 levels = mvm_weights(wq.reshape(-1, wq.shape[-1]))

@@ -9,7 +9,8 @@
 //   conv_strip_int_launch -> conv_strip_kernel again, and conv_bank_kernel
 //                           over a whole frame, for integer operands: u8
 //                           codes x s8 levels on the int8 tensor cores
-//                           (conv_igemm_kernel, below)
+//                           (conv_igemm_kernel and conv_igemm_fold_kernel,
+//                           below; the wgmma form in conv_strip_wgmma.cu)
 //
 // Contract (the TPU kernels'): x is [B, Hp, Wp, C_in], already padded, and
 // the output is every row the padded input yields,
@@ -129,10 +130,13 @@
 //     activation, the clamp at 0, unpooled, act_scale read on the device
 //     -- and each CTA writes its max of y, so csrc/epilogue.cu's pass 2
 //     follows with nothing between them.
-// The tile, the channel block and the stages come from the wrapper's plain
-// Python function (kernels/conv_bank/strip.py::igemm_config); which dense
-// shapes take this kernel and which the float64 one is
-// strip.py::dense_route, from the card's measurements of both (PERF.md).
+// The form (this kernel, its taps-folded twin, or the wgmma one in
+// conv_strip_wgmma.cu), tile, channel block and stages come from the
+// wrapper's plain Python function (kernels/conv_bank/strip.py::
+// igemm_config); which dense shapes take the int8 kernels and which the
+// float64 one is strip.py::dense_route, from the card's measurements of
+// both (PERF.md). The store and the folded epilogue are int_store.cuh's,
+// shared with the wgmma form.
 // Numerics: codes 0..255 times levels |q| <= 127 are exact in int32 in any
 // order while 255 * 127 * k * k * C_in < 2^31 (the launcher refuses the
 // rest), and __int2float_rn of the exact sum is the float64 tap loop's
@@ -153,10 +157,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "int_store.cuh"      // the int8 kernels' store and folded epilogue
+
 namespace {
 
 constexpr int kSmemDefault = 48 * 1024;    // without the opt-in attribute
-constexpr int kSmemMax = 232448;           // H100: 227 KB a block can opt into
 constexpr int kDenseThreads = 128;         // most threads of a dense CTA
 constexpr int kDwThreads = 128;            // most threads of a depthwise CTA
 constexpr int kDwFastRun = 8;              // depthwise rows a thread, k 3/5/7
@@ -710,26 +715,6 @@ __device__ __forceinline__ void mma_u8s8(int (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// dequant -> bias -> act on an exact int32 accumulate, as epilogue()
-__device__ __forceinline__ float epilogue_int(int acc, const float* ws,
-                                              const float* bias, int co,
-                                              float act_scale, int act) {
-  float v = __int2float_rn(acc);
-  if (ws != nullptr) {
-    v = __fmul_rn(__fmul_rn(v, act_scale), ws[co]);
-    if (bias != nullptr) v = __fadd_rn(v, bias[co]);
-    v = activate(v, act);
-  }
-  return v;
-}
-
-// the plan's epilogue's max (csrc/epilogue.cu): a NaN is kept, as torch's
-// clamp and max pool keep it
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a > b || a != a) ? a : b;
-}
-
-
 constexpr int kIgCh = 32;          // input channels (bytes) a stage holds
 constexpr int kIgLd = kIgCh + 16;  // bytes a staged pixel or weight row
                                    // takes: 3 16-byte units, odd, so the 8
@@ -737,187 +722,23 @@ constexpr int kIgLd = kIgCh + 16;  // bytes a staged pixel or weight row
 constexpr int kIgBm = 128;         // output pixel slots of a CTA
 constexpr int kIgFoldC = 4;        // channels (bytes) a folded tap carries
 constexpr int kIgFoldK = 128;      // most K bytes of a folded conv
-constexpr int kIgFoldRed = 4;      // the fold's warp maxima (4 warps a CTA)
 
-struct Igemm {
-  int hp, wp, c_in, c_out, k, stride;  // c_in a multiple of 16, or 4
-  int kf;                   // folded: K = k*k*4 rounded up to 32; else 0
-  int n_rows, w_out;        // output rows and columns
-  int th, tw;               // a CTA's tile: th output rows x tw columns
-  int tiles_w, tiles;       // tiles across a row, tiles a frame
-  int n_blocks;             // output-channel blocks
-  int rows_in, cols_in;     // the staged input patch, halo included
-  int patch_bytes, stage_bytes;
-  float act_scale;
-  int act;
-  // the fold (kFold): the plan's epilogue up to its pool, in its
-  // association, and each CTA's max into partials[blockIdx.x]
-  const float* scale;       // act_scale: scale_n (1 or batch) values
-  float* partials;          // [batch, tiles * n_blocks]
-  int scale_n, ws_n, bias_n;  // 1 or batch; 1 or c_out; 1 or c_out
-  int red_offset;           // bytes of dynamic shared memory before the
-                            // fold's kIgFoldRed floats of warp maxima
-};
-
-// A CTA's frame, first output pixel and first output channel: blockIdx.x
-// walks the channel blocks fastest, so neighbouring CTAs stage the same
-// input tile while it is in L2
-struct IgTile {
-  int b, oh0, ow0, n0;
-  __device__ __forceinline__ IgTile(const Igemm& g, int bn) {
-    const int nb = blockIdx.x % g.n_blocks;
-    const int mtile = blockIdx.x / g.n_blocks;
-    b = mtile / g.tiles;
-    const int t = mtile - b * g.tiles;
-    const int th_i = t / g.tiles_w;
-    oh0 = th_i * g.th;
-    ow0 = (t - th_i * g.tiles_w) * g.tw;
-    n0 = nb * bn;
+// the mma.sync kernels' slots: m16 fragment i of warp row wm holds slots
+// (wm * MT + i) * 16 + 0..15, slot p at tile row p / tw, column p % tw
+template <int MT>
+struct RowMajorSlots {
+  int base, tw, tile_px;
+  __device__ __forceinline__ RowMajorSlots(const Igemm& g, int wm, int lane)
+      : base(wm * MT * 16 + (lane >> 2)), tw(g.tw), tile_px(g.th * g.tw) {}
+  __device__ __forceinline__ bool operator()(int i, int h, int& tr,
+                                             int& tc) const {
+    const int p = base + i * 16 + 8 * h;
+    if (p >= tile_px) return false;
+    tr = p / tw;
+    tc = p - tr * tw;
+    return true;
   }
 };
-
-// c0, c1 at pixel slot lane / 4, channels 2 * (lane & 3) and + 1; c2, c3
-// at slot lane / 4 + 8: a lane writes 8 contiguous bytes where c_out is
-// even, four lanes one 32-byte sector. `value(acc, j, t)` is what goes out
-// for the lane's channel 2 * (lane & 3) + t of n8 fragment j.
-template <int MT, int NT, int WN, typename Value>
-__device__ __forceinline__ void store_values(
-    const int (&acc)[MT][NT][4], float* __restrict__ out, const Igemm& g,
-    int b, int oh0, int ow0, int n0, int wm, int wn, int lane, Value value) {
-  const int tile_px = g.th * g.tw;
-  const bool pairs = (g.c_out & 1) == 0;
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int p = (wm * MT + i) * 16 + (lane >> 2) + 8 * h;
-      if (p >= tile_px) continue;
-      const int tr = p / g.tw;
-      const int oh = oh0 + tr;
-      const int ow = ow0 + p - tr * g.tw;
-      if (oh >= g.n_rows || ow >= g.w_out) continue;
-      float* o = out + (((size_t)b * g.n_rows + oh) * g.w_out + ow) *
-                           g.c_out;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int co = n0 + (wn * NT + j) * 8 + (lane & 3) * 2;
-        if (co >= g.c_out) continue;
-        const float v0 = value(acc[i][j][2 * h], j, 0, co);
-        if (co + 1 >= g.c_out) {
-          o[co] = v0;
-          continue;
-        }
-        const float v1 = value(acc[i][j][2 * h + 1], j, 1, co + 1);
-        if (pairs) {
-          *(float2*)(o + co) = make_float2(v0, v1);
-        } else {
-          o[co] = v0;
-          o[co + 1] = v1;
-        }
-      }
-    }
-  }
-}
-
-// the fold's store, for one activation ACT (fused::ACTS: 0 none, 1 relu,
-// 2 abs, 3 sign): the plan's y clamped at 0 -- none and relu both
-// (v > 0 || v != v) ? v : 0, abs |v|, sign v > 0 (sign(NaN) is 0) -- from
-// the lane's channels' act_scale * ws and bias, made once; the CTA's max
-// of y into partials[blockIdx.x]
-template <int MT, int NT, int WN, int ACT>
-__device__ __forceinline__ void store_fold(
-    const int (&acc)[MT][NT][4], const float* __restrict__ ws,
-    const float* __restrict__ bias, float* __restrict__ out, const Igemm& g,
-    int b, int oh0, int ow0, int n0, int wm, int wn, int lane,
-    unsigned char* smem) {
-  const float sb = __ldg(g.scale + (g.scale_n > 1 ? b : 0));
-  float wsc[NT][2], bv[NT][2];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const int co = min(n0 + (wn * NT + j) * 8 + (lane & 3) * 2 + t,
-                         g.c_out - 1);
-      wsc[j][t] = __fmul_rn(sb, __ldg(ws + (g.ws_n > 1 ? co : 0)));
-      bv[j][t] = bias != nullptr ? __ldg(bias + (g.bias_n > 1 ? co : 0))
-                                 : 0.0f;
-    }
-  }
-  float m = 0.0f;                        // every y is >= 0
-  bool nan = false;
-  store_values<MT, NT, WN>(
-      acc, out, g, b, oh0, ow0, n0, wm, wn, lane,
-      [&](int a, int j, int t, int) {
-        float v = __fmul_rn(__int2float_rn(a), wsc[j][t]);
-        if (bias != nullptr) v = __fadd_rn(v, bv[j][t]);
-        float y;
-        if constexpr (ACT == 2) {
-          y = fabsf(v);
-        } else if constexpr (ACT == 3) {
-          y = v > 0.0f ? 1.0f : 0.0f;
-        } else {
-          y = (v > 0.0f || v != v) ? v : 0.0f;
-        }
-        m = fmaxf(m, y);
-        nan |= y != y;
-        return y;
-      });
-  // a NaN anywhere makes the max NaN, as nan_max's chain would
-  if (nan) m = __int_as_float(0x7fffffff);
-  for (int off = 16; off > 0; off >>= 1) {
-    m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, off));
-  }
-  float* red = reinterpret_cast<float*>(smem + g.red_offset);
-  if (lane == 0) red[threadIdx.x >> 5] = m;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const int warps = blockDim.x >> 5;
-    float r = red[0];
-    for (int i = 1; i < warps; ++i) r = nan_max(r, red[i]);
-    g.partials[blockIdx.x] = r;
-  }
-}
-
-// The CTA's output: epilogue_int's strip association (acc * act_scale *
-// ws, the conv_bank op's and the ws API's, unchanged); or, kFold, the
-// plan's (csrc/epilogue.cu's pooled()): v = __fmul_rn(__int2float_rn(acc),
-// __fmul_rn(scale[b], ws[co])), __fadd_rn(v, bias[co]), the activation,
-// and y = max(v, 0), unpooled; the CTA's max of y goes to
-// partials[blockIdx.x] (a CTA is one frame's, and a frame's CTAs are
-// consecutive: partials[b][CTA within the frame]). The max of the
-// unpooled clamped y equals the max of the max-pooled ones -- the windows
-// tile the frame, max is exact in any order, and a NaN anywhere makes
-// both NaN -- so epilogue.cu's pass 2 takes these partials as its pass
-// 1's and max-pools this y as it writes the codes.
-template <int MT, int NT, int WN, bool kFold>
-__device__ __forceinline__ void store_tile(
-    const int (&acc)[MT][NT][4], const float* __restrict__ ws,
-    const float* __restrict__ bias, float* __restrict__ out, const Igemm& g,
-    int b, int oh0, int ow0, int n0, int wm, int wn, int lane,
-    unsigned char* smem) {
-  if constexpr (kFold) {
-    switch (g.act) {
-      case 2:
-        store_fold<MT, NT, WN, 2>(acc, ws, bias, out, g, b, oh0, ow0, n0, wm,
-                                  wn, lane, smem);
-        return;
-      case 3:
-        store_fold<MT, NT, WN, 3>(acc, ws, bias, out, g, b, oh0, ow0, n0, wm,
-                                  wn, lane, smem);
-        return;
-      default:
-        store_fold<MT, NT, WN, 1>(acc, ws, bias, out, g, b, oh0, ow0, n0, wm,
-                                  wn, lane, smem);
-        return;
-    }
-  } else {
-    store_values<MT, NT, WN>(
-        acc, out, g, b, oh0, ow0, n0, wm, wn, lane,
-        [&](int a, int, int, int co) {
-          return epilogue_int(a, ws, bias, co, g.act_scale, g.act);
-        });
-  }
-}
 
 // One CTA: the th x tw output pixels of one tile (at most kIgBm, in
 // row-major slots) for BN = WN*NT*8 output channels; WM x WN warps, each
@@ -947,7 +768,7 @@ conv_igemm_kernel(const uint8_t* __restrict__ x, const int8_t* __restrict__ w,
   const int warp = tid >> 5;
   const int wm = warp / WN;
   const int wn = warp - wm * WN;
-  const IgTile tl(g, BN);
+  const IgTile tl(g, BN, blockIdx.x);
   const int b = tl.b, oh0 = tl.oh0, ow0 = tl.ow0, n0 = tl.n0;
   const int ih0 = oh0 * s;
   const int iw0 = ow0 * s;
@@ -1046,8 +867,10 @@ conv_igemm_kernel(const uint8_t* __restrict__ x, const int8_t* __restrict__ w,
     __syncthreads();           // slot free for chunk ci + 2
   }
 
-  store_tile<MT, NT, WN, kFold>(acc, ws, bias, out, g, b, oh0, ow0, n0, wm,
-                                wn, lane, smem);
+  store_tile<MT, NT, WN, kFold>(
+      acc, ws, bias, out, g, b, oh0, ow0, n0, wn, lane,
+      RowMajorSlots<MT>(g, wm, lane),
+      reinterpret_cast<float*>(smem + g.red_offset), THREADS, blockIdx.x);
 }
 
 // Small C_in (conv1's 3): the k*k taps folded into K. The codes carry 4
@@ -1080,7 +903,7 @@ conv_igemm_fold_kernel(const uint8_t* __restrict__ x,
   const int warp = tid >> 5;
   const int wm = warp / WN;
   const int wn = warp - wm * WN;
-  const IgTile tl(g, BN);
+  const IgTile tl(g, BN, blockIdx.x);
   const int b = tl.b, oh0 = tl.oh0, ow0 = tl.ow0, n0 = tl.n0;
   const int ih0 = oh0 * s;
   const int iw0 = ow0 * s;
@@ -1161,20 +984,11 @@ conv_igemm_fold_kernel(const uint8_t* __restrict__ x,
                  bf[j / 2][2 * (j & 1) + 1]);
     }
   }
-  store_tile<MT, NT, WN, kFold>(acc, ws, bias, out, g, b, oh0, ow0, n0, wm,
-                                wn, lane, smem);
+  store_tile<MT, NT, WN, kFold>(
+      acc, ws, bias, out, g, b, oh0, ow0, n0, wn, lane,
+      RowMajorSlots<MT>(g, wm, lane),
+      reinterpret_cast<float*>(smem + g.red_offset), THREADS, blockIdx.x);
 }
-
-struct IgLaunch {
-  const void* x;
-  const void* w;
-  const void* ws;
-  const void* bias;
-  void* out;
-  int batch, stages;
-  Igemm g;
-  cudaStream_t stream;
-};
 
 template <typename Kernel>
 int launch_igemm_fn(Kernel kernel, int threads, const IgLaunch& l) {
@@ -1422,18 +1236,11 @@ extern "C" int conv_strip_int_fold_launch(
   const int err = igemm_geometry(&g, x, w, batch, hp, wp, c_in, c_out, k,
                                  stride, th, tw, bn, stages);
   if (err != 0) return err;
-  if (ws == nullptr || scale == nullptr || partials == nullptr ||
-      (scale_n != 1 && scale_n != batch) || (ws_n != 1 && ws_n != c_out) ||
-      (bias != nullptr && bias_n != 1 && bias_n != c_out) || act < 0 ||
-      act > 3) {
+  if (!fold_args_ok(ws, bias, partials, scale, scale_n, ws_n, bias_n, batch,
+                    c_out, act)) {
     return (int)cudaErrorInvalidValue;
   }
-  g.act = act;
-  g.scale = (const float*)scale;
-  g.partials = (float*)partials;
-  g.scale_n = scale_n;
-  g.ws_n = ws_n;
-  g.bias_n = bias_n;
+  set_fold(&g, act, scale, partials, scale_n, ws_n, bias_n);
   const IgLaunch l{x, w, ws, bias, out, batch, stages, g,
                    (cudaStream_t)stream};
   return launch_igemm(l, bn);

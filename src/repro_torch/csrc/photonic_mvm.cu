@@ -78,10 +78,10 @@
 // alone when ws is null: the reference's association, rounded step by
 // step, never contracted.
 
-#include <cuda.h>             // CUtensorMap and its enums; no -lcuda: the
-#include <cuda_runtime.h>     // encoder is found through the runtime
 #include <stdint.h>
 #include <string.h>
+
+#include "hopper.cuh"         // mbarriers, TMA, wgmma's sync, the encoder
 
 namespace {
 
@@ -119,10 +119,6 @@ constexpr int LN = 64;                 // and rows of N
 constexpr int L_LD = LK + 4;           // its smem row: 33 words, odd
 constexpr int LT_THREADS = 256;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
 __device__ __forceinline__ void cp_async(void* smem, const void* gmem,
                                          int bytes) {
   const unsigned s = smem_u32(smem);
@@ -142,52 +138,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-// until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t b = smem_u32(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done) : "r"(b), "r"(parity) : "memory");
-  }
-}
-
-// one 2-D TMA box (c0 = byte of K, c1 = row) into smem, counted on `bar`
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
-      :: "r"(smem_u32(dst)), "l"((uint64_t)map), "r"(smem_u32(bar)),
-         "r"(c0), "r"(c1)
-      : "memory");
 }
 
 // the same, read from HBM with an evict-first L2 policy (`policy`, from
@@ -246,19 +196,6 @@ __device__ __forceinline__ void ldmatrix_a(uint32_t (&a)[4],
 __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t)1 << 16 |
          (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
 // d += A (64 x 32 bytes) . B (64 x 32 bytes)^T, both K-major in smem
@@ -743,49 +680,16 @@ mvm_layout_kernel(const int8_t* __restrict__ w, int8_t* __restrict__ wt,
   }
 }
 
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// the CUDA driver API's cuTensorMapEncodeTiled, found once through the
-// runtime
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? (EncodeTiled)p : nullptr;
-  }();
-  return fn;
-}
-
 // a 2-D map of an int8 matrix [rows, cols] with rows `cols` bytes apart:
 // boxes of 128 bytes of a row x box_rows rows, in the 128-byte swizzle,
 // zero filled past the matrix
 int encode_map(CUtensorMap* map, const void* base, int rows, int cols,
                int box_rows) {
-  const EncodeTiled enc = encoder();
-  if (enc == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols};
   const cuuint32_t box[2] = {(cuuint32_t)KBOX, (cuuint32_t)box_rows};
-  const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
-                         const_cast<void*>(base), dims, strides, box, unit,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  return encode_int8_map(map, base, 2, dims, strides, box,
+                         CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 struct Args {

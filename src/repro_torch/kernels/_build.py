@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first
 use, by ``nvcc`` alone, into its own shared library under ``build/kernels``
 at the root of the checkout, then loaded with ``ctypes``. The library's
-file name carries a digest of the source and the flags, so an edited
-source is rebuilt and a stale library is never loaded. :func:`build`
+file name carries a digest of the source, of every header under ``csrc``
+it includes (``#include "..."``, followed recursively; ``hopper.cuh``
+and ``int_store.cuh``, each shared by two sources) and of the flags, so an edited source or header is
+rebuilt and a stale library is never loaded. :func:`build`
 starts one ``nvcc`` per missing library, all at once, and waits for them.
 
 Nothing here runs at import time: the module imports on a machine with no
@@ -20,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import re
 import shutil
 import subprocess
 import threading
@@ -30,7 +33,7 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("photonic_mvm", "conv_chain", "ca_pool", "conv_strip",
-           "epilogue")
+           "conv_strip_wgmma", "epilogue")
 # -Xptxas -v reports registers, shared memory and spills into the build log
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -54,10 +57,30 @@ def nvcc() -> str:
                       "use and need the CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list:
+    """``csrc/<name>.cu`` and every file it includes by ``#include "..."``
+    (relative to the including file), recursively, each once, in the
+    order first met."""
+    out, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0).resolve()
+        if path in out:
+            continue
+        out.append(path)
+        todo += [path.parent / inc.decode()
+                 for inc in _INCLUDE.findall(path.read_bytes())]
+    return out
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+    h = hashlib.sha256()
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:

@@ -1,4 +1,5 @@
-"""Wrappers of the strip conv kernels (``csrc/conv_strip.cu``) and their
+"""Wrappers of the strip conv kernels (``csrc/conv_strip.cu``, and
+``csrc/conv_strip_wgmma.cu`` for the int8 kernel's wgmma form) and their
 plain versions.
 
 ``conv_strip`` (dense, any stride) and ``conv_strip_depthwise`` (depthwise,
@@ -15,6 +16,16 @@ block, from the shape alone (tested on the CPU).
 With ``ws`` the per-layer epilogue follows the accumulate, in the
 reference kernel's association: ``acc * act_scale * ws``, then ``+ bias``,
 then the activation. Without ``ws`` the raw accumulate comes back.
+
+The int8 kernel (``conv_strip_int``) has three forms, one a launch, which
+:func:`igemm_config` picks from the shape: the wgmma form (stride 1, C_in
+a multiple of 16, from ``WG_MIN_C`` input and output channels: VGG16's
+conv2-conv10; ``csrc/conv_strip_wgmma.cu``, its operands staged by TMA,
+the levels' tensor map kept with :class:`IntWeights`), and the mma.sync
+forms of ``csrc/conv_strip.cu`` for the rest (the folded taps for C_in <=
+4: conv1). The form does not depend on the batch (:func:`int_form`), so
+:func:`int_weights` lays the levels out for that form alone. Every form
+is bitwise the same plain version.
 
 The int8 kernel also takes the plan executor's epilogue folded into its
 store (:class:`Fold`, :func:`launch_int`): in the plan's association,
@@ -33,8 +44,8 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -49,15 +60,22 @@ DW_LAUNCHES = _build.LaunchCounter("conv_strip_depthwise")
 INT_LAUNCHES = _build.LaunchCounter("conv_strip_int")
 _DW_ENTRY = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6 + (
     ctypes.c_float,) + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
-_DENSE_ENTRY = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7 + (
-    ctypes.c_float,) + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
 _SIGNATURES = {
     "conv_strip_launch": (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7 + (
         ctypes.c_float,) + (ctypes.c_int,) * 6 + (ctypes.c_void_p,),
     "conv_strip_dw_launch": _DW_ENTRY,
-    "conv_strip_int_launch": _DENSE_ENTRY,
+    "conv_strip_int_launch": (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7 + (
+        ctypes.c_float,) + (ctypes.c_int,) * 5 + (ctypes.c_void_p,),
     "conv_strip_int_fold_launch": (ctypes.c_void_p,) * 7 + (
         ctypes.c_int,) * 15 + (ctypes.c_void_p,)}
+# the wgmma form's library (csrc/conv_strip_wgmma.cu)
+_WG_SIGNATURES = {
+    "conv_strip_int_wgmma_launch": (ctypes.c_void_p,) * 5 + (
+        ctypes.c_int,) * 7 + (ctypes.c_float,) + (ctypes.c_int,) * 6 + (
+        ctypes.c_void_p,),
+    "conv_strip_int_wgmma_fold_launch": (ctypes.c_void_p,) * 7 + (
+        ctypes.c_int,) * 16 + (ctypes.c_void_p,),
+    "conv_strip_int_tensor_map": (ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 5}
 
 SMS = 132                       # H100 SXM
 SMEM_MAX = 232448               # bytes a CTA can opt into
@@ -81,8 +99,9 @@ IGEMM_BN = (16, 32, 64)
 IGEMM_C_ALIGN = 16
 IGEMM_FOLD_C, IGEMM_FOLD_K = 4, 128          # taps folded into K: channels a
                                              # tap carries, most K bytes
-IGEMM_FOLD_RED = 4 * 4          # the epilogue fold's warp maxima, bytes of
-                                # shared memory after the stages
+IGEMM_FOLD_RED = 8 * 4          # the epilogue fold's warp maxima (8 warps
+                                # at most), bytes of shared memory after
+                                # the stages
 IGEMM_TW = (1, 2, 4, 8, 16, 32, 64, 128)    # tile widths besides w_out
 INT_CODE_MAX, INT_LEVEL_MAX = 255, 127       # u8 codes, s8 levels
 # the route rule (PERF.md gives the card's times of both kernels at every
@@ -91,6 +110,28 @@ INT_CODE_MAX, INT_LEVEL_MAX = 255, 127       # u8 codes, s8 levels
 # the int8 kernel; the rest the float64 one
 IGEMM_MIN_C_IN = 16
 IGEMM_MIN_C_OUT = 64
+# the int8 kernel's wgmma form (conv_igemm_wgmma_kernel): its tiles (th,
+# tw) of 8 x 8 blocks of output pixels, 256 or 128 a CTA (two consumer
+# warpgroups of 2 or 1 m64 blocks); its output-channel blocks; the
+# channels (bytes) a stage may hold; its most stages; the alignment of
+# its stages (a TMA box's) and of a patch plane's pitch
+WG_TILES = ((16, 16), (8, 32), (32, 8), (16, 8), (8, 16))
+WG_BN = (64, 128)
+WG_CH = (64, 32)
+WG_MAX_STAGES = 4
+WG_ALIGN = 128
+# the launch rule's relative MAC rates of a CTA of (pixels, channels), one
+# CTA an SM: fitted to the card's times of every launch at VGG16's
+# conv2-conv13, buckets 1 and 8 (scripts/strip_int_forms.py
+# --alternatives; PERF.md)
+WG_RATE = {(128, 64): 1.0, (128, 128): 1.45, (256, 64): 1.4,
+           (256, 128): 1.6}
+# the launch rule gives the wgmma form the convs of at least this many
+# input and output channels: VGG16's conv2-conv13, where the card ran it
+# faster than the mma.sync form at buckets 1 and 8. Narrower convs (the
+# conv_bank op's 16 -> 32 channels among them) keep the mma.sync form;
+# both forms' times there are in PERF.md (row 6)
+WG_MIN_C = 64
 
 
 @dataclass(frozen=True)
@@ -225,18 +266,26 @@ def dw_config(batch: int, n_rows: int, w_out: int, c: int, k: int,
 
 @dataclass(frozen=True)
 class IgemmConfig:
-    """One launch of the int8 tensor-core kernel: a tile of ``th`` output
-    rows x ``tw`` columns (at most ``IGEMM_BM`` pixels) for ``bn`` output
-    channels a CTA, C_in in ``IGEMM_CH``-byte chunks through ``stages``
-    shared-memory stages."""
-    k_inst: int                 # the kernel's KT: 3, or 0 (any k)
+    """One launch of the int8 tensor-core kernel in one of its forms: a
+    tile of ``th`` output rows x ``tw`` columns for ``bn`` output channels
+    a CTA, C_in in ``ch``-byte chunks through ``stages`` shared-memory
+    stages. ``form`` is ``"wgmma"`` (``conv_igemm_wgmma_kernel``: tiles of
+    8 x 8 blocks, 128 or 256 pixels, chunks staged by TMA), ``"mma"``
+    (``conv_igemm_kernel``: at most ``IGEMM_BM`` pixels, ``IGEMM_CH``-byte
+    chunks) or ``"taps"`` (``conv_igemm_fold_kernel``: the taps folded into
+    ``kf`` K bytes, one stage)."""
+    k_inst: int                 # the mma kernels' KT: 3, or 0 (any k)
     th: int
     tw: int
     bn: int
     stages: int
     smem: int                   # dynamic shared memory, bytes
-    ctas: int
+    ctas: int                   # work items: a CTA each of the mma.sync
+                                # forms; the wgmma form's grid is at most
+                                # one CTA an SM, each walking several
     kf: int = 0                 # folded taps: K bytes; 0 otherwise
+    form: str = "mma"
+    ch: int = IGEMM_CH
 
 
 def igemm_fold_k(c_in: int, k: int) -> int:
@@ -278,20 +327,161 @@ def int_exact(c_in: int, k: int) -> bool:
         2 ** 31
 
 
+def wgmma_planes(th: int, tw: int, bn: int, k: int) -> tuple:
+    """The wgmma form's 16-channel planes, as its launcher lays them out:
+    ``(patch_box, patch_pitch, wplane)`` -- one TMA box of the tile's input
+    patch (u8 [rows_in][cols_in][16], halo included), its pitch in a stage
+    (rounded up to ``WG_ALIGN``), and one weight plane (s8 [k*k][bn][16])."""
+    box = (th + k - 1) * (tw + k - 1) * 16
+    return box, _cdiv(box, WG_ALIGN) * WG_ALIGN, k * k * bn * 16
+
+
+def wgmma_smem(th: int, tw: int, bn: int, k: int, ch: int,
+               stages: int) -> int:
+    """Dynamic shared memory of the wgmma form (without the fold's warp
+    maxima): the alignment's slack, ``stages`` stages of ``ch // 16``
+    patch and weight planes, a full and an empty mbarrier a stage."""
+    _, pitch, wplane = wgmma_planes(th, tw, bn, k)
+    return WG_ALIGN + stages * (ch // 16 * (pitch + wplane) + 16)
+
+
+def _wgmma_stages(c_in: int, th: int, tw: int, bn: int, k: int):
+    """``(ch, stages, smem)`` of a wgmma tile: 32-channel chunks for blocks
+    of 128 channels over 256 or more input channels (a stage of 64 would
+    leave room for 2: more, smaller stages ran faster there), else 64 (or
+    32 where C_in takes one 32-byte k-step); the most stages up to
+    ``WG_MAX_STAGES`` (no more than its chunks; 2 at least over several)
+    whose shared memory, the fold's maxima included, fits a CTA; the
+    other chunk where none does; None where nothing fits."""
+    want = 32 if (bn == 128 and c_in >= 256) or c_in <= 32 else 64
+    for ch in (want, 96 - want):
+        chunks = _cdiv(c_in, ch)
+        for stages in range(min(WG_MAX_STAGES, chunks), 0, -1):
+            if chunks > 1 and stages < 2:
+                break
+            smem = wgmma_smem(th, tw, bn, k, ch, stages)
+            if smem + IGEMM_FOLD_RED <= SMEM_MAX:
+                return ch, stages, smem
+    return None
+
+
+@functools.lru_cache(maxsize=256)
+def wgmma_launches(c_in: int, c_out: int, k: int, stride: int) -> tuple:
+    """The wgmma form's launches that fit a CTA for a conv of c_in
+    channels (a multiple of 16) -> c_out at k x k, stride 1, whatever the
+    batch and frame: ``(th, tw, bn, (ch, stages, smem))`` of each tile of
+    ``WG_TILES`` and block of ``WG_BN`` (64 alone up to 64 output
+    channels); none where the form does not take the conv. Blocks of 128
+    channels over at most 128 input channels (one or two chunks) take
+    128-pixel tiles only: the card ran them 10% faster than 256 there. The
+    chunking is :func:`_wgmma_stages`'."""
+    if stride != 1 or c_in < 16 or c_in % 16 or k * k > 256:
+        return ()
+    out = []
+    for bn in WG_BN:
+        if bn > 64 and c_out <= 64:
+            continue
+        for th, tw in WG_TILES:
+            if th + k - 1 > 256 or tw + k - 1 > 256 or (
+                    bn == 128 and c_in <= 128 and th * tw == 256):
+                continue
+            stages = _wgmma_stages(c_in, th, tw, bn, k)
+            if stages is not None:
+                out.append((th, tw, bn, stages))
+    return tuple(out)
+
+
+def wgmma_config(batch: int, n_rows: int, w_out: int, c_in: int,
+                 c_out: int, k: int, stride: int) -> Optional[IgemmConfig]:
+    """The wgmma form's launch for output [batch, n_rows, w_out, c_out]
+    from c_in channels (a multiple of 16) at k x k, stride 1: None where
+    the form does not take the conv. Among :func:`wgmma_launches`, the
+    least waves of CTAs over the card's SMs times a CTA's pixels x
+    channels over its rate (``WG_RATE``); then the larger tile (each
+    staged weight byte serves more pixels), the larger block, the fewer
+    tiles, the smaller patch."""
+    best = None
+    for th, tw, bn, (ch, n_stages, smem) in wgmma_launches(c_in, c_out, k,
+                                                          stride):
+        tiles = _cdiv(n_rows, th) * _cdiv(w_out, tw)
+        ctas = batch * tiles * _cdiv(c_out, bn)
+        key = (_cdiv(ctas, SMS) * th * tw * bn / WG_RATE[(th * tw, bn)],
+               -th * tw, -bn, tiles, (th + k - 1) * (tw + k - 1))
+        if best is None or key < best[0]:
+            best = (key, IgemmConfig(0, th, tw, bn, n_stages, smem, ctas, 0,
+                                     "wgmma", ch))
+    return None if best is None else best[1]
+
+
+def int_form(c_in: int, c_out: int, k: int, stride: int) -> str:
+    """The int8 kernel's form :func:`igemm_config` gives a conv of c_in
+    channels (its operands', :func:`igemm_c_in`) -> c_out at k x k,
+    stride ``stride``, whatever the batch and frame: ``"wgmma"`` from
+    ``WG_MIN_C`` input and output channels where the form takes the conv
+    (:func:`wgmma_launches`); ``"taps"`` where the taps fold (C_in <= 4);
+    ``"mma"`` otherwise. :func:`int_weights` lays out the levels for it."""
+    if c_in >= WG_MIN_C and c_out >= WG_MIN_C and \
+            wgmma_launches(c_in, c_out, k, stride):
+        return "wgmma"
+    return "taps" if igemm_fold_k(c_in, k) else "mma"
+
+
+def wgmma_descriptors(cfg: IgemmConfig, k: int, q: int, tap: int,
+                      block: int) -> tuple:
+    """The wgmma form's operands for k-step ``q`` of a stage (channels 32q
+    .. 32q + 31 of its chunk), tap ``tap`` = di * k + dj and the CTA's m64
+    block ``block`` (its 8 x 8 blocks row-major): ``((a_start, a_lbo,
+    a_sbo), (b_start, b_lbo, b_sbo))``, bytes from the stage's start, of
+    two no-swizzle K-major tiles -- core matrices of 8 rows x 16
+    contiguous bytes, the next 16 bytes of K ``lbo`` on, the next 8 rows
+    ``sbo`` on -- as ``conv_igemm_wgmma_kernel`` builds them: A the 8 x 8
+    output pixels' patch pixels shifted by the tap in patch plane 2q, B the
+    tap's ``bn`` rows of weight plane 2q."""
+    _, pitch, wplane = wgmma_planes(cfg.th, cfg.tw, cfg.bn, k)
+    cols_in = cfg.tw + k - 1
+    bw = cfg.tw // 8
+    br, bc = divmod(block, bw)
+    di, dj = divmod(tap, k)
+    a = (2 * q * pitch + ((8 * br + di) * cols_in + 8 * bc + dj) * 16,
+         pitch, cols_in * 16)
+    b = (cfg.ch // 16 * pitch + 2 * q * wplane + tap * cfg.bn * 16,
+         wplane, 128)
+    return a, b
+
+
 @functools.lru_cache(maxsize=1024)
 def igemm_config(batch: int, n_rows: int, w_out: int, c_in: int, c_out: int,
-                 k: int, stride: int) -> IgemmConfig:
+                 k: int, stride: int, form: Optional[str] = None
+                 ) -> IgemmConfig:
     """The int8 kernel's launch for output [batch, n_rows, w_out, c_out]
-    from c_in channels at k x k, stride ``stride``: the smallest of
-    ``IGEMM_BN`` that holds c_out (64 past it); the tile of the fewest
-    CTAs, then the smallest staged patch, among widths ``w_out`` and
-    ``IGEMM_TW`` (each as tall as ``IGEMM_BM`` slots allow), then the
-    widest, whose stages fit a CTA, with smaller channel blocks tried when none does. Two
-    stages when C_in takes more than one chunk. A shape nothing fits (a
-    very large k) gets the 1 x 1 tile of 16 channels, whose ``smem`` says
-    so: :func:`launch_int` raises on it. C_in <= 4 at k*k*4 <= 128 takes
-    the folded form (``kf``): one stage, the taps in K."""
+    from c_in channels at k x k, stride ``stride``, in :func:`int_form`'s
+    form: the wgmma form's (:func:`wgmma_config`) from ``WG_MIN_C`` input
+    and output channels where it takes the conv (stride 1, C_in a multiple
+    of 16, a stage that fits); else the mma.sync forms'. ``form`` forces
+    one (``"wgmma"``, wherever it takes the conv, else it raises; or
+    ``"mma"``: the folded taps where C_in <= 4).
+
+    The mma.sync forms: the smallest of ``IGEMM_BN`` that holds c_out (64
+    past it); the tile of the fewest CTAs, then the smallest staged patch,
+    among widths ``w_out`` and ``IGEMM_TW`` (each as tall as ``IGEMM_BM``
+    slots allow), then the widest, whose stages fit a CTA, with smaller
+    channel blocks tried when none does. Two stages when C_in takes more
+    than one chunk. A shape nothing fits (a very large k) gets the 1 x 1
+    tile of 16 channels, whose ``smem`` says so: :func:`launch_int` raises
+    on it. C_in <= 4 at k*k*4 <= 128 takes the folded taps (``kf``): one
+    stage, the taps in K."""
+    if form not in (None, "wgmma", "mma"):
+        raise ValueError(f"igemm_config: form {form!r}")
+    if form == "wgmma" or (form is None and
+                           int_form(c_in, c_out, k, stride) == "wgmma"):
+        cfg = wgmma_config(batch, n_rows, w_out, c_in, c_out, k, stride)
+        if cfg is None:
+            raise ValueError(f"igemm_config: the wgmma form does not take "
+                             f"{c_in} -> {c_out} channels at k={k} "
+                             f"stride={stride}")
+        return cfg
     kf = igemm_fold_k(c_in, k)
+    name = "taps" if kf else "mma"
     stages = 2 if _cdiv(igemm_c_in(c_in, k), IGEMM_CH) > 1 else 1
     bn_first = next((bn for bn in IGEMM_BN if bn >= c_out), IGEMM_BN[-1])
     widths = sorted({tw for tw in (w_out, *IGEMM_TW)
@@ -312,11 +502,12 @@ def igemm_config(batch: int, n_rows: int, w_out: int, c_in: int, c_out: int,
         if best is not None:
             _, th, tw, smem = best
             return IgemmConfig(3 if k == 3 else 0, th, tw, bn, stages, smem,
-                               batch * best[0][0] * _cdiv(c_out, bn), kf)
+                               batch * best[0][0] * _cdiv(c_out, bn), kf,
+                               name)
     bn = IGEMM_BN[0]
     return IgemmConfig(3 if k == 3 else 0, 1, 1, bn, stages,
                        stages * igemm_stage_bytes(1, 1, bn, k, stride, kf),
-                       batch * n_rows * w_out * _cdiv(c_out, bn), kf)
+                       batch * n_rows * w_out * _cdiv(c_out, bn), kf, name)
 
 
 def dense_route(c_in: int, c_out: int, k: int, stride: int) -> str:
@@ -590,39 +781,79 @@ def int_operands(codes: torch.Tensor, w: torch.Tensor,
 @dataclass(frozen=True)
 class IntWeights:
     """A conv's operands for the int8 kernel, laid out once
-    (:func:`int_weights`): ``w8`` the int8 levels [k, k, C_k, C_out] with
-    zero channels up to C_k = :func:`igemm_c_in` (what the plain version
-    takes), ``wt`` the same levels as the kernel stages them ([k*k, C_out,
-    C_k], C_k contiguous; folded, [C_out, kf] with K = tap*4 + channel),
-    ``ws`` and ``bias`` flat contiguous float32 or None."""
+    (:func:`int_weights`) for one of its forms: ``w8`` the int8 levels
+    [k, k, C_k, C_out] with zero channels up to C_k = :func:`igemm_c_in`
+    (what the plain version takes); ``wt`` the levels as the mma.sync
+    forms stage them ([k*k, C_out, C_k], C_k contiguous; folded, [C_out,
+    kf] with K = tap*4 + channel), or ``wp`` as the wgmma form's TMA boxes
+    read them (plane-major [C_k / 16, k*k, C_out, 16]: a tap's output
+    channels' 16 channels of a plane contiguous, so one box of 8-byte
+    elements takes a stage's planes, a row a tap's block), the other None;
+    ``ws`` and ``bias`` flat contiguous float32 or None; ``maps`` the wgmma
+    form's tensor maps of ``wp`` by (output-channel block, chunk) (128
+    bytes each), built on the form's first launch at each and kept with
+    the layout (a bound view's captures build them at bind)."""
     w8: torch.Tensor
-    wt: torch.Tensor
+    wt: Optional[torch.Tensor]
     ws: Optional[torch.Tensor] = None
     bias: Optional[torch.Tensor] = None
+    wp: Optional[torch.Tensor] = None
+    maps: Dict[tuple, ctypes.Array] = field(default_factory=dict,
+                                            compare=False, repr=False)
+
+    def levels_map(self, lib, bn: int, ch: int) -> int:
+        """Address of ``wp``'s tensor map for the wgmma form's ``bn``-channel
+        blocks and ``ch``-channel chunks (boxes of 8-byte elements: ``bn``
+        rows of 16 bytes x every tap x ``ch / 16`` planes)."""
+        buf = self.maps.get((bn, ch))
+        if buf is None:
+            planes, taps, c_out, _ = self.wp.shape
+            buf = ctypes.create_string_buffer(128)
+            _build.check(lib.conv_strip_int_tensor_map(
+                ctypes.addressof(buf), self.wp.data_ptr(), taps, c_out,
+                16 * planes, bn, ch), "conv_strip_int tensor map")
+            self.maps[(bn, ch)] = buf
+        return ctypes.addressof(buf)
 
 
 def int_weights(w: torch.Tensor, ws: Optional[torch.Tensor] = None,
-                bias: Optional[torch.Tensor] = None) -> IntWeights:
+                bias: Optional[torch.Tensor] = None, stride: int = 1,
+                form: Optional[str] = None) -> IntWeights:
     """Lay out a conv's integer levels w [k, k, C_in, C_out] (and its
-    ``ws`` / ``bias``) for the int8 kernel: the int8 cast, the channel
-    pad, the transpose (or, folded, the [C_out, kf] pad) and the flat
-    float32 scales. A bound view does it once a step at bind
-    (``plan.quantized_weights``); an unbound call once a launch."""
+    ``ws`` / ``bias``) for the int8 kernel's form at ``stride``
+    (:func:`int_form`'s, or ``form`` forced as :func:`igemm_config` takes
+    it): the int8 cast and the channel pad, then the transpose (the
+    mma.sync forms'), the [C_out, kf] pad (the folded taps') or the
+    plane-major copy (the wgmma form's), and the flat float32 scales. A
+    bound view does it once a step at bind (``plan.quantized_weights``);
+    an unbound call once a launch. (One layout for both forms was tried:
+    the plane-major one read by the mma.sync kernel's 16-byte copies
+    slowed it 10-15% at VGG16's shapes.)"""
+    if form not in (None, "wgmma", "mma"):
+        raise ValueError(f"int_weights: form {form!r}")
     kk, c_in, c_out = w.shape[0], w.shape[2], w.shape[-1]
     c_k = igemm_c_in(c_in, kk)
     w8 = w.to(torch.int8)
     if c_k != c_in:
         w8 = F.pad(w8, (0, 0, 0, c_k - c_in))
-    kf = igemm_fold_k(c_k, kk)
-    wt = w8.reshape(kk * kk, c_k, c_out)
-    if kf:
-        wt = F.pad(wt.reshape(-1, c_out).t(),
-                   (0, kf - kk * kk * IGEMM_FOLD_C)).contiguous()
+    if form is None:
+        form = int_form(c_k, c_out, kk, stride)
+    wt = wp = None
+    if form == "wgmma":
+        if not wgmma_launches(c_k, c_out, kk, 1):
+            raise ValueError(f"int_weights: the wgmma form does not take "
+                             f"{c_k} -> {c_out} channels at k={kk}")
+        wp = w8.reshape(kk * kk, c_k // 16, 16, c_out).permute(
+            1, 0, 3, 2).contiguous()
+    elif igemm_fold_k(c_k, kk):
+        wt = F.pad(w8.reshape(-1, c_out).t(),
+                   (0, igemm_fold_k(c_k, kk) - kk * kk * IGEMM_FOLD_C)
+                   ).contiguous()
     else:
-        wt = wt.transpose(1, 2).contiguous()
+        wt = w8.reshape(kk * kk, c_k, c_out).transpose(1, 2).contiguous()
     flat = [t if t is None else t.reshape(-1).to(torch.float32).contiguous()
             for t in (ws, bias)]
-    return IntWeights(w8, wt, *flat)
+    return IntWeights(w8, wt, *flat, wp)
 
 
 @dataclass(frozen=True)
@@ -639,38 +870,48 @@ class Fold:
 
 
 def fold_partials(b: int, cfg: IgemmConfig) -> int:
-    """The fold's partial maxima a frame: one a CTA (a CTA is one frame's:
-    its tiles times its channel blocks)."""
+    """The fold's partial maxima a frame: one a work item, a tile's
+    channel block (a CTA of the mma.sync forms; the wgmma form's CTAs walk
+    several), one frame's: its tiles times its channel blocks."""
     return cfg.ctas // b
 
 
 def launch_int(x_padded: torch.Tensor, iw: IntWeights, act_scale: float,
-               act: str, stride: int, fold: Optional[Fold] = None):
+               act: str, stride: int, fold: Optional[Fold] = None,
+               cfg: Optional[IgemmConfig] = None):
     """Launch the int8 kernel on CUDA tensors (validated by the caller) and
     count it on ``INT_LAUNCHES``: ``x_padded`` takes :func:`int_codes`'
     form (callers on the path hand it over already), the levels, ``ws``
     and ``bias`` :func:`int_weights`' layout, and :func:`igemm_config`'s
-    configuration is taken. With ``fold`` (``iw``'s own ``ws`` and
-    ``bias`` unused) -> ``(y, partials)``: y unpooled, activated and
-    clamped at 0, and partials [B, :func:`fold_partials`] each CTA's max
-    of y; else the output."""
+    configuration is taken (or ``cfg``: the tests and the timings force a
+    form). With ``fold`` (``iw``'s own ``ws`` and ``bias`` unused) ->
+    ``(y, partials)``: y unpooled, activated and clamped at 0, and partials
+    [B, :func:`fold_partials`] each work item's max of y; else the output. The
+    wgmma form's codes need a 16-byte-aligned base (a tensor map's): a
+    view that has none raises."""
     dev = x_padded.device
     kk, c_out = iw.w8.shape[0], iw.w8.shape[-1]
     flat = [t.reshape(-1).to(torch.float32).contiguous()
             if t is not None else None
             for t in ((fold.act_scale, fold.ws, fold.bias) if fold
                       else (None, iw.ws, iw.bias))]
-    for t in (iw.wt, *flat):
-        if t is not None and t.device != dev:
-            raise ValueError(f"conv_strip_int: operands on {dev} and "
-                             f"{t.device}")
     x = int_codes(x_padded, kk).contiguous()
     b, hp, wp, c_k = x.shape
     n_rows = (hp - kk) // stride + 1
     w_out = (wp - kk) // stride + 1
+    if cfg is None:
+        cfg = igemm_config(b, n_rows, w_out, c_k, c_out, kk, stride)
+    levels = iw.wp if cfg.form == "wgmma" else iw.wt
+    if levels is None:
+        raise ValueError(f"conv_strip_int: the levels are not laid out for "
+                         f"the {cfg.form} form (int_weights' stride or "
+                         f"form)")
+    for t in (levels, *flat):
+        if t is not None and t.device != dev:
+            raise ValueError(f"conv_strip_int: operands on {dev} and "
+                             f"{t.device}")
     out = torch.empty((b, n_rows, w_out, c_out), dtype=torch.float32,
                       device=dev)
-    cfg = igemm_config(b, n_rows, w_out, c_k, c_out, kk, stride)
     if out.numel() == 0:
         if fold:
             raise ValueError("conv_strip_int: a folded epilogue of nothing")
@@ -679,15 +920,28 @@ def launch_int(x_padded: torch.Tensor, iw: IntWeights, act_scale: float,
     if smem > SMEM_MAX:
         raise ValueError(f"conv_strip_int: {smem} bytes of shared memory "
                          f"at k={kk} stride={stride}; a CTA has {SMEM_MAX}")
-    lib = _build.library("conv_strip", _SIGNATURES)
+    if cfg.form == "wgmma":
+        if x.data_ptr() % 16:
+            raise ValueError("conv_strip_int: the wgmma form's codes start "
+                             "off a 16-byte boundary (a tensor map's base)")
+        lib = _build.library("conv_strip_wgmma", _WG_SIGNATURES)
+        weights = iw.levels_map(lib, cfg.bn, cfg.ch)
+        launch = (cfg.th, cfg.tw, cfg.bn, cfg.ch, cfg.stages)
+        entry, fold_entry = (lib.conv_strip_int_wgmma_launch,
+                             lib.conv_strip_int_wgmma_fold_launch)
+    else:
+        lib = _build.library("conv_strip", _SIGNATURES)
+        weights = iw.wt.data_ptr()
+        launch = (cfg.th, cfg.tw, cfg.bn, cfg.stages)
+        entry, fold_entry = (lib.conv_strip_int_launch,
+                             lib.conv_strip_int_fold_launch)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if fold is None:
-        err = lib.conv_strip_int_launch(
-            x.data_ptr(), iw.wt.data_ptr(),
+        err = entry(
+            x.data_ptr(), weights,
             *[None if t is None else t.data_ptr() for t in flat[1:]],
             out.data_ptr(), b, hp, wp, c_k, c_out, kk, stride,
-            float(act_scale), ACTS[act], cfg.th, cfg.tw, cfg.bn, cfg.stages,
-            stream)
+            float(act_scale), ACTS[act], *launch, stream)
         _build.check(err, "conv_strip_int")
         INT_LAUNCHES.inc()
         return out
@@ -701,12 +955,12 @@ def launch_int(x_padded: torch.Tensor, iw: IntWeights, act_scale: float,
                          f"for {b} frames of {c_out} channels")
     partials = torch.empty((b, fold_partials(b, cfg)), dtype=torch.float32,
                            device=dev)
-    err = lib.conv_strip_int_fold_launch(
-        x.data_ptr(), iw.wt.data_ptr(), ws.data_ptr(),
+    err = fold_entry(
+        x.data_ptr(), weights, ws.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
         partials.data_ptr(), s.data_ptr(), s.numel(), ws.numel(),
         0 if bias is None else bias.numel(), b, hp, wp, c_k, c_out, kk,
-        stride, ACTS[fold.act], cfg.th, cfg.tw, cfg.bn, cfg.stages, stream)
+        stride, ACTS[fold.act], *launch, stream)
     _build.check(err, "conv_strip_int (folded epilogue)")
     INT_LAUNCHES.inc()
     return out, partials
@@ -728,8 +982,8 @@ def conv_strip_int(x_padded: torch.Tensor, w: torch.Tensor,
     if not x_padded.is_cuda:
         return conv_strip_int_ref(x_padded, w, ws, stride, act_scale, act,
                                   bias)
-    return launch_int(x_padded, int_weights(w, ws, bias), act_scale, act,
-                      stride)
+    return launch_int(x_padded, int_weights(w, ws, bias, stride), act_scale,
+                      act, stride)
 
 
 def fold_ref(acc: torch.Tensor, fold: Fold, cfg: IgemmConfig):
@@ -737,8 +991,8 @@ def fold_ref(acc: torch.Tensor, fold: Fold, cfg: IgemmConfig):
     [B, H, W, C_out]: y = act(acc * (act_scale * ws) + bias) clamped at
     0 (the plan's association), and each CTA's max of y over
     ``cfg``'s tiles (``th`` x ``tw`` pixels of ``bn`` channels, in the
-    kernel's CTA order: row tiles, column tiles, channel blocks) ->
-    ``(y, partials [B, tiles * blocks])``."""
+    kernel's CTA order, which every form shares: row tiles, column tiles,
+    channel blocks) -> ``(y, partials [B, tiles * blocks])``."""
     b, h, w, c = acc.shape
     s = fold.act_scale.reshape(-1).float()
     s = s.reshape(-1, 1, 1, 1) if s.numel() > 1 else s.reshape(())
@@ -756,13 +1010,16 @@ def fold_ref(acc: torch.Tensor, fold: Fold, cfg: IgemmConfig):
 
 def conv_strip_int_laid(x_padded: torch.Tensor, iw: IntWeights,
                         stride: int = 1, act_scale: float = 1.0,
-                        act: str = "none", fold: Optional[Fold] = None):
+                        act: str = "none", fold: Optional[Fold] = None,
+                        cfg: Optional[IgemmConfig] = None):
     """:func:`conv_strip_int` on levels laid out once (:func:`int_weights`,
     its ``ws`` and ``bias`` with them) and x_padded in :func:`int_codes`'
     form; bitwise equal to :func:`conv_strip_int_ref` on ``iw.w8``. With
     ``fold`` (``act_scale``, ``act`` and ``iw``'s ``ws`` and ``bias``
     unused) -> ``(y, partials)`` as :func:`launch_int` gives them, bitwise
-    equal to :func:`fold_ref` on the plain raw accumulate."""
+    equal to :func:`fold_ref` on the plain raw accumulate. ``cfg`` forces
+    a launch (the tests and the timings; the levels laid out for its
+    form), else :func:`igemm_config`'s is taken."""
     _, c_out = _check_int(x_padded, iw.w8, stride)
     if fold is None:
         _check_epilogue(iw.ws, iw.bias, act, c_out, "conv_strip_int")
@@ -770,13 +1027,14 @@ def conv_strip_int_laid(x_padded: torch.Tensor, iw: IntWeights,
         raise ValueError(f"conv_strip_int: act {fold.act!r} not in "
                          f"{tuple(ACTS)}")
     if x_padded.is_cuda:
-        return launch_int(x_padded, iw, act_scale, act, stride, fold)
+        return launch_int(x_padded, iw, act_scale, act, stride, fold, cfg)
     if fold is None:
         return conv_strip_int_ref(x_padded, iw.w8, iw.ws, stride, act_scale,
                                   act, iw.bias)
     acc = conv_strip_int_ref(x_padded, iw.w8, stride=stride)
     b, n_rows, w_out, _ = acc.shape
-    cfg = igemm_config(b, n_rows, w_out, igemm_c_in(iw.w8.shape[2],
-                                                    iw.w8.shape[0]),
-                       c_out, iw.w8.shape[0], stride)
+    if cfg is None:
+        cfg = igemm_config(b, n_rows, w_out, igemm_c_in(iw.w8.shape[2],
+                                                        iw.w8.shape[0]),
+                           c_out, iw.w8.shape[0], stride)
     return fold_ref(acc, fold, cfg)

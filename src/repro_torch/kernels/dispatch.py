@@ -489,7 +489,7 @@ def _conv_int_strip(codes: torch.Tensor, wq: torch.Tensor, stride: int,
         if groups == 1:
             x8 = codes if operand else SK.int_codes(codes, k, pads)
             if levels is None:
-                levels = SK.int_weights(wq)
+                levels = SK.int_weights(wq, stride=stride)
             return SK.conv_strip_int_laid(x8, levels, stride=stride)
         og = c_out // groups
         return torch.cat([run(codes[..., g * cg:(g + 1) * cg],
@@ -539,7 +539,7 @@ def conv_int_epilogue(codes: torch.Tensor, act_scale: torch.Tensor,
     k = wq.shape[0]
     x8 = codes if x_operand else SK.int_codes(codes, k, pads)
     if levels is None:
-        levels = SK.int_weights(wq)
+        levels = SK.int_weights(wq, stride=stride)
     if trace_hooks():
         obs.counter("dispatch.conv.strip").inc()
     return epilogue_fold(x8, act_scale, ws, bias, act, pool, a_qmax,

@@ -1,5 +1,6 @@
 """Edge shapes of the launch configurations of ``photonic_mvm`` (its float
-API on signed codes too), the strip convs, the fused conv chain,
+API on signed codes too), the strip convs (the int8 one's wgmma form
+too), the fused conv chain,
 ``ca_pool`` and the epilogue, the distinct shapes of VGG16's kernel calls
 at 224x224x3, an operand copy that defeats aligned loads, the
 epilogue's calls on a compiled program's path, and the values whose codes
@@ -60,6 +61,19 @@ STRIP_EDGES = [(8, 70, 100, 3, 20, 3, 1), (8, 200, 130, 2, 3, 5, 1),
                (1, 17, 19, 3, 2, 9, 2), (2, 21, 23, 4, 6, 3, 2),
                (2, 30, 70, 40, 10, 5, 1), (1, 24, 24, 64, 33, 3, 1)]
 
+
+# (b, h_out, w_out, c_in, c_out, k) of the int8 strip kernel's wgmma form,
+# forced (conv_bank.strip.wgmma_config, stride 1; the rule gives those under
+# ``strip.WG_MIN_C`` channels the mma.sync form): VGG16's conv9 at batch 1 and
+# conv8 at batch 13; widths and heights not a multiple of 8 (ragged tiles);
+# C_in 16 and 48 (a k-step half past C_in) and 7,360 (at k = 3 the largest
+# C_in whose accumulate int32 holds: the extremes' 255 * 127 * 9 * 7,360 =
+# 2,145,196,800 < 2^31), many chunks; C_out 7, 80 and 130 (ragged channel
+# blocks); k 1 and 5
+INT_WGMMA_EDGES = [(1, 28, 28, 512, 512, 3), (13, 28, 28, 256, 512, 3),
+                   (8, 17, 30, 64, 64, 3), (2, 21, 13, 16, 64, 3),
+                   (3, 9, 11, 48, 80, 3), (1, 12, 20, 32, 130, 5),
+                   (2, 10, 9, 96, 7, 1), (1, 8, 8, 7360, 64, 3)]
 
 # (b, h_out, w_out, c, k, stride) of conv_bank.strip.dw_config: 1, 3, 4, 5,
 # 16 and 17 channels (whole-row and 4-channel blocks, ragged ones among
@@ -171,6 +185,23 @@ VGG16_SHAPES = {
     "photonic_mvm": [("conv11+conv12+conv13", 196, 4608, 512),
                      ("fc1", 1, 25088, 4096), ("fc2", 1, 4096, 4096),
                      ("fc3", 1, 4096, 1000)]}
+
+# the conv_bank op's own calls in chip_smoke.py: x [B, H, W, C_in] -> C_out,
+# k x k (W4A4 with relu and bias, in both strategies)
+CONV_BANK_CALLS = [(8, 32, 32, 16, 32, k) for k in (3, 5, 7)]
+
+# (name, h_out = w_out, c_in, c_out, k) at which the int8 strip conv's two
+# forms, each forced, are held to each other and timed (the gpu tests,
+# chip_smoke.py's [vgg16] int8 forms, scripts/strip_int_forms.py): VGG16's
+# conv2-conv10 (the distinct ``VGG16_SHAPES`` entries over the conv's own
+# rows, as the int route launches them), conv11-13 forced onto the int8
+# kernel (the plan runs them as im2col GEMMs) and the conv_bank op's calls
+INT_FORM_SHAPES = [
+    (name, w_out, ci, co, k)
+    for name, _, _, w_out, ci, co, k, _ in VGG16_SHAPES["conv_strip"]
+    if ci >= 16] + [("conv11+conv12+conv13", 14, 512, 512, 3)] + [
+    (f"conv_bank_op_k{k}", h, ci, co, k)
+    for _, h, _, ci, co, k in CONV_BANK_CALLS]
 
 
 # the epilogue kernel pair (``epilogue.ops.epilogue_config``): (batch, x's
@@ -308,7 +339,7 @@ def epilogue_calls(exe, frames, per_frame: bool = True):
         k = wq.shape[0]
         x8 = codes if kw["x_operand"] else strip.int_codes(codes, k, pads)
         levels = kw["levels"] if kw["levels"] is not None else \
-            strip.int_weights(wq)
+            strip.int_weights(wq, stride=stride)
         calls.append(EpilogueCall(
             cloned(x8), cloned(act_scale), cloned(ws), cloned(bias), act,
             pool, a_qmax=kw["a_qmax"], per_frame=kw["per_frame"],

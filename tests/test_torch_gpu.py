@@ -20,8 +20,11 @@ one-launch cluster form at every cluster size it takes), at quotients on
 and around half-integers (each code the true quotient's), and at every
 call of the LeNet, VGG9-CA, imaging (256x256) and VGG16 paths, under both
 calibrations, under ``shard_batch``; the requant folded into the int8
-strip conv's store at VGG16's shapes and the strip edges; and the int8
-route's levels laid out at bind against per call. photonic_mvm's four
+strip conv's store at VGG16's shapes and the strip edges; the int8 strip
+conv's wgmma form forced at its edges (``INT_WGMMA_EDGES``), and both
+forms forced at ``INT_FORM_SHAPES`` (VGG16's conv2-conv13, the conv_bank
+op's calls); and the int8 route's levels laid out at bind
+against per call. photonic_mvm's four
 routes at their edges (the stream at M = 1..16 with ragged K and N =
 1,000, each route forced at a shape the rule gives another, a
 configuration the launcher refuses) and VGG16 under ``shard_batch``.
@@ -48,7 +51,9 @@ from repro_torch.kernels.conv_bank.ops import conv_bank, conv_bank_plain
 from repro_torch.kernels.conv_bank.ref import conv_chain_ref
 from repro_torch.kernels.edge_shapes import (CA_EDGES, CHAIN_EDGES, CHAINS,
                                              DW_EDGES, EPILOGUE_EDGES,
-                                             EPILOGUE_NAN_EDGES, MVM_EDGES,
+                                             EPILOGUE_NAN_EDGES,
+                                             INT_FORM_SHAPES,
+                                             INT_WGMMA_EDGES, MVM_EDGES,
                                              SIGNED_MVM_SHAPES, STRIP_EDGES,
                                              VGG16_SHAPES, EpilogueCall,
                                              chain_case, epilogue_calls,
@@ -801,6 +806,91 @@ def test_strip_int_kernel_extremes_bitwise_equal_to_plain(cuda, ci, co,
     assert strip.conv_strip_int(xp, w).abs().max() == 255 * 127 * 9 * ci
 
 
+@pytest.mark.parametrize("b,h_out,w_out,ci,co,k", INT_WGMMA_EDGES)
+def test_strip_int_wgmma_edges_bitwise_equal_to_plain(cuda, b, h_out, w_out,
+                                                      ci, co, k):
+    """The wgmma form at its edges, forced (the rule gives the narrower
+    ones the mma.sync form): raw, every act with and without bias, ws
+    alone, and the folded store (y and each CTA's max) under both
+    calibrations; the int32 edge (C_in 7,360) at codes 255 and levels
+    +-127, |acc| exactly 255 * 127 * 9 * 7,360 = 2,145,196,800. Where the
+    rule gives the shape the wgmma form, the path's calls too."""
+    cfg = strip.igemm_config(b, h_out, w_out, ci, co, k, 1, form="wgmma")
+    gen = torch.Generator(device=cuda).manual_seed(b + h_out + ci + co + k)
+    xp, w, ws, bias = _strip_int_case(gen, cuda, b, h_out, w_out, ci, co,
+                                      k, 1)
+    if ci == 7360:
+        xp.fill_(255)
+        w.fill_(127)
+        w[1, 1, :, ::2] = -127
+    want = strip.conv_strip_int_ref(xp, w)
+    iw = strip.int_weights(w, form="wgmma")
+    reset_launch_counts()
+    got = strip.launch_int(xp, iw, 1.0, "none", 1, cfg=cfg)
+    assert launch_counts()["conv_strip_int"] == 1
+    assert torch.equal(got, want)
+    if ci == 7360:
+        assert got.abs().max() == 255 * 127 * 9 * ci
+    for act in ("none", "relu", "abs", "sign"):
+        for bb in (bias, None):
+            assert torch.equal(strip.launch_int(
+                xp, strip.int_weights(w, ws, bb, form="wgmma"), 0.37, act,
+                1, cfg=cfg), strip.conv_strip_int_ref(
+                    xp, w, ws, act_scale=0.37, act=act, bias=bb)), act
+    for per_frame in (True, False):
+        s = torch.rand((b, 1, 1, 1), generator=gen, device=cuda) * 0.01 \
+            + 1e-3
+        fold = strip.Fold(s if per_frame else s.reshape(-1)[0], ws * 0.1,
+                          bias, "relu")
+        y, partials = strip.launch_int(xp, iw, 1.0, "none", 1, fold, cfg=cfg)
+        wy, wp = strip.fold_ref(want, fold, cfg)
+        assert torch.equal(y, wy) and torch.equal(partials, wp)
+    if strip.int_form(ci, co, k, 1) == "wgmma":
+        _check_strip_int(xp, w, ws, bias, 1)
+        for per_frame in (True, False):
+            _check_fold(*_fold_case(gen, cuda, b, h_out, w_out, ci, co, k,
+                                    1, per_frame), 1, per_frame)
+
+
+@pytest.mark.parametrize("form", ["wgmma", "mma"])
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("shape", INT_FORM_SHAPES, ids=lambda v: v[0])
+def test_strip_int_forms_forced_bitwise_equal_to_plain(cuda, shape, batch,
+                                                       form):
+    """VGG16's conv2-conv10, conv11-13 (off the int8 route) and the
+    conv_bank op's calls through either form, on the levels laid out for
+    it, raw and with the folded store, on W4A4's codes."""
+    _, h, ci, co, k = shape
+    gen = torch.Generator(device=cuda).manual_seed(batch + ci + co)
+    xp, w, ws, bias = _strip_int_case(gen, cuda, batch, h, h, ci, co, k, 1,
+                                      codes=16, levels=7)
+    cfg = strip.igemm_config(batch, h, h, ci, co, k, 1, form=form)
+    assert cfg.form == form
+    iw = strip.int_weights(w, form=form)
+    want = strip.conv_strip_int_ref(xp, w)
+    reset_launch_counts()
+    assert torch.equal(strip.launch_int(xp, iw, 1.0, "none", 1, cfg=cfg),
+                       want)
+    assert launch_counts()["conv_strip_int"] == 1
+    fold = strip.Fold(torch.rand((batch, 1, 1, 1), generator=gen,
+                                 device=cuda) * 0.01 + 1e-3, ws * 0.1,
+                      bias, "relu")
+    y, partials = strip.launch_int(xp, iw, 1.0, "none", 1, fold, cfg=cfg)
+    wy, wp = strip.fold_ref(want, fold, cfg)
+    assert torch.equal(y, wy) and torch.equal(partials, wp)
+
+
+def test_strip_int_wgmma_refuses_codes_off_a_16_byte_boundary(cuda):
+    x = torch.zeros((1, 10, 10, 64), dtype=torch.uint8, device=cuda)
+    odd = odd_offset(x)
+    w = torch.zeros((3, 3, 64, 64), dtype=torch.int8, device=cuda)
+    assert strip.igemm_config(1, 8, 8, 64, 64, 3, 1).form == "wgmma"
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        strip.conv_strip_int(odd, w)
+    assert torch.equal(strip.conv_strip_int(x, w),
+                       strip.conv_strip_int_ref(x, w))
+
+
 @pytest.mark.parametrize("name,x,w,stride,padding,groups", [
     ("vgg16_like", (2, 56, 56, 64), (3, 3, 64, 128), 1, "SAME", 1),
     ("conv1_like", (2, 40, 40, 3), (3, 3, 3, 64), 1, "SAME", 1),
@@ -1362,7 +1452,7 @@ def _fold_case(gen, device, b, h_out, w_out, ci, co, k, stride, per_frame):
     s = torch.rand((b, 1, 1, 1), generator=gen, device=device) * 0.01 + 1e-3
     s = s if per_frame else s.reshape(-1)[0]
     x8, _ = strip.int_operands(xp, w)
-    return x8, strip.int_weights(w), s, ws * 0.1, bias
+    return x8, strip.int_weights(w, stride=stride), s, ws * 0.1, bias
 
 
 def _check_fold(x8, levels, s, ws, bias, stride, per_frame):

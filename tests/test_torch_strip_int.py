@@ -191,18 +191,33 @@ def test_igemm_config_covers_the_output_in_shared_memory(entry):
     _, b, h, w, ci, co, k, s = entry
     cfg = strip.igemm_config(b, h, w, ci, co, k, s)
     assert cfg.smem <= strip.SMEM_MAX == 232448
-    assert cfg.smem == cfg.stages * strip.igemm_stage_bytes(
-        cfg.th, cfg.tw, cfg.bn, k, s, cfg.kf)
     # the verifier's own restatement of the launcher's layout
     assert verifier._int_smem(cfg, k, s) == cfg.smem
-    assert 1 <= cfg.th * cfg.tw <= strip.IGEMM_BM and cfg.th <= h
-    assert cfg.bn in strip.IGEMM_BN and cfg.bn >= min(co, 64)
-    assert cfg.stages == (2 if strip.igemm_c_in(ci, k) > strip.IGEMM_CH
-                          else 1)
-    # C_in <= 4 folds its taps into K (k*k*4 bytes rounded up to 32)
-    assert cfg.kf == (-(-k * k * 4 // 32) * 32
-                      if ci <= 4 and k * k * 4 <= 128 else 0)
-    assert cfg.k_inst == (3 if k == 3 else 0)
+    if cfg.form == "wgmma":
+        # stride 1, C_in a multiple of 16: tiles of 8 x 8 blocks, two
+        # warpgroups of one or two m64 blocks, C_in in ch-byte chunks
+        assert s == 1 and ci % 16 == 0 and cfg.kf == 0
+        assert cfg.smem == strip.wgmma_smem(cfg.th, cfg.tw, cfg.bn, k,
+                                            cfg.ch, cfg.stages)
+        assert cfg.th % 8 == 0 and cfg.tw % 8 == 0
+        assert cfg.th * cfg.tw in (128, 256)
+        assert cfg.bn in strip.WG_BN and cfg.bn >= min(co, 64)
+        chunks = -(-ci // cfg.ch)
+        assert cfg.ch in strip.WG_CH
+        assert 1 <= cfg.stages <= min(chunks, strip.WG_MAX_STAGES)
+        assert chunks == 1 or cfg.stages >= 2
+    else:
+        assert cfg.smem == cfg.stages * strip.igemm_stage_bytes(
+            cfg.th, cfg.tw, cfg.bn, k, s, cfg.kf)
+        assert 1 <= cfg.th * cfg.tw <= strip.IGEMM_BM and cfg.th <= h
+        assert cfg.bn in strip.IGEMM_BN and cfg.bn >= min(co, 64)
+        assert cfg.stages == (2 if strip.igemm_c_in(ci, k) > strip.IGEMM_CH
+                              else 1)
+        # C_in <= 4 folds its taps into K (k*k*4 bytes rounded up to 32)
+        assert cfg.kf == (-(-k * k * 4 // 32) * 32
+                          if ci <= 4 and k * k * 4 <= 128 else 0)
+        assert cfg.form == ("taps" if cfg.kf else "mma")
+        assert cfg.k_inst == (3 if k == 3 else 0)
     row_tiles, col_tiles = -(-h // cfg.th), -(-w // cfg.tw)
     assert cfg.ctas == b * row_tiles * col_tiles * -(-co // cfg.bn)
     # every output pixel in exactly one tile's slots; every slot's patch
@@ -226,7 +241,8 @@ def test_igemm_config_fits_on_ragged_shapes():
             continue
         cfg = strip.igemm_config(b, h, w, ci, co, k, s)
         assert cfg.smem <= strip.SMEM_MAX, (b, h, w, ci, co, k, s, cfg)
-        assert cfg.th * cfg.tw <= strip.IGEMM_BM
+        assert cfg.th * cfg.tw <= (256 if cfg.form == "wgmma"
+                                   else strip.IGEMM_BM)
         assert cfg.ctas == b * -(-h // cfg.th) * -(-w // cfg.tw) * \
             -(-co // cfg.bn)
 
