@@ -61,7 +61,12 @@ Phases, each fatal on failure:
      forced at ``INT_WGMMA_EDGES`` (raw, every activation with and without bias, the
      folded store under both calibrations; C_in 7,360 at the int32
      edge), and through
-     dispatch on a conv1-like, a stride-2 and a grouped conv), and is held
+     dispatch on a conv1-like, a stride-2 and a grouped conv; the dense
+     float kernel's tensor-core form with every launch it takes forced at
+     ``F64MMA_EDGES`` and the conv_bank op's calls at batches 8 and 1,
+     bitwise on integer operands at every activation, within 1e-5 on
+     float ones; ``strip_config``'s edges on the CUDA-core form, forced),
+     and is held
      bitwise equal to its plain PyTorch version on the same inputs (the
      served path's ``ca_pool.ops.acquire``, and the public ``ca_pool`` op
      with a signed bank of its own on every weighted route's edges, in
@@ -71,9 +76,13 @@ Phases, each fatal on failure:
      per-frame run of each program and at ``EPILOGUE_EDGES``, codes and
      scale, per frame and per tensor). The
      conv_bank op, which no served path reaches, is driven once on its own
-     with the counts zeroed around it: quantized (the int8 kernel, where
-     ``strip.dense_route`` sends its shapes) and in float mode (the
-     float64 kernel over the whole frame, its ``conv_bank`` count);
+     with the counts zeroed around it, at its calls and at the narrow one
+     (``CONV_BANK_NARROW``), in both strategies: quantized (the int8
+     kernel, where ``strip.dense_route`` sends its shapes) and in float
+     mode (the float kernel's tensor-core form where ``strip.dense_form``
+     gives it, its ``conv_strip_f64mma`` count; the narrow call on the
+     CUDA-core form over the whole frame, its ``conv_bank`` count), each
+     counter held to the launches the rules give;
   4. timing: each kernel at its path shapes (the conv_bank op at its own;
      the epilogue at every requant of the two paths, and its device time
      there in each form it can take: the pair and clusters of 4, 8 and
@@ -87,14 +96,19 @@ Phases, each fatal on failure:
      (``ca_pool.cold``; the path's calls find their input in L2), and the
      least time the card could take (bytes over 3.35 TB/s, operations over
      the dense tensor-core peak for their type: int8 for integer MACs,
-     TF32 for ca_pool's float MACs); the device times come from one
+     TF32 for ca_pool's float MACs, FP64 for the conv_bank op's float
+     mode); the device times come from one
      profiler session, written as a Chrome trace beside the details file,
      with a range per path shape of photonic_mvm, the strip convs and
      ca_pool (kernel and library call). Then the route rule's numbers
      (``[route]`` lines): at each dense strip conv of the imaging path and
      each quantized call of the conv_bank op, the device time of the
      float64 route and of the int8 one from the same codes (each held
-     equal to the other), beside what ``strip.dense_route`` picks;
+     equal to the other), beside what ``strip.dense_route`` picks; and at
+     each of the op's float calls at batches 8 and 1 the float kernel's
+     two forms, forced, beside ``F.conv2d`` (TF32 off) and the bound at
+     the FP64 tensor rate, with what ``strip.dense_form`` picks. Each
+     strip kernel's and the op's library call also by its device time;
   5. serve, eager: vision and imaging through each program's unbound
      executable (the ``Hooks.execute`` seam: eager ``run_padded``,
      pageable copies), every answer finite, of the right shape and bitwise
@@ -372,7 +386,8 @@ IMAGING_HW = 256
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"int8": 1979e12,       # dense tensor-core int8
             "tf32": 495e12,        # dense tensor-core TF32
-            "fp32": 67e12}         # float32 FMAs outside the tensor cores
+            "fp32": 67e12,         # float32 FMAs outside the tensor cores
+            "fp64": 67e12}         # float64 on the tensor cores (mma.sync)
 RAGGED_MVM = [(1, 1, 1), (37, 101, 53), (130, 777, 129), (300, 2304, 257)] + [
     (m, 4096 + 37 * m, 1000) for m in (1, 7, 13, 16)]
 # extra strip convs through dispatch.conv_int: (name, x shape, w shape,
@@ -599,7 +614,10 @@ with open(out, "w") as f:
 # the port's kernels are top-level functions of an anonymous namespace
 PORT_KERNEL = r"^(void )?\(anonymous namespace\)::"
 KERNELS = ("photonic_mvm", "conv_chain", "ca_pool", "conv_strip",
-           "conv_strip_depthwise", "conv_bank", "conv_strip_int", "epilogue")
+           "conv_strip_depthwise", "conv_bank", "conv_strip_int",
+           "conv_strip_f64mma", "epilogue")
+# the kernels only the conv_bank op's own run launches (no served path)
+OP_KERNELS = ("conv_bank", "conv_strip_f64mma")
 # the kernels each served path must launch
 PATH_KERNELS = {"vision": ("photonic_mvm", "conv_chain", "ca_pool",
                            "epilogue"),
@@ -627,6 +645,12 @@ SOURCES = {
                              "src/repro/kernels/conv_bank/strip_kernel.py:289"),
     "conv_bank": ("src/repro_torch/csrc/conv_strip.cu",
                   "src/repro/kernels/conv_bank/kernel.py:85"),
+    # the dense float kernel's tensor-core form: the op's float mode in
+    # both strategies (its resident launch and its strips); "replaces"
+    # names the first
+    "conv_strip_f64mma": ("src/repro_torch/csrc/conv_strip_f64mma.cu",
+                          ("src/repro/kernels/conv_bank/kernel.py:85",
+                           "src/repro/kernels/conv_bank/strip_kernel.py:206")),
     # the wgmma form (conv2-conv10) and the mma.sync forms (conv1's folded
     # taps among them): "source" names the first, "sources" both
     "conv_strip_int": (("src/repro_torch/csrc/conv_strip_wgmma.cu",
@@ -645,6 +669,7 @@ KERNEL_SYMBOLS = {"photonic_mvm":
                   "conv_strip_depthwise": r"conv_dw_kernel",
                   "conv_bank": r"conv_dense_kernel",
                   "conv_strip_int": r"conv_igemm_(fold_|wgmma_)?kernel",
+                  "conv_strip_f64mma": r"conv_f64mma_kernel",
                   "epilogue": r"epi_(reduce|quant|cluster)_kernel"}
 
 
@@ -679,9 +704,15 @@ def ptxas_report(log_text):
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = m.group(1)
-            base = re.search(r"\d+([a-z_]+_kernel)", name)
+            # <length><identifier>: the first identifier ending in _kernel
+            # (a hash's digits may run into the length)
+            base = next((name[d.end():d.end() + int(name[i:d.end()])]
+                         for d in re.finditer(r"\d+", name)
+                         for i in range(d.start(), d.end())
+                         if name[d.end():d.end() + int(name[i:d.end()])]
+                         .endswith("_kernel")), None)
             args = re.findall(r"L[ib](\d+)E", name)
-            label = (base.group(1) if base else name) + (
+            label = (base or name) + (
                 f"<{','.join(args)}>" if args else "")
             cur = {"function": label, "registers": None, "smem_bytes": 0,
                    "spill_stores": 0, "spill_loads": 0}
@@ -916,17 +947,77 @@ def path_calls(exes, device, batch=BUCKET):
     return calls
 
 
-def conv_bank_calls(device):
-    """(x, w, bias) of the conv_bank op's own calls."""
+def conv_bank_calls(device, narrow=False):
+    """(x, w, bias) of the conv_bank op's own calls (``CONV_BANK_CALLS``),
+    or of the narrow one the float kernel's rule keeps on its CUDA-core
+    form (``CONV_BANK_NARROW``)."""
     import torch
-    from repro_torch.kernels.edge_shapes import CONV_BANK_CALLS
-    gen = torch.Generator().manual_seed(SEED + 11)
+    from repro_torch.kernels.edge_shapes import (CONV_BANK_CALLS,
+                                                 CONV_BANK_NARROW)
+    gen = torch.Generator().manual_seed(SEED + (12 if narrow else 11))
     out = []
-    for b, h, w, ci, co, k in CONV_BANK_CALLS:
+    for b, h, w, ci, co, k in CONV_BANK_NARROW if narrow else \
+            CONV_BANK_CALLS:
         x = torch.rand((b, h, w, ci), generator=gen)
         wt = torch.randn((k, k, ci, co), generator=gen) * 0.2
         bias = torch.randn((co,), generator=gen) * 0.1
         out.append((x.to(device), wt.to(device), bias.to(device)))
+    return out
+
+
+def bank_kernel(x, w, strategy, quantized):
+    """The counter the conv_bank op's call on x [B, H, W, C_in], w [k, k,
+    C_in, C_out] (SAME) launches on: the int8 kernel's where
+    ``strip.dense_route`` sends a quantized call there; else the float
+    kernel's tensor-core form where ``strip.dense_form`` gives it, or its
+    CUDA-core form, counted as the op's resident launch or the strips'."""
+    from repro_torch.kernels.conv_bank import strip
+    b, h, ww, ci = x.shape
+    k, co = w.shape[0], w.shape[-1]
+    if quantized and strip.dense_route(ci, co, k, 1) == "int":
+        return "conv_strip_int"
+    if strip.dense_form(b, h, ww, ci, co, k, 1) == "f64mma":
+        return "conv_strip_f64mma"
+    return "conv_bank" if strategy == "resident" else "conv_strip"
+
+
+def dense_kernel(xp, w, stride):
+    """The counter the dense float strip conv of xp [B, Hp, Wp, C_in] by
+    w [k, k, C_in, C_out] launches on, by ``strip.dense_form``."""
+    from repro_torch.kernels.conv_bank import strip
+    k = w.shape[0]
+    b, hp, wp, ci = xp.shape
+    form = strip.dense_form(b, (hp - k) // stride + 1, (wp - k) // stride + 1,
+                            ci, w.shape[-1], k, stride)
+    return "conv_strip_f64mma" if form == "f64mma" else "conv_strip"
+
+
+def bank_entries(device):
+    """The conv_bank op's timed calls, as [timing] adds them: for each of
+    its calls and then the narrow one, the quantized call (W4A4, relu,
+    bias) and the float-mode call, resident: ``(kernel, fn, library)``,
+    the kernel the call launches (:func:`bank_kernel`) and one PyTorch
+    call for it (``F.conv2d`` in float, with the bias and relu where
+    quantized; TF32 off where timed)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.quant import W4A4
+    from repro_torch.kernels.conv_bank.ops import conv_bank
+    out = []
+    for x, w, bias in conv_bank_calls(device) + conv_bank_calls(device,
+                                                                 True):
+        k = w.shape[0]
+        nchw = x.permute(0, 3, 1, 2)
+        w_oihw = w.permute(3, 2, 0, 1).contiguous()
+        kw = dict(spec=W4A4, strategy="resident", act="relu", bias=bias)
+        out.append((bank_kernel(x, w, "resident", True),
+                    lambda x=x, w=w, kw=kw: conv_bank(x, w, **kw),
+                    lambda n=nchw, wo=w_oihw, k=k, b=bias: torch.relu(
+                        F.conv2d(n, wo, b, padding=k // 2))))
+        out.append((bank_kernel(x, w, "resident", False),
+                    lambda x=x, w=w: conv_bank(x, w, strategy="resident"),
+                    lambda n=nchw, wo=w_oihw, k=k: F.conv2d(
+                        n, wo, padding=k // 2)))
     return out
 
 
@@ -989,7 +1080,9 @@ def phase_kernels(device, vision, imaging):
     from repro_torch.kernels.conv_bank.ref import conv_chain_ref, conv_int_ref
     from repro_torch.kernels.edge_shapes import (CA_EDGES, CHAIN_EDGES,
                                                  CHAINS, DW_EDGES,
+                                                 CONV_BANK_CALLS,
                                                  EPILOGUE_EDGES,
+                                                 F64MMA_EDGES,
                                                  INT_WGMMA_EDGES, MVM_EDGES,
                                                  STRIP_EDGES, EpilogueCall,
                                                  chain_case, epilogue_case,
@@ -1119,12 +1212,15 @@ def phase_kernels(device, vision, imaging):
         ws = (torch.rand((co,), generator=gen) + 0.5).to(device)
         bias = torch.randn((co,), generator=gen).to(device)
         what = f"edge {xp.shape[1:3]} {ci}->{co} k{k} s{stride}"
+        # strip_config's edges on the CUDA-core form, forced (the rule
+        # gives those from 8 channels the tensor-core form)
         kw = dict(stride=stride, strip_h=h_out)
-        compare("conv_strip", strip.conv_strip(xp, wq, **kw),
+        compare("conv_strip", strip.conv_strip(xp, wq, form="fma", **kw),
                 strip.conv_strip_ref(xp, wq, **kw), what)
         for act in ("relu", "abs", "sign"):
             kw.update(act_scale=0.37, act=act, bias=bias)
-            compare("conv_strip", strip.conv_strip(xp, wq, ws, **kw),
+            compare("conv_strip", strip.conv_strip(xp, wq, ws, form="fma",
+                                                   **kw),
                     strip.conv_strip_ref(xp, wq, ws, **kw), f"{what} {act}")
         # the int8 kernel on u8 codes over the whole byte range and s8
         # levels: raw, every act with ws and bias, ws alone
@@ -1141,6 +1237,46 @@ def phase_kernels(device, vision, imaging):
         kw = dict(stride=stride, act_scale=0.37)
         compare("conv_strip_int", strip.conv_strip_int(x8, w8, ws, **kw),
                 strip.conv_strip_int_ref(x8, w8, ws, **kw), f"{what} ws")
+    # the dense float kernel's tensor-core form at its edges and at the
+    # conv_bank op's calls (batches 8 and 1), every launch it takes
+    # forced: integer operands bitwise (raw, every act with and without
+    # bias), float operands within 1e-5 (float64 sums in its own order)
+    f64_err = 0.0
+    for b, h_out, w_out, ci, co, k in F64MMA_EDGES + [
+            (bb, h, w, ci, co, k) for bb in (8, 1)
+            for _, h, w, ci, co, k in CONV_BANK_CALLS]:
+        shape = (b, h_out + k - 1, w_out + k - 1, ci)
+        xq = torch.randint(0, 256, shape, generator=gen).float().to(device)
+        wq = torch.randint(-127, 128, (k, k, ci, co),
+                           generator=gen).float().to(device)
+        xf = torch.rand(shape, generator=gen).to(device)
+        wf = (torch.randn((k, k, ci, co), generator=gen) * 0.2).to(device)
+        ws = (torch.rand((co,), generator=gen) + 0.5).to(device)
+        bias = torch.randn((co,), generator=gen).to(device)
+        kw = dict(stride=1, strip_h=h_out)
+        what = f"f64mma edge {shape} {ci}->{co} k{k}"
+        for cfg in strip.f64mma_launches(b, h_out, w_out, ci, co, k, 1):
+            def run(x, w, ws=None, act_scale=1.0, act="none", bias=None,
+                    cfg=cfg):
+                if not x.is_cuda:
+                    return strip.conv_strip_ref(x, w, ws, act_scale=act_scale,
+                                                act=act, bias=bias, **kw)
+                return strip.launch(x, w, ws, bias, act_scale, act, 1, False,
+                                    strip.LAUNCHES, cfg=cfg)
+            tile = f"{what} {cfg.th}x{cfg.tw} bn{cfg.bn} cc{cfg.cc}"
+            compare("conv_strip_f64mma", run(xq, wq),
+                    strip.conv_strip_ref(xq, wq, **kw), tile)
+            for act in ("none", "relu", "abs", "sign"):
+                for bb in (bias, None):
+                    e = dict(act_scale=0.37, act=act, bias=bb)
+                    compare("conv_strip_f64mma", run(xq, wq, ws, **e),
+                            strip.conv_strip_ref(xq, wq, ws, **kw, **e),
+                            f"{tile} {act} bias {bb is not None}")
+            got, want = run(xf, wf), strip.conv_strip_ref(xf, wf, **kw)
+            f64_err = max(f64_err, float((got - want).abs().max()))
+            need(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
+                 f"conv_strip_f64mma {tile} float operands: off the plain "
+                 f"version by {f64_err}")
     # the int8 kernel's wgmma form at its edges, forced (the rule gives
     # the narrower ones the mma.sync form): raw, every act with ws and
     # bias, and the folded store (y and each CTA's max) under both
@@ -1241,19 +1377,19 @@ def phase_kernels(device, vision, imaging):
                 conv_int_ref(x, wq, stride, pads, groups),
                 f"{name} {xs}x{wshape}")
 
-    bank_calls = conv_bank_calls(device)
-    float_err = 0.0
+    bank_calls = conv_bank_calls(device) + conv_bank_calls(device, True)
+    float_err = f64_err
     for x, w, b in bank_calls:
         for strategy in ("resident", "strip"):
             kw = dict(spec=W4A4, strategy=strategy, act="relu", bias=b)
-            kernel = ("conv_strip_int" if strip.dense_route(
-                x.shape[-1], w.shape[-1], w.shape[0], 1) == "int"
-                else "conv_bank" if strategy == "resident" else "conv_strip")
-            compare(kernel, conv_bank(x, w, **kw), conv_bank_plain(x, w, **kw),
-                    f"conv_bank {strategy} k={w.shape[0]}")
+            compare(bank_kernel(x, w, strategy, True), conv_bank(x, w, **kw),
+                    conv_bank_plain(x, w, **kw),
+                    f"conv_bank {strategy} {x.shape[-1]}->{w.shape[-1]} "
+                    f"k={w.shape[0]}")
             if strategy == "resident":
-                # the op's whole-frame launch of the float64 kernel on the
-                # same quantized operands, bitwise its plain version
+                # the op's whole-frame launch of the float kernel (in the
+                # form its rule gives) on the same quantized operands,
+                # bitwise its plain version
                 from repro_torch.core.quant import quantize_weight, true_div
                 from repro_torch.kernels.conv_bank import ops as bank_ops
                 k = w.shape[0]
@@ -1263,45 +1399,55 @@ def phase_kernels(device, vision, imaging):
                 xq = torch.nn.functional.pad(
                     codes, (0, 0, k // 2, k // 2, k // 2, k // 2))
                 kw = dict(act_scale=1 / 15.0, act="relu", bias=b)
-                compare("conv_bank", strip.launch(
+                compare(bank_kernel(x, w, strategy, False), strip.launch(
                     xq, wq.float(), ws.reshape(-1), b, 1 / 15.0, "relu", 1,
                     False, bank_ops.LAUNCHES) if x.is_cuda else
                     strip.conv_strip_ref(xq, wq.float(), ws.reshape(-1), 1,
                                          x.shape[1], **kw),
                     strip.conv_strip_ref(xq, wq.float(), ws.reshape(-1), 1,
                                          x.shape[1], **kw),
-                    f"conv_bank whole frame, float64 kernel k={k}")
+                    f"conv_bank whole frame, float kernel "
+                    f"{x.shape[-1]}->{w.shape[-1]} k={k}")
             got = conv_bank(x, w, strategy=strategy)
             want = conv_bank_plain(x, w, strategy=strategy)
             float_err = max(float_err, float((got - want).abs().max()))
             need(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
-                 f"conv_bank float mode {strategy} k={w.shape[0]}: off its "
-                 f"plain version by {float_err}")
+                 f"conv_bank float mode {strategy} {x.shape[-1]}->"
+                 f"{w.shape[-1]} k={w.shape[0]}: off its plain version by "
+                 f"{float_err}")
     return ({k: max(v) for k, v in errs.items()},
             {k: len(v) for k, v in errs.items()}, float_err)
 
 
 def phase_conv_bank_op(device):
-    """The conv_bank op's entry point on its own calls, counts zeroed
-    around it (no served path reaches it): quantized (the int8 kernel
-    where ``strip.dense_route`` sends the shape) and in float mode (the
-    float64 kernel over the whole frame, and over strips), both
-    strategies."""
+    """The conv_bank op's entry point on its own calls and the narrow one,
+    counts zeroed around it (no served path reaches it): quantized (the
+    int8 kernel where ``strip.dense_route`` sends the shape) and in float
+    mode (the float kernel's tensor-core form where ``strip.dense_form``
+    gives it, else its CUDA-core form over the whole frame or over
+    strips), both strategies. Returns the counts, and the launches each
+    counter should have made (:func:`bank_kernel`, one a call)."""
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    calls = conv_bank_calls(device)
+    calls = conv_bank_calls(device) + conv_bank_calls(device, True)
+    strategies = ("resident", "strip")
     reset_launch_counts()
     outs = run_conv_bank_op(calls) + run_conv_bank_op(calls,
                                                       quantized=False)
     if device.type == "cuda":
         torch.cuda.synchronize()
     counts = launch_counts()
-    for out, (x, w, _) in zip(outs, [c for c in calls for _ in range(2)]
+    expected = dict.fromkeys(counts, 0)
+    for quantized in (True, False):
+        for x, w, _ in calls:
+            for strategy in strategies:
+                expected[bank_kernel(x, w, strategy, quantized)] += 1
+    for out, (x, w, _) in zip(outs, [c for c in calls for _ in strategies]
                               * 2):
         need(out.shape == (*x.shape[:3], w.shape[-1])
              and bool(torch.isfinite(out).all()),
              f"conv_bank op: bad answer {tuple(out.shape)}")
-    return counts
+    return counts, expected
 
 
 def timer(device):
@@ -1586,9 +1732,11 @@ def phase_timing(device, vision, imaging):
                 **launch)
 
     # the conv_bank op: its quantized calls (on the kernel
-    # ``strip.dense_route`` picks) and its float mode, whose whole-frame
-    # launch is the float64 kernel's "conv_bank" count
-    for x, w, bias in conv_bank_calls(device):
+    # ``strip.dense_route`` picks) and its float mode (the float kernel's
+    # tensor-core form, ``strip.dense_form``), and the narrow call, whose
+    # whole-frame launch is the CUDA-core form's "conv_bank" count
+    for x, w, bias in conv_bank_calls(device) + conv_bank_calls(device,
+                                                                 True):
         b, h, ww, ci = x.shape
         k, co = w.shape[0], w.shape[-1]
         kw = dict(spec=W4A4, strategy="resident", act="relu", bias=bias)
@@ -1607,22 +1755,23 @@ def phase_timing(device, vision, imaging):
         route = strip.dense_route(ci, co, k, 1)
         launch = (dict(ctas=strip.igemm_config(b, h, ww, ci, co, k, 1).ctas)
                   if route == "int" else
-                  dict(ctas=strip_config(b, h, ww, ci, co, k, 1).ctas))
-        add("conv_strip_int" if route == "int" else "conv_bank",
+                  dict(ctas=strip.dense_config(b, h, ww, ci, co, k, 1).ctas))
+        add(bank_kernel(x, w, "resident", True),
             time_ms(lambda: conv_bank(x, w, **kw)),
             time_ms(lambda: conv_bank_plain(x, w, **kw)), lib,
             (x.numel() + w.numel() + 2 * co + n_out) * 4,
             2 * n_out * k * k * ci, "int8", "conv_bank_op", x=list(x.shape),
             w=list(w.shape), strategy="resident", quantized=True,
             library="F.conv2d + bias + relu (float)", **launch)
-        add("conv_bank", time_ms(lambda: conv_bank(x, w,
-                                                   strategy="resident")),
+        cfg = strip.dense_config(b, h, ww, ci, co, k, 1)
+        add(bank_kernel(x, w, "resident", False),
+            time_ms(lambda: conv_bank(x, w, strategy="resident")),
             time_ms(lambda: conv_bank_plain(x, w, strategy="resident")),
             flib, (x.numel() + w.numel() + n_out) * 4,
-            2 * n_out * k * k * ci, "fp32", "conv_bank_op_float",
+            2 * n_out * k * k * ci, "fp64", "conv_bank_op_float",
             x=list(x.shape), w=list(w.shape), strategy="resident",
             quantized=False, library="F.conv2d (float, TF32 off)",
-            ctas=strip_config(b, h, ww, ci, co, k, 1).ctas)
+            form=cfg.form, ctas=cfg.ctas)
     return rows, detail
 
 
@@ -1689,6 +1838,7 @@ def phase_device_time(device, vision, imaging, trace_path,
                                           "ca_pool.imaging", "ca_pool.cold",
                                           "epilogue.imaging")}
     bank = conv_bank_calls(device)
+    narrow = conv_bank_calls(device, True)
     # the levels laid out once, as a bound view lays them out at bind
     laid = {path: [(a, mvm_weights(w)) for a, w in calls["photonic_mvm"]]
             for path, calls in (("vision", vision), ("imaging", imaging))}
@@ -1707,8 +1857,10 @@ def phase_device_time(device, vision, imaging, trace_path,
         "conv_strip_depthwise": lambda: [
             strip.conv_strip_depthwise(xp, w, stride=s, strip_h=sh)
             for xp, w, s, sh, _ in imaging["conv_strip_depthwise"]],
-        "conv_bank": lambda: run_conv_bank_op(bank, ("resident",),
-                                              quantized=False),
+        "conv_bank": lambda: run_conv_bank_op(narrow, ("resident",)) +
+        run_conv_bank_op(narrow, ("resident",), quantized=False),
+        "conv_strip_f64mma": lambda: run_conv_bank_op(
+            bank, ("resident",), quantized=False),
         "conv_strip_int.conv_bank_op": lambda: run_conv_bank_op(
             bank, ("resident",)),
         "epilogue": lambda: [epilogue_fns(a)[0]()
@@ -1737,6 +1889,12 @@ def phase_device_time(device, vision, imaging, trace_path,
                     xp, w, stride=s, strip_h=sh)
             batches[f"library.{kernel}.shape{i}"] = strip_library(
                 xp, w, s, kernel == "conv_strip_depthwise")
+    # each of the conv_bank op's timed calls, beside its library call
+    seen = {}
+    for kernel, fn, lib in bank_entries(device):
+        i = seen[kernel] = seen.get(kernel, -1) + 1
+        batches[f"{kernel}.shape{i}"] = fn
+        batches[f"library.{kernel}.shape{i}"] = lib
     for i, (img, p) in enumerate(vision["ca_pool"] + imaging["ca_pool"]):
         coef = ca_coefficients(p, img.shape[-1], device=device)
         coef_bank = coef.permute(2, 0, 1)[None].contiguous()
@@ -1823,7 +1981,11 @@ def phase_routes(device, imaging_exes, trace_path):
     codes and levels (float: the f32 border pad and the float64 kernel,
     or the op's strip; int: the uint8 cast, the pad and the int8 kernel
     with its weight layout), beside what ``strip.dense_route`` picks.
-    VGG16's conv1-conv10 are timed both ways in [vgg16]."""
+    VGG16's conv1-conv10 are timed both ways in [vgg16]. Then the float
+    kernel's form rule's: at each of the op's float calls at batches 8
+    and 1, the device time of its CUDA-core form and of its tensor-core
+    form, each forced, beside ``F.conv2d`` (TF32 off), the bound at the
+    FP64 tensor rate and what ``strip.dense_form`` picks."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.plan import ConvStep
@@ -1869,12 +2031,38 @@ def phase_routes(device, imaging_exes, trace_path):
     for c in cases:
         need(torch.equal(c["float"](), c["int"]()),
              f"[route] {c['shape']}: the two routes differ")
+    # the float kernel's two forms, forced, at the op's float calls at
+    # batches 8 and 1, beside F.conv2d (TF32 off): the rule's numbers
+    forms = []
+    for x, w, _ in conv_bank_calls(device):
+        for b in (8, 1):
+            k, ci, co = w.shape[0], w.shape[2], w.shape[3]
+            xp = F.pad(x[:b], (0, 0, k // 2, k // 2, k // 2, k // 2))
+            h = x.shape[1]
+            fns = {form: lambda xp=xp, w=w, h=h, form=form: strip.conv_strip(
+                xp, w, strip_h=h, form=form) for form in ("fma", "f64mma")}
+            fns["library"] = lambda n=xp.permute(0, 3, 1, 2), \
+                wo=w.permute(3, 2, 0, 1).contiguous(): F.conv2d(n, wo)
+            need(torch.allclose(fns["fma"](), fns["f64mma"](), rtol=1e-5,
+                                atol=1e-5),
+                 f"[route] conv_bank op float {b} {ci}->{co} k{k}: the two "
+                 f"forms differ")
+            n_out = b * h * x.shape[2] * co
+            bound, by = bound_ms((xp.numel() + w.numel() + n_out) * 4,
+                                 2 * n_out * k * k * ci, "fp64")
+            forms.append(dict(
+                shape=f"conv_bank op float {b}x{h}x{x.shape[2]} {ci}->{co} "
+                      f"k{k}", batch=b, c_in=ci, c_out=co, k=k, fns=fns,
+                rule=strip.dense_form(b, h, x.shape[2], ci, co, k, 1),
+                bound_ms=bound, bound_by=by))
     if device.type != "cuda":
         times = {}
     else:
-        times = profile_ranges(device, {
-            f"route.{i}.{r}": c[r] for i, c in enumerate(cases)
-            for r in ("float", "int")}, trace_path, ROUTE_ITERS)
+        ranges = {f"route.{i}.{r}": c[r] for i, c in enumerate(cases)
+                  for r in ("float", "int")}
+        ranges.update({f"form.{i}.{f}": fn for i, c in enumerate(forms)
+                       for f, fn in c["fns"].items()})
+        times = profile_ranges(device, ranges, trace_path, ROUTE_ITERS)
     rows = []
     for i, c in enumerate(cases):
         f_ms, i_ms = (times.get(f"route.{i}.{r}") for r in ("float", "int"))
@@ -1885,6 +2073,11 @@ def phase_routes(device, imaging_exes, trace_path):
                                    c["stride"]),
             faster=None if None in (f_ms, i_ms) else
             ("int" if i_ms < f_ms else "float")))
+    for i, c in enumerate(forms):
+        ms = {f: times.get(f"form.{i}.{f}") for f in c.pop("fns")}
+        rows.append(dict(c, **{f"{f}_device_ms": v for f, v in ms.items()},
+                         faster=None if None in (ms["fma"], ms["f64mma"])
+                         else min(("fma", "f64mma"), key=ms.get)))
     return rows
 
 
@@ -2594,7 +2787,7 @@ def vgg16_kernels(device, buckets, exe):
     gen = torch.Generator(device=device).manual_seed(SEED + 16)
     from repro_torch.kernels.edge_shapes import epilogue_calls
     errs = {"conv_strip": [], "photonic_mvm": [], "conv_strip_int": [],
-            "epilogue": []}
+            "conv_strip_f64mma": [], "epilogue": []}
 
     def compare(kernel, got, want, what):
         need(got.shape == want.shape and bool(torch.isfinite(got).all()),
@@ -2618,13 +2811,14 @@ def vgg16_kernels(device, buckets, exe):
                 if kernel == "conv_strip":
                     xp, w, stride, sh = args
                     kw = dict(stride=stride, strip_h=sh)
-                    compare(kernel, strip.conv_strip(xp, w, **kw),
+                    dense = dense_kernel(xp, w, stride)
+                    compare(dense, strip.conv_strip(xp, w, **kw),
                             strip.conv_strip_ref(xp, w, **kw), what)
                     co = w.shape[-1]
                     ws = torch.rand((co,), generator=gen, device=device) + .5
                     bias = torch.randn((co,), generator=gen, device=device)
                     kw.update(act_scale=0.37, act="relu", bias=bias)
-                    compare(kernel, strip.conv_strip(xp, w, ws, **kw),
+                    compare(dense, strip.conv_strip(xp, w, ws, **kw),
                             strip.conv_strip_ref(xp, w, ws, **kw),
                             f"{what} with epilogue")
                     own = shape[3] + w.shape[0] - 1       # square frames
@@ -2684,7 +2878,8 @@ def vgg16_timing(device, exe, trace_path, ptxas=None):
     pads, casts and slicing included), its plain version and its library
     call, timed by CUDA events over ``VGG16_ITERS`` calls (``<name>_ms``);
     the kernel, its route, the library call, the forced-resident route
-    and, for a strip step, the float64 strip kernel also by their device
+    and, for a strip step, the float64 strip kernel (its CUDA-core form,
+    forced) also by their device
     time in one profiler session (``<name>_device_ms``: every kernel the
     call launched, the kernel's own symbol alone for ``kernel`` and
     ``float_kernel``); and the bound (the conv's own output, not the strip
@@ -2774,8 +2969,11 @@ def vgg16_timing(device, exe, trace_path, ptxas=None):
                 launch_rows = (xp.shape[1] - g.kernel) // g.stride + 1
                 cfg = strip.strip_config(b, launch_rows, wc, g.c_in, g.c_out,
                                          g.kernel, g.stride)
+                # the CUDA-core form forced, as every run before the
+                # tensor-core one timed it (the rule gives conv2-conv10
+                # that form on the float route)
                 float_kernel = lambda xp=xp, wf=wf, kw=kw: strip.conv_strip(
-                    xp, wf, **kw)
+                    xp, wf, form="fma", **kw)
                 fns.update(
                     kernel=float_kernel,
                     plain=lambda xp=xp, wf=wf, kw=kw: strip.conv_strip_ref(
@@ -5705,8 +5903,9 @@ def main(argv) -> int:
         log(f"[kernels] bitwise equal to their plain versions: {n_cmp} "
             f"comparisons, max abs err {max_err}; conv_bank float mode "
             f"within {bank_float_err:.3g} of its plain version")
-        bank_counts = phase_conv_bank_op(device)
-        log(f"[conv_bank op] launches {bank_counts}")
+        bank_counts, bank_expected = phase_conv_bank_op(device)
+        log(f"[conv_bank op] launches {bank_counts} (the rule's: "
+            f"{ {k: v for k, v in bank_expected.items() if v} })")
 
         rows, detail = phase_timing(device, vision, imaging)
         out_dir = os.path.dirname(os.path.abspath(args.details))
@@ -5723,6 +5922,14 @@ def main(argv) -> int:
             n: p.compile(opts) for n, p in imaging_progs.items()},
             os.path.join(out_dir, ROUTE_TRACE))
         for r in routes:
+            if "fma_device_ms" in r:
+                log(f"[route] {r['shape']}: float kernel device ms, "
+                    f"CUDA-core form {r['fma_device_ms']}, tensor-core "
+                    f"form {r['f64mma_device_ms']}; F.conv2d (TF32 off) "
+                    f"{r['library_device_ms']}; bound {r['bound_ms']:.6f} "
+                    f"({r['bound_by']}, FP64 tensor rate); the rule takes "
+                    f"{r['rule']}, faster {r['faster']}")
+                continue
             log(f"[route] {r['shape']}: float64 route device "
                 f"{r['float_device_ms']} ms, int8 route device "
                 f"{r['int_device_ms']} ms; the rule takes {r['rule']}, "
@@ -5740,11 +5947,31 @@ def main(argv) -> int:
                 f"{r['library_exact']}, bound {r['bound_ms']:.6f}, device "
                 f"{device_ms[k]}); by path {r['by_path']}")
         for k in ("photonic_mvm", "conv_strip", "conv_strip_depthwise",
-                  "ca_pool"):
+                  "ca_pool", "conv_bank", "conv_strip_int",
+                  "conv_strip_f64mma"):
             for i, d in enumerate(detail[k]):
+                if k == "conv_strip_int" and d["path"] != "conv_bank_op":
+                    continue
                 d["device_ms"] = device_ms.pop(f"{k}.shape{i}", None)
                 d["library_device_ms"] = device_ms.pop(
                     f"library.{k}.shape{i}", None)
+            # the library call's device ms beside its wall figure, by path
+            # and (where every path has it) in all
+            lib_dev = {}
+            for d in detail[k]:
+                lib_dev.setdefault(d["path"], []).append(
+                    d.get("library_device_ms"))
+            for path, ms in lib_dev.items():
+                rows[k]["by_path"][path]["library_device_ms"] = (
+                    None if None in ms else sum(ms))
+            every = [m for ms in lib_dev.values() for m in ms]
+            rows[k]["library_device_ms"] = (
+                None if None in every or set(lib_dev) != set(
+                    rows[k]["by_path"]) else sum(every))
+            by_path = {path: b.get("library_device_ms")
+                       for path, b in rows[k]["by_path"].items()}
+            log(f"[timing] {k}: library device ms by path {by_path} (wall "
+                f"{rows[k]['library_ms']})")
         # the epilogue's forms at each requant of the two paths
         totals = {}
         for i, d in enumerate(detail["epilogue"]):
@@ -5892,6 +6119,7 @@ def main(argv) -> int:
         rows["conv_strip_int"].update(
             {key: v[key] for key in ("ms", "plain_ms", "library_ms",
                                      "bound_ms", "library_exact")},
+            library_device_ms=v.get("library_device_ms"),
             t_bytes=float(v["bound_by"] == "bytes"),
             t_ops=float(v["bound_by"] != "bytes"))
         device_ms["conv_strip_int"] = v["device_ms"]
@@ -5935,12 +6163,14 @@ def main(argv) -> int:
         for name in KERNELS:
             src, replaces = SOURCES[name]
             srcs = (src,) if isinstance(src, str) else src
+            replaced = (replaces,) if isinstance(replaces, str) else replaces
             r = rows[name]
-            n = bank_counts[name] if name == "conv_bank" else \
+            n = bank_counts[name] if name in OP_KERNELS else \
                 sum(served[path][name] for path in served)
             kernels.append({
                 "name": name, "route": "cuda", "source": srcs[0],
-                "sources": list(srcs), "replaces": replaces, "launches": n,
+                "sources": list(srcs), "replaces": replaced[0],
+                "replaces_all": list(replaced), "launches": n,
                 "launches_by_path": launches[name],
                 "max_abs_err": max_err[name],
                 "bitwise_equal": max_err[name] == 0.0, "ms": r["ms"],
@@ -5948,6 +6178,7 @@ def main(argv) -> int:
                 "bound_by": ("bytes" if r["t_bytes"] >= r["t_ops"]
                              else "operations"),
                 "library_ms": r["library_ms"],
+                "library_device_ms": r.get("library_device_ms"),
                 "library_exact": r["library_exact"],
                 "device_ms": device_ms[name], "by_path": r["by_path"]})
         with open(args.details, "w") as f:
@@ -5978,14 +6209,17 @@ def main(argv) -> int:
                             need(served[window][k] > 0, f"{k} never "
                                  f"launched on the {window} serving path")
                 need(f"bound {path}" in served, f"no bound {path} window")
-            need(bank_counts["conv_bank"] > 0,
-                 "conv_bank never launched by the conv_bank op")
-            for x, w, _ in conv_bank_calls(device):
-                if strip.dense_route(x.shape[-1], w.shape[-1], w.shape[0],
-                                     1) == "int":
-                    need(bank_counts["conv_strip_int"] > 0,
-                         "conv_strip_int never launched by the conv_bank "
-                         "op's quantized path")
+            # the op's run: every call on the kernel the rules give it,
+            # one launch a call (the float mode's 16 -> 32 calls on the
+            # tensor-core form in both strategies, the narrow call on the
+            # CUDA-core form, the quantized 16 -> 32 calls on the int8
+            # kernel)
+            for k in OP_KERNELS + ("conv_strip_int",):
+                need(bank_counts[k] > 0, f"{k} never launched by the "
+                     f"conv_bank op")
+            need(bank_counts == bank_expected,
+                 f"conv_bank op: launches {bank_counts}, the rules give "
+                 f"{bank_expected}")
             for k in SHARD_BATCH_KERNELS:
                 need(served["shard_batch"][k] > 0, f"{k} never launched on "
                      f"the shard_batch path")

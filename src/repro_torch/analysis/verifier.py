@@ -31,8 +31,9 @@ act/pool/upsample vocabulary.
 against the budget, the fused segments' legality, halo recurrence and
 working set), and the Hopper ones:
 
-* every strip step's launch, as ``strip.strip_config`` / ``strip.dw_config``
-  / ``strip.igemm_config`` would choose it at batch 1 and at batch 8 (the
+* every strip step's launch, as ``strip.dense_config`` (in the float
+  kernel's form ``strip.dense_form`` gives it) / ``strip.dw_config`` /
+  ``strip.igemm_config`` would choose it at batch 1 and at batch 8 (the
   last for a step the plan routed to the int8 kernel, over the conv's own
   rows), must have CTA tiles that cover the whole output (rows, columns,
   channel blocks; ``LTR020``, error), and shared memory that a CTA can
@@ -101,6 +102,16 @@ _INT_ROW_BYTES = 48
 _INT_WGMMA_PIXELS = (128, 256)
 _INT_WGMMA_ALIGN = 128
 _MBARRIER = 8
+# the dense float kernel's tensor-core form, as its launcher takes it: tile
+# columns (an m16 block's), tile rows and output-channel blocks, a warp's
+# rows and channels (an m16n8 block's), the doubles past a staged pixel's
+# channels and a weight row's, its channel step and most warps a CTA
+_F64_TW = 8
+_F64_TH, _F64_BN = (8, 16), (16, 32)
+_F64_M16_ROWS, _F64_N8 = 2, 8
+_F64_PAD = 4
+_F64_STEP = 8
+_F64_MAX_WARPS = 16
 # the batches whose strip launches are audited: batch 1 and the largest
 # serving bucket
 _AUDIT_BATCHES = (1, 8)
@@ -390,6 +401,19 @@ def _dense_smem(cfg, k: int, stride: int) -> int:
     return cfg.stages * stage
 
 
+def _f64mma_smem(cfg, k: int) -> int:
+    """Shared memory of the dense float kernel's tensor-core form: the
+    stage the mma reads, the tile's input patch (halo included, ``cc``
+    channels and the pad a pixel) and the chunk's k*k x ``cc`` weight
+    rows (``bn`` channels and the pad) in float64, then the landing area
+    of the next chunk's copies, the same without the pads in float32
+    (``csrc/conv_strip_f64mma.cu::conv_strip_f64mma_launch``)."""
+    pixels = (cfg.th + k - 1) * (_F64_TW + k - 1)
+    weights = k * k * cfg.cc
+    return (pixels * (cfg.cc + _F64_PAD) + weights * (cfg.bn + _F64_PAD)) \
+        * 8 + (pixels * cfg.cc + weights * cfg.bn) * 4
+
+
 def _dw_smem(cfg, k: int, stride: int) -> int:
     """Shared memory of the depthwise strip kernel's CTA: the input rows
     (``cols * cb`` floats padded to 4, plus 4), an int phase a row, 8-byte
@@ -454,7 +478,7 @@ def _strip_launches(g, strat, route: Optional[str] = None,
         else:
             cg, og = g.c_in // g.groups, g.c_out // g.groups
             out.append(("dense", b, rows, w_out, cg, og,
-                        strip.strip_config(b, rows, w_out, cg, og,
+                        strip.dense_config(b, rows, w_out, cg, og,
                                            g.kernel, g.stride)))
     return out
 
@@ -474,6 +498,14 @@ def _check_strip_launch(name: str, g, launch, out: List[Diagnostic]) -> None:
             tile_w % 8 or tile_h % 8 or
             tile_w * tile_h not in _INT_WGMMA_PIXELS
             if cfg.form == "wgmma" else tile_w * tile_h > _INT_SLOTS)
+    elif kind == "dense" and cfg.form == "f64mma":
+        tile_w, tile_h, block = cfg.tw, cfg.th, cfg.bn
+        degenerate = (
+            tile_w != _F64_TW or tile_h not in _F64_TH or
+            block not in _F64_BN or
+            tile_h // _F64_M16_ROWS * (block // _F64_N8) >
+            _F64_MAX_WARPS or cfg.cc < _F64_STEP or cfg.cc % _F64_STEP or
+            cfg.cc > _cdiv(c_in, _F64_STEP) * _F64_STEP)
     else:
         tile_w, tile_h = cfg.tx, cfg.tyt * cfg.run
         block = cfg.co_b if kind == "dense" else cfg.cb
@@ -486,10 +518,14 @@ def _check_strip_launch(name: str, g, launch, out: List[Diagnostic]) -> None:
         out.append(Diagnostic(
             "LTR020", "error", name,
             f"{what} has a degenerate tile or C_in chunk",
-            hint="this is a strip_config/dw_config/igemm_config bug: "
-                 "every tile dimension must be >= 1, the chunk within "
-                 "C_in and an int8 tile within its pixel slots (the wgmma "
-                 "form: 8 x 8 blocks, 128 or 256 pixels)"))
+            hint="this is a strip_config/dw_config/igemm_config/"
+                 "f64mma_config bug: every tile dimension must be >= 1, "
+                 "the chunk within C_in, an int8 tile within its pixel "
+                 "slots (the wgmma form: 8 x 8 blocks, 128 or 256 pixels) "
+                 "and a float64 tensor-core tile its launcher takes (8 or "
+                 "16 rows x 8 columns, 16 or 32 channels, 16 warps at "
+                 "most) with a chunk "
+                 "of 8-channel steps"))
         return
     col_tiles = _cdiv(cols, tile_w)
     blocks = _cdiv(c_out, block)
@@ -505,6 +541,8 @@ def _check_strip_launch(name: str, g, launch, out: List[Diagnostic]) -> None:
             hint="this is a strip_config/dw_config/igemm_config bug in "
                  "the CTA count or the tile it records"))
     smem = (_int_smem(cfg, g.kernel, g.stride, folded) if kind == "int"
+            else _f64mma_smem(cfg, g.kernel)
+            if kind == "dense" and cfg.form == "f64mma"
             else {"dense": _dense_smem, "depthwise": _dw_smem}[kind](
                 cfg, g.kernel, g.stride))
     if smem > _SMEM_PER_CTA:

@@ -52,7 +52,10 @@ path.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -60,6 +63,34 @@ import torch
 
 from repro_torch.core import plan as plan_mod
 from repro_torch.kernels import credit_launches, recording_launches
+
+# Automatic garbage collection is held off while any thread captures: a
+# collection that ran inside a capture, in the capturing thread, would
+# destroy the graphs of views that only a dead reference cycle still held
+# there, and a graph destroyed in a capturing thread invalidates the
+# capture (cudaErrorStreamCaptureInvalidated; the card showed it when a
+# server started right after another had stopped). The count lets
+# captures on several devices' threads overlap.
+_capture_gc = threading.Lock()
+_capture_holds = 0
+_capture_gc_was_on = False
+
+
+@contextlib.contextmanager
+def _no_collection():
+    global _capture_holds, _capture_gc_was_on
+    with _capture_gc:
+        if _capture_holds == 0:
+            _capture_gc_was_on = gc.isenabled()
+            gc.disable()
+        _capture_holds += 1
+    try:
+        yield
+    finally:
+        with _capture_gc:
+            _capture_holds -= 1
+            if _capture_holds == 0 and _capture_gc_was_on:
+                gc.enable()
 
 
 class HostResult:
@@ -201,7 +232,8 @@ class Binding:
             self.execute(static_in)
         self.stream.synchronize()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(self.device), recording_launches() as tally:
+        with _no_collection(), torch.cuda.device(self.device), \
+                recording_launches() as tally:
             with torch.cuda.graph(graph, pool=self._pool, stream=self.stream,
                                   capture_error_mode="thread_local"):
                 static_out = self.execute(static_in)

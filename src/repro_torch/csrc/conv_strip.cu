@@ -28,12 +28,17 @@
 // a tile of output pixels for a block of CO_B output channels, staging the
 // tile's input plus the (k-1) halo in shared memory, C_in in chunks.
 //
-// Dense (conv_dense_kernel<K, RUN, CO_B>): what bounds it on an H100 (the
-// SXM data sheet's rates at its 700 W limit). The path's convs (1-4 input
-// channels, k = 3 or 5, 256 x 256 frames at batch 8) do 9-100 MACs per
-// 4-byte input, so bytes bound them (1.3 and 3.2 us at 3.35 TB/s); the
-// conv_bank op (16 -> 32 channels, k <= 7, 32 x 32 frames) is bound by its
-// float64 FMAs instead (12 us for k = 7 at 17 TFMA/s). The first design
+// Dense (conv_dense_kernel<K, RUN, CO_B>, the CUDA-core form): what bounds
+// it on an H100 (the SXM data sheet's rates at its 700 W limit). The
+// path's convs (1-4 input channels, k = 3 or 5, 256 x 256 frames at batch
+// 8) do 9-100 MACs per 4-byte input, so bytes bound them (1.3 and 3.2 us
+// at 3.35 TB/s), and this form keeps them. Convs of 8 or more input and
+// output channels at stride 1 and k = 3, 5, 7 (the conv_bank op's float
+// mode: 16 -> 32 channels, 32 x 32 frames) are bound by their float64
+// operations instead (6.1 us for k = 7 at the FP64 tensor cores' 67
+// TFLOP/s, twice this form's FMA rate): they take the tensor-core form,
+// conv_f64mma_kernel in conv_strip_f64mma.cu (kernels/conv_bank/strip.py::
+// dense_form picks, from the card's times of both). The first design
 // (16 x 16 tiles, one pixel
 // a thread, scalar loads widened to doubles, one buffer) paid a fixed cost
 // per block for little work, re-read a 1.56x halo at k = 5, and gave the
@@ -143,16 +148,19 @@
 // exact sum rounded once to float32: bitwise the plain version, past 2^24
 // too. The epilogue is the float64 kernel's, on explicit _rn intrinsics.
 
-// Numerics: the accumulate is float64. Every product of two float32 is
-// exact in float64, and for the integer codes x levels of the device path
-// every partial sum is an exact integer far below 2^53, so the order of
-// the taps cannot change a bit and the result equals the plain version's
-// float64 tap loop (repro_torch/kernels/conv_bank/ref.py::conv_taps_int)
-// rounded once to float32 -- bitwise, with no bound to check before the
-// launch. Float inputs (the conv_bank op without a quantization spec)
-// round differently from the plain version only through the order of
-// float64 additions. The epilogue uses explicit _rn intrinsics, so nvcc
-// cannot contract it into an FMA.
+// Numerics: the accumulate is float64, in both forms of the dense conv
+// (this file's CUDA-core one, conv_strip_f64mma.cu's tensor-core one).
+// Every product of two float32 is exact in float64, and for the integer
+// codes x levels of the device path every partial sum is an exact integer
+// far below 2^53, so the order of the taps cannot change a bit and the
+// result equals the plain version's float64 tap loop
+// (repro_torch/kernels/conv_bank/ref.py::conv_taps_int) rounded once to
+// float32 -- bitwise, in either form, with no bound to check before the
+// launch. Float inputs (the conv_bank op without a quantization spec: on
+// the tensor-core form from 8 channels, on this one below) round
+// differently from the plain version only through the order of float64
+// additions, which differs between the forms. The epilogue uses explicit
+// _rn intrinsics, so nvcc cannot contract it into an FMA.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

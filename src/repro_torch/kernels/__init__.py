@@ -23,11 +23,13 @@ def _counters():
     from repro_torch.kernels.conv_bank.fused import LAUNCHES as chain
     from repro_torch.kernels.conv_bank.ops import LAUNCHES as bank
     from repro_torch.kernels.conv_bank.strip import DW_LAUNCHES as strip_dw
+    from repro_torch.kernels.conv_bank.strip import F64_LAUNCHES as strip_f64
     from repro_torch.kernels.conv_bank.strip import INT_LAUNCHES as strip_int
     from repro_torch.kernels.conv_bank.strip import LAUNCHES as strip
     from repro_torch.kernels.epilogue.ops import LAUNCHES as epilogue
     from repro_torch.kernels.photonic_mvm.ops import LAUNCHES as mvm
-    return (mvm, chain, ca, strip, strip_dw, bank, strip_int, epilogue)
+    return (mvm, chain, ca, strip, strip_dw, bank, strip_int, strip_f64,
+            epilogue)
 
 
 def launch_counts() -> Dict[str, int]:

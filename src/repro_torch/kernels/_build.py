@@ -33,7 +33,7 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("photonic_mvm", "conv_chain", "ca_pool", "conv_strip",
-           "conv_strip_wgmma", "epilogue")
+           "conv_strip_wgmma", "conv_strip_f64mma", "epilogue")
 # -Xptxas -v reports registers, shared memory and spills into the build log
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -14,9 +14,13 @@ Both accumulate the same exact integers on the quantized path, so they are
 bitwise equal there. Where ``strip.dense_route`` sends the shape to the
 int8 tensor-core kernel, the quantized path runs ``strip.conv_strip_int``
 over the whole frame instead, in either strategy (counted on its
-``INT_LAUNCHES``). Without a spec the op is a float conv: the kernel
-sums float64 products in its own order, so it agrees with the reference's
-float mode within a tolerance, not bitwise.
+``INT_LAUNCHES``). The dense float kernel takes its tensor-core form
+(``csrc/conv_strip_f64mma.cu``) where ``strip.dense_form`` gives it one
+(from 8 input and 8 output channels at k 3, 5, 7: the op's float mode at
+16 -> 32 channels), in either strategy, counted on
+``strip.F64_LAUNCHES`` instead. Without a spec the op is a float conv:
+the kernel sums float64 products in its own order, so it agrees with the
+reference's float mode within a tolerance, not bitwise.
 """
 
 from __future__ import annotations

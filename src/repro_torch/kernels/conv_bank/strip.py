@@ -1,6 +1,7 @@
-"""Wrappers of the strip conv kernels (``csrc/conv_strip.cu``, and
-``csrc/conv_strip_wgmma.cu`` for the int8 kernel's wgmma form) and their
-plain versions.
+"""Wrappers of the strip conv kernels (``csrc/conv_strip.cu``;
+``csrc/conv_strip_wgmma.cu`` for the int8 kernel's wgmma form and
+``csrc/conv_strip_f64mma.cu`` for the dense float kernel's tensor-core
+form) and their plain versions.
 
 ``conv_strip`` (dense, any stride) and ``conv_strip_depthwise`` (depthwise,
 multiplier 1) take the reference's strip contract: the caller pads the
@@ -12,6 +13,15 @@ on its own, so the strips fix only that contract: :func:`strip_config`
 picks the dense kernel's tile, output-channel block and input-channel
 chunk, and :func:`dw_config` the depthwise kernel's tile, run and channel
 block, from the shape alone (tested on the CPU).
+
+The dense float kernel has two forms, one a launch, which
+:func:`dense_form` picks: the tensor-core form (``conv_f64mma_kernel``,
+mma.sync on float64, :func:`f64mma_config`) from ``F64_MIN_C`` input and
+output channels at stride 1 and k 3, 5, 7 (the conv_bank op's float
+mode), counted on ``F64_LAUNCHES``; the CUDA-core form
+(``conv_dense_kernel``, :func:`strip_config`) for the rest (the imaging
+path's 1-4 channel convs, stride 2, any other k). Both sum exact float64
+products, so both are bitwise the plain version on integer operands.
 
 With ``ws`` the per-layer epilogue follows the accumulate, in the
 reference kernel's association: ``acc * act_scale * ws``, then ``+ bias``,
@@ -58,6 +68,8 @@ from repro_torch.kernels.conv_bank.ref import conv_taps_int
 LAUNCHES = _build.LaunchCounter("conv_strip")
 DW_LAUNCHES = _build.LaunchCounter("conv_strip_depthwise")
 INT_LAUNCHES = _build.LaunchCounter("conv_strip_int")
+# the dense float kernel's tensor-core form, whichever caller's launch
+F64_LAUNCHES = _build.LaunchCounter("conv_strip_f64mma")
 _DW_ENTRY = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6 + (
     ctypes.c_float,) + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
 _SIGNATURES = {
@@ -76,6 +88,10 @@ _WG_SIGNATURES = {
     "conv_strip_int_wgmma_fold_launch": (ctypes.c_void_p,) * 7 + (
         ctypes.c_int,) * 16 + (ctypes.c_void_p,),
     "conv_strip_int_tensor_map": (ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 5}
+# the dense float kernel's tensor-core form (csrc/conv_strip_f64mma.cu)
+_F64_SIGNATURES = {
+    "conv_strip_f64mma_launch": (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7
+    + (ctypes.c_float,) + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)}
 
 SMS = 132                       # H100 SXM
 SMEM_MAX = 232448               # bytes a CTA can opt into
@@ -132,13 +148,27 @@ WG_RATE = {(128, 64): 1.0, (128, 128): 1.45, (256, 64): 1.4,
 # conv_bank op's 16 -> 32 channels among them) keep the mma.sync form;
 # both forms' times there are in PERF.md (row 6)
 WG_MIN_C = 64
+# the dense float kernel's tensor-core form (conv_f64mma_kernel): tile
+# columns (an m16 block's 8), its tiles (th rows, bn output channels; a
+# warp each m16n8 block, 2 rows x 8 columns for 8 channels: th / 2 x bn / 8
+# warps, 16 at most), the doubles past a staged pixel's channels and a
+# weight row's, the channel multiple of a stage (an m16n8k8 step), the
+# input and output channels the rule asks for, and the stage that leaves
+# room for a second CTA on the SM
+F64_TW = 8
+F64_TILES = ((16, 16), (8, 32), (8, 16))
+F64_PAD = 4
+F64_K = 8
+F64_MIN_C = 8
+F64_HALF = SMEM_MAX // 2
 
 
 @dataclass(frozen=True)
 class StripConfig:
-    """One launch of the dense strip kernel: a tile of ``tx`` columns x
-    ``tyt * run`` rows (``tx * tyt`` threads, each ``run`` rows of one
-    column for ``co_b`` output channels), ``cc`` input channels a stage."""
+    """One launch of the dense strip kernel's CUDA-core form
+    (``conv_dense_kernel``): a tile of ``tx`` columns x ``tyt * run`` rows
+    (``tx * tyt`` threads, each ``run`` rows of one column for ``co_b``
+    output channels), ``cc`` input channels a stage."""
     k_inst: int                 # the kernel's K: 3, 5, 7, or 0 (any k, stride)
     tx: int
     tyt: int
@@ -148,6 +178,25 @@ class StripConfig:
     stages: int
     smem: int                   # dynamic shared memory, bytes
     ctas: int
+    form: str = "fma"
+
+
+@dataclass(frozen=True)
+class F64Config:
+    """One launch of the dense strip kernel's tensor-core form
+    (``conv_f64mma_kernel``, ``csrc/conv_strip_f64mma.cu``): a tile of
+    ``th`` x ``tw`` output pixels for ``bn`` output channels a CTA (``th /
+    2`` x ``bn / 8`` warps, each one m16n8 block: 2 rows x 8 columns for 8
+    channels), C_in in ``cc``-channel chunks through one shared-memory
+    stage the mma reads, beside the landing area of the next chunk's
+    copies."""
+    th: int
+    tw: int
+    bn: int
+    cc: int
+    smem: int                   # dynamic shared memory, bytes
+    ctas: int
+    form: str = "f64mma"
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -189,13 +238,21 @@ def _shape_config(batch: int, n_rows: int, w_out: int, c_in: int,
 @functools.lru_cache(maxsize=1024)
 def strip_config(batch: int, n_rows: int, w_out: int, c_in: int, c_out: int,
                  k: int, stride: int) -> StripConfig:
-    """The dense kernel's launch for output [batch, n_rows, w_out, c_out]
-    from c_in channels at k x k, stride ``stride``: the first of
-    ``DENSE_SHAPES`` that gives every SM a CTA, else the one with the most
-    CTAs (:func:`_shape_config`). A shape whose CTA tile of a block of
-    output channels needs more shared memory than a CTA has (a large k at a
-    large stride) is passed over; :func:`launch` raises if every one
-    does."""
+    """The dense kernel's CUDA-core form's launch for output [batch,
+    n_rows, w_out, c_out] from c_in channels at k x k, stride ``stride``:
+    the first of ``DENSE_SHAPES`` that gives every SM a CTA, else the one
+    with the most CTAs (:func:`_shape_config`). A shape whose CTA tile of a
+    block of output channels needs more shared memory than a CTA has (a
+    large k at a large stride) is passed over; :func:`launch` raises if
+    every one does.
+
+    The rule (:func:`dense_form`): this form takes every conv below
+    ``F64_MIN_C`` input or output channels, at a stride other than 1 or a
+    k other than 3, 5, 7; the tensor-core form (:func:`f64mma_config`)
+    the rest, where a stage of it fits a CTA. The card ran the tensor-core
+    form 4.0-6.1x faster at the conv_bank op's calls (16 -> 32 channels)
+    at batches 8 and 1, and this form 7.5x and 23.6x faster at the imaging
+    path's 4 -> 1 and 1 -> 1 channel convs (PERF.md)."""
     cap = 1 if c_out == 1 else 4 if c_out <= 4 else 8
     best = None
     for co_b, run, threads in DENSE_SHAPES:
@@ -213,6 +270,159 @@ def strip_config(batch: int, n_rows: int, w_out: int, c_in: int, c_out: int,
         best = _shape_config(batch, n_rows, w_out, c_in, c_out, k, stride,
                             *DENSE_SHAPES[-1])
     return best
+
+
+def f64mma_stage_bytes(th: int, bn: int, cc: int, k: int) -> int:
+    """Bytes of the tensor-core form's shared memory, as its launcher lays
+    it out: the stage the mma reads, the tile's input patch (halo
+    included) [th + k - 1][``F64_TW`` + k - 1][cc + ``F64_PAD``] and the
+    chunk's weights [k*k][cc][bn + ``F64_PAD``] in float64, then the
+    landing area the next chunk's copies fill, the same two unpadded in
+    float32."""
+    patch = (th + k - 1) * (F64_TW + k - 1)
+    return (patch * (cc + F64_PAD) + k * k * cc * (bn + F64_PAD)) * 8 + \
+        (patch * cc + k * k * cc * bn) * 4
+
+
+def _f64mma_chunk(c_in: int, th: int, bn: int, k: int, ctas: int) -> int:
+    """The tensor-core form's chunk: the most channels (a multiple of
+    ``F64_K``, no more than C_in rounded up to it) whose stage fits a CTA;
+    where the launch has more CTAs than SMs, the most whose stage leaves
+    room for a second CTA on the SM (``F64_HALF``) if any, so one stages
+    while the other sums (with one CTA an SM the larger chunk, one stage
+    for C_in = 16, ran 6-9% faster at k 5 and 7; with two, 16% slower at k
+    7: PERF.md); 0 where not even ``F64_K`` channels fit."""
+    top = _cdiv(c_in, F64_K) * F64_K
+    for budget in ((F64_HALF, SMEM_MAX) if ctas > SMS else (SMEM_MAX,)):
+        for cc in range(top, 0, -F64_K):
+            if f64mma_stage_bytes(th, bn, cc, k) <= budget:
+                return cc
+    return 0
+
+
+def f64mma_launches(batch: int, n_rows: int, w_out: int, c_in: int,
+                    c_out: int, k: int, stride: int) -> tuple:
+    """Every launch of the tensor-core form that takes the conv: one an
+    entry of ``F64_TILES`` (blocks of 32 channels only past 16 output
+    channels), each with :func:`_f64mma_chunk`'s chunk; none at a stride
+    other than 1, a k other than 3, 5 and 7, or where no chunk fits a
+    CTA."""
+    if stride != 1 or k not in FAST_K:
+        return ()
+    out = []
+    for th, bn in F64_TILES:
+        if bn > 16 and c_out <= 16:
+            continue
+        ctas = batch * _cdiv(n_rows, th) * _cdiv(w_out, F64_TW) * \
+            _cdiv(c_out, bn)
+        cc = _f64mma_chunk(c_in, th, bn, k, ctas)
+        if cc:
+            out.append(F64Config(th, F64_TW, bn, cc,
+                                 f64mma_stage_bytes(th, bn, cc, k), ctas))
+    return tuple(out)
+
+
+def f64mma_warps(cfg: F64Config) -> int:
+    """Warps of a tensor-core form CTA."""
+    return cfg.th // 2 * (cfg.bn // 8)
+
+
+def f64mma_cost(cfg: F64Config) -> int:
+    """The launch rule's cost of ``cfg``: the work of an SM in the last
+    wave, waves of CTAs over the card's SMs times a CTA's pixels x
+    channels. The card's times (PERF.md) follow it: a launch took
+    as long at batch 1 (16 CTAs of 16 x 8 pixels) as at batch 8 (128), and
+    at batch 1 the 8 x 8 tiles (32 CTAs) ran 11-20% faster."""
+    return _cdiv(cfg.ctas, SMS) * cfg.th * cfg.tw * cfg.bn
+
+
+@functools.lru_cache(maxsize=1024)
+def f64mma_config(batch: int, n_rows: int, w_out: int, c_in: int,
+                  c_out: int, k: int, stride: int) -> Optional[F64Config]:
+    """The tensor-core form's launch for output [batch, n_rows, w_out,
+    c_out] from c_in channels at k x k: among :func:`f64mma_launches`, the
+    least :func:`f64mma_cost`, then the taller tile (a smaller halo a
+    pixel), then the fewest CTAs (the weights staged fewer times); None
+    where the form does not take the conv. At the conv_bank op's calls:
+    16 x 8 tiles of 16 channels, 16 warps, at batch 8 and 8 x 8 ones, 8
+    warps, at batch 1, the fastest of its launches at each on the card."""
+    launches = f64mma_launches(batch, n_rows, w_out, c_in, c_out, k, stride)
+    if not launches:
+        return None
+    return min(launches, key=lambda c: (f64mma_cost(c), -c.th, c.ctas))
+
+
+def dense_form(batch: int, n_rows: int, w_out: int, c_in: int, c_out: int,
+               k: int, stride: int) -> str:
+    """Which form of the dense float kernel :func:`launch` gives a conv:
+    ``"f64mma"`` (the FP64 tensor cores, :func:`f64mma_config`) from
+    ``F64_MIN_C`` input and output channels where that form takes the conv
+    (stride 1, k 3, 5 or 7, a stage that fits a CTA); ``"fma"`` (the
+    float64 FMAs of the CUDA cores, :func:`strip_config`) otherwise: the
+    imaging path's 1-4 channel convs, every stride-2 conv and every k
+    outside 3, 5, 7. PERF.md gives the card's times of both at the
+    conv_bank op's calls and the imaging path's shapes."""
+    if c_in >= F64_MIN_C and c_out >= F64_MIN_C and f64mma_config(
+            batch, n_rows, w_out, c_in, c_out, k, stride) is not None:
+        return "f64mma"
+    return "fma"
+
+
+def dense_config(batch: int, n_rows: int, w_out: int, c_in: int, c_out: int,
+                 k: int, stride: int, form: Optional[str] = None):
+    """The dense float kernel's launch in :func:`dense_form`'s form, or in
+    ``form`` forced (``"fma"``, or ``"f64mma"`` wherever it takes the
+    conv, else it raises): a :class:`F64Config` or a
+    :class:`StripConfig`."""
+    if form not in (None, "fma", "f64mma"):
+        raise ValueError(f"dense_config: form {form!r}")
+    if form is None:
+        form = dense_form(batch, n_rows, w_out, c_in, c_out, k, stride)
+    if form == "fma":
+        return strip_config(batch, n_rows, w_out, c_in, c_out, k, stride)
+    cfg = f64mma_config(batch, n_rows, w_out, c_in, c_out, k, stride)
+    if cfg is None:
+        raise ValueError(f"dense_config: the f64mma form does not take "
+                         f"{c_in} -> {c_out} channels at k={k} "
+                         f"stride={stride}")
+    return cfg
+
+
+def _f64mma_warp(cfg: F64Config, warp: int) -> tuple:
+    """The first tile row and block channel of ``conv_f64mma_kernel``'s
+    warp ``warp``: warps take 2 rows each, ``bn / 8`` of them across the
+    block's channels."""
+    wpn = cfg.bn // 8
+    return 2 * (warp // wpn), 8 * (warp % wpn)
+
+
+def f64mma_fragments(cfg: F64Config, k: int, warp: int, lane: int, q: int,
+                     di: int, dj: int) -> tuple:
+    """Where ``conv_f64mma_kernel``'s lane ``lane`` of warp ``warp`` reads
+    its mma.sync.m16n8k8 operands at the k-step of channels ``q`` .. ``q``
+    + 7 of a stage and tap (di, dj): ``(a, b)``, doubles from the start of
+    the staged patch (a0..a3) and of the staged weights (b0, b1). a0 =
+    A[g][t] and a2 = A[g][t + 4] (the warp's first output row, column g, g
+    = lane // 4, t = lane % 4), a1, a3 the row below; b0 = B[t][g], b1 =
+    B[t + 4][g]."""
+    g, t = divmod(lane, 4)
+    wr0, wn0 = _f64mma_warp(cfg, warp)
+    cols_in = cfg.tw + k - 1
+    ps, wsd = cfg.cc + F64_PAD, cfg.bn + F64_PAD
+    pa = ((wr0 + di) * cols_in + g + dj) * ps + q + t
+    a = (pa, pa + cols_in * ps, pa + 4, pa + cols_in * ps + 4)
+    pb = ((di * k + dj) * cfg.cc + q + t) * wsd + wn0 + g
+    return a, (pb, pb + 4 * wsd)
+
+
+def f64mma_stores(cfg: F64Config, warp: int, lane: int) -> tuple:
+    """Where ``conv_f64mma_kernel``'s lane stores its accumulator d0..d3:
+    ``(row, column, channel)`` in the CTA's tile and channel block of each
+    (d0, d1 at the warp's first row, d2, d3 the row below; channels 2t,
+    2t + 1 of the warp's 8)."""
+    g, t = divmod(lane, 4)
+    wr0, wn0 = _f64mma_warp(cfg, warp)
+    return tuple((wr0 + e // 2, g, wn0 + 2 * t + e % 2) for e in range(4))
 
 
 @dataclass(frozen=True)
@@ -659,12 +869,16 @@ def _taps_kernel(w_taps: torch.Tensor, x_padded: torch.Tensor):
 
 def launch(x_padded: torch.Tensor, w: torch.Tensor, ws, bias,
            act_scale: float, act: str, stride: int, depthwise: bool,
-           counter: _build.LaunchCounter) -> torch.Tensor:
+           counter: _build.LaunchCounter,
+           form: Optional[str] = None, cfg=None) -> torch.Tensor:
     """Launch the kernel on CUDA tensors (validated by the caller) and
     count it on ``counter``: dense ``w`` is [k, k, C_in, C_out], depthwise
     ``w`` is [k*k, C]. Returns every output row of the padded input; the
-    dense launch takes :func:`strip_config`'s configuration, the depthwise
-    one :func:`dw_config`'s."""
+    dense launch takes :func:`dense_config`'s configuration in
+    :func:`dense_form`'s form (or in ``form`` forced, or ``cfg``: a
+    :class:`StripConfig` or :class:`F64Config` the tests and the timings
+    force), the depthwise one :func:`dw_config`'s. The dense tensor-core
+    form counts on ``F64_LAUNCHES`` instead, whoever launches it."""
     dev = x_padded.device
     kk = w.shape[0] if not depthwise else math.isqrt(w.shape[0])
     b, hp, wp, c_in = x_padded.shape
@@ -683,9 +897,9 @@ def launch(x_padded: torch.Tensor, w: torch.Tensor, ws, bias,
     if out.numel() == 0:
         return out
     ptr = [None if t is None else t.data_ptr() for t in ops]
-    lib = _build.library("conv_strip", _SIGNATURES)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if depthwise:
+        lib = _build.library("conv_strip", _SIGNATURES)
         cfg = dw_config(b, n_rows, w_out, c_in, kk, stride)
         if cfg.smem > SMEM_MAX:
             raise ValueError(f"conv_strip_depthwise: {cfg.smem} bytes of "
@@ -696,15 +910,26 @@ def launch(x_padded: torch.Tensor, w: torch.Tensor, ws, bias,
                                        ACTS[act], cfg.tx, cfg.tyt, cfg.run,
                                        cfg.cb, stream)
     else:
-        cfg = strip_config(b, n_rows, w_out, c_in, c_out, kk, stride)
+        if cfg is None:
+            cfg = dense_config(b, n_rows, w_out, c_in, c_out, kk, stride,
+                               form)
         if cfg.smem > SMEM_MAX:
             raise ValueError(f"conv_strip: {cfg.smem} bytes of shared memory "
                              f"for one input channel at k={kk} stride="
                              f"{stride}; a CTA has {SMEM_MAX}")
-        err = lib.conv_strip_launch(*ptr, out.data_ptr(), b, hp, wp, c_in,
-                                    c_out, kk, stride, float(act_scale),
-                                    ACTS[act], cfg.tx, cfg.tyt, cfg.run,
-                                    cfg.co_b, cfg.cc, stream)
+        if cfg.form == "f64mma":
+            err = _build.library("conv_strip_f64mma", _F64_SIGNATURES) \
+                .conv_strip_f64mma_launch(
+                    *ptr, out.data_ptr(), b, hp, wp, c_in, c_out, kk,
+                    stride, float(act_scale), ACTS[act], cfg.th, cfg.tw,
+                    cfg.bn, cfg.cc, stream)
+            counter = F64_LAUNCHES
+        else:
+            err = _build.library("conv_strip", _SIGNATURES) \
+                .conv_strip_launch(
+                    *ptr, out.data_ptr(), b, hp, wp, c_in, c_out, kk,
+                    stride, float(act_scale), ACTS[act], cfg.tx, cfg.tyt,
+                    cfg.run, cfg.co_b, cfg.cc, stream)
     _build.check(err, "conv_strip_depthwise" if depthwise else "conv_strip")
     counter.inc()
     return out
@@ -713,21 +938,30 @@ def launch(x_padded: torch.Tensor, w: torch.Tensor, ws, bias,
 def conv_strip(x_padded: torch.Tensor, w: torch.Tensor,
                ws: Optional[torch.Tensor] = None, stride: int = 1,
                strip_h: int = 8, act_scale: float = 1.0, act: str = "none",
-               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+               bias: Optional[torch.Tensor] = None,
+               form: Optional[str] = None) -> torch.Tensor:
     """Dense k x k conv over strips: x_padded [B, Hp, Wp, C_in], w [k, k,
     C_in, C_out] -> [B, (Hp-k)/stride+1, W', C_out] float32, bitwise equal
-    to :func:`conv_strip_ref` on integer-valued operands."""
+    to :func:`conv_strip_ref` on integer-valued operands. On the card in
+    :func:`dense_form`'s form, or in ``form`` forced (``"fma"`` or
+    ``"f64mma"``: the tests and the timings; :func:`dense_config` raises
+    where the form does not take the conv, on the CPU too)."""
     kk, c_out = w.shape[0], w.shape[-1]
     if w.ndim != 4 or w.shape[1] != kk or w.shape[2] != x_padded.shape[-1]:
         raise ValueError(f"conv_strip: w {tuple(w.shape)} is not [k, k, "
                          f"{x_padded.shape[-1]}, C_out]")
+    if form is not None:
+        n_rows = _out_rows(x_padded, kk, stride, strip_h, "conv_strip")
+        dense_config(x_padded.shape[0], n_rows,
+                     (x_padded.shape[2] - kk) // stride + 1,
+                     x_padded.shape[-1], c_out, kk, stride, form)
     if not x_padded.is_cuda:
         return conv_strip_ref(x_padded, w, ws, stride, strip_h, act_scale,
                               act, bias)
     _out_rows(x_padded, kk, stride, strip_h, "conv_strip")
     _check_epilogue(ws, bias, act, c_out, "conv_strip")
     return launch(x_padded, w, ws, bias, act_scale, act, stride, False,
-                  LAUNCHES)
+                  LAUNCHES, form)
 
 
 def conv_strip_depthwise(x_padded: torch.Tensor, w_taps: torch.Tensor,

@@ -1,6 +1,6 @@
 """Edge shapes of the launch configurations of ``photonic_mvm`` (its float
 API on signed codes too), the strip convs (the int8 one's wgmma form
-too), the fused conv chain,
+and the float one's tensor-core form too), the fused conv chain,
 ``ca_pool`` and the epilogue, the distinct shapes of VGG16's kernel calls
 at 224x224x3, an operand copy that defeats aligned loads, the
 epilogue's calls on a compiled program's path, and the values whose codes
@@ -61,6 +61,22 @@ STRIP_EDGES = [(8, 70, 100, 3, 20, 3, 1), (8, 200, 130, 2, 3, 5, 1),
                (1, 17, 19, 3, 2, 9, 2), (2, 21, 23, 4, 6, 3, 2),
                (2, 30, 70, 40, 10, 5, 1), (1, 24, 24, 64, 33, 3, 1)]
 
+
+# (b, h_out, w_out, c_in, c_out, k) of the dense float kernel's tensor-core
+# form (conv_bank.strip.f64mma_config, stride 1), each tile of
+# ``strip.f64mma_launches`` forced: widths and heights not a multiple of
+# the tile (one output row among them); C_in 8, 9 and 15 (a step of zeros
+# past C_in, copies a channel at a time), 17, 24, 40, 64 and 128 (chunks
+# of 8 to 48 channels, several at k = 7); C_out 8, 10 and 12 (a block past
+# C_out, weights copied a channel at a time), 33 and 40 (a ragged second
+# block, odd stores); batch 1, 5 and 13; the 32-channel blocks at 8 and 16
+# rows; a VGG16-like layer. With ``CONV_BANK_CALLS`` at batches 8 and 1
+F64MMA_EDGES = [(1, 13, 21, 16, 32, 3), (2, 30, 17, 9, 12, 5),
+                (3, 9, 11, 15, 8, 7), (13, 8, 8, 17, 32, 3),
+                (2, 12, 12, 24, 33, 5), (1, 16, 16, 128, 64, 3),
+                (2, 16, 24, 64, 16, 7), (1, 20, 20, 40, 10, 7),
+                (1, 1, 40, 8, 8, 3), (5, 16, 64, 16, 40, 5),
+                (2, 56, 56, 64, 128, 3)]
 
 # (b, h_out, w_out, c_in, c_out, k) of the int8 strip kernel's wgmma form,
 # forced (conv_bank.strip.wgmma_config, stride 1; the rule gives those under
@@ -187,8 +203,11 @@ VGG16_SHAPES = {
                      ("fc3", 1, 4096, 1000)]}
 
 # the conv_bank op's own calls in chip_smoke.py: x [B, H, W, C_in] -> C_out,
-# k x k (W4A4 with relu and bias, in both strategies)
+# k x k (W4A4 with relu and bias, and in float mode, in both strategies)
 CONV_BANK_CALLS = [(8, 32, 32, 16, 32, k) for k in (3, 5, 7)]
+# and a call the float kernel's rule keeps on its CUDA-core form (3 -> 4
+# channels, the reference tests' own width), so the op's run launches both
+CONV_BANK_NARROW = [(8, 32, 32, 3, 4, 3)]
 
 # (name, h_out = w_out, c_in, c_out, k) at which the int8 strip conv's two
 # forms, each forced, are held to each other and timed (the gpu tests,

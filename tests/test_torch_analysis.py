@@ -455,8 +455,10 @@ def test_audit_catches_a_strip_launch_that_does_not_cover(monkeypatch):
     (LTR020, dense and depthwise), and a C_in chunk whose stages a CTA
     cannot hold (LTR022). VGG16's strip convs are compiled onto the
     float64 kernel's route here (``test_torch_strip_int.py`` plants the
-    int8 kernel's launches on its own route); the plan is kept out of
-    the cache."""
+    int8 kernel's launches on its own route), where the float kernel's
+    tensor-core form takes conv2-conv10 and its CUDA-core form conv1:
+    each plant goes into both forms' configurations. The plan is kept out
+    of the cache."""
     monkeypatch.setattr(strip, "dense_route", lambda *a: "float")
     plan_mod.clear_plan_cache()
     try:
@@ -468,17 +470,26 @@ def test_audit_catches_a_strip_launch_that_does_not_cover(monkeypatch):
         dataclasses.replace(CPU, verify="off")).plan
     assert not analysis.errors(analysis.verify_plan(vgg16))
     real_dense, real_dw = strip.strip_config, strip.dw_config
+    real_f64 = strip.f64mma_config
+    assert {strip.dense_form(8, 224 >> (i // 3), 224 >> (i // 3), 64, 64, 3,
+                             1) for i in range(3)} == {"f64mma"}
 
     def step_codes(plan):
         return {(d.code, d.severity, d.step)
                 for d in analysis.verify_plan(plan, include_info=False)}
 
+    def plant_f64(change):
+        monkeypatch.setattr(strip, "f64mma_config", lambda *a: (
+            lambda cfg: cfg and change(cfg, *a))(real_f64(*a)))
+
     monkeypatch.setattr(strip, "strip_config", lambda *a: dataclasses.replace(
         real_dense(*a), ctas=real_dense(*a).ctas // 2))
+    plant_f64(lambda cfg, *a: dataclasses.replace(cfg, ctas=cfg.ctas // 2))
     found = step_codes(vgg16)
     assert {("LTR020", "error", f"conv{i}") for i in range(1, 11)} <= found
     assert not {d for d in found if d[2] in ("conv11", "fc1")}
     monkeypatch.setattr(strip, "strip_config", real_dense)
+    monkeypatch.setattr(strip, "f64mma_config", real_f64)
     monkeypatch.setattr(strip, "dw_config", lambda *a: dataclasses.replace(
         real_dw(*a), ctas=real_dw(*a).ctas // 2))
     assert ("LTR020", "error", "gauss") in step_codes(gauss)
@@ -486,6 +497,8 @@ def test_audit_catches_a_strip_launch_that_does_not_cover(monkeypatch):
     monkeypatch.setattr(strip, "strip_config", lambda b, rows, w, ci, *a:
                         dataclasses.replace(real_dense(b, rows, w, ci, *a),
                                             cc=ci, stages=1))
+    plant_f64(lambda cfg, b, rows, w, ci, *a: dataclasses.replace(
+        cfg, cc=-(-ci // 8) * 8))
     found = step_codes(vgg16)
     assert ("LTR022", "warning", "conv10") in found
     assert not analysis.errors(analysis.verify_plan(vgg16))

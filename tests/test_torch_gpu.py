@@ -23,7 +23,9 @@ calibrations, under ``shard_batch``; the requant folded into the int8
 strip conv's store at VGG16's shapes and the strip edges; the int8 strip
 conv's wgmma form forced at its edges (``INT_WGMMA_EDGES``), and both
 forms forced at ``INT_FORM_SHAPES`` (VGG16's conv2-conv13, the conv_bank
-op's calls); and the int8 route's levels laid out at bind
+op's calls); the dense float conv's tensor-core form forced at its edges
+(``F64MMA_EDGES``) and the conv_bank op's calls, and the op's float mode
+on it; and the int8 route's levels laid out at bind
 against per call. photonic_mvm's four
 routes at their edges (the stream at M = 1..16 with ragged K and N =
 1,000, each route forced at a shape the rule gives another, a
@@ -50,7 +52,9 @@ from repro_torch.kernels.conv_bank.fused import conv_chain
 from repro_torch.kernels.conv_bank.ops import conv_bank, conv_bank_plain
 from repro_torch.kernels.conv_bank.ref import conv_chain_ref
 from repro_torch.kernels.edge_shapes import (CA_EDGES, CHAIN_EDGES, CHAINS,
-                                             DW_EDGES, EPILOGUE_EDGES,
+                                             CONV_BANK_CALLS,
+                                             CONV_BANK_NARROW, DW_EDGES,
+                                             EPILOGUE_EDGES, F64MMA_EDGES,
                                              EPILOGUE_NAN_EDGES,
                                              INT_FORM_SHAPES,
                                              INT_WGMMA_EDGES, MVM_EDGES,
@@ -74,6 +78,16 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+def _dense_counter(xp, w, stride):
+    """The launch counter of the form ``strip.dense_form`` gives the dense
+    float conv of ``xp`` [B, Hp, Wp, C_in] by ``w`` [k, k, C_in, C_out]."""
+    k = w.shape[0]
+    b, hp, wp, ci = xp.shape
+    form = strip.dense_form(b, (hp - k) // stride + 1, (wp - k) // stride + 1,
+                            ci, w.shape[-1], k, stride)
+    return "conv_strip_f64mma" if form == "f64mma" else "conv_strip"
 
 
 @pytest.mark.parametrize("m,k,n", [(1, 1, 1), (8, 400, 120), (2048, 576, 64),
@@ -332,7 +346,7 @@ def test_strip_kernel_bitwise_equal_to_plain(cuda, b, h, w, ci, co, k,
     bias = torch.randn((co,), generator=g).to(cuda)
     reset_launch_counts()
     got = strip.conv_strip(xp, wq, stride=stride, strip_h=strip_h)
-    assert launch_counts()["conv_strip"] == 1
+    assert launch_counts()[_dense_counter(xp, wq, stride)] == 1
     assert torch.equal(got, strip.conv_strip_ref(xp, wq, stride=stride,
                                                  strip_h=strip_h))
     kw = dict(stride=stride, strip_h=strip_h, act_scale=0.37, act="relu",
@@ -344,6 +358,9 @@ def test_strip_kernel_bitwise_equal_to_plain(cuda, b, h, w, ci, co, k,
 @pytest.mark.parametrize("b,h_out,w_out,ci,co,k,stride", STRIP_EDGES)
 def test_strip_kernel_configs_bitwise_equal_to_plain(cuda, b, h_out, w_out,
                                                      ci, co, k, stride):
+    """``strip_config``'s edges on the CUDA-core form, forced (the rule
+    gives the two from 8 channels the tensor-core form: its own edges are
+    ``F64MMA_EDGES``)."""
     cfg = strip.strip_config(b, h_out, w_out, ci, co, k, stride)
     assert cfg.k_inst == (k if stride == 1 and k in (3, 5, 7) else 0)
     if ci == 40:
@@ -358,15 +375,15 @@ def test_strip_kernel_configs_bitwise_equal_to_plain(cuda, b, h_out, w_out,
     bias = torch.randn((co,), generator=g).to(cuda)
     kw = dict(stride=stride, strip_h=h_out)
     reset_launch_counts()
-    got = strip.conv_strip(xp, wq, **kw)
+    got = strip.conv_strip(xp, wq, form="fma", **kw)
     assert launch_counts()["conv_strip"] == 1
     assert torch.equal(got, strip.conv_strip_ref(xp, wq, **kw))
     for act in ("none", "relu", "abs", "sign"):
         e = dict(kw, act_scale=0.37, act=act, bias=bias)
-        assert torch.equal(strip.conv_strip(xp, wq, ws, **e),
+        assert torch.equal(strip.conv_strip(xp, wq, ws, form="fma", **e),
                            strip.conv_strip_ref(xp, wq, ws, **e)), act
     e = dict(kw, act_scale=0.37)                       # ws, no bias
-    assert torch.equal(strip.conv_strip(xp, wq, ws, **e),
+    assert torch.equal(strip.conv_strip(xp, wq, ws, form="fma", **e),
                        strip.conv_strip_ref(xp, wq, ws, **e))
 
 
@@ -430,13 +447,99 @@ def test_conv_bank_kernels_bitwise_equal_to_plain(cuda, k, strategy):
     reset_launch_counts()
     got = conv_bank(x, w, **kw)
     counts = launch_counts()
-    assert counts["conv_bank" if strategy == "resident" else "conv_strip"] \
-        == 1
+    # 8 -> 16 channels: the float route, on the tensor-core form
+    assert strip.dense_route(8, 16, k, 1) == "float"
+    assert counts["conv_strip_f64mma"] == 1
+    assert counts["conv_bank"] == counts["conv_strip"] == 0
     assert torch.equal(got, conv_bank_plain(x, w, **kw))
     # float mode: float64 products summed in the kernel's own order
     torch.testing.assert_close(conv_bank(x, w, strategy=strategy),
                                conv_bank_plain(x, w, strategy=strategy),
                                rtol=1e-5, atol=1e-5)
+
+
+def _f64mma_entries():
+    for b in (8, 1):
+        for _, h, w, ci, co, k in CONV_BANK_CALLS:
+            yield (b, h, w, ci, co, k)
+    yield from F64MMA_EDGES
+
+
+@pytest.mark.parametrize("b,h_out,w_out,ci,co,k", list(_f64mma_entries()))
+def test_f64mma_edges_bitwise_equal_to_plain(cuda, b, h_out, w_out, ci, co,
+                                             k):
+    """The dense float kernel's tensor-core form at the conv_bank op's
+    calls (batches 8 and 1) and its edges, every launch of
+    ``strip.f64mma_launches`` forced: bitwise its plain version on integer
+    operands (codes 0..255, levels +-127) raw, at every activation with
+    and without bias and with ws alone; within 1e-5 on float operands;
+    each launch counted on its own counter. The rule's launch through
+    ``conv_strip`` too."""
+    g = torch.Generator().manual_seed(b + h_out + w_out + ci + co + k)
+    shape = (b, h_out + k - 1, w_out + k - 1, ci)
+    xq = torch.randint(0, 256, shape, generator=g).float().to(cuda)
+    wq = torch.randint(-127, 128, (k, k, ci, co), generator=g).float() \
+        .to(cuda)
+    xf = torch.rand(shape, generator=g).to(cuda)
+    wf = (torch.randn((k, k, ci, co), generator=g) * 0.2).to(cuda)
+    ws = (torch.rand((co,), generator=g) + 0.5).to(cuda)
+    bias = torch.randn((co,), generator=g).to(cuda)
+    kw = dict(stride=1, strip_h=h_out)
+    raw = strip.conv_strip_ref(xq, wq, **kw)
+    launches = strip.f64mma_launches(b, h_out, w_out, ci, co, k, 1)
+    assert strip.dense_config(b, h_out, w_out, ci, co, k, 1) in launches
+    for cfg in launches:
+        def run(x, w, ws=None, act_scale=1.0, act="none", bias=None,
+                cfg=cfg):
+            return strip.launch(x, w, ws, bias, act_scale, act, 1, False,
+                                strip.LAUNCHES, cfg=cfg)
+        reset_launch_counts()
+        assert torch.equal(run(xq, wq), raw), cfg
+        assert launch_counts()["conv_strip_f64mma"] == 1
+        assert launch_counts()["conv_strip"] == 0
+        for act in ("none", "relu", "abs", "sign"):
+            for bb in (bias, None):
+                e = dict(act_scale=0.37, act=act, bias=bb)
+                assert torch.equal(run(xq, wq, ws, **e), strip.conv_strip_ref(
+                    xq, wq, ws, **kw, **e)), (cfg, act, bb is None)
+        torch.testing.assert_close(run(xf, wf), strip.conv_strip_ref(
+            xf, wf, **kw), rtol=1e-5, atol=1e-5)
+    reset_launch_counts()
+    assert torch.equal(strip.conv_strip(xq, wq, **kw), raw)
+    assert launch_counts()["conv_strip_f64mma"] == 1
+    # the same operands a float past an allocation: 4-byte copies only
+    assert torch.equal(strip.conv_strip(odd_offset(xq), odd_offset(wq), **kw),
+                       raw)
+
+
+@pytest.mark.parametrize("strategy", ["resident", "strip"])
+@pytest.mark.parametrize("k", [3, 5, 7])
+def test_conv_bank_float_mode_on_the_tensor_cores(cuda, k, strategy):
+    """The public op without a spec at its own calls (16 -> 32 channels,
+    32 x 32 at batch 8): one launch of the tensor-core form in either
+    strategy, none of the CUDA-core form, within 1e-5 of the plain
+    version; the narrow call keeps the CUDA-core form."""
+    g = torch.Generator().manual_seed(30 + k)
+    x = torch.rand((8, 32, 32, 16), generator=g).to(cuda)
+    w = (torch.randn((k, k, 16, 32), generator=g) * 0.2).to(cuda)
+    reset_launch_counts()
+    got = conv_bank(x, w, strategy=strategy)
+    counts = launch_counts()
+    assert counts["conv_strip_f64mma"] == 1
+    assert counts["conv_bank"] == counts["conv_strip"] == 0
+    torch.testing.assert_close(got, conv_bank_plain(x, w, strategy=strategy),
+                               rtol=1e-5, atol=1e-5)
+    for b, h, ww, ci, co, kk in CONV_BANK_NARROW:
+        x = torch.rand((b, h, ww, ci), generator=g).to(cuda)
+        w = (torch.randn((kk, kk, ci, co), generator=g) * 0.2).to(cuda)
+        reset_launch_counts()
+        got = conv_bank(x, w, strategy=strategy)
+        assert launch_counts()["conv_strip_f64mma"] == 0
+        assert launch_counts()["conv_bank" if strategy == "resident"
+                               else "conv_strip"] == 1
+        torch.testing.assert_close(
+            got, conv_bank_plain(x, w, strategy=strategy), rtol=1e-5,
+            atol=1e-5)
 
 
 @pytest.mark.parametrize("name", ["unsharp_mask", "denoise_gauss",
@@ -716,7 +819,7 @@ def test_vgg16_shapes_bitwise_equal_to_plain(cuda, kernel, shape, batch):
         xp, w, stride, sh = args
         kw = dict(stride=stride, strip_h=sh)
         got = strip.conv_strip(xp, w, **kw)
-        assert launch_counts()["conv_strip"] == 1
+        assert launch_counts()[_dense_counter(xp, w, stride)] == 1
         assert got.shape == (batch, shape[1], shape[3], shape[5])
         assert torch.equal(got, strip.conv_strip_ref(xp, w, **kw))
         ws = torch.rand((w.shape[-1],), generator=gen, device=cuda) + 0.5

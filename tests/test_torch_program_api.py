@@ -143,3 +143,37 @@ def test_chain_at_256_fuses_less_than_the_reference():
     assert exe.plan.fused_segments == ()
     assert [dataclasses.asdict(s) for s in exe.plan.steps] == \
         [dataclasses.asdict(s) for s in jexe.plan.steps]
+
+
+def test_graph_capture_holds_off_garbage_collection():
+    """A bound view captures with automatic collection off (a collection
+    inside a capture could destroy another view's graphs in the capturing
+    thread and invalidate it); overlapping holds on two threads turn it
+    back on only when the last ends, and only if it was on."""
+    import gc
+    import threading
+    from repro_torch.core import graphs
+    assert gc.isenabled()
+    entered, release = threading.Event(), threading.Event()
+
+    def other():
+        with graphs._no_collection():
+            entered.set()
+            release.wait(10)
+
+    t = threading.Thread(target=other)
+    with graphs._no_collection():
+        assert not gc.isenabled()
+        t.start()
+        assert entered.wait(10)
+    assert not gc.isenabled()          # the other thread still captures
+    release.set()
+    t.join(10)
+    assert not t.is_alive() and gc.isenabled()
+    gc.disable()
+    try:
+        with graphs._no_collection():
+            pass
+        assert not gc.isenabled()      # off before, off after
+    finally:
+        gc.enable()
